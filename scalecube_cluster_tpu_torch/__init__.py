@@ -2,16 +2,20 @@
 
 The JAX package ``scalecube_cluster_tpu`` is the reference; this package
 runs the same protocol round with PyTorch tensors on an NVIDIA H100, with
-the merge/timers step as a hand-written CUDA kernel
-(``kernels/merge.py``, ``csrc/merge_timers.cu``).  Module names follow
-the reference layout so each piece has an obvious counterpart.
+hand-written CUDA kernels for the merge/timers step (``kernels/merge.py``,
+``csrc/merge_timers.cu``) and the compact carry's codec
+(``kernels/carry.py``, ``csrc/carry_codec.cu``), and the capability
+probes of ``experiments/mosaic_probe.py`` (``kernels/probes.py``,
+``csrc/mosaic_probes.cu``, entry ``mosaic_probe.py``).  Module names
+follow the reference layout so each piece has an obvious counterpart.
 
 The port imports ``torch``, numpy and the standard library only — never
 ``jax`` and never the reference package (``tests/test_torch_interop.py``
 checks both).  Entry points run on ``device="cuda"`` unless the caller
 asks for the CPU.
 
-Slice covered: the focal and full-view shift-delivery round with the wide
-carry and no optional planes (``models/swim.py`` docstring lists what
-raises ``NotImplementedError``).
+Slice covered: the focal and full-view shift-delivery round with no
+optional planes, in the wide, ``int16_wire``, ``compact_carry`` and
+``compact_carry`` + ``wire24`` layouts (``models/swim.py`` docstring
+lists what raises ``NotImplementedError``).
 """

@@ -4,19 +4,29 @@
 // Replaces the TPU kernel experiments/merge_kernel_bench.py::kernel
 // (launched by pallas_step through pl.pallas_call).  Written from the
 // reference's models/swim._merge_and_timers + ops/delivery.merge_inbox at
-// the port's settings (wide int32 wire key, no epoch lane, no
-// dead-member suppression, no Lifeguard scaling), not from that
-// prototype: suspicion and spread lengths are arguments, the refutation
-// bump clamps at inc_sat, and the self cell's `changed` follows the
-// reference's self-cell rule.
+// the port's settings (no epoch lane, no dead-member suppression, no
+// Lifeguard scaling), not from that prototype: suspicion and spread
+// lengths are arguments, the refutation bump clamps at inc_sat, and the
+// self cell's `changed` follows the reference's self-cell rule.
+//
+// One template, three instances, one per rung of the wire-format ladder
+// (ops/delivery.WIRE_FORMATS): the inbox key type and the dead bit; the
+// incarnation field is bits 1..dead_bit-1.
+//   wide    int32 key, dead bit 30  merge_and_timers_launch
+//   wire16  int16 key, dead bit 14  merge_and_timers_wire16_launch
+//   wire24  int32 key, dead bit 23  merge_and_timers_wire24_launch
+// The int16 instance is the narrow-load pattern the TPU probes in
+// experiments/mosaic_probe.py tested: an int16 load sign-extended to
+// int32 (no message, -1, stays -1), all compares in int32.
 //
 // Bound: bytes.  Per cell it reads status (1 B), inc, spread_until,
-// suspect_deadline, inbox (4 B each) and inbox_alive (1 B) and writes
-// status (1 B) plus three int32 planes; per row it reads self_inc,
-// alive_here, slot_of_node (9 B) and writes self_inc, refuted (5 B).  At
-// N = 1,000,000, K = 16 that is 297,000,000 B read + 213,000,000 B
-// written = 510,000,000 B, i.e. 0.152 ms at the H100's 3.35 TB/s, against
-// a few dozen integer operations per cell — far below the card's
+// suspect_deadline (4 B each), the inbox key (4 B, or 2 B on the int16
+// wire) and inbox_alive (1 B) and writes status (1 B) plus three int32
+// planes; per row it reads self_inc, alive_here, slot_of_node (9 B) and
+// writes self_inc, refuted (5 B).  At N = 1,000,000, K = 16 that is
+// 297,000,000 B read (265,000,000 B on the int16 wire) + 213,000,000 B
+// written, i.e. 0.152 ms (0.143 ms) at the H100's 3.35 TB/s, against a
+// few dozen integer operations per cell — far below the card's
 // arithmetic rate.
 //
 // Design: one streaming pass, one thread per cell, consecutive threads
@@ -37,26 +47,34 @@ constexpr int kSuspect = 1;
 constexpr int kDead = 2;
 constexpr int kAbsent = 3;
 constexpr int32_t kNoTimer = 2147483647;  // INT32_MAX: no suspicion timer
-constexpr int kDeadBit = 30;              // wide wire key
-constexpr int32_t kIncMask = (1 << 29) - 1;
+
+template <int kDeadBit>
+__host__ __device__ constexpr int32_t inc_mask() {
+  return (int32_t{1} << (kDeadBit - 1)) - 1;
+}
 
 __device__ __forceinline__ int32_t add_wrap(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) +
                               static_cast<uint32_t>(b));
 }
 
-// records.merge_key: (dead << 30) | (min(inc, 2^29-1) << 1) | suspect.
+// ops/delivery.pack_record: (dead << kDeadBit) | (min(inc, mask) << 1) |
+// suspect, e.g. records.merge_key at kDeadBit = 30.  The largest key
+// fits the wire word of every instance (32767 at kDeadBit = 14).
+template <int kDeadBit>
 __device__ __forceinline__ int32_t pack_key(int status, int32_t inc) {
   if (status == kAbsent) return -1;
-  const int32_t sat = inc < kIncMask ? inc : kIncMask;
+  constexpr int32_t kMask = inc_mask<kDeadBit>();
+  const int32_t sat = inc < kMask ? inc : kMask;
   return (static_cast<int32_t>(status == kDead) << kDeadBit) | (sat << 1) |
          static_cast<int32_t>(status == kSuspect);
 }
 
+template <typename KeyT, int kDeadBit>
 __global__ void merge_and_timers_kernel(
     const int8_t* __restrict__ status, const int32_t* __restrict__ inc,
     const int32_t* __restrict__ spread, const int32_t* __restrict__ deadline,
-    const int32_t* __restrict__ inbox, const uint8_t* __restrict__ inbox_alive,
+    const KeyT* __restrict__ inbox, const uint8_t* __restrict__ inbox_alive,
     const int32_t* __restrict__ self_inc, const uint8_t* __restrict__ alive_here,
     const int32_t* __restrict__ slot_of_node,
     int8_t* __restrict__ status_out, int32_t* __restrict__ inc_out,
@@ -73,7 +91,8 @@ __global__ void merge_and_timers_kernel(
   const int st = status[cell];
   const int32_t in = inc[cell];
   const int32_t dl_old = deadline[cell];
-  const int32_t key = inbox[cell];
+  // Sign-extending load: the int16 wire's "no message" widens to -1.
+  const int32_t key = static_cast<int32_t>(inbox[cell]);
   const bool alive = alive_here[row] != 0;
   const int32_t my_inc = self_inc[row];
   const int slot = slot_of_node[row];
@@ -84,7 +103,7 @@ __global__ void merge_and_timers_kernel(
   int32_t win_inc = 0;
   if (key >= 0) {
     win_status = ((key >> kDeadBit) & 1) ? kDead : ((key & 1) ? kSuspect : kAlive);
-    win_inc = (key >> 1) & kIncMask;
+    win_inc = (key >> 1) & inc_mask<kDeadBit>();
   }
 
   // merge_inbox: a stored DEAD gates like ABSENT; ABSENT opens only for
@@ -92,7 +111,7 @@ __global__ void merge_and_timers_kernel(
   const int gate = st == kDead ? kAbsent : st;
   const bool accepts = gate == kAbsent
                            ? (inbox_alive[cell] != 0 && key >= 0)
-                           : key > pack_key(gate, in);
+                           : key > pack_key<kDeadBit>(gate, in);
   int ns = accepts ? win_status : st;
   int32_t ni = accepts ? win_inc : in;
   bool changed = accepts && (ns != st || ni != in);
@@ -151,30 +170,59 @@ __global__ void merge_and_timers_kernel(
   }
 }
 
-}  // namespace
-
-// Launches on `stream` and returns the launch's cudaError_t (0 = success).
-extern "C" int merge_and_timers_launch(
-    const void* status, const void* inc, const void* spread,
-    const void* deadline, const void* inbox, const void* inbox_alive,
-    const void* self_inc, const void* alive_here, const void* slot_of_node,
-    void* status_out, void* inc_out, void* spread_out, void* deadline_out,
-    void* self_inc_out, void* refuted_out, long long n, int k, int round_idx,
-    int suspicion_rounds, int periods_to_spread, int inc_sat, void* stream) {
+template <typename KeyT, int kDeadBit>
+int launch(const void* status, const void* inc, const void* spread,
+           const void* deadline, const void* inbox, const void* inbox_alive,
+           const void* self_inc, const void* alive_here,
+           const void* slot_of_node, void* status_out, void* inc_out,
+           void* spread_out, void* deadline_out, void* self_inc_out,
+           void* refuted_out, long long n, int k, int round_idx,
+           int suspicion_rounds, int periods_to_spread, int inc_sat,
+           void* stream) {
   const long long n_cells = n * static_cast<long long>(k);
   if (n_cells == 0) return static_cast<int>(cudaSuccess);
   constexpr int kThreads = 256;
   const long long blocks = (n_cells + kThreads - 1) / kThreads;
-  merge_and_timers_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(status), static_cast<const int32_t*>(inc),
-      static_cast<const int32_t*>(spread), static_cast<const int32_t*>(deadline),
-      static_cast<const int32_t*>(inbox), static_cast<const uint8_t*>(inbox_alive),
-      static_cast<const int32_t*>(self_inc), static_cast<const uint8_t*>(alive_here),
-      static_cast<const int32_t*>(slot_of_node), static_cast<int8_t*>(status_out),
-      static_cast<int32_t*>(inc_out), static_cast<int32_t*>(spread_out),
-      static_cast<int32_t*>(deadline_out), static_cast<int32_t*>(self_inc_out),
-      static_cast<uint8_t*>(refuted_out), n_cells, k, round_idx,
-      suspicion_rounds, periods_to_spread, inc_sat);
+  merge_and_timers_kernel<KeyT, kDeadBit>
+      <<<static_cast<unsigned int>(blocks), kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int8_t*>(status), static_cast<const int32_t*>(inc),
+          static_cast<const int32_t*>(spread),
+          static_cast<const int32_t*>(deadline),
+          static_cast<const KeyT*>(inbox),
+          static_cast<const uint8_t*>(inbox_alive),
+          static_cast<const int32_t*>(self_inc),
+          static_cast<const uint8_t*>(alive_here),
+          static_cast<const int32_t*>(slot_of_node),
+          static_cast<int8_t*>(status_out), static_cast<int32_t*>(inc_out),
+          static_cast<int32_t*>(spread_out),
+          static_cast<int32_t*>(deadline_out),
+          static_cast<int32_t*>(self_inc_out),
+          static_cast<uint8_t*>(refuted_out), n_cells, k, round_idx,
+          suspicion_rounds, periods_to_spread, inc_sat);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// Each launches its instance on `stream` and returns the launch's
+// cudaError_t (0 = success).
+#define MERGE_AND_TIMERS_ENTRY(NAME, KEY_T, DEAD_BIT)                          \
+  extern "C" int NAME(                                                         \
+      const void* status, const void* inc, const void* spread,                 \
+      const void* deadline, const void* inbox, const void* inbox_alive,        \
+      const void* self_inc, const void* alive_here, const void* slot_of_node,  \
+      void* status_out, void* inc_out, void* spread_out, void* deadline_out,   \
+      void* self_inc_out, void* refuted_out, long long n, int k,               \
+      int round_idx, int suspicion_rounds, int periods_to_spread,              \
+      int inc_sat, void* stream) {                                             \
+    return launch<KEY_T, DEAD_BIT>(                                            \
+        status, inc, spread, deadline, inbox, inbox_alive, self_inc,           \
+        alive_here, slot_of_node, status_out, inc_out, spread_out,             \
+        deadline_out, self_inc_out, refuted_out, n, k, round_idx,              \
+        suspicion_rounds, periods_to_spread, inc_sat, stream);                 \
+  }
+
+MERGE_AND_TIMERS_ENTRY(merge_and_timers_launch, int32_t, 30)
+MERGE_AND_TIMERS_ENTRY(merge_and_timers_wire16_launch, int16_t, 14)
+MERGE_AND_TIMERS_ENTRY(merge_and_timers_wire24_launch, int32_t, 23)

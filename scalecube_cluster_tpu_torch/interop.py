@@ -7,7 +7,9 @@ numpy arrays under the reference's field names, and checkpoints as the
 ``.npz`` that ``scalecube_cluster_tpu.utils.checkpoint.save`` writes
 (``state/<field>`` arrays, ``next_round``, optional ``key_data``,
 ``meta_json``).  Lanes of planes the port does not carry must be
-zero-size; anything else raises ``NotImplementedError`` naming it.
+zero-size; anything else raises ``NotImplementedError`` naming it.  A
+state's carry layout (wide, or the ``compact_carry`` int16/int8 lanes)
+must be the one its params name.
 """
 
 from __future__ import annotations
@@ -73,10 +75,20 @@ def world_from_arrays(arrays: Mapping, device="cuda") -> swim.SwimWorld:
     return world
 
 
-def state_from_arrays(arrays: Mapping, device="cuda") -> swim.SwimState:
+def _carry_dtypes(compact: bool) -> dict:
+    narrow = (np.int16, np.int8, np.int16) if compact else (np.int32,) * 3
+    return dict(status=np.int8, inc=narrow[0], spread_until=narrow[1],
+                suspect_deadline=narrow[2], self_inc=np.int32)
+
+
+def state_from_arrays(arrays: Mapping, device="cuda",
+                      params: Optional[swim.SwimParams] = None
+                      ) -> swim.SwimState:
     """``SwimState`` from the reference's ``state_to_arrays`` payload
     (keys with or without the ``state/`` prefix).  Plane lanes must be
-    zero-size or absent; the carry must be the wide layout."""
+    zero-size or absent.  The carry must be the layout ``params`` names:
+    the compact one under ``params.compact_carry``, else (and when
+    ``params`` is None) the wide one."""
     device = swim.resolve_device(device)
     fields = {name[len("state/"):] if name.startswith("state/") else name:
               np.asarray(value) for name, value in arrays.items()}
@@ -88,28 +100,32 @@ def state_from_arrays(arrays: Mapping, device="cuda") -> swim.SwimState:
     missing = [f for f in _STATE_FIELDS if f not in fields]
     if missing:
         raise KeyError(f"state arrays lack {missing}")
-    want = dict(status=np.int8, inc=np.int32, spread_until=np.int32,
-                suspect_deadline=np.int32, self_inc=np.int32)
-    for name, dtype in want.items():
+    compact = params is not None and params.compact_carry
+    layout = "compact_carry" if compact else "wide"
+    for name, dtype in _carry_dtypes(compact).items():
         if fields[name].dtype != dtype:
-            raise NotImplementedError(
-                f"state field {name} is {fields[name].dtype}, the wide "
-                f"carry has {np.dtype(dtype)} (compact_carry is not ported)")
+            raise ValueError(
+                f"state field {name} is {fields[name].dtype}, the {layout} "
+                f"carry has {np.dtype(dtype)} (pass the run's params; "
+                f"compact_carry selects the int16/int8 lanes)")
     return swim.SwimState(**{
         name: torch.tensor(fields[name], device=device)
         for name in _STATE_FIELDS})
 
 
-def load_jax_checkpoint(path: str, device="cuda") -> Tuple[
+def load_jax_checkpoint(path: str, device="cuda",
+                        params: Optional[swim.SwimParams] = None) -> Tuple[
         swim.SwimState, int, Optional[np.ndarray], dict]:
     """Read a checkpoint written by the reference's
     ``utils.checkpoint.save``: returns ``(state, next_round, key_data or
-    None, meta)``.  ``key_data`` is the raw key array; the port's own
-    draws do not use it."""
+    None, meta)``.  ``params`` names the carry layout, as for
+    :func:`state_from_arrays` (a compact run resumes with its compact
+    params).  ``key_data`` is the raw key array; the port's own draws do
+    not use it."""
     with np.load(path) as z:
         state = state_from_arrays(
             {name: z[name] for name in z.files if name.startswith("state/")},
-            device=device)
+            device=device, params=params)
         next_round = int(z["next_round"])
         key_data = np.array(z["key_data"]) if "key_data" in z.files else None
         meta = json.loads(bytes(z["meta_json"].tobytes()).decode() or "{}")

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the port and their launch counts.
+"""Hand-written CUDA kernels of the port, their launch counts, and the
+checks every wrapper shares.
 
 Each wrapper adds one to ``LAUNCHES[<kernel name>]`` where it launches
 its kernel and nowhere else (its plain-PyTorch version, taken for CPU
@@ -7,5 +8,54 @@ through the kernels: clear the counter, drive the path, read it.
 """
 
 import collections
+from typing import Mapping, Tuple
+
+import torch
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
+
+
+def i32(x: int) -> int:
+    """Python int -> int32 with two's-complement wrap (the reference's
+    traced int32 round arithmetic)."""
+    return ((int(x) + 2**31) % 2**32) - 2**31
+
+
+def check_args(kernel: str, device: torch.device, shape: Tuple[int, ...],
+               tensors: Mapping[str, Tuple[torch.Tensor, torch.dtype]]):
+    """Raise unless every ``name: (tensor, dtype)`` lies on ``device``,
+    has ``dtype`` and ``shape``, and is contiguous."""
+    for name, (t, dtype) in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, "
+                             f"expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: {name} must be {dtype}, "
+                            f"got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{kernel}: {name} must have shape "
+                             f"{tuple(shape)}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def on_cpu(kernel: str, device: torch.device) -> bool:
+    """True for CPU tensors (the wrapper takes the plain version), False
+    for CUDA tensors (it launches the kernel); raises for anything else."""
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {device}")
+    return False
+
+
+def launch(kernel: str, fn, device: torch.device, *args) -> None:
+    """Call the C launcher ``fn(*args, stream)`` on ``device``'s current
+    stream, raise on a launch error, and count the launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed with "
+                           f"cudaError_t {err}")
+    LAUNCHES[kernel] += 1

@@ -2,26 +2,43 @@
 merge, suspicion timers.
 
 Counterpart of ``scalecube_cluster_tpu/models/swim.py`` for the main
-path: shift delivery (``delivery="shift"``), the wide int32 carry, no
-delivery delays and no optional planes, in both the focal shape (N
-members x K tracked subjects) and full view (K == N).  State is [N, K]
-per observer row and subject column (``SwimState``); the world holds the
-ground truth and the fault schedule (``SwimWorld``).
+path: shift delivery (``delivery="shift"``), no delivery delays and no
+optional planes, in both the focal shape (N members x K tracked
+subjects) and full view (K == N).  State is [N, K] per observer row and
+subject column (``SwimState``); the world holds the ground truth and the
+fault schedule (``SwimWorld``).
+
+Three layouts besides the wide one (int8 status, int32 inc/spread/
+deadline, int32 wire keys), as in the reference:
+
+- ``int16_wire``: the wide carry with int16 wire keys
+  (``records.merge_key16``, incarnation cap 8191);
+- ``compact_carry``: an int16 inc, int8 remaining-spread and int16
+  remaining-deadline carry (``kernels/carry.py`` decodes it at the start
+  of a round and encodes it at the end), with the int16 wire;
+- ``compact_carry`` + ``wire24``: the compact carry with 24-bit keys in
+  an int32 word (incarnation cap 32767, the carry's).
+
+Each is trace-identical to the wide layout while incarnations stay
+below its cap.
 
 Each round (``swim_tick``):
 
+0. ``kernels/carry.carry_decode`` (compact carry only);
 1. ``_round_context``: liveness and partition slices, the self-record
    pin, the FD and SYNC phase gates;
 2. ``_fd_phase``: the FD probe chains and their SUSPECT verdicts;
 3. ``_delivery_phase``: F gossip channels, the refute push and the SYNC
-   channel over cyclic shifts, max-folded into one inbox;
-4. ``_merge_and_timers``: the CUDA kernel ``kernels/merge.py`` (its plain
-   PyTorch version for CPU tensors);
-5. ``_round_metrics``: the per-round observability counters.
+   channel over cyclic shifts, max-folded into one inbox of the wire
+   format's dtype;
+4. ``_merge_and_timers``: the CUDA kernel ``kernels/merge.py``, one
+   instance per wire format (its plain PyTorch version for CPU tensors);
+5. ``_round_metrics``: the per-round observability counters;
+6. ``kernels/carry.carry_encode`` (compact carry only).
 
 Each phase runs under a ``torch.profiler.record_function`` range
-(``swim.context``, ``swim.fd``, ``swim.delivery``, ``swim.merge``,
-``swim.metrics``), which ``profile_round.py`` reads.
+(``swim.carry``, ``swim.context``, ``swim.fd``, ``swim.delivery``,
+``swim.merge``, ``swim.metrics``), which ``profile_round.py`` reads.
 
 Randomness comes from a ``RoundDraws`` per round (``ops/prng.py``):
 ``run(..., draws=None)`` uses the port's ``TorchDraws``; any callable
@@ -29,12 +46,11 @@ Randomness comes from a ``RoundDraws`` per round (``ops/prng.py``):
 reference's own draws and hold the state and metrics bit-identical.
 
 Settings outside this slice raise ``NotImplementedError`` naming the
-knob: ``delivery="scatter"``, ``compact_carry``, ``int16_wire``,
-``wire24``, ``max_delay_rounds > 0``, ``mean_delay_ms > 0``, ``k_block``,
-``n_user_gossips``, ``sync_interval``, ``lhm_max``,
-``dead_suppress_rounds``, ``open_world``, ``metadata_keys``,
-``provenance``, ``link_counters``, and worlds with seeds or link-fault
-rules.  ``rounds_per_step`` is accepted and ignored: the reference's
+knob: ``delivery="scatter"``, ``max_delay_rounds > 0``,
+``mean_delay_ms > 0``, ``k_block``, ``n_user_gossips``,
+``sync_interval``, ``lhm_max``, ``dead_suppress_rounds``,
+``open_world``, ``metadata_keys``, ``provenance``, ``link_counters``,
+and worlds with seeds or link-fault rules.  ``rounds_per_step`` is accepted and ignored: the reference's
 outputs are bit-identical for any value.
 """
 
@@ -47,12 +63,18 @@ import torch
 from torch.profiler import record_function
 
 from scalecube_cluster_tpu_torch import records
+from scalecube_cluster_tpu_torch.kernels import carry
 from scalecube_cluster_tpu_torch.kernels import merge as merge_kernel
 from scalecube_cluster_tpu_torch.ops import delivery
 from scalecube_cluster_tpu_torch.ops import prng
 from scalecube_cluster_tpu_torch.ops.shift import ShiftEngine
 
 INT32_MAX = 2**31 - 1
+# compact_carry: "no suspicion timer" in the int16 remaining-rounds
+# encoding (decodes to INT32_MAX), and the int16 stored-incarnation
+# ceiling.
+_DEADLINE_NONE16 = carry.DEADLINE_NONE16
+_CARRY16_INC_SAT = (1 << 15) - 1
 
 
 def resolve_device(device) -> torch.device:
@@ -74,9 +96,6 @@ def resolve_device(device) -> torch.device:
 
 # Knobs whose non-default values select code the port does not carry.
 _UNPORTED = (
-    ("compact_carry", lambda p: p.compact_carry),
-    ("int16_wire", lambda p: p.int16_wire),
-    ("wire24", lambda p: p.wire24),
     ("max_delay_rounds", lambda p: p.max_delay_rounds > 0),
     ("mean_delay_ms", lambda p: p.mean_delay_ms > 0),
     ("k_block", lambda p: p.k_block != 0),
@@ -162,10 +181,38 @@ class SwimParams:
         if not 1 <= self.n_subjects <= self.n_members:
             raise ValueError(f"n_subjects must be in [1, n_members] "
                              f"(got {self.n_subjects})")
+        if self.wire24 and not self.compact_carry:
+            raise ValueError(
+                "wire24 is the compact-carry headroom rung: it widens the "
+                "wire key while the stored table stays int16 (set "
+                "compact_carry=True, or drop wire24)")
+        if self.wire24 and self.int16_wire:
+            raise ValueError("wire24 and int16_wire are distinct rungs of "
+                             "the wire-format ladder; pick one")
+        if self.compact_carry:
+            if self.periods_to_spread + 1 > 127:
+                raise ValueError(
+                    f"compact_carry stores remaining spread rounds as int8; "
+                    f"periods_to_spread={self.periods_to_spread} exceeds 126")
+            if self.suspicion_rounds >= _DEADLINE_NONE16 - 1:
+                raise ValueError(
+                    f"compact_carry stores remaining suspicion rounds as "
+                    f"int16; suspicion_rounds={self.suspicion_rounds} "
+                    f"exceeds 32765")
+
+    @property
+    def compact_wire(self) -> bool:
+        """The wire is int16 (``records.merge_key16``): chosen by
+        ``int16_wire`` or implied by ``compact_carry``, unless ``wire24``
+        widens it back to an int32 word."""
+        return (self.compact_carry or self.int16_wire) and not self.wire24
 
     @property
     def wire_format(self) -> delivery.WireFormat:
-        return delivery.WIDE
+        """The active rung of the wire-format ladder."""
+        if self.wire24:
+            return delivery.WIRE24
+        return delivery.WIRE16 if self.compact_wire else delivery.WIDE
 
     @property
     def full_view(self) -> bool:
@@ -382,6 +429,11 @@ class SwimState:
     retransmission window.  ``suspect_deadline`` [N, K] int32: round a
     SUSPECT entry turns DEAD (INT32_MAX = no timer).  ``self_inc`` [N]
     int32: own incarnation.
+
+    Under ``compact_carry`` between rounds: ``inc`` int16,
+    ``spread_until`` int8 and ``suspect_deadline`` int16, the last two
+    as rounds remaining from the next round (``_DEADLINE_NONE16`` = no
+    timer; a stale deadline is negative).
     """
 
     status: torch.Tensor
@@ -407,6 +459,17 @@ def initial_state(params: SwimParams, world: SwimWorld, warm: bool = True,
     if not warm:
         spread0 = torch.where(is_self, params.periods_to_spread + 1,
                               spread0).to(torch.int32)
+    if params.compact_carry:
+        # Remaining rounds from round 0 (re-relativized every round by
+        # carry_encode).
+        return SwimState(
+            status=status,
+            inc=torch.zeros((n, k), dtype=torch.int16, device=device),
+            spread_until=spread0.to(torch.int8),
+            suspect_deadline=torch.full((n, k), _DEADLINE_NONE16,
+                                        dtype=torch.int16, device=device),
+            self_inc=torch.zeros((n,), dtype=torch.int32, device=device),
+        )
     return SwimState(
         status=status,
         inc=torch.zeros((n, k), dtype=torch.int32, device=device),
@@ -523,18 +586,21 @@ def _shift_sender_gate(eng, d_ids, d_alive, d_part, s: int, node_ids,
 
 
 def _send_components(state: SwimState, status, inc, round_idx: int,
-                     world: SwimWorld, is_self):
-    """(record_keys, hot, syncable): one payload, two transmit masks.
+                     params: SwimParams, world: SwimWorld, is_self):
+    """(record_keys, hot, syncable): one payload in the wire format, two
+    transmit masks.
 
     Gossip carries hot records (changed within the spread window); a
     leaver's final-round gossip carries its own DEAD@inc+1
     (MembershipProtocolImpl.java:197-206); SYNC carries the row minus
     tombstones, masked on the sender's table status."""
+    wf = params.wire_format
     leaving_now = (world.leave_at == round_idx)[:, None] & is_self
     hot = ((status != records.ABSENT) & (round_idx < state.spread_until)) \
         | leaving_now
-    record_keys = delivery.pack_record(status, inc)
-    leave_key = delivery.pack_record(records.DEAD, state.self_inc[:, None] + 1)
+    record_keys = delivery.pack_record(status, inc, fmt=wf)
+    leave_key = delivery.pack_record(records.DEAD, state.self_inc[:, None] + 1,
+                                     fmt=wf)
     record_keys = torch.where(leaving_now, leave_key, record_keys)
     syncable = status != records.DEAD
     return record_keys, hot, syncable
@@ -576,14 +642,17 @@ def _fd_phase(eng, views, ctx: dict, shifts, params: SwimParams, kn: Knobs,
     fd_slot_onehot = (torch.arange(k, dtype=torch.int32,
                                    device=status.device)[None, :]
                       == torch.clamp(slot, min=0)[:, None])
-    fd_suspect_key = delivery.pack_record(records.SUSPECT, entry_t_inc)
+    wf = params.wire_format
+    fd_suspect_key = delivery.pack_record(records.SUSPECT, entry_t_inc,
+                                          fmt=wf)
     return dict(
         active=active,
         push_refute=active & ack_ok & (entry_t_status == records.SUSPECT),
         probes_sent=probes_sent,
         ping_req_launches=probes_sent & ~direct_ok,
         fd_inbox=torch.where(fd_slot_onehot & verdict_suspect[:, None],
-                             fd_suspect_key[:, None], delivery.no_message()),
+                             fd_suspect_key[:, None],
+                             delivery.no_message(wf)),
     )
 
 
@@ -592,18 +661,20 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
                     world: SwimWorld, draws: prng.RoundDraws):
     """Phases 2-3: the F gossip channels, the refute push and the SYNC
     channel over cyclic shifts, max-folded with the FD verdicts into one
-    inbox.  Sender-side gates evaluate at the receiver through shifted
-    views.  Returns ``(inbox, inbox_alive, messages_gossip)``."""
+    inbox of the wire format's dtype.  Sender-side gates evaluate at the
+    receiver through shifted views.  Returns ``(inbox, inbox_alive,
+    messages_gossip)``."""
     d_ids, d_alive, d_part = views
     n, k = params.n_members, params.n_subjects
     r_proxies, f = params.ping_req_members, params.fanout
     status, inc, node_ids = ctx["status"], ctx["inc"], ctx["node_ids"]
     alive_here, part_here = ctx["alive"], ctx["part"]
     fd_shift, sync_shift = shifts[0], shifts[-1]
-    no_msg = delivery.no_message()
+    wf = params.wire_format
+    no_msg = delivery.no_message(wf)
 
     record_keys, hot, syncable = _send_components(
-        state, status, inc, round_idx, world, ctx["is_self"])
+        state, status, inc, round_idx, params, world, ctx["is_self"])
     h_keys = eng.prep(record_keys)
     # Both transmit masks ride one int8 buffer (bit 0 hot, bit 1 syncable).
     h_tx = eng.prep(hot.to(torch.int8) | (syncable.to(torch.int8) << 1))
@@ -613,7 +684,7 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
         keys = eng.deliver(h_keys, s)
         tx = (eng.deliver(h_tx, s) & tx_bit) != 0
         payload = torch.where(tx, keys, no_msg)
-        return payload, delivery.is_alive_key(payload)
+        return payload, delivery.is_alive_key(payload, fmt=wf)
 
     drop_u = draws.drop_u
     inbox = fd["fd_inbox"]
@@ -696,9 +767,42 @@ def _tick_shift(state: SwimState, ctx: dict, round_idx: int,
 
 
 def _wire_inc_sat(params: SwimParams) -> int:
-    """Largest incarnation the wire key carries exactly: the
-    self-refutation bump clamps here."""
-    return params.wire_format.inc_sat()
+    """Largest incarnation the wire format and the carry layout both hold
+    exactly: the self-refutation bump and the carry encode clamp here.
+    8191 on the int16 wire; 32767 (the int16 carry) under wire24."""
+    sat = params.wire_format.inc_sat()
+    if params.compact_carry:
+        sat = min(sat, _CARRY16_INC_SAT)
+    return sat
+
+
+def _wide_timer_fields(state: SwimState, params: SwimParams, cursor: int):
+    """``(suspect_deadline, spread_until)`` as absolute int32 rounds at
+    ``cursor`` in either layout: the wide carry passes through, the
+    compact carry decodes as ``carry_decode`` does."""
+    if not params.compact_carry:
+        return state.suspect_deadline, state.spread_until
+    dl = state.suspect_deadline.to(torch.int32)
+    dl = torch.where(dl == _DEADLINE_NONE16, INT32_MAX, cursor + dl)
+    return dl, cursor + state.spread_until.to(torch.int32)
+
+
+def _carry_decode(state: SwimState, round_idx: int) -> SwimState:
+    """compact -> wide at the round's cursor (one kernel launch)."""
+    inc, spread_until, deadline = carry.carry_decode(
+        state.inc, state.spread_until, state.suspect_deadline, round_idx)
+    return dataclasses.replace(state, inc=inc, spread_until=spread_until,
+                               suspect_deadline=deadline)
+
+
+def _carry_encode(state: SwimState, round_idx: int,
+                  inc_sat: int) -> SwimState:
+    """wide -> compact relative to the next round (one kernel launch)."""
+    inc, spread_until, deadline = carry.carry_encode(
+        state.inc, state.spread_until, state.suspect_deadline, round_idx,
+        inc_sat)
+    return dataclasses.replace(state, inc=inc, spread_until=spread_until,
+                               suspect_deadline=deadline)
 
 
 def _merge_and_timers(state: SwimState, status, inc, inbox, inbox_alive,
@@ -712,7 +816,7 @@ def _merge_and_timers(state: SwimState, status, inc, inbox, inbox_alive,
         status, inc, state.spread_until, state.suspect_deadline, inbox,
         inbox_alive, state.self_inc, alive_here, world.slot_of_node,
         round_idx, kn.suspicion_rounds, params.periods_to_spread,
-        _wire_inc_sat(params))
+        _wire_inc_sat(params), fmt=params.wire_format)
     return SwimState(status=new_status, inc=new_inc, spread_until=spread_until,
                      suspect_deadline=deadline, self_inc=self_inc), refuted
 
@@ -773,12 +877,30 @@ def _round_metrics(new_state: SwimState, status, aux: dict,
     )
 
 
-def swim_tick(state: SwimState, round_idx: int, params: SwimParams,
-              world: SwimWorld, draws: prng.RoundDraws,
-              knobs: Optional[Knobs] = None
-              ) -> Tuple[SwimState, Dict[str, torch.Tensor]]:
-    """One protocol round: (state, round, draws) -> (state', metrics)."""
-    kn = knobs if knobs is not None else Knobs.from_params(params)
+def _decoded(state: SwimState, round_idx: int,
+             params: SwimParams) -> SwimState:
+    """The round's input carry in the wide layout (decoded if compact)."""
+    if not params.compact_carry:
+        return state
+    with record_function("swim.carry"):
+        return _carry_decode(state, round_idx)
+
+
+def _encoded(state: SwimState, round_idx: int,
+             params: SwimParams) -> SwimState:
+    """The round's output carry in the params' layout (encoded if
+    compact)."""
+    if not params.compact_carry:
+        return state
+    with record_function("swim.carry"):
+        return _carry_encode(state, round_idx, _wire_inc_sat(params))
+
+
+def _wide_tick(state: SwimState, round_idx: int, params: SwimParams,
+               world: SwimWorld, draws: prng.RoundDraws, kn: Knobs
+               ) -> Tuple[SwimState, Dict[str, torch.Tensor]]:
+    """One round on the wide carry; the input planes are free once this
+    returns (the compact carry is encoded only after that)."""
     with record_function("swim.context"):
         ctx = _round_context(state, round_idx, params, world, kn)
     new_state, aux = _tick_shift(state, ctx, round_idx, params, kn, world,
@@ -787,6 +909,17 @@ def swim_tick(state: SwimState, round_idx: int, params: SwimParams,
         metrics = _round_metrics(new_state, ctx["status"], aux, params,
                                  world, ctx["alive"])
     return new_state, metrics
+
+
+def swim_tick(state: SwimState, round_idx: int, params: SwimParams,
+              world: SwimWorld, draws: prng.RoundDraws,
+              knobs: Optional[Knobs] = None
+              ) -> Tuple[SwimState, Dict[str, torch.Tensor]]:
+    """One protocol round: (state, round, draws) -> (state', metrics)."""
+    kn = knobs if knobs is not None else Knobs.from_params(params)
+    new_state, metrics = _wide_tick(_decoded(state, round_idx, params),
+                                    round_idx, params, world, draws, kn)
+    return _encoded(new_state, round_idx, params), metrics
 
 
 def run(seed: int, params: SwimParams, world: SwimWorld, n_rounds: int,
@@ -810,8 +943,13 @@ def run(seed: int, params: SwimParams, world: SwimWorld, n_rounds: int,
     kn = Knobs.from_params(params)
     rows = []
     for round_idx in range(start_round, start_round + n_rounds):
-        state, m = swim_tick(state, round_idx, params, world,
-                             draws(round_idx), knobs=kn)
+        # swim_tick's steps, with each carry released as soon as the next
+        # exists: under the compact carry the narrow input is not held
+        # through the round, nor the decoded planes through the encode.
+        state = _decoded(state, round_idx, params)
+        state, m = _wide_tick(state, round_idx, params, world,
+                              draws(round_idx), kn)
+        state = _encoded(state, round_idx, params)
         rows.append(m)
     metrics = {name: torch.stack([m[name] for m in rows])
                for name in (rows[0] if rows else {})}

@@ -1,16 +1,20 @@
 """Wire keys and the inbox merge gate.
 
 Counterpart of ``scalecube_cluster_tpu/ops/delivery.py`` for the shift
-path: a record (status + incarnation) packs into one int32 key whose max
-is the SWIM merge winner, and :func:`merge_inbox` applies the entry gate
+path: a record (status + incarnation) packs into one key whose max is
+the SWIM merge winner, and :func:`merge_inbox` applies the entry gate
 to a round's max-folded inbox.
 
 Wire layout, one signed word: ``[sign 0] [dead] [incarnation] [suspect]``
 with the dead bit on top so the max-fold keeps the reference's
 DEAD-absorbs order.  The ``WireFormat`` table lists the reference's
-three rungs; this port carries the wide int32 rung only, and the other
-two raise when used.  ALIVE is a key with the dead and suspect bits
-clear, so a delivered key carries its own merge-gate flag
+three rungs: ``WIDE`` (int32, dead bit 30), ``WIRE24`` (int32, dead bit
+23, the compact carry's headroom rung) and ``WIRE16`` (int16, dead bit
+14, ``records.merge_key16``).  Every function takes the rung as ``fmt``
+(default wide) and keeps keys in its dtype: under ``WIRE16`` every key
+tensor is ``torch.int16``.  The open-world epoch field is not ported:
+a non-zero ``epoch_bits`` raises.  ALIVE is a key with the dead and
+suspect bits clear, so a delivered key carries its own merge-gate flag
 (:func:`is_alive_key`).
 """
 
@@ -36,6 +40,10 @@ class WireFormat:
     epoch_bits: int      # field width when the open-world plane is on
     wide_word: bool      # True: int32 wire word; False: int16
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.int32 if self.wide_word else torch.int16
+
     def inc_bits(self, epoch_bits: int = 0) -> int:
         return self.dead_bit - 1 - epoch_bits
 
@@ -51,31 +59,36 @@ WIRE16 = WireFormat("wire16", dead_bit=14, epoch_bits=2, wide_word=False)
 WIRE_FORMATS = {f.name: f for f in (WIDE, WIRE24, WIRE16)}
 
 
-def _wide_only(fmt: WireFormat) -> WireFormat:
-    fmt = WIDE if fmt is None else fmt
-    if fmt is not WIDE:
+def resolve_format(fmt: WireFormat = None,
+                   epoch_bits: int = 0) -> WireFormat:
+    """The active :class:`WireFormat` (``None`` = wide).  The epoch field
+    is not ported: a non-zero ``epoch_bits`` raises."""
+    if epoch_bits:
         raise NotImplementedError(
-            f"wire format {fmt.name!r} is not ported; the port carries "
-            f"the wide int32 key only")
-    return fmt
+            f"epoch_bits={epoch_bits}: the identity-epoch wire field "
+            f"(open_world) is not ported")
+    return WIDE if fmt is None else fmt
 
 
 def no_message(fmt: WireFormat = None) -> int:
-    """The "no message" key of the wire format."""
-    _wide_only(fmt)
+    """The "no message" key, -1 in every format (``fmt`` is accepted for
+    the reference's signature).  A Python int takes the dtype of the
+    tensor it meets in ``torch.where``, so it never widens an int16 wire
+    buffer."""
     return NO_MESSAGE
 
 
-def pack_record(status, inc, fmt: WireFormat = None):
-    """(status, incarnation) -> wide merge key; ABSENT packs to -1."""
-    _wide_only(fmt)
-    return records.merge_key(status, inc)
+def pack_record(status, inc, fmt: WireFormat = None, epoch_bits: int = 0):
+    """(status, incarnation) -> merge key of the wire format, in its
+    dtype; ABSENT packs to -1 == :func:`no_message`."""
+    f = resolve_format(fmt, epoch_bits)
+    return records.pack_key(status, inc, f.dead_bit, f.inc_sat(), f.dtype)
 
 
-def unpack_record(key, fmt: WireFormat = None):
+def unpack_record(key, fmt: WireFormat = None, epoch_bits: int = 0):
     """Invert :func:`pack_record`: key -> (status int8, inc int32); keys
     < 0 unpack to (ABSENT, 0)."""
-    f = _wide_only(fmt)
+    f = resolve_format(fmt, epoch_bits)
     inc_mask = (1 << f.inc_bits()) - 1
     key = torch.as_tensor(key).to(torch.int32)
     is_dead = (key >> f.dead_bit) & 1
@@ -89,12 +102,12 @@ def unpack_record(key, fmt: WireFormat = None):
 
 def is_alive_key(key, fmt: WireFormat = None):
     """True where ``key`` packs an ALIVE record (dead/suspect bits clear)."""
-    f = _wide_only(fmt)
+    f = resolve_format(fmt)
     return (key >= 0) & (((key >> f.dead_bit) & 1) == 0) & ((key & 1) == 0)
 
 
 def merge_inbox(entry_status, entry_inc, inbox_key, inbox_any_alive,
-                fmt: WireFormat = None):
+                fmt: WireFormat = None, epoch_bits: int = 0):
     """Merge one round's max-folded inbox into the table entries.
 
     One valid arrival-order serialization of the reference's
@@ -103,9 +116,12 @@ def merge_inbox(entry_status, entry_inc, inbox_key, inbox_any_alive,
     takes the winner when its key is strictly above the entry's key.  A
     stored DEAD gates like ABSENT (the reference deletes the record).
 
+    ``inbox_key`` is in the format's dtype; the entry's key is packed in
+    the same format, so the gate compares like with like.
+
     Returns (status int8, inc int32, changed bool).
     """
-    f = _wide_only(fmt)
+    f = resolve_format(fmt, epoch_bits)
     win_status, win_inc = unpack_record(inbox_key, fmt=f)
     gate_status = torch.where(entry_status == records.DEAD, records.ABSENT,
                               entry_status)

@@ -88,6 +88,14 @@ def test_merge_key_matches_reference():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_merge_key16_matches_reference():
+    status, inc = _status_inc(np.random.default_rng(2), (300,))
+    want = np.asarray(jrecords.merge_key16(status, inc))
+    got = records.merge_key16(torch.from_numpy(status), torch.from_numpy(inc))
+    assert got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 # ---- config.py / swim_math.py ---------------------------------------------
 
 @pytest.mark.parametrize("preset", ["default", "default_wan", "default_local"])
@@ -126,10 +134,12 @@ def test_wire_format_table_matches_reference():
             == (ref.dead_bit, ref.epoch_bits, ref.wide_word)
         for eb in (0, fmt.epoch_bits):
             assert fmt.inc_sat(eb) == ref.inc_sat(eb)
-    for fmt in (delivery.WIRE16, delivery.WIRE24):
-        with pytest.raises(NotImplementedError, match=fmt.name):
+        assert str(fmt.dtype).split(".")[-1] == np.dtype(ref.dtype).name
+        # The epoch field (open_world) is not ported.
+        with pytest.raises(NotImplementedError, match="epoch"):
             delivery.pack_record(torch.zeros(2, dtype=torch.int8),
-                                 torch.zeros(2, dtype=torch.int32), fmt=fmt)
+                                 torch.zeros(2, dtype=torch.int32), fmt=fmt,
+                                 epoch_bits=fmt.epoch_bits)
 
 
 def _keys(rng, size):
@@ -169,6 +179,40 @@ def test_merge_inbox_matches_reference(seed):
     want = jdelivery.merge_inbox(status, inc, inbox, any_alive)
     got = delivery.merge_inbox(*(torch.from_numpy(a) for a in
                                  (status, inc, inbox, any_alive)))
+    for w, g in zip(want, got):
+        assert g.numpy().dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("name", ["wire16", "wire24"])
+def test_narrow_formats_match_reference(name):
+    """pack / unpack / is_alive_key / merge_inbox in each narrow format,
+    keys in the format's dtype (int16 on wire16: no promotion)."""
+    fmt, jfmt = delivery.WIRE_FORMATS[name], jdelivery.WIRE_FORMATS[name]
+    rng = np.random.default_rng(3)
+    status, inc = _status_inc(rng, (50, 16))
+    keys = np.asarray(jdelivery.pack_record(status, inc, fmt=jfmt))
+    got = delivery.pack_record(torch.from_numpy(status),
+                               torch.from_numpy(inc), fmt=fmt)
+    assert got.dtype == fmt.dtype
+    np.testing.assert_array_equal(got.numpy(), keys)
+    keys = np.where(rng.random(keys.shape) < 0.2, -1, keys).astype(keys.dtype)
+    tkeys = torch.from_numpy(keys)
+    for w, g in zip(jdelivery.unpack_record(keys, fmt=jfmt),
+                    delivery.unpack_record(tkeys, fmt=fmt)):
+        assert g.numpy().dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(
+        delivery.is_alive_key(tkeys, fmt=fmt).numpy(),
+        np.asarray(jdelivery.is_alive_key(keys, fmt=jfmt)))
+    assert delivery.no_message(fmt) == int(jdelivery.no_message(fmt=jfmt))
+    entry_status, entry_inc = _status_inc(rng, (50, 16))
+    any_alive = rng.random((50, 16)) < 0.5
+    want = jdelivery.merge_inbox(entry_status, entry_inc, keys, any_alive,
+                                 fmt=jfmt)
+    got = delivery.merge_inbox(
+        *(torch.from_numpy(a) for a in (entry_status, entry_inc, keys,
+                                        any_alive)), fmt=fmt)
     for w, g in zip(want, got):
         assert g.numpy().dtype == np.asarray(w).dtype
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -139,8 +139,9 @@ def test_state_and_world_import_reject_unported_lanes():
     lhm = dict(arrays, **{"state/lhm": np.ones(32, np.int32)})
     with pytest.raises(NotImplementedError, match="lhm"):
         interop.state_from_arrays(lhm, device="cpu")
+    # A compact lane in a state whose params name the wide carry.
     compact = dict(arrays, **{"state/inc": np.zeros((32, 4), np.int16)})
-    with pytest.raises(NotImplementedError, match="compact_carry"):
+    with pytest.raises(ValueError, match="compact_carry"):
         interop.state_from_arrays(compact, device="cpu")
     with pytest.raises(NotImplementedError, match="LinkFaults"):
         port_world(jworld.with_link_fault(0, 1, loss=0.5))

@@ -126,8 +126,7 @@ def test_torch_draws_shapes_and_ranges():
 
 
 UNPORTED = [
-    ("delivery", "scatter"), ("compact_carry", True), ("int16_wire", True),
-    ("max_delay_rounds", 2), ("mean_delay_ms", 50.0), ("k_block", 8),
+    ("delivery", "scatter"), ("max_delay_rounds", 2), ("mean_delay_ms", 50.0), ("k_block", 8),
     ("n_user_gossips", 1), ("sync_interval", 8), ("lhm_max", 4),
     ("dead_suppress_rounds", 8), ("open_world", True), ("metadata_keys", 2),
     ("provenance", True), ("link_counters", True),
@@ -143,7 +142,9 @@ def test_unported_knob_raises_naming_it(knob, value):
 
 
 def test_wire24_raises_and_rounds_per_step_is_accepted():
-    with pytest.raises(NotImplementedError, match="wire24"):
+    # wire24 is the compact carry's rung: without compact_carry it raises,
+    # as in the reference.
+    with pytest.raises(ValueError, match="wire24"):
         swim.SwimParams.from_config(fast_config(), n_members=64,
                                     delivery="shift", wire24=True)
     p1, world = _small()
