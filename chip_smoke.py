@@ -23,7 +23,11 @@ and prints no result):
    back-to-back calls would time the host), with the one PyTorch
    call that computes the same function where there is one
    (``torch.add(x, 1, out=<int16>)`` for store16, ``torch.gt(x, y,
-   out=<int32>)`` for cmp16), checked equal to the kernel;
+   out=<int32>)`` for cmp16), checked equal to the kernel.  The two
+   vectorised probes (store16, cmp16) are also held exactly against
+   their plain versions at ragged shapes ([999,999, 13], [3, 5]: the
+   scalar tail runs) and must refuse a 16-byte-misaligned input with
+   ``ValueError``;
 5. parity canaries, card against CPU with the same CPU-made draws, 200
    rounds, state and metrics bit-identical: wide at 4,096 x 16 and full
    view 512 x 512, compact carry at both, int16 wire at 4,096 x 16;
@@ -153,6 +157,7 @@ def library_cmp16(x, y):
 # arithmetic the narrow type would wrap, so they take two calls).
 PROBE_LIBRARY = {"probe_store16": library_store16,
                  "probe_cmp16": library_cmp16}
+RAGGED_SHAPES = ((999_999, 13), (3, 5))
 
 
 def layout_params(layout, n, k):
@@ -333,9 +338,35 @@ def check_codec(device, round_idx=300, inc_sat=8191):
     return rows
 
 
+def check_vectorised(device, name):
+    """Phase 4: a vectorised probe exact at the ragged shapes, and
+    refusing a misaligned input."""
+    for rows_, cols in RAGGED_SHAPES:
+        mosaic_probe.check(name, mosaic_probe.make_inputs(rows_, cols, 1,
+                                                          device)[name])
+    ins = mosaic_probe.make_inputs(4, 8, 1, device)[name]
+    for field, t in zip("xy", ins):
+        shifted = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+        shifted = shifted[1:].view(t.shape)
+        shifted.copy_(t)
+        bad = [shifted if u is t else u for u in ins]
+        try:
+            probes.PROBES[name](*bad)
+        except ValueError as exc:
+            if f" {field} " not in str(exc):
+                raise AssertionError(f"{name}: the misalignment error does "
+                                     f"not name {field}: {exc}") from exc
+        else:
+            raise AssertionError(f"{name}: a misaligned {field} launched")
+    shapes = ", ".join(f"{r}x{c}" for r, c in RAGGED_SHAPES)
+    log(f"[kernel] {name}: exact at {shapes}; a 16-byte-misaligned input "
+        f"raises ValueError")
+
+
 def probe_path(device):
     """Phase 4: the probe entry point at both shapes (counts read right
-    after each run), then each probe timed at both shapes."""
+    after each run), then each probe timed at both shapes, and the
+    vectorised probes' ragged shapes and alignment."""
     launches, rows = {}, {}
     for rows_, cols in ((512, 128), (MAIN_N, MAIN_K)):
         LAUNCHES.clear()
@@ -363,7 +394,15 @@ def probe_path(device):
                             list(ins) + list(got), name, rows_ * cols, 0,
                             library=library and (lambda: library(*ins)),
                             clock="device")
+            if name in probes.VECTORISED and rows_ == MAIN_N:
+                row.update(design=probes.VECTORISED[name],
+                           library_ratio=row["ms"] / row["library_ms"])
+                log(f"[kernel] {name} {rows_}x{cols}: design "
+                    f"{row['design']}, {row['library_ratio']:.3f} x the "
+                    f"library call's time")
             rows.setdefault(name, {})[f"{rows_}x{cols}"] = row
+    for name in probes.VECTORISED:
+        check_vectorised(device, name)
     return launches, rows
 
 

@@ -20,6 +20,12 @@ kernel               replaces            computes
                                          int32 inc
 ===================  ==================  ==============================
 
+``probe_store16`` and ``probe_cmp16`` move 8 elements a thread in
+16-byte vector accesses (``VECTORISED``), so their wrappers take only
+inputs whose ``data_ptr()`` is 16-byte aligned, as every fresh tensor's
+is, and raise ``ValueError`` naming the field for any other (a
+contiguous view at an odd offset), on the CPU as on the card.
+
 Two of them are one PyTorch call each, which ``chip_smoke.py`` times
 beside the kernel: ``torch.add(x, 1, out=<int16>)`` adds in int32 and
 narrows on the store (``probe_store16``), and ``torch.gt(x, y,
@@ -47,6 +53,10 @@ REPLACES = {"probe_load16": ("k_load16", 46),
             "probe_load8": ("k_load8", 59),
             "probe_merge_core": ("k_merge_core", 63)}
 NAMES = tuple(REPLACES)
+# The kernels in csrc/mosaic_probes.cu that move 16-byte vectors, and
+# their design: 8 elements a thread, read-only loads, plain stores.
+VECTORISED = {"probe_store16": "vec16B x8", "probe_cmp16": "vec16B x8"}
+ALIGN = 16
 
 
 def load16_reference(x):
@@ -81,10 +91,19 @@ def merge_core_reference(status, inc, key, gate):
 @functools.lru_cache(maxsize=None)
 def _launcher(name: str, n_in: int, n_out: int):
     fn = getattr(_build.load(SOURCE), f"{name}_launch")
-    fn.argtypes = ([ctypes.c_void_p] * (n_in + n_out)
-                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * (n_in + n_out) + [ctypes.c_longlong]
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_aligned(name, inputs):
+    for field, t, _ in inputs:
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name}: {field} must start on a {ALIGN}-byte "
+                             f"boundary for the kernel's vector accesses "
+                             f"(data_ptr() % {ALIGN} == "
+                             f"{t.data_ptr() % ALIGN})")
 
 
 def _probe(name, reference, inputs, out_dtypes):
@@ -94,12 +113,15 @@ def _probe(name, reference, inputs, out_dtypes):
     check_args(name, first.device, tuple(first.shape),
                {field: (t, dtype) for field, t, dtype in inputs})
     tensors = [t for _, t, _ in inputs]
+    if name in VECTORISED:
+        _check_aligned(name, inputs)
     if on_cpu(name, first.device):
         return reference(*tensors)
     outs = tuple(torch.empty(first.shape, dtype=d, device=first.device)
                  for d in out_dtypes)
-    launch(name, _launcher(name, len(tensors), len(outs)), first.device,
-           *(t.data_ptr() for t in tensors + list(outs)), first.numel())
+    fn = _launcher(name, len(tensors), len(outs))
+    args = [t.data_ptr() for t in tensors + list(outs)] + [first.numel()]
+    launch(name, fn, first.device, *args)
     return outs if len(outs) > 1 else outs[0]
 
 

@@ -56,7 +56,8 @@ PALLAS = {
 
 def _pallas(name, inputs):
     kernel, dtypes = PALLAS[name]
-    shapes = tuple(jax.ShapeDtypeStruct((ROWS, COLS), d) for d in dtypes)
+    shapes = tuple(jax.ShapeDtypeStruct(tuple(inputs[0].shape), d)
+                   for d in dtypes)
     out = pl.pallas_call(kernel, out_shape=shapes if len(shapes) > 1
                          else shapes[0], interpret=True)(
         *(jnp.asarray(t.numpy()) for t in inputs))
@@ -74,6 +75,46 @@ def test_probe_matches_pallas_kernel(name, seed):
     for g, w in zip(got, want):
         assert g.numpy().dtype == w.dtype
         np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (7, 129)])
+@pytest.mark.parametrize("name", ["probe_store16", "probe_cmp16"])
+def test_vectorised_probe_matches_pallas_at_ragged_shapes(name, shape):
+    """The shapes whose element count is no multiple of 8 or 16, where
+    the vectorised kernels run their scalar tail on the card."""
+    inputs = mosaic_probe.make_inputs(*shape, 4, "cpu")[name]
+    want = _pallas(name, inputs)
+    before = dict(LAUNCHES)
+    got = probes.PROBES[name](*inputs)
+    assert dict(LAUNCHES) == before
+    assert got.numpy().dtype == want[0].dtype
+    np.testing.assert_array_equal(got.numpy(), want[0])
+    np.testing.assert_array_equal(
+        probes.REFERENCES[name](*inputs).numpy(), want[0])
+
+
+def _misaligned(t):
+    """``t``'s values in a contiguous view that starts one element past a
+    fresh allocation, so ``data_ptr() % 16`` is the element size."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("name", ["probe_store16", "probe_cmp16"])
+def test_vectorised_probe_refuses_misaligned_input_on_cpu(name):
+    inputs = mosaic_probe.make_inputs(3, 5, 0, "cpu")[name]
+    before = dict(LAUNCHES)
+    for i, field in zip(range(len(inputs)), "xy"):
+        bad = list(inputs)
+        bad[i] = _misaligned(inputs[i])
+        assert bad[i].is_contiguous() and bad[i].data_ptr() % 16
+        with pytest.raises(ValueError, match=f"{field} must start on a "
+                                             f"16-byte boundary"):
+            probes.PROBES[name](*bad)
+    assert torch.equal(probes.PROBES[name](*inputs),
+                       probes.REFERENCES[name](*inputs))
+    assert dict(LAUNCHES) == before
 
 
 def test_store16_truncates_modulo_2_16():
