@@ -22,12 +22,18 @@ and prints no result):
    near the host's time to issue one wrapper call, so CUDA events around
    back-to-back calls would time the host), with the one PyTorch
    call that computes the same function where there is one
-   (``torch.add(x, 1, out=<int16>)`` for store16, ``torch.gt(x, y,
+   (``torch.add(x, one)`` for load16 and ``torch.mul(x, two)`` for load8,
+   with ``one`` and ``two`` int32 tensors of shape (1,),
+   ``torch.add(x, 1, out=<int16>)`` for store16, ``torch.gt(x, y,
    out=<int32>)`` for cmp16), checked equal to the kernel.  The two
-   vectorised probes (store16, cmp16) are also held exactly against
-   their plain versions at ragged shapes ([999,999, 13], [3, 5]: the
-   scalar tail runs) and must refuse a 16-byte-misaligned input with
-   ``ValueError``;
+   widening probes (load16, load8) are also timed at 1M x 16 beside
+   ``x.to(torch.int32)``, a one-call copy that moves exactly their bytes
+   but skips their arithmetic (``copy_ms``).
+   The four vectorised probes (all but the merge core) are also held
+   exactly against their plain versions at ragged shapes ([999,999, 13],
+   [3, 5]: the scalar tail runs) and must refuse a 16-byte-misaligned
+   input with ``ValueError``.  The card's clocks, temperature and power
+   draw are printed before this phase and before phase 6;
 5. parity canaries, card against CPU with the same CPU-made draws, 200
    rounds, state and metrics bit-identical: wide at 4,096 x 16 and full
    view 512 x 512, compact carry at both, int16 wire at 4,096 x 16;
@@ -47,6 +53,7 @@ and prints no result):
 Run from the repository root: ``python3 chip_smoke.py``.
 """
 
+import functools
 import json
 import statistics
 import subprocess
@@ -102,6 +109,15 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def clock_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,"
+         "power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return ("[card] clocks.sm, clocks.mem, temperature.gpu, power.draw: "
+            + out.stdout.strip().splitlines()[0])
+
+
 def time_ms(fn, samples=20, inner=10, warmup=3):
     """Median over ``samples`` of the mean milliseconds per call of
     ``inner`` back-to-back calls of ``fn()`` between two CUDA events (the
@@ -140,6 +156,25 @@ def device_ms(fn, calls=50, warmup=3):
     return us / calls / 1e3
 
 
+@functools.lru_cache(maxsize=None)
+def int32_operand(value, device):
+    """``value`` as an int32 tensor of shape (1,), made once a device: a
+    dimensioned operand takes part in type promotion (a Python number or
+    a 0-dim tensor would not), so an int8 or int16 plane's arithmetic
+    with it runs in int32 and cannot wrap."""
+    return torch.full((1,), value, dtype=torch.int32, device=device)
+
+
+def library_load16(x):
+    """One PyTorch call for ``probe_load16``: ``x + 1`` in int32."""
+    return torch.add(x, int32_operand(1, x.device))
+
+
+def library_load8(x):
+    """One PyTorch call for ``probe_load8``: ``x * 2`` in int32."""
+    return torch.mul(x, int32_operand(2, x.device))
+
+
 def library_store16(x):
     """One PyTorch call for ``probe_store16``: the add runs in int32 and
     narrows to int16 on the store."""
@@ -153,10 +188,19 @@ def library_cmp16(x, y):
                                           device=x.device))
 
 
-# The probes one PyTorch call computes (the others convert and then do
-# arithmetic the narrow type would wrap, so they take two calls).
-PROBE_LIBRARY = {"probe_store16": library_store16,
-                 "probe_cmp16": library_cmp16}
+def widen_copy(x):
+    """One PyTorch call that moves a widening probe's bytes (its input
+    read, an int32 plane written) without its ``+ 1`` or ``* 2``."""
+    return x.to(torch.int32)
+
+
+# The probes one PyTorch call computes (the merge core takes a dozen).
+PROBE_LIBRARY = {"probe_load16": library_load16,
+                 "probe_store16": library_store16,
+                 "probe_cmp16": library_cmp16,
+                 "probe_load8": library_load8}
+# The widening probes, timed beside the copy that moves their bytes.
+PROBE_COPY = ("probe_load16", "probe_load8")
 RAGGED_SHAPES = ((999_999, 13), (3, 5))
 
 
@@ -395,11 +439,25 @@ def probe_path(device):
                             library=library and (lambda: library(*ins)),
                             clock="device")
             if name in probes.VECTORISED and rows_ == MAIN_N:
-                row.update(design=probes.VECTORISED[name],
-                           library_ratio=row["ms"] / row["library_ms"])
+                row["design"] = probes.VECTORISED[name]
                 log(f"[kernel] {name} {rows_}x{cols}: design "
-                    f"{row['design']}, {row['library_ratio']:.3f} x the "
-                    f"library call's time")
+                    f"{row['design']}")
+            if library is not None and rows_ == MAIN_N:
+                row["library_ratio"] = row["ms"] / row["library_ms"]
+                log(f"[kernel] {name} {rows_}x{cols}: "
+                    f"{row['library_ratio']:.3f} x the library call's time")
+            if name in PROBE_COPY and rows_ == MAIN_N:
+                copy = widen_copy(ins[0])
+                if copy.dtype != got[0].dtype or copy.shape != got[0].shape:
+                    raise AssertionError(f"{name}: the copy yardstick moves "
+                                         f"other bytes than the kernel")
+                row["copy_ms"] = device_ms(lambda: widen_copy(ins[0]))
+                row["copy_ratio"] = row["ms"] / row["copy_ms"]
+                log(f"[kernel] {name} {rows_}x{cols}: same-bytes copy "
+                    f"x.to(torch.int32) {row['copy_ms']:.4f} ms, kernel "
+                    f"{row['copy_ratio']:.3f} x it; copy at "
+                    f"{row['bound_ms'] / row['copy_ms']:.3f} of the byte "
+                    f"bound")
             rows.setdefault(name, {})[f"{rows_}x{cols}"] = row
     for name in probes.VECTORISED:
         check_vectorised(device, name)
@@ -564,11 +622,13 @@ def main():
     merge_rows = {layout: check_merge_kernel(device, layout)
                   for layout in ("wide", "int16_wire", "compact_wire24")}
     codec_rows = check_codec(device)
+    log(clock_line())
     probe_launches, probe_rows = probe_path(device)
     for layout, n, k in (("wide", 4096, 16), ("wide", 512, 512),
                          ("compact", 4096, 16), ("compact", 512, 512),
                          ("int16_wire", 4096, 16)):
         canary(device, layout, n, k)
+    log(clock_line())
     launches = main_path(device)
 
     kernels = []

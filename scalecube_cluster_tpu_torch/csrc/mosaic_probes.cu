@@ -21,10 +21,11 @@
 // Bound: bytes.  Per element: load16 2 + 4 B, store16 4 + 2 B, cmp16
 // 2 + 2 + 4 B, load8 1 + 4 B, merge core 1 + 4 + 4 + 1 in and 2 + 4 out;
 // a few integer operations each.  At [512, 128] every probe is bound by
-// its launch.  Design of load16, load8 and the merge core: one thread
-// per element, consecutive threads on consecutive elements, scalar
-// accesses.  store16 and cmp16 move 8 elements a thread in 16-byte
-// vector accesses (see the note above each).
+// its launch.  Design of the merge core: one thread per element,
+// consecutive threads on consecutive elements, scalar accesses.  store16
+// and cmp16 move 8 elements a thread in 16-byte vector accesses, load16
+// and load8 4 elements a thread in an 8- or 4-byte load and a 16-byte
+// store (see the note above each).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,12 +41,6 @@ __device__ __forceinline__ long long element() {
 __device__ __forceinline__ int32_t add_wrap(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) +
                               static_cast<uint32_t>(b));
-}
-
-__global__ void load16_kernel(const int16_t* __restrict__ x,
-                              int32_t* __restrict__ out, long long n) {
-  const long long i = element();
-  if (i < n) out[i] = static_cast<int32_t>(x[i]) + 1;
 }
 
 __device__ __forceinline__ uint32_t store16_narrow(int32_t v) {
@@ -132,10 +127,70 @@ __global__ void cmp16_kernel(const int16_t* __restrict__ x,
   }
 }
 
+// Elements a thread in load16 and load8: one group of 4 consecutive
+// ones, consecutive threads on consecutive groups, so that each thread
+// stores its group as one 16-byte vector of int32.
+constexpr int kWiden = 4;
+
+// probe_load16 replaces k_load16 (experiments/mosaic_probe.py:46).
+// Bound by bytes: 6 B an element (int16 in, int32 out).  One element a
+// thread issued a 2-byte load and a 4-byte store and reached half the
+// byte rate, for load8's reason below.  So each thread takes 4
+// consecutive elements: one 8-byte read-only load (a warp covers 256
+// contiguous bytes), the lanes sign-extended and incremented in
+// registers (no overflow from int16), one 16-byte store (a warp covers
+// 512 contiguous bytes).  Tail and alignment as load8.
+__global__ void load16_kernel(const int16_t* __restrict__ x,
+                              int32_t* __restrict__ out, long long n) {
+  const long long i = element() * kWiden;
+  if (i + kWiden <= n) {
+    const int2 w = __ldg(reinterpret_cast<const int2*>(x + i));
+    const uint32_t lo = static_cast<uint32_t>(w.x);
+    const uint32_t hi = static_cast<uint32_t>(w.y);
+    *reinterpret_cast<int4*>(out + i) =
+        make_int4(lane_lo(lo) + 1, lane_hi(lo) + 1, lane_lo(hi) + 1,
+                  lane_hi(hi) + 1);
+  } else {
+    for (long long k = i; k < n; ++k) out[k] = static_cast<int32_t>(x[k]) + 1;
+  }
+}
+
+// Byte k of a 32-bit word (the lower address in the low byte),
+// sign-extended.
+__device__ __forceinline__ int32_t lane8(int w, int k) {
+  return static_cast<int32_t>(
+      static_cast<int8_t>(static_cast<uint32_t>(w) >> (8 * k)));
+}
+
+__device__ __forceinline__ int4 load8_widen(int w) {
+  return make_int4(lane8(w, 0) * 2, lane8(w, 1) * 2, lane8(w, 2) * 2,
+                   lane8(w, 3) * 2);
+}
+
+// probe_load8 replaces k_load8 (experiments/mosaic_probe.py:59).  Bound
+// by bytes: 5 B an element (int8 in, int32 out), 4 of them written.  One
+// element a thread issued a 1-byte load and a 4-byte store, so a warp
+// access asked for 32 B and an SM kept at most 2 KB of reads in flight,
+// about 0.4 TB/s of reads at HBM latency.  So each thread takes 4
+// consecutive elements: one 4-byte read-only load (a warp covers one
+// 128-byte line), the bytes sign-extended and doubled in registers (no
+// overflow from int8), one 16-byte store (a warp covers 512 contiguous
+// bytes).  The card then holds about 1 MB of reads in flight, more than
+// the byte bound's 0.67 TB/s of reads needs; 2, 4 or 8 groups a thread
+// were no faster, 16 consecutive elements a thread (stores 64 B apart in
+// a warp) 73 % slower (PERF.md).  A thread whose group runs past n (the
+// last n % 4 elements) does them as scalars.  x must be 16-byte aligned
+// like the other vectorised probes' inputs (the wrapper checks; the
+// kernel needs 4 B here, 8 B in load16).
 __global__ void load8_kernel(const int8_t* __restrict__ x,
                              int32_t* __restrict__ out, long long n) {
-  const long long i = element();
-  if (i < n) out[i] = static_cast<int32_t>(x[i]) * 2;
+  const long long i = element() * kWiden;
+  if (i + kWiden <= n) {
+    *reinterpret_cast<int4*>(out + i) =
+        load8_widen(__ldg(reinterpret_cast<const int*>(x + i)));
+  } else {
+    for (long long k = i; k < n; ++k) out[k] = static_cast<int32_t>(x[k]) * 2;
+  }
 }
 
 __global__ void merge_core_kernel(const int8_t* __restrict__ status,
@@ -176,7 +231,7 @@ int finish() { return static_cast<int>(cudaGetLastError()); }
 extern "C" int probe_load16_launch(const void* x, void* out, long long n,
                                    void* stream) {
   if (n == 0) return 0;
-  load16_kernel<<<blocks_for(n), kThreads, 0,
+  load16_kernel<<<blocks_for(n, kWiden), kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(x), static_cast<int32_t*>(out), n);
   return finish();
@@ -204,7 +259,7 @@ extern "C" int probe_cmp16_launch(const void* x, const void* y, void* out,
 extern "C" int probe_load8_launch(const void* x, void* out, long long n,
                                   void* stream) {
   if (n == 0) return 0;
-  load8_kernel<<<blocks_for(n), kThreads, 0,
+  load8_kernel<<<blocks_for(n, kWiden), kThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<int32_t*>(out), n);
   return finish();

@@ -21,18 +21,20 @@ kernel               replaces            computes
 ===================  ==================  ==============================
 
 ``probe_store16`` and ``probe_cmp16`` move 8 elements a thread in
-16-byte vector accesses (``VECTORISED``), so their wrappers take only
-inputs whose ``data_ptr()`` is 16-byte aligned, as every fresh tensor's
-is, and raise ``ValueError`` naming the field for any other (a
-contiguous view at an odd offset), on the CPU as on the card.
+16-byte vector accesses, and ``probe_load16`` and ``probe_load8`` 4
+elements a thread in an 8- or 4-byte load and a 16-byte store
+(``VECTORISED``).  Their wrappers take only inputs whose ``data_ptr()``
+is 16-byte aligned, as every fresh tensor's is, and raise ``ValueError``
+naming the field for any other (a contiguous view at an odd offset), on
+the CPU as on the card.
 
-Two of them are one PyTorch call each, which ``chip_smoke.py`` times
-beside the kernel: ``torch.add(x, 1, out=<int16>)`` adds in int32 and
-narrows on the store (``probe_store16``), and ``torch.gt(x, y,
-out=<int32>)`` stores the compare as int32 (``probe_cmp16``).  The
-widening probes take two calls (a ``.to`` and the arithmetic: an add or
-multiply with an int32 ``out`` runs in the narrow input type and would
-wrap), and the merge core is a dozen.
+Four of them are one PyTorch call each, which ``chip_smoke.py`` times
+beside the kernel: ``torch.add(x, one)`` and ``torch.mul(x, two)``, with
+int32 operands of shape (1,) so that the arithmetic runs in int32
+(``probe_load16``, ``probe_load8``); ``torch.add(x, 1, out=<int16>)``
+adds in int32 and narrows on the store (``probe_store16``); and
+``torch.gt(x, y, out=<int32>)`` stores the compare as int32
+(``probe_cmp16``).  The merge core is a dozen.
 """
 
 from __future__ import annotations
@@ -54,8 +56,11 @@ REPLACES = {"probe_load16": ("k_load16", 46),
             "probe_merge_core": ("k_merge_core", 63)}
 NAMES = tuple(REPLACES)
 # The kernels in csrc/mosaic_probes.cu that move 16-byte vectors, and
-# their design: 8 elements a thread, read-only loads, plain stores.
-VECTORISED = {"probe_store16": "vec16B x8", "probe_cmp16": "vec16B x8"}
+# their design: store16 and cmp16 8 elements a thread, read-only loads,
+# plain stores; load16 and load8 4 elements a thread, an 8- or 4-byte
+# read-only load and a 16-byte store.
+VECTORISED = {"probe_load16": "ld8B st16B x4", "probe_store16": "vec16B x8",
+              "probe_cmp16": "vec16B x8", "probe_load8": "ld4B st16B x4"}
 ALIGN = 16
 
 

@@ -13,9 +13,10 @@ operations compare identical float32 draws with float32 probabilities.
 
 Cost: the reference's six programs (layout x shape) are most of it.
 Every world of a (layout, shape) pair shares one program (the worlds all
-carry a two-phase partition schedule and an explicit initial state); the
-six are lowered in turn and then compiled three at a time, since XLA's
-compile releases the GIL; and the module compiles them with most XLA
+carry a two-phase partition schedule and an explicit initial state); each
+of the six goes to a compile thread as soon as it is lowered, so that
+XLA's compiles (which release the GIL) run while the next program is
+lowered (which holds it); and the module compiles them with most XLA
 optimizations off, about twice as fast at these sizes and changing no
 result (integer arithmetic, float32 compares without fast math).  Each
 shape's draws are built once.
@@ -110,19 +111,19 @@ def _draws(shape):
 def _reference_programs():
     """JAX's ``run`` over ROUNDS rounds for every (layout, shape), keyed
     by the reference params: lowered one after another (tracing holds
-    the GIL), then compiled three at a time (each compile holds a few
-    hundred MB)."""
-    lowered = {}
-    for layout in LAYOUTS:
-        for shape in SHAPES:
-            params = _jparams(layout, shape)
-            world = _jworld(params, "healthy")
-            lowered[params] = jswim.run.lower(
-                jax.random.key(0), params, world, ROUNDS,
-                state=jswim.initial_state(params, world), start_round=0)
+    the GIL), each compiled in the background from the moment it is
+    lowered, three at a time (each compile holds a few hundred MB)."""
+    compiling = {}
     with ThreadPoolExecutor(3) as pool:
-        return dict(zip(lowered, pool.map(lambda program: program.compile(),
-                                          lowered.values())))
+        for layout in LAYOUTS:
+            for shape in SHAPES:
+                params = _jparams(layout, shape)
+                world = _jworld(params, "healthy")
+                compiling[params] = pool.submit(jswim.run.lower(
+                    jax.random.key(0), params, world, ROUNDS,
+                    state=jswim.initial_state(params, world),
+                    start_round=0).compile)
+        return {params: job.result() for params, job in compiling.items()}
 
 
 def _jax_run(params, world, state=None, start_round=0):

@@ -78,10 +78,10 @@ def test_probe_matches_pallas_kernel(name, seed):
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (3, 5), (7, 129)])
-@pytest.mark.parametrize("name", ["probe_store16", "probe_cmp16"])
+@pytest.mark.parametrize("name", sorted(probes.VECTORISED))
 def test_vectorised_probe_matches_pallas_at_ragged_shapes(name, shape):
-    """The shapes whose element count is no multiple of 8 or 16, where
-    the vectorised kernels run their scalar tail on the card."""
+    """The shapes whose element count is no multiple of 4, 8 or 16,
+    where the vectorised kernels run their scalar tail on the card."""
     inputs = mosaic_probe.make_inputs(*shape, 4, "cpu")[name]
     want = _pallas(name, inputs)
     before = dict(LAUNCHES)
@@ -101,7 +101,7 @@ def _misaligned(t):
     return view
 
 
-@pytest.mark.parametrize("name", ["probe_store16", "probe_cmp16"])
+@pytest.mark.parametrize("name", sorted(probes.VECTORISED))
 def test_vectorised_probe_refuses_misaligned_input_on_cpu(name):
     inputs = mosaic_probe.make_inputs(3, 5, 0, "cpu")[name]
     before = dict(LAUNCHES)
@@ -162,14 +162,21 @@ def test_entry_point_prints_one_line_per_probe(capsys):
     assert results[0]["replaces"] == "experiments/mosaic_probe.py:46 k_load16"
 
 
-@pytest.mark.parametrize("name", ["probe_store16", "probe_cmp16"])
+@pytest.mark.parametrize("name", ["probe_load16", "probe_store16",
+                                  "probe_cmp16", "probe_load8"])
 def test_library_call_equals_plain_version(name):
     """The one PyTorch call ``chip_smoke.py`` times as a probe's library
-    yardstick computes the probe's function, dtype included."""
+    yardstick computes the probe's function, dtype included, and the
+    widening ones do not wrap at their input type's ends."""
     import chip_smoke
 
     inputs = mosaic_probe.make_inputs(ROWS, COLS, 2, "cpu")[name]
+    if name in ("probe_load16", "probe_load8"):
+        info = torch.iinfo(inputs[0].dtype)
+        inputs = (torch.cat([inputs[0].flatten(), torch.tensor(
+            [info.min, info.max], dtype=inputs[0].dtype)]),)
     got = chip_smoke.PROBE_LIBRARY[name](*inputs)
     want = probes.REFERENCES[name](*inputs)
     assert got.dtype == want.dtype
     assert torch.equal(got, want)
+
