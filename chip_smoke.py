@@ -35,8 +35,13 @@ and prints no result):
    input with ``ValueError``.  The card's clocks, temperature and power
    draw are printed before this phase and before phase 6;
 5. parity canaries, card against CPU with the same CPU-made draws, 200
-   rounds, state and metrics bit-identical: wide at 4,096 x 16 and full
-   view 512 x 512, compact carry at both, int16 wire at 4,096 x 16;
+   rounds, state (every lane) and metrics bit-identical: wide at 4,096 x
+   16 and full view 512 x 512, compact carry at both, int16 wire at
+   4,096 x 16; the network configuration (``profile_round.network_*``:
+   eight link-fault rules, a 50 ms mean delay, a 4-slot delay ring, four
+   user gossips; its schedule scaled to 200 rounds) at 4,096 x 16 in
+   the wide, int16-wire and compact + wire24 layouts; a seeded cold
+   start (seeds 0, 1, 2, node 5 blocked) at full view 512 x 512;
 6. the main path and the layout identity: LAN defaults, N = 1,000,000
    members x K = 16 subjects, loss 0.02, node 3 crashed at round 10, the
    port's own device draws, 600 rounds through ``models.swim.run`` in the
@@ -48,11 +53,34 @@ and prints no result):
    exactly.  Each layout prints ms/round, member-rounds/s, kernel
    launches per round (a profiled 20-round window) and peak memory (and
    the bytes already allocated when its run began);
-7. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+7. the network path at full width: the network configuration at N =
+   1,000,000 x K = 16 for 600 rounds (node 3 crashed at round 10, a
+   brownout from ids [0, 100,000) to the rest over rounds 100-260 at up
+   to 0.5 loss and 400 ms mean delay, node 5 blocked both ways over
+   rounds 300-350, four user gossips spread at round 20), the port's own
+   draws, wide and ``int16_wire``.  Each must suspect node 3 within 50
+   rounds and have >= 99% of live observers hold it DEAD at the end,
+   sum over 10x more SUSPECT entries about live subjects in rounds
+   100-260 than in rounds 20-100, have no live subject held DEAD by 1%
+   or more of live observers at the end, and bring every user gossip to
+   >= 99% of live members; the int16 wire must give the wide run's
+   metrics and decoded state (rings unpacked) exactly; a run to round
+   160 (the brownout's peak) must hold delayed messages in its ring.
+   Each prints ms/round, member-rounds/s, peak memory, and launches per
+   round from 20 rounds profiled from round 160 (device busy time and
+   idle share, device time and launches per phase range, the ring's
+   bytes);
+8. the seeded cold start at full view N = K = 4,096 (LAN defaults, loss
+   0, seeds 0, 1, 2) for 12 x periods_to_spread rounds: every cell must
+   be ALIVE at the end; prints the round membership became full;
+9. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
-Run from the repository root: ``python3 chip_smoke.py``.
+No phase catches its own failure, and nothing falls back to the CPU or
+to a plain version.  Run from the repository root: ``python3
+chip_smoke.py``.
 """
 
+import dataclasses
 import functools
 import json
 import statistics
@@ -84,6 +112,8 @@ OPS_PER_CELL = {"merge": 60, "carry_decode": 10, "carry_encode": 20,
 
 MAIN_N, MAIN_K, MAIN_ROUNDS, CRASHED, CRASH_AT = 1_000_000, 16, 600, 3, 10
 CANARY_ROUNDS = 200
+SEEDS = [0, 1, 2]
+COLD_N = 4096
 PROFILE_ROUNDS = 20
 INT32_MAX = 2**31 - 1
 LAYOUTS = profile_round.LAYOUTS
@@ -464,37 +494,69 @@ def probe_path(device):
     return launches, rows
 
 
-def canary(device, layout, n, k, seed=5):
+def crash_world(params, device):
+    """The bench workload's world: node 3 crashed at round 10."""
+    return swim.SwimWorld.healthy(params, device=device).with_crash(
+        CRASHED, at_round=CRASH_AT)
+
+
+def seeded_world(params, device):
+    """Seeds 0, 1 and 2; node 5 blocked both ways over rounds 50-120."""
+    n = params.n_members
+    return (swim.SwimWorld.healthy(params, device=device).with_seeds(SEEDS)
+            .with_block(5, (0, n), 50, 120).with_block((0, n), 5, 50, 120))
+
+
+def canary(device, label, layout, params, make_world, warm=True, seed=5):
     """Phase 5: the same run on the card and on the CPU, same draws."""
-    params = layout_params(layout, n, k)
-    draws = prng.TorchDraws(seed, "cpu", params)
+    draws = prng.TorchDraws(seed, "cpu", params, make_world(params, "cpu"))
     runs = []
     for dev in ("cpu", device):
-        world = swim.SwimWorld.healthy(params, device=dev).with_crash(
-            CRASHED, at_round=CRASH_AT)
+        world = make_world(params, dev)
+        state = swim.initial_state(params, world, warm=warm, device=dev)
         LAUNCHES.clear()
         state, metrics = swim.run(seed, params, world, CANARY_ROUNDS,
+                                  state=state,
                                   draws=lambda r: draws(r).to(dev),
                                   device=dev)
         runs.append((state, metrics, dict(LAUNCHES)))
     (cs, cm, cpu_launches), (gs, gm, gpu_launches) = runs
-    for name in ("status", "inc", "spread_until", "suspect_deadline",
-                 "self_inc"):
-        if not torch.equal(getattr(cs, name), getattr(gs, name).cpu()):
-            raise AssertionError(f"canary {layout} {n}x{k}: state.{name} "
-                                 f"differs")
+    n, k = params.n_members, params.n_subjects
+    for field in dataclasses.fields(swim.SwimState):
+        if not torch.equal(getattr(cs, field.name),
+                           getattr(gs, field.name).cpu()):
+            raise AssertionError(f"canary {label} {n}x{k}: state."
+                                 f"{field.name} differs")
     for name, value in cm.items():
         if not torch.equal(value, gm[name].cpu()):
-            raise AssertionError(f"canary {layout} {n}x{k}: metric {name} "
+            raise AssertionError(f"canary {label} {n}x{k}: metric {name} "
                                  f"differs")
     want = {name: CANARY_ROUNDS for name in ROUND_KERNELS[layout]}
     if cpu_launches or gpu_launches != want:
-        raise AssertionError(f"canary {layout} {n}x{k}: launches cpu="
+        raise AssertionError(f"canary {label} {n}x{k}: launches cpu="
                              f"{cpu_launches} card={gpu_launches}, want "
                              f"none and {want}")
-    log(f"[canary] {layout} {n}x{k}, {CANARY_ROUNDS} rounds: card == CPU "
-        f"bit for bit ({gs.inc.dtype} inc), launches {gpu_launches}; "
-        f"suspect@{CRASHED} peak {int(cm['suspect'][:, CRASHED].max())}")
+    log(f"[canary] {label} {n}x{k}, {CANARY_ROUNDS} rounds: card == CPU "
+        f"bit for bit, every state lane and metric ({gs.inc.dtype} inc), "
+        f"launches {gpu_launches}; ring cells held at the end "
+        f"{int((cs.inbox_ring >= 0).sum())}, final absent "
+        f"{int(cm['absent'][-1].sum())}")
+
+
+def canaries(device):
+    """Phase 5: every canary."""
+    for layout, n, k in (("wide", 4096, 16), ("wide", 512, 512),
+                         ("compact", 4096, 16), ("compact", 512, 512),
+                         ("int16_wire", 4096, 16)):
+        canary(device, layout, layout, layout_params(layout, n, k),
+               crash_world)
+    for layout in ("wide", "int16_wire", "compact_wire24"):
+        canary(device, f"network {layout}", layout,
+               profile_round.network_params(layout, 4096, 16),
+               functools.partial(profile_round.network_world,
+                                 rounds=CANARY_ROUNDS))
+    canary(device, "seeded cold start", "wide",
+           layout_params("wide", 512, 512), seeded_world, warm=False)
 
 
 def run_layout(device, layout):
@@ -601,6 +663,164 @@ def main_path(device):
     return launches
 
 
+def network_run(device, layout):
+    """Phase 7: one layout of the network configuration at 1M x 16 for 600
+    rounds, with its gates; returns what the identity check and the
+    kernel line need."""
+    params = profile_round.network_params(layout, MAIN_N, MAIN_K)
+    world = profile_round.network_world(params, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    state, metrics = swim.run(0, params, world, MAIN_ROUNDS, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    metrics = {name: value.cpu() for name, value in metrics.items()}
+    want = {name: MAIN_ROUNDS for name in ROUND_KERNELS[layout]}
+    if launches != want:
+        raise AssertionError(f"network {layout}: kernel launches {launches} "
+                             f"in {MAIN_ROUNDS} rounds, want {want}")
+    live_observers = MAIN_N - 1
+    suspect, dead = metrics["suspect"], metrics["dead"]
+    onset = torch.nonzero(suspect[:, CRASHED] > 0)
+    first_suspect = int(onset[0]) if onset.numel() else None
+    if first_suspect is None or first_suspect > CRASH_AT + 50:
+        raise AssertionError(f"network {layout}: node {CRASHED} not suspected "
+                             f"within 50 rounds (first at {first_suspect})")
+    dead_share = int(dead[-1, CRASHED]) / live_observers
+    if dead_share < 0.99:
+        raise AssertionError(f"network {layout}: only {dead_share:.4f} of "
+                             f"live observers hold node {CRASHED} DEAD")
+    live = torch.arange(MAIN_K) != CRASHED
+    brownout = int(suspect[100:260, live].sum())
+    before = int(suspect[20:100, live].sum())
+    if not brownout > 10 * before:
+        raise AssertionError(f"network {layout}: SUSPECT entries about live "
+                             f"subjects, rounds 100-260: {brownout}, rounds "
+                             f"20-100: {before} (want more than 10x)")
+    stale = dead[-1, live].max().item() / live_observers
+    if stale >= 0.01:
+        raise AssertionError(f"network {layout}: a live subject is held DEAD "
+                             f"by {stale:.4f} of live observers at the end")
+    reach = []
+    for g in range(params.n_user_gossips):
+        held = metrics["user_gossip_infected"][:, g]
+        full = torch.nonzero(held >= 0.99 * live_observers)
+        if not full.numel():
+            raise AssertionError(f"network {layout}: user gossip {g} reached "
+                                 f"{int(held[-1])} of {live_observers} live "
+                                 f"members")
+        reach.append(int(full[0]))
+    # The brownout's peak: a run to round 160 must hold delayed messages
+    # in its ring, and the profiled window starts there.
+    peak_round = profile_round.NETWORK_PEAK
+    mid, _ = swim.run(0, params, world, peak_round, device=device)
+    cells = int((mid.inbox_ring >= 0).sum())
+    if cells == 0:
+        raise AssertionError(f"network {layout}: the ring is empty at round "
+                             f"{peak_round}")
+    window = profile_round.profile_window(params, world, mid, peak_round,
+                                          PROFILE_ROUNDS)
+    del mid
+    ms_round = seconds / MAIN_ROUNDS * 1e3
+    log(f"[network] {layout} {MAIN_N}x{MAIN_K}, {MAIN_ROUNDS} rounds in "
+        f"{seconds:.3f} s: {ms_round:.4f} ms/round, "
+        f"{MAIN_N * MAIN_ROUNDS / seconds:.6g} member-rounds/s, peak {peak} B "
+        f"allocated ({resident} B resident before the run); {cells} ring "
+        f"cells hold a delayed message at round {peak_round}; profiled "
+        f"rounds {peak_round}-{peak_round + PROFILE_ROUNDS}: "
+        f"{window['kernel_launches_per_round']:.2f} kernel launches/round "
+        f"({window['phase_launches_per_round']['swim.delivery']:.2f} in "
+        f"swim.delivery), device busy "
+        f"{window['device_busy_ms_per_round']:.4f} ms/round, wall "
+        f"{window['wall_ms_per_round']:.4f} ms/round, idle share "
+        f"{window['device_idle_share']:.4f}, ring {window['ring_bytes']} B, "
+        f"phases {json.dumps(window['phase_device_ms_per_round'])}, "
+        f"launches {json.dumps(window['phase_launches_per_round'])}")
+    log(f"[network] {layout} node {CRASHED}: first SUSPECT at round "
+        f"{first_suspect}, {dead_share:.6f} of live observers hold it DEAD at "
+        f"the end; SUSPECT entries about live subjects {before} in rounds "
+        f"20-100, {brownout} in rounds 100-260; largest DEAD share of a live "
+        f"subject at the end {stale:.6f}; user gossips reach 99% of live "
+        f"members at rounds {reach}")
+    return params, state, metrics, launches
+
+
+def network_state(state, params):
+    """The final state as absolute int32 planes, the ring unpacked."""
+    ring_status, ring_inc = delivery.unpack_record(state.inbox_ring,
+                                                   fmt=params.wire_format)
+    return dict(decoded(state, params), ring_status=ring_status,
+                ring_inc=ring_inc, flag_ring=state.flag_ring,
+                g_infected=state.g_infected,
+                g_spread_until=state.g_spread_until, g_ring=state.g_ring)
+
+
+def network_path(device):
+    """Phase 7: wide, then int16_wire against it."""
+    launches = {}
+    wide_params, wide_state, wide_metrics, counts = network_run(device,
+                                                                "wide")
+    launches.update(counts)
+    want = {name: value.cpu() for name, value in
+            network_state(wide_state, wide_params).items()}
+    del wide_state
+    params, state, metrics, counts = network_run(device, "int16_wire")
+    for name, count in counts.items():
+        launches[name] = launches.get(name, 0) + count
+    for name, value in wide_metrics.items():
+        if not torch.equal(metrics[name], value):
+            raise AssertionError(f"network int16_wire: metric {name} "
+                                 f"differs from the wide run")
+    for name, value in network_state(state, params).items():
+        if not torch.equal(value.cpu(), want[name]):
+            raise AssertionError(f"network int16_wire: final {name} differs "
+                                 f"from the wide run")
+    log(f"[identity] network int16_wire: per-round metrics and final state "
+        f"(rings unpacked) equal the wide run's")
+    return launches
+
+
+def cold_start_path(device):
+    """Phase 8: the seeded cold start at full view 4,096 x 4,096."""
+    params = swim.SwimParams.from_config(
+        ClusterConfig.default(), n_members=COLD_N, loss_probability=0.0,
+        delivery="shift")
+    world = swim.SwimWorld.healthy(params, device=device).with_seeds(SEEDS)
+    state = swim.initial_state(params, world, warm=False, device=device)
+    rounds = 12 * params.periods_to_spread
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    state, metrics = swim.run(0, params, world, rounds, state=state,
+                              device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    want = {name: rounds for name in ROUND_KERNELS["wide"]}
+    if launches != want:
+        raise AssertionError(f"cold start: kernel launches {launches} in "
+                             f"{rounds} rounds, want {want}")
+    if not bool((state.status == records.ALIVE).all()):
+        raise AssertionError(
+            f"cold start: {int((state.status != records.ALIVE).sum())} cells "
+            f"are not ALIVE after {rounds} rounds")
+    known = metrics["alive"].sum(dim=1).cpu()
+    full_at = int(torch.nonzero(known == COLD_N * (COLD_N - 1))[0])
+    log(f"[cold start] full view {COLD_N}x{COLD_N}, seeds {SEEDS}, {rounds} "
+        f"rounds (12 x periods_to_spread) in {seconds:.3f} s: "
+        f"{seconds / rounds * 1e3:.4f} ms/round, peak "
+        f"{torch.cuda.max_memory_allocated()} B; cells known ALIVE "
+        f"{int(known[0])} after round 0, membership full from round "
+        f"{full_at}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -624,12 +844,16 @@ def main():
     codec_rows = check_codec(device)
     log(clock_line())
     probe_launches, probe_rows = probe_path(device)
-    for layout, n, k in (("wide", 4096, 16), ("wide", 512, 512),
-                         ("compact", 4096, 16), ("compact", 512, 512),
-                         ("int16_wire", 4096, 16)):
-        canary(device, layout, n, k)
+    canaries(device)
     log(clock_line())
-    launches = main_path(device)
+    paths = {"main": main_path(device)}
+    log(clock_line())
+    paths["network"] = network_path(device)
+    paths["cold_start"] = cold_start_path(device)
+    launches = {}
+    for counts in paths.values():
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
 
     kernels = []
     for layout, fmt in (("wide", "wide"), ("int16_wire", "wire16"),
@@ -639,6 +863,8 @@ def main():
             source=CSRC + "merge_timers.cu",
             replaces="experiments/merge_kernel_bench.py:102",
             launches=launches.get(merge.NAMES[fmt], 0),
+            launches_by_path={path: counts.get(merge.NAMES[fmt], 0)
+                              for path, counts in paths.items()},
             **merge_rows[layout]))
     for name, line in ((carry.DECODE, 1570), (carry.ENCODE, 1595)):
         kernels.append(dict(

@@ -3,13 +3,16 @@ package, with numpy alone.
 
 The reference's objects reach this module as plain data: ``SwimParams``
 as the dict ``dataclasses.asdict`` gives, worlds and states as dicts of
-numpy arrays under the reference's field names, and checkpoints as the
-``.npz`` that ``scalecube_cluster_tpu.utils.checkpoint.save`` writes
+numpy arrays under the reference's field names (a world's ``faults`` as
+a dict of the ``LinkFaults`` arrays), and checkpoints as the ``.npz``
+that ``scalecube_cluster_tpu.utils.checkpoint.save`` writes
 (``state/<field>`` arrays, ``next_round``, optional ``key_data``,
-``meta_json``).  Lanes of planes the port does not carry must be
-zero-size; anything else raises ``NotImplementedError`` naming it.  A
-state's carry layout (wide, or the ``compact_carry`` int16/int8 lanes)
-must be the one its params name.
+``meta_json``).  A world's fault rules, seeds and user-gossip schedule
+and a state's delay rings and user-gossip lanes carry over; lanes and
+schedules of planes the port does not carry must be empty, and anything
+else raises ``NotImplementedError`` naming it.  A state's carry layout
+(wide, or the ``compact_carry`` int16/int8 lanes) must be the one its
+params name.
 """
 
 from __future__ import annotations
@@ -24,11 +27,11 @@ from scalecube_cluster_tpu_torch.models import swim
 
 _STATE_FIELDS = ("status", "inc", "spread_until", "suspect_deadline",
                  "self_inc")
-# Reference state lanes of optional planes, and the axis that is zero
-# when the plane is off.
-_PLANE_LANES = {"inbox_ring": 0, "flag_ring": 0, "g_infected": 1,
-                "g_spread_until": 1, "g_ring": 0, "lhm": 0, "epoch": 1,
-                "md": 1, "md_spread": 1}
+_LANE_FIELDS = ("inbox_ring", "flag_ring", "g_infected", "g_spread_until",
+                "g_ring")
+# Reference state lanes of planes the port does not carry, and the axis
+# that is zero when the plane is off.
+_PLANE_LANES = {"lhm": 0, "epoch": 1, "md": 1, "md_spread": 1}
 
 
 def params_from_fields(fields: Mapping) -> swim.SwimParams:
@@ -37,34 +40,40 @@ def params_from_fields(fields: Mapping) -> swim.SwimParams:
 
 
 def world_from_arrays(arrays: Mapping, device="cuda") -> swim.SwimWorld:
-    """``SwimWorld`` from the reference world's fields as numpy arrays.
-
-    ``faults`` may be given as a mapping of the ``LinkFaults`` arrays; a
-    world with fault rules, seeds, user-gossip spreads, joins or metadata
+    """``SwimWorld`` from the reference world's fields as numpy arrays
+    (``faults`` as a mapping of the ``LinkFaults`` arrays; absent faults,
+    seeds or gossip schedule mean none).  A world with joins or metadata
     pushes raises."""
     device = swim.resolve_device(device)
-    faults = arrays.get("faults")
-    if faults is not None and np.asarray(faults["src_lo"]).shape[0] > 0:
-        raise NotImplementedError("LinkFaults rules are not ported")
-    for name in ("seed_ids", "gossip_origin", "md_push_at"):
-        if name in arrays and np.asarray(arrays[name]).size > 0:
-            raise NotImplementedError(f"world field {name} is not ported")
+    if "md_push_at" in arrays and np.asarray(arrays["md_push_at"]).size > 0:
+        raise NotImplementedError("world field md_push_at is not ported")
     if "join_at" in arrays and (np.asarray(arrays["join_at"])
                                 < swim.INT32_MAX).any():
         raise NotImplementedError("world field join_at is not ported")
 
-    def t(name, dtype):
-        return torch.tensor(np.asarray(arrays[name]), dtype=dtype,
-                            device=device)
+    def t(values, dtype):
+        return torch.tensor(np.asarray(values), dtype=dtype, device=device)
 
+    def schedule(name):
+        return t(arrays.get(name, np.zeros((0,), np.int32)), torch.int32)
+
+    faults = swim.LinkFaults.none(device)
+    if arrays.get("faults") is not None:
+        faults = swim.LinkFaults(**{
+            name: t(arrays["faults"][name], getattr(faults, name).dtype)
+            for name in swim.LinkFaults.ARRAYS})
     world = swim.SwimWorld(
-        down_from=t("down_from", torch.int32),
-        down_until=t("down_until", torch.int32),
-        leave_at=t("leave_at", torch.int32),
-        partition_of=t("partition_of", torch.int8),
+        down_from=t(arrays["down_from"], torch.int32),
+        down_until=t(arrays["down_until"], torch.int32),
+        leave_at=t(arrays["leave_at"], torch.int32),
+        partition_of=t(arrays["partition_of"], torch.int8),
         partition_phase_rounds=int(np.asarray(arrays["partition_phase_rounds"])),
-        subject_ids=t("subject_ids", torch.int32),
-        slot_of_node=t("slot_of_node", torch.int32),
+        faults=faults,
+        seed_ids=schedule("seed_ids"),
+        subject_ids=t(arrays["subject_ids"], torch.int32),
+        slot_of_node=t(arrays["slot_of_node"], torch.int32),
+        gossip_origin=schedule("gossip_origin"),
+        gossip_spread_at=schedule("gossip_spread_at"),
     )
     k = world.subject_ids.shape[0]
     expected = torch.full_like(world.slot_of_node, -1)
@@ -85,10 +94,13 @@ def state_from_arrays(arrays: Mapping, device="cuda",
                       params: Optional[swim.SwimParams] = None
                       ) -> swim.SwimState:
     """``SwimState`` from the reference's ``state_to_arrays`` payload
-    (keys with or without the ``state/`` prefix).  Plane lanes must be
-    zero-size or absent.  The carry must be the layout ``params`` names:
-    the compact one under ``params.compact_carry``, else (and when
-    ``params`` is None) the wide one."""
+    (keys with or without the ``state/`` prefix).  The carry must be the
+    layout ``params`` names: the compact one under
+    ``params.compact_carry``, else (and when ``params`` is None) the wide
+    one.  The ring and user-gossip lanes are taken as given (absent:
+    empty lanes of the shapes ``params`` gives, zero-size without
+    params); ``run`` checks them against its params.  Lanes of other
+    planes must be zero-size or absent."""
     device = swim.resolve_device(device)
     fields = {name[len("state/"):] if name.startswith("state/") else name:
               np.asarray(value) for name, value in arrays.items()}
@@ -108,9 +120,13 @@ def state_from_arrays(arrays: Mapping, device="cuda",
                 f"state field {name} is {fields[name].dtype}, the {layout} "
                 f"carry has {np.dtype(dtype)} (pass the run's params; "
                 f"compact_carry selects the int16/int8 lanes)")
+    lanes = (swim.initial_lanes(params, device) if params is not None
+             else swim.empty_lanes(*fields["status"].shape, device))
+    lanes.update({name: torch.tensor(fields[name], device=device)
+                  for name in _LANE_FIELDS if name in fields})
     return swim.SwimState(**{
         name: torch.tensor(fields[name], device=device)
-        for name in _STATE_FIELDS})
+        for name in _STATE_FIELDS}, **lanes)
 
 
 def load_jax_checkpoint(path: str, device="cuda",

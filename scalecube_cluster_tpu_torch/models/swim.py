@@ -1,12 +1,21 @@
 """The SWIM round on PyTorch tensors: failure detection, gossip, SYNC,
 merge, suspicion timers.
 
-Counterpart of ``scalecube_cluster_tpu/models/swim.py`` for the main
-path: shift delivery (``delivery="shift"``), no delivery delays and no
-optional planes, in both the focal shape (N members x K tracked
-subjects) and full view (K == N).  State is [N, K] per observer row and
-subject column (``SwimState``); the world holds the ground truth and the
-fault schedule (``SwimWorld``).
+Counterpart of ``scalecube_cluster_tpu/models/swim.py`` for shift
+delivery (``delivery="shift"``) with no optional planes, in both the
+focal shape (N members x K tracked subjects) and full view (K == N).
+State is [N, K] per observer row and subject column (``SwimState``); the
+world holds the ground truth and the fault schedule (``SwimWorld``).
+
+The network model is the reference's: per-link fault rules
+(``LinkFaults``, ``SwimWorld.with_link_fault`` / ``with_block``: loss
+and mean delay per sender/receiver id range and round window, the last
+matching rule winning), a default loss and mean delay
+(``loss_probability``, ``mean_delay_ms``), delayed delivery into a ring
+of ``max_delay_rounds + 1`` slots, seed-gated contacts and the joiner
+<-> seed round trip of a seeded cold start (``with_seeds``, full view),
+and user gossips riding the gossip channels (``n_user_gossips``,
+``with_spread``).
 
 Three layouts besides the wide one (int8 status, int32 inc/spread/
 deadline, int32 wire keys), as in the reference:
@@ -20,19 +29,22 @@ deadline, int32 wire keys), as in the reference:
   an int32 word (incarnation cap 32767, the carry's).
 
 Each is trace-identical to the wide layout while incarnations stay
-below its cap.
+below its cap.  The delay ring holds keys in the wire dtype; the codec
+does not touch it.
 
 Each round (``swim_tick``):
 
 0. ``kernels/carry.carry_decode`` (compact carry only);
 1. ``_round_context``: liveness and partition slices, the self-record
-   pin, the FD and SYNC phase gates;
+   pin, user-gossip injections, the FD and SYNC phase gates;
 2. ``_fd_phase``: the FD probe chains and their SUSPECT verdicts;
-3. ``_delivery_phase``: F gossip channels, the refute push and the SYNC
-   channel over cyclic shifts, max-folded into one inbox of the wire
-   format's dtype;
+3. ``_delivery_phase``: the ring's due slot, F gossip channels, the
+   refute push and the SYNC channel over cyclic shifts (later arrivals
+   binned into the ring), the joiner <-> seed exchange, max-folded into
+   one inbox of the wire format's dtype;
 4. ``_merge_and_timers``: the CUDA kernel ``kernels/merge.py``, one
-   instance per wire format (its plain PyTorch version for CPU tensors);
+   instance per wire format (its plain PyTorch version for CPU tensors),
+   then the user-gossip lanes;
 5. ``_round_metrics``: the per-round observability counters;
 6. ``kernels/carry.carry_encode`` (compact carry only).
 
@@ -44,14 +56,15 @@ Randomness comes from a ``RoundDraws`` per round (``ops/prng.py``):
 ``run(..., draws=None)`` uses the port's ``TorchDraws``; any callable
 ``round_idx -> RoundDraws`` can stand in, which is how the tests feed the
 reference's own draws and hold the state and metrics bit-identical.
+Which draws a round takes follows from static facts of the params and
+world (``prng.DrawFacts``).
 
-Settings outside this slice raise ``NotImplementedError`` naming the
-knob: ``delivery="scatter"``, ``max_delay_rounds > 0``,
-``mean_delay_ms > 0``, ``k_block``, ``n_user_gossips``,
-``sync_interval``, ``lhm_max``, ``dead_suppress_rounds``,
-``open_world``, ``metadata_keys``, ``provenance``, ``link_counters``,
-and worlds with seeds or link-fault rules.  ``rounds_per_step`` is accepted and ignored: the reference's
-outputs are bit-identical for any value.
+Settings outside the port raise ``NotImplementedError`` naming the
+knob: ``delivery="scatter"``, ``k_block``, ``sync_interval``,
+``lhm_max``, ``dead_suppress_rounds``, ``open_world``,
+``metadata_keys``, ``provenance`` and ``link_counters``.
+``rounds_per_step`` is accepted and ignored: the reference's outputs are
+bit-identical for any value.
 """
 
 from __future__ import annotations
@@ -67,6 +80,7 @@ from scalecube_cluster_tpu_torch.kernels import carry
 from scalecube_cluster_tpu_torch.kernels import merge as merge_kernel
 from scalecube_cluster_tpu_torch.ops import delivery
 from scalecube_cluster_tpu_torch.ops import prng
+from scalecube_cluster_tpu_torch.ops import ring as ring_ops
 from scalecube_cluster_tpu_torch.ops.shift import ShiftEngine
 
 INT32_MAX = 2**31 - 1
@@ -96,10 +110,7 @@ def resolve_device(device) -> torch.device:
 
 # Knobs whose non-default values select code the port does not carry.
 _UNPORTED = (
-    ("max_delay_rounds", lambda p: p.max_delay_rounds > 0),
-    ("mean_delay_ms", lambda p: p.mean_delay_ms > 0),
     ("k_block", lambda p: p.k_block != 0),
-    ("n_user_gossips", lambda p: p.n_user_gossips != 0),
     ("sync_interval", lambda p: p.sync_interval != 0),
     ("lhm_max", lambda p: p.lhm_max != 0),
     ("dead_suppress_rounds", lambda p: p.dead_suppress_rounds != 0),
@@ -170,7 +181,7 @@ class SwimParams:
             if selected(self):
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported (the port "
-                    f"carries the plane-off wide-carry shift round)")
+                    f"carries the plane-off shift round)")
         if self.ping_known_only != self.full_view:
             raise ValueError(
                 f"shift delivery requires ping_known_only == full_view "
@@ -278,17 +289,134 @@ def knob_ping_timeout(kn: Knobs, params: SwimParams) -> float:
     return min(max(kn.ping_timeout_ms, 0.0), params.ping_interval_ms)
 
 
-def link_eval(src_ids, dst_ids, default_loss: float,
-              default_delay_ms: float = 0.0):
-    """(loss probability [float32], mean delay) per (src, dst) message,
-    for a world without link-fault rules: the default loss everywhere,
-    and ``None`` for the statically zero delay."""
-    if default_delay_ms != 0.0:
-        raise NotImplementedError("mean_delay_ms > 0 is not ported")
+@dataclasses.dataclass
+class LinkFaults:
+    """Ordered per-link override rules, as [R] device tensors.
+
+    Rule r matches messages with sender id in [src_lo[r], src_hi[r]),
+    receiver id in [dst_lo[r], dst_hi[r]), during rounds
+    [from_round[r], until_round[r]); the last matching rule wins.
+    ``loss == 1.0`` is a blocked link; ``delay_ms`` is the mean of the
+    exponential per-hop delay.  int32 bounds, float32 loss and delay.
+    """
+
+    src_lo: torch.Tensor
+    src_hi: torch.Tensor
+    dst_lo: torch.Tensor
+    dst_hi: torch.Tensor
+    from_round: torch.Tensor
+    until_round: torch.Tensor
+    loss: torch.Tensor
+    delay_ms: torch.Tensor
+    # Host copies of the round windows, and the active subsets built so
+    # far (keyed by rule indices).
+    _windows: tuple = dataclasses.field(init=False, repr=False,
+                                        compare=False)
+    _subsets: dict = dataclasses.field(init=False, repr=False,
+                                       compare=False, default_factory=dict)
+
+    ARRAYS = ("src_lo", "src_hi", "dst_lo", "dst_hi", "from_round",
+              "until_round", "loss", "delay_ms")
+
+    def __post_init__(self):
+        self._windows = tuple(zip(self.from_round.tolist(),
+                                  self.until_round.tolist()))
+
+    @staticmethod
+    def none(device="cpu") -> "LinkFaults":
+        z = torch.zeros((0,), dtype=torch.int32, device=device)
+        f = torch.zeros((0,), dtype=torch.float32, device=device)
+        return LinkFaults(z, z, z, z, z, z, f, f)
+
+    @property
+    def n_rules(self) -> int:
+        return self.src_lo.shape[0]
+
+    def add(self, src, dst, loss: float, delay_ms: float = 0.0,
+            from_round: int = 0, until_round: int = INT32_MAX
+            ) -> "LinkFaults":
+        """Append one rule.  ``src``/``dst`` are a node id or an (lo, hi)
+        half-open id range.  A loss outside [0, 1], a negative delay, an
+        empty id range or an inverted round window raises."""
+        def rng(x):
+            if isinstance(x, (tuple, list)):
+                return int(x[0]), int(x[1])
+            return int(x), int(x) + 1
+        s_lo, s_hi = rng(src)
+        d_lo, d_hi = rng(dst)
+        if not 0.0 <= float(loss) <= 1.0:
+            raise ValueError(
+                f"loss must be a probability in [0, 1] (got {loss!r})")
+        if float(delay_ms) < 0.0:
+            raise ValueError(
+                f"delay_ms must be non-negative (got {delay_ms!r})")
+        if s_lo >= s_hi or d_lo >= d_hi:
+            raise ValueError(
+                f"empty id range: src=[{s_lo}, {s_hi}), dst=[{d_lo}, "
+                f"{d_hi}) — a half-open range needs lo < hi, and a rule "
+                f"over an empty range would silently match nothing")
+        if int(from_round) >= int(until_round):
+            raise ValueError(
+                f"inverted round window [{from_round}, {until_round}) — "
+                f"the rule would silently never apply")
+        row = (s_lo, s_hi, d_lo, d_hi, int(from_round), int(until_round),
+               float(loss), float(delay_ms))
+        return LinkFaults(**{
+            name: torch.cat([getattr(self, name),
+                             getattr(self, name).new_tensor([value])])
+            for name, value in zip(self.ARRAYS, row)})
+
+    def active(self, round_idx: int) -> "LinkFaults":
+        """The rules whose round window holds ``round_idx``, in their
+        order (chosen on the host: the round index is a host int)."""
+        idx = tuple(r for r, (lo, hi) in enumerate(self._windows)
+                    if lo <= round_idx < hi)
+        if idx not in self._subsets:
+            pick = torch.tensor(idx, dtype=torch.long,
+                                device=self.src_lo.device)
+            self._subsets[idx] = LinkFaults(**{
+                name: getattr(self, name).index_select(0, pick)
+                for name in self.ARRAYS})
+        return self._subsets[idx]
+
+
+def link_eval(faults: LinkFaults, round_idx: int, src_ids, dst_ids,
+              default_loss: float, default_delay_ms: float):
+    """(loss probability, mean delay ms) per (src, dst) message this round,
+    float32 in the broadcast shape of ``src_ids`` and ``dst_ids``.
+
+    The delay is ``None`` when it is statically zero (no rules and a zero
+    default): the FD chains then collapse to one Bernoulli draw and
+    delivery skips the ring.  The rules whose window holds the round
+    (``LinkFaults.active``, on the host) are evaluated in one broadcast
+    against [..., A]; the last match is the largest ``match * (a + 1)``,
+    and loss and delay are read from [A + 1] tables whose entry 0 holds
+    the default.  The values are copied, never computed, so they equal
+    the reference's unrolled ``where`` per rule."""
     shape = torch.broadcast_shapes(src_ids.shape, dst_ids.shape)
-    loss = torch.full(shape, default_loss, dtype=torch.float32,
-                      device=src_ids.device)
-    return loss, None
+    device = src_ids.device
+
+    def full(value):
+        return torch.full(shape, value, dtype=torch.float32, device=device)
+
+    if faults.n_rules == 0:
+        return (full(default_loss),
+                None if default_delay_ms == 0.0 else full(default_delay_ms))
+    rules = faults.active(round_idx)
+    if rules.n_rules == 0:
+        return full(default_loss), full(default_delay_ms)
+    s, d = src_ids[..., None], dst_ids[..., None]
+    match = ((s >= rules.src_lo) & (s < rules.src_hi)
+             & (d >= rules.dst_lo) & (d < rules.dst_hi))
+    rank = torch.arange(1, rules.n_rules + 1, dtype=torch.int32,
+                        device=device)
+    last = torch.where(match, rank, 0).amax(dim=-1)
+
+    def table(default, values):
+        return torch.cat([values.new_full((1,), default), values])[last]
+
+    return (table(default_loss, rules.loss),
+            table(default_delay_ms, rules.delay_ms))
 
 
 # --------------------------------------------------------------------------
@@ -305,8 +433,15 @@ class SwimWorld:
     receiving.  ``leave_at`` [N] int32: graceful leave round (INT32_MAX =
     never).  ``partition_of`` [P, N] int8: rolling partition schedule,
     phase ``(r // partition_phase_rounds) % P`` active at round r.
-    ``subject_ids`` [K] int32 (distinct) and ``slot_of_node`` [N] int32
-    (slot -1 = not a tracked subject).
+    ``faults``: per-link loss/delay/block rules (:class:`LinkFaults`).
+    ``seed_ids`` [S] int32: configured seed members; when non-empty, a
+    full-view sender gossips and SYNCs only to members it holds live or
+    to seeds, and members with ABSENT entries run the joiner <-> seed
+    exchange on SYNC rounds.  ``subject_ids`` [K] int32 (distinct) and
+    ``slot_of_node`` [N] int32 (slot -1 = not a tracked subject).
+    ``gossip_origin``/``gossip_spread_at`` [G] int32: user gossip g is
+    spread by its origin in round ``gossip_spread_at[g]`` (INT32_MAX =
+    never; ``SwimParams.n_user_gossips`` = G).
     """
 
     down_from: torch.Tensor
@@ -314,8 +449,12 @@ class SwimWorld:
     leave_at: torch.Tensor
     partition_of: torch.Tensor
     partition_phase_rounds: int
+    faults: LinkFaults
+    seed_ids: torch.Tensor
     subject_ids: torch.Tensor
     slot_of_node: torch.Tensor
+    gossip_origin: torch.Tensor
+    gossip_spread_at: torch.Tensor
 
     def __post_init__(self):
         n = self.down_from.shape[0]
@@ -339,7 +478,7 @@ class SwimWorld:
     def healthy(params: SwimParams, subject_ids=None,
                 device="cuda") -> "SwimWorld":
         device = resolve_device(device)
-        n, k = params.n_members, params.n_subjects
+        n, k, g = params.n_members, params.n_subjects, params.n_user_gossips
         if subject_ids is None:
             subject_ids = torch.arange(k, dtype=torch.int32)
         subject_ids = torch.as_tensor(subject_ids, dtype=torch.int32,
@@ -354,9 +493,30 @@ class SwimWorld:
             leave_at=never.clone(),
             partition_of=torch.zeros((1, n), dtype=torch.int8, device=device),
             partition_phase_rounds=1,
+            faults=LinkFaults.none(device),
+            seed_ids=torch.zeros((0,), dtype=torch.int32, device=device),
             subject_ids=subject_ids,
             slot_of_node=slot_of_node,
+            gossip_origin=torch.arange(g, dtype=torch.int32,
+                                       device=device) % max(n, 1),
+            gossip_spread_at=torch.full((g,), INT32_MAX, dtype=torch.int32,
+                                        device=device),
         )
+
+    def with_spread(self, gossip_idx: int, origin,
+                    at_round: int) -> "SwimWorld":
+        """Schedule user gossip ``gossip_idx``'s spread at ``origin`` in
+        round ``at_round`` (the origin must be alive then to spread it)."""
+        if not 0 <= gossip_idx < self.gossip_origin.shape[0]:
+            raise ValueError(
+                f"gossip_idx {gossip_idx} out of range for n_user_gossips="
+                f"{self.gossip_origin.shape[0]}")
+        gossip_origin = self.gossip_origin.clone()
+        gossip_spread_at = self.gossip_spread_at.clone()
+        gossip_origin[gossip_idx] = int(origin)
+        gossip_spread_at[gossip_idx] = int(at_round)
+        return dataclasses.replace(self, gossip_origin=gossip_origin,
+                                   gossip_spread_at=gossip_spread_at)
 
     def _node_ids(self, node, method: str) -> torch.Tensor:
         ids = torch.atleast_1d(torch.as_tensor(node, dtype=torch.int64))
@@ -397,12 +557,26 @@ class SwimWorld:
         return dataclasses.replace(self, partition_of=partition_of,
                                    partition_phase_rounds=int(phase_rounds))
 
-    def with_seeds(self, seed_ids) -> "SwimWorld":
-        raise NotImplementedError("seed_ids (seed-gated contacts) are not "
-                                  "ported")
+    def with_link_fault(self, src, dst, loss: float, delay_ms: float = 0.0,
+                        from_round: int = 0,
+                        until_round: int = INT32_MAX) -> "SwimWorld":
+        """Per-link loss/delay override for messages src -> dst only
+        (``src``/``dst``: node id or (lo, hi) half-open range)."""
+        return dataclasses.replace(
+            self, faults=self.faults.add(src, dst, loss, delay_ms,
+                                         from_round, until_round))
 
-    def with_link_fault(self, *args, **kwargs) -> "SwimWorld":
-        raise NotImplementedError("LinkFaults rules are not ported")
+    def with_block(self, src, dst, from_round: int = 0,
+                   until_round: int = INT32_MAX) -> "SwimWorld":
+        """Block the src -> dst link (loss 1.0) during the window."""
+        return self.with_link_fault(src, dst, loss=1.0,
+                                    from_round=from_round,
+                                    until_round=until_round)
+
+    def with_seeds(self, seed_ids) -> "SwimWorld":
+        """Configure seed members (ids range-checked)."""
+        ids = self._node_ids(seed_ids, "with_seeds")
+        return dataclasses.replace(self, seed_ids=ids.to(torch.int32))
 
     def alive_at(self, round_idx: int) -> torch.Tensor:
         """[N] bool ground-truth liveness at a round."""
@@ -434,6 +608,15 @@ class SwimState:
     ``spread_until`` int8 and ``suspect_deadline`` int16, the last two
     as rounds remaining from the next round (``_DEADLINE_NONE16`` = no
     timer; a stale deadline is negative).
+
+    Delayed delivery (D = ``max_delay_rounds + 1``, or 0 when the ring is
+    off): ``inbox_ring`` [D, N, K] wire keys in the wire dtype (-1 = no
+    message) and ``flag_ring`` [D, N, K] int8 ALIVE flags; slot
+    ``round % D`` holds the messages due in that round.  User gossips
+    (G = ``n_user_gossips``): ``g_infected`` [N, G] bool possession,
+    ``g_spread_until`` [N, G] int32 absolute retransmission window (in
+    both carry layouts), ``g_ring`` [D or 0, N, G] bool delayed bits.
+    Lanes of a feature that is off are zero-size.
     """
 
     status: torch.Tensor
@@ -441,24 +624,77 @@ class SwimState:
     spread_until: torch.Tensor
     suspect_deadline: torch.Tensor
     self_inc: torch.Tensor
+    inbox_ring: torch.Tensor
+    flag_ring: torch.Tensor
+    g_infected: torch.Tensor
+    g_spread_until: torch.Tensor
+    g_ring: torch.Tensor
+
+
+def ring_slots(params: SwimParams) -> int:
+    """D, the delay ring's slot count (0 when delayed delivery is off)."""
+    return params.max_delay_rounds + 1 if params.max_delay_rounds > 0 else 0
+
+
+def empty_lanes(n: int, k: int, device, d: int = 0, g: int = 0,
+                wire_dtype: torch.dtype = torch.int32) -> dict:
+    """Empty delay-ring and user-gossip lanes: a ``d``-slot ring of [n, k]
+    keys in ``wire_dtype`` and flags, and ``g`` user gossips held by no
+    one (zero-size where ``d`` or ``g`` is 0)."""
+    return dict(
+        inbox_ring=torch.full((d, n, k), delivery.NO_MESSAGE,
+                              dtype=wire_dtype, device=device),
+        flag_ring=torch.zeros((d, n, k), dtype=torch.int8, device=device),
+        g_infected=torch.zeros((n, g), dtype=torch.bool, device=device),
+        g_spread_until=torch.zeros((n, g), dtype=torch.int32, device=device),
+        g_ring=torch.zeros((d if g else 0, n, g), dtype=torch.bool,
+                           device=device),
+    )
+
+
+def initial_lanes(params: SwimParams, device) -> dict:
+    """The ring and user-gossip lanes of a fresh state under ``params``."""
+    return empty_lanes(params.n_members, params.n_subjects, device,
+                       d=ring_slots(params), g=params.n_user_gossips,
+                       wire_dtype=params.wire_format.dtype)
+
+
+def check_lanes(state: SwimState, params: SwimParams) -> None:
+    """Raise unless the ring and gossip lanes have the shapes and dtypes
+    ``params`` gives them."""
+    for name, want in initial_lanes(params, "meta").items():
+        got = getattr(state, name)
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise ValueError(
+                f"state.{name} is {got.dtype}{tuple(got.shape)}, the params "
+                f"need {want.dtype}{tuple(want.shape)} (max_delay_rounds="
+                f"{params.max_delay_rounds}, n_user_gossips="
+                f"{params.n_user_gossips})")
 
 
 def initial_state(params: SwimParams, world: SwimWorld, warm: bool = True,
                   device="cuda") -> SwimState:
     """Warm: everyone knows every subject ALIVE at incarnation 0.  Cold
-    (``warm=False``, no seeds): rows are ABSENT except each node's own
-    record, which is hot for a full spread window."""
+    (``warm=False``): rows are ABSENT except each node's own record, hot
+    for a full spread window, and the configured seeds' columns, which
+    every node knows ALIVE."""
     device = resolve_device(device)
     _check_world_device(world, device)
     n, k = params.n_members, params.n_subjects
     is_self = _is_self(world, n)
     fill = records.ALIVE if warm else records.ABSENT
     status = torch.full((n, k), fill, dtype=torch.int8, device=device)
+    if not warm and world.seed_ids.shape[0] > 0:
+        seed_slot = world.slot_of_node[world.seed_ids.long()]
+        is_seed_col = torch.zeros((k,), dtype=torch.bool, device=device)
+        is_seed_col[seed_slot[seed_slot >= 0].long()] = True
+        status = torch.where(is_seed_col[None, :], records.ALIVE, status)
     status = torch.where(is_self, records.ALIVE, status).to(torch.int8)
     spread0 = torch.zeros((n, k), dtype=torch.int32, device=device)
     if not warm:
         spread0 = torch.where(is_self, params.periods_to_spread + 1,
                               spread0).to(torch.int32)
+    lanes = initial_lanes(params, device)
     if params.compact_carry:
         # Remaining rounds from round 0 (re-relativized every round by
         # carry_encode).
@@ -469,7 +705,7 @@ def initial_state(params: SwimParams, world: SwimWorld, warm: bool = True,
             suspect_deadline=torch.full((n, k), _DEADLINE_NONE16,
                                         dtype=torch.int16, device=device),
             self_inc=torch.zeros((n,), dtype=torch.int32, device=device),
-        )
+            **lanes)
     return SwimState(
         status=status,
         inc=torch.zeros((n, k), dtype=torch.int32, device=device),
@@ -477,7 +713,7 @@ def initial_state(params: SwimParams, world: SwimWorld, warm: bool = True,
         suspect_deadline=torch.full((n, k), INT32_MAX, dtype=torch.int32,
                                     device=device),
         self_inc=torch.zeros((n,), dtype=torch.int32, device=device),
-    )
+        **lanes)
 
 
 def _check_world_device(world: SwimWorld, device: torch.device) -> None:
@@ -499,7 +735,8 @@ def _is_self(world: SwimWorld, n: int) -> torch.Tensor:
 def _round_context(state: SwimState, round_idx: int, params: SwimParams,
                    world: SwimWorld, kn: Knobs) -> dict:
     """Per-round preamble: world liveness/partition slices, the self
-    pin (a node always holds itself ALIVE at self_inc) and the phase
+    pin (a node always holds itself ALIVE at self_inc), the user-gossip
+    spreads due this round, the contact gate's seed mask and the phase
     gates (host bools: the round index and cadences are host ints)."""
     n = params.n_members
     alive = world.alive_at(round_idx)
@@ -508,23 +745,69 @@ def _round_context(state: SwimState, round_idx: int, params: SwimParams,
     is_self = _is_self(world, n)
     status = torch.where(is_self, records.ALIVE, state.status).to(torch.int8)
     inc = torch.where(is_self, state.self_inc[:, None], state.inc)
+    g_infected, g_spread_until = state.g_infected, state.g_spread_until
+    if params.n_user_gossips > 0:
+        # A spread() injects gossip g at its live origin, which starts
+        # sending it the same round.
+        inject = ((world.gossip_spread_at[None, :] == round_idx)
+                  & (world.gossip_origin[None, :] == node_ids[:, None])
+                  & alive[:, None])
+        g_spread_until = torch.where(
+            inject & ~g_infected, round_idx + 1 + params.periods_to_spread,
+            g_spread_until)
+        g_infected = g_infected | inject
+    # Contact gating (full view with seeds): a sender gossips/SYNCs only
+    # to members it holds live, or to seeds.
+    is_seed = None
+    if params.full_view and world.seed_ids.shape[0] > 0:
+        is_seed = torch.zeros((n,), dtype=torch.bool, device=world.device)
+        is_seed[world.seed_ids.long()] = True
     fd_round = kn.ping_every > 0 and round_idx % max(kn.ping_every, 1) == 0
     sync_round = kn.sync_every > 0 and round_idx % max(kn.sync_every, 1) == 0
     return dict(alive=alive, part=part, node_ids=node_ids, is_self=is_self,
-                status=status, inc=inc, fd_round=fd_round,
-                sync_round=sync_round)
+                status=status, inc=inc, g_infected=g_infected,
+                g_spread_until=g_spread_until, is_seed=is_seed,
+                fd_round=fd_round, sync_round=sync_round)
 
 
-def _chain_ok(u: torch.Tensor, hop_losses: Sequence[torch.Tensor],
-              budget_ms: float) -> torch.Tensor:
-    """Multi-hop success with every hop delay statically zero: one
-    Bernoulli draw ``u`` against the product of per-hop delivery
-    probabilities (exact for independent per-hop losses), built in
-    float32 in the reference's order."""
-    p_chain = torch.ones(u.shape, dtype=torch.float32, device=u.device)
-    for loss in hop_losses:
-        p_chain = p_chain * (1.0 - loss)
-    return (u < p_chain) & (0.0 <= budget_ms)
+def _fma32(e: torch.Tensor, mean: torch.Tensor,
+           total: torch.Tensor) -> torch.Tensor:
+    """float32 ``fma(e, mean, total)``: one rounding of ``e * mean +
+    total``, as XLA fuses the reference's delay sum.  The float32 product
+    is exact in float64, so the float64 sum rounds once before the
+    float32 rounding, the same on every device."""
+    return torch.addcmul(total.double(), e.double(), mean.double()).float()
+
+
+def _chain_ok(u: torch.Tensor, e: Optional[torch.Tensor],
+              hop_losses: Sequence[torch.Tensor],
+              hop_delays: Sequence[Optional[torch.Tensor]],
+              budget_ms) -> torch.Tensor:
+    """Multi-hop success: every hop delivered and the summed delay within
+    ``budget_ms``.
+
+    With every hop delay statically zero (``None``): one Bernoulli draw
+    ``u`` [...] against the product of per-hop delivery probabilities
+    (exact for independent losses), built in float32 in the reference's
+    order.  Otherwise ``u`` [..., H] holds per-hop loss uniforms (hop h
+    delivered iff ``u_h >= loss_h``) and ``e`` [..., D] the unit
+    exponentials of the D delayed hops, summed in hop order as
+    ``fma(e_j, mean_j, total)``.  ``budget_ms``: a number, or a float32
+    tensor broadcasting against the chains."""
+    delayed = [h for h, d in enumerate(hop_delays) if d is not None]
+    if not delayed:
+        p_chain = torch.ones(u.shape, dtype=torch.float32, device=u.device)
+        for loss in hop_losses:
+            p_chain = p_chain * (1.0 - loss)
+        return (u < p_chain) & (0.0 <= budget_ms)
+    ok = u[..., 0] >= hop_losses[0]
+    for h in range(1, len(hop_losses)):
+        ok &= u[..., h] >= hop_losses[h]
+    total = torch.zeros(ok.shape, dtype=torch.float32, device=u.device)
+    for j, h in enumerate(delayed):
+        total = _fma32(e[..., j], hop_delays[h], total)
+    return ok & (total <= torch.as_tensor(budget_ms, dtype=torch.float32,
+                                          device=u.device))
 
 
 def _entry_at_slot(mat: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
@@ -535,9 +818,11 @@ def _entry_at_slot(mat: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
 
 def _shift_fd_chains(eng, d_ids, d_alive, d_part, fd_shift: int,
                      proxy_shifts: Sequence[int], draws: prng.RoundDraws,
-                     params: SwimParams, kn: Knobs, node_ids, part_here):
+                     params: SwimParams, kn: Knobs, world: SwimWorld,
+                     round_idx: int, node_ids, part_here):
     """FD network outcomes as [N] vectors: the direct ping round trip and
-    the ping-req proxy chains (FailureDetectorImpl.java:128-213).
+    the ping-req proxy chains (FailureDetectorImpl.java:128-213), each
+    hop with its link's loss and delay.
 
     Returns ``(t, alive_t, part_t, direct_ok, ack_ok)`` with ``t`` each
     prober's target and ``ack_ok`` including proxy rescues."""
@@ -546,11 +831,17 @@ def _shift_fd_chains(eng, d_ids, d_alive, d_part, fd_shift: int,
     t = eng.look(d_ids, fd_shift)
     alive_t = eng.look(d_alive, fd_shift)
     part_t = eng.look(d_part, fd_shift)
-    loss_it, _ = link_eval(node_ids, t, kn.loss_probability,
-                           params.mean_delay_ms)
-    loss_ti, _ = link_eval(t, node_ids, kn.loss_probability,
-                           params.mean_delay_ms)
-    direct_ok = (_chain_ok(draws.u_direct, [loss_it, loss_ti], ping_budget)
+
+    def hops(pairs):
+        links = [link_eval(world.faults, round_idx, src, dst,
+                           kn.loss_probability, params.mean_delay_ms)
+                 for src, dst in pairs]
+        return [lo for lo, _ in links], [de for _, de in links]
+
+    delayed = draws.u_direct is None
+    losses, delays = hops(((node_ids, t), (t, node_ids)))
+    direct_ok = (_chain_ok(draws.chain_u_direct if delayed else draws.u_direct,
+                           draws.chain_e_direct, losses, delays, ping_budget)
                  & alive_t & (part_here == part_t))
     ack_ok = direct_ok
     for r in range(params.ping_req_members):
@@ -558,12 +849,11 @@ def _shift_fd_chains(eng, d_ids, d_alive, d_part, fd_shift: int,
         p_ids = eng.look(d_ids, ps)
         p_alive = eng.look(d_alive, ps)
         p_part = eng.look(d_part, ps)
-        hop_losses = [
-            link_eval(src, dst, kn.loss_probability, params.mean_delay_ms)[0]
-            for src, dst in ((node_ids, p_ids), (p_ids, t), (t, p_ids),
-                             (p_ids, node_ids))
-        ]
-        ok_pr = (_chain_ok(draws.u_proxy[r], hop_losses, ping_req_budget)
+        losses, delays = hops(((node_ids, p_ids), (p_ids, t), (t, p_ids),
+                               (p_ids, node_ids)))
+        u, e = ((draws.chain_u_proxy[r], draws.chain_e_proxy[r]) if delayed
+                else (draws.u_proxy[r], None))
+        ok_pr = (_chain_ok(u, e, losses, delays, ping_req_budget)
                  & p_alive & alive_t
                  & (part_here == p_part) & (p_part == part_t)
                  & (ps != fd_shift))                     # proxy != target
@@ -572,16 +862,17 @@ def _shift_fd_chains(eng, d_ids, d_alive, d_part, fd_shift: int,
 
 
 def _shift_sender_gate(eng, d_ids, d_alive, d_part, s: int, node_ids,
-                       kn: Knobs, params: SwimParams):
+                       kn: Knobs, params: SwimParams, world: SwimWorld,
+                       round_idx: int):
     """The sender's id/alive/partition views through shift ``s`` and the
-    sender->receiver hop's loss, evaluated at the receiver.
+    sender->receiver hop's loss and delay, evaluated at the receiver.
 
     Returns ``(sender, sender_alive, sender_part, loss, delay)``."""
     sender = eng.deliver(d_ids, s)
     sender_alive = eng.deliver(d_alive, s)
     sender_part = eng.deliver(d_part, s)
-    loss, delay = link_eval(sender, node_ids, kn.loss_probability,
-                            params.mean_delay_ms)
+    loss, delay = link_eval(world.faults, round_idx, sender, node_ids,
+                            kn.loss_probability, params.mean_delay_ms)
     return sender, sender_alive, sender_part, loss, delay
 
 
@@ -606,8 +897,9 @@ def _send_components(state: SwimState, status, inc, round_idx: int,
     return record_keys, hot, syncable
 
 
-def _fd_phase(eng, views, ctx: dict, shifts, params: SwimParams, kn: Knobs,
-              world: SwimWorld, draws: prng.RoundDraws) -> dict:
+def _fd_phase(eng, views, ctx: dict, shifts, round_idx: int,
+              params: SwimParams, kn: Knobs, world: SwimWorld,
+              draws: prng.RoundDraws) -> dict:
     """Phase 1, the failure-detector probe: each prober's verdict about
     its shared-offset target, as [N] masks plus the SUSPECT verdicts as an
     [N, K] inbox contribution.  Verdicts are masked by the fd round."""
@@ -618,8 +910,8 @@ def _fd_phase(eng, views, ctx: dict, shifts, params: SwimParams, kn: Knobs,
     fd_shift = shifts[0]
     t, _, _, direct_ok, ack_ok = _shift_fd_chains(
         eng, d_ids, d_alive, d_part, fd_shift,
-        shifts[1:1 + params.ping_req_members], draws, params, kn,
-        ctx["node_ids"], part_here)
+        shifts[1:1 + params.ping_req_members], draws, params, kn, world,
+        round_idx, ctx["node_ids"], part_here)
     if params.full_view:
         slot = t
         entry_t_status = _entry_at_slot(status, t)
@@ -656,14 +948,96 @@ def _fd_phase(eng, views, ctx: dict, shifts, params: SwimParams, kn: Knobs,
     )
 
 
+class _DelayRing:
+    """The state's delay rings during one round's delivery: the due slot
+    is read and cleared at construction, later arrivals are pushed by
+    :meth:`route` (in place: the caller owns the rings)."""
+
+    def __init__(self, state: SwimState, params: SwimParams, round_idx: int):
+        self.params = params
+        self.d = ring_slots(params)
+        self.slot0 = round_idx % self.d
+        self.keys, self.flags = state.inbox_ring, state.flag_ring
+        self.g = state.g_ring if params.n_user_gossips > 0 else None
+        self.keys_now = ring_ops.open_slot(self.keys, self.slot0,
+                                           delivery.NO_MESSAGE)
+        self.flags_now = ring_ops.open_slot(self.flags, self.slot0,
+                                            0).bool()
+        self.g_now = (None if self.g is None
+                      else ring_ops.open_slot(self.g, self.slot0, False))
+
+    def route(self, ok, delivered, delivered_flags, delay, e, g_bits=None):
+        """Split one channel's delivery into now and later: messages with
+        delay bin j >= 1 go to slot ``(slot0 + j) % D``; returns the mask
+        of those arriving this round.  ``delay`` None (statically zero)
+        means all arrive now.  ``g_bits`` [N, G]: user-gossip bits riding
+        the same message (the same bin)."""
+        if delay is None:
+            return ok
+        q = ring_ops.delay_bins(e, delay, self.params.round_ms,
+                                self.params.max_delay_rounds)
+        for j in range(1, self.d):
+            m = (ok & (q == j))[:, None]
+            slot = (self.slot0 + j) % self.d
+            ring_ops.push_max(self.keys, slot, torch.where(
+                m, delivered, delivery.NO_MESSAGE))
+            ring_ops.push_or(self.flags, slot,
+                             (delivered_flags & m).to(torch.int8))
+            if g_bits is not None:
+                ring_ops.push_or(self.g, slot, g_bits & m)
+        return ok & (q == 0)
+
+
+def _seed_anti_entropy(status, sync_keys, inbox, inbox_alive,
+                       round_idx: int, params: SwimParams, kn: Knobs,
+                       world: SwimWorld, ctx: dict, draws: prng.RoundDraws):
+    """The joiner <-> seed SYNC round trip of a SYNC round (the
+    reference's join protocol, MembershipProtocolImpl.java:298-367):
+    every live member still holding ABSENT entries pushes its syncable
+    row to its drawn seed (``draws.seed_sel``) and, if the push arrived,
+    gets the seed's pre-merge row back the same round.  Returns
+    ``(inbox, inbox_alive)``."""
+    wf = params.wire_format
+    no_msg = delivery.no_message(wf)
+    node_ids, alive, part = ctx["node_ids"], ctx["alive"], ctx["part"]
+    pusher = alive & (status == records.ABSENT).any(dim=1)
+    for si in range(world.seed_ids.shape[0]):
+        sid = world.seed_ids[si]
+        mask_i = pusher & (draws.seed_sel == si) & (node_ids != sid)
+        loss_push, _ = link_eval(world.faults, round_idx, node_ids, sid,
+                                 kn.loss_probability, params.mean_delay_ms)
+        ok_push = (mask_i & alive[sid] & (part == part[sid])
+                   & ~(draws.seed_push_u[si] < loss_push))
+        # The seed merges the columnwise max over its arriving pushes.
+        is_seed_row = (node_ids == sid)[:, None]
+        contribution = torch.where(ok_push[:, None], sync_keys,
+                                   no_msg).amax(dim=0)
+        inbox = torch.maximum(inbox, torch.where(
+            is_seed_row, contribution[None, :], no_msg))
+        inbox_alive |= is_seed_row & delivery.is_alive_key(
+            contribution, fmt=wf)[None, :]
+        # The ack: the seed's row back to every successful pusher.
+        seed_row = sync_keys[sid.long()]
+        loss_ack, _ = link_eval(world.faults, round_idx, sid, node_ids,
+                                kn.loss_probability, params.mean_delay_ms)
+        ok_ack = (ok_push & ~(draws.seed_ack_u[si] < loss_ack))[:, None]
+        inbox = torch.maximum(inbox, torch.where(ok_ack, seed_row[None, :],
+                                                 no_msg))
+        inbox_alive |= ok_ack & delivery.is_alive_key(seed_row,
+                                                       fmt=wf)[None, :]
+    return inbox, inbox_alive
+
+
 def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
                     shifts, round_idx: int, params: SwimParams, kn: Knobs,
                     world: SwimWorld, draws: prng.RoundDraws):
-    """Phases 2-3: the F gossip channels, the refute push and the SYNC
-    channel over cyclic shifts, max-folded with the FD verdicts into one
-    inbox of the wire format's dtype.  Sender-side gates evaluate at the
-    receiver through shifted views.  Returns ``(inbox, inbox_alive,
-    messages_gossip)``."""
+    """Phases 2-3: the ring's due slot, the F gossip channels, the refute
+    push and the SYNC channel over cyclic shifts (delayed messages binned
+    into the ring), and the joiner <-> seed exchange, max-folded with the
+    FD verdicts into one inbox of the wire format's dtype.  Sender-side
+    gates evaluate at the receiver through shifted views.  Returns
+    ``(inbox, inbox_alive, g_delivered, messages_gossip)``;
+    ``g_delivered`` [N, G] is None without user gossips."""
     d_ids, d_alive, d_part = views
     n, k = params.n_members, params.n_subjects
     r_proxies, f = params.ping_req_members, params.fanout
@@ -678,7 +1052,19 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
     h_keys = eng.prep(record_keys)
     # Both transmit masks ride one int8 buffer (bit 0 hot, bit 1 syncable).
     h_tx = eng.prep(hot.to(torch.int8) | (syncable.to(torch.int8) << 1))
-    h_hot_any = eng.prep(hot.any(dim=1))
+    hot_any = hot.any(dim=1)
+    h_g = g_delivered = None
+    if params.n_user_gossips > 0:
+        # User gossips ride the same messages; a message exists when
+        # either family has content.
+        hot_g = (ctx["g_infected"] & alive_here[:, None]
+                 & (round_idx < ctx["g_spread_until"]))
+        h_g = eng.prep(hot_g)
+        hot_any = hot_any | hot_g.any(dim=1)
+        g_delivered = torch.zeros((n, params.n_user_gossips),
+                                  dtype=torch.bool, device=status.device)
+    h_hot_any = eng.prep(hot_any)
+    h_status = eng.prep(status) if ctx["is_seed"] is not None else None
 
     def deliver_channel(s, tx_bit):
         keys = eng.deliver(h_keys, s)
@@ -686,48 +1072,113 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
         payload = torch.where(tx, keys, no_msg)
         return payload, delivery.is_alive_key(payload, fmt=wf)
 
-    drop_u = draws.drop_u
+    def contact_ok(s):
+        """Full view with seeds: the sender (j - s) holds receiver j live
+        (its row's column j, the diagonal of the shifted view), or j is
+        a seed."""
+        knows = torch.diagonal(eng.deliver(h_status, s))
+        return ((knows == records.ALIVE) | (knows == records.SUSPECT)
+                | ctx["is_seed"])
+
     inbox = fd["fd_inbox"]
     inbox_alive = torch.zeros((n, k), dtype=torch.bool, device=status.device)
+    ring = None
+    if params.max_delay_rounds > 0:
+        ring = _DelayRing(state, params, round_idx)
+        inbox = torch.maximum(inbox, ring.keys_now)
+        inbox_alive |= ring.flags_now
+        if g_delivered is not None:
+            g_delivered |= ring.g_now
+
+    def arriving(ok, delivered, flags, delay, e, g_bits=None):
+        """The channel's messages arriving now (later ones go to the
+        ring)."""
+        if ring is None:
+            return ok
+        return ring.route(ok, delivered, flags, delay, e, g_bits)
+
+    drop_u = draws.drop_u
     n_gossip_sent = torch.zeros((), dtype=torch.int32, device=status.device)
     for c, s in enumerate(shifts[1 + r_proxies:1 + r_proxies + f]):
-        _, sender_alive, sender_part, loss_c, _ = _shift_sender_gate(
-            eng, d_ids, d_alive, d_part, s, node_ids, kn, params)
+        _, sender_alive, sender_part, loss_c, delay_c = _shift_sender_gate(
+            eng, d_ids, d_alive, d_part, s, node_ids, kn, params, world,
+            round_idx)
         ok_c = (sender_alive & alive_here & (sender_part == part_here)
                 & (drop_u[:, c] >= loss_c) & (c < kn.fanout))
+        if h_status is not None:
+            ok_c &= contact_ok(s)
         delivered, delivered_flags = deliver_channel(s, 1)
+        g_bits = eng.deliver(h_g, s) if h_g is not None else None
+        e_c = draws.e_gossip[c] if draws.e_gossip is not None else None
+        ok_now = arriving(ok_c, delivered, delivered_flags, delay_c, e_c,
+                          g_bits)
         inbox = torch.maximum(
-            inbox, torch.where(ok_c[:, None], delivered, no_msg))
-        inbox_alive |= delivered_flags & ok_c[:, None]
+            inbox, torch.where(ok_now[:, None], delivered, no_msg))
+        inbox_alive |= delivered_flags & ok_now[:, None]
+        if g_bits is not None:
+            g_delivered |= g_bits & ok_now[:, None]
         n_gossip_sent += (ok_c & eng.deliver(h_hot_any, s)).sum(
             dtype=torch.int32)
 
     # Refute push: a prober whose ALIVE verdict met a SUSPECT entry SYNCs
     # its row to the probed member t = (i + fd_shift), i.e. receiver j
     # hears sender (j - fd_shift).  A refuting sender skips its regular
-    # SYNC push, seen at the receiver through the sync shift.
+    # SYNC push, seen at the receiver through the sync shift.  No contact
+    # gate (as in the reference).
     push_refute = fd["push_refute"] & (kn.sync_every > 0)
     h_pushers = eng.prep(push_refute)
-    _, sender_alive_r, sender_part_r, loss_r, _ = _shift_sender_gate(
-        eng, d_ids, d_alive, d_part, fd_shift, node_ids, kn, params)
+    _, sender_alive_r, sender_part_r, loss_r, delay_r = _shift_sender_gate(
+        eng, d_ids, d_alive, d_part, fd_shift, node_ids, kn, params, world,
+        round_idx)
     ok_r = (sender_alive_r & alive_here & (sender_part_r == part_here)
             & ~(draws.u_refute < loss_r) & eng.deliver(h_pushers, fd_shift))
     delivered_r, flags_r = deliver_channel(fd_shift, 2)
+    ok_r = arriving(ok_r, delivered_r, flags_r, delay_r, draws.e_refute)
     inbox = torch.maximum(inbox, torch.where(ok_r[:, None], delivered_r,
                                              no_msg))
     inbox_alive |= flags_r & ok_r[:, None]
     sender_refuting = eng.deliver(h_pushers, sync_shift)
 
     # SYNC channel: the periodic anti-entropy push.
-    _, sender_alive, sender_part, loss_sy, _ = _shift_sender_gate(
-        eng, d_ids, d_alive, d_part, sync_shift, node_ids, kn, params)
+    _, sender_alive, sender_part, loss_sy, delay_sy = _shift_sender_gate(
+        eng, d_ids, d_alive, d_part, sync_shift, node_ids, kn, params, world,
+        round_idx)
     ok_s = (sender_alive & alive_here & ~sender_refuting
             & (sender_part == part_here) & ~(drop_u[:, f] < loss_sy)
             & ctx["sync_round"])
+    if h_status is not None:
+        ok_s &= contact_ok(sync_shift)
     delivered, delivered_flags = deliver_channel(sync_shift, 2)
+    ok_s = arriving(ok_s, delivered, delivered_flags, delay_sy, draws.e_sync)
     inbox = torch.maximum(inbox, torch.where(ok_s[:, None], delivered, no_msg))
     inbox_alive |= delivered_flags & ok_s[:, None]
-    return inbox, inbox_alive, n_gossip_sent
+
+    # The joiner <-> seed exchange: its pushers are gated on the SYNC
+    # round, so other rounds skip it; delivered the same round.
+    if h_status is not None and ctx["sync_round"]:
+        inbox, inbox_alive = _seed_anti_entropy(
+            status, torch.where(syncable, record_keys, no_msg), inbox,
+            inbox_alive, round_idx, params, kn, world, ctx, draws)
+    return inbox, inbox_alive, g_delivered, n_gossip_sent
+
+
+def _check_draws(draws: prng.RoundDraws, facts: prng.DrawFacts) -> None:
+    """Raise unless ``draws`` holds exactly the chain draws and every
+    other field ``facts`` call for."""
+    chains = (("chain_u_direct", "chain_e_direct", "chain_u_proxy",
+               "chain_e_proxy"), ("u_direct", "u_proxy"))
+    need, other = chains if facts.delayed else chains[::-1]
+    need = list(need)
+    if facts.delay_bins:
+        need += ["e_gossip", "e_sync", "e_refute"]
+    if facts.n_seeds:
+        need += ["seed_sel", "seed_push_u", "seed_ack_u"]
+    missing = [name for name in need if getattr(draws, name) is None]
+    stray = [name for name in other if getattr(draws, name) is not None]
+    if missing or stray:
+        raise ValueError(
+            f"draws lack {missing} / carry {stray} for this round's "
+            f"{facts} (make them for these params and this world)")
 
 
 def _tick_shift(state: SwimState, ctx: dict, round_idx: int,
@@ -741,20 +1192,22 @@ def _tick_shift(state: SwimState, ctx: dict, round_idx: int,
     if len(shifts) != n_shifts:
         raise ValueError(f"draws carry {len(shifts)} shifts, the round "
                          f"needs {n_shifts}")
+    _check_draws(draws, prng.DrawFacts.of(params, world))
     # One shift per send channel: [fd, proxies..., gossip..., sync].
     eng = ShiftEngine(params.n_members)
     views = (eng.prep(ctx["node_ids"]), eng.prep(ctx["alive"]),
              eng.prep(ctx["part"]))
     with record_function("swim.fd"):
-        fd = _fd_phase(eng, views, ctx, shifts, params, kn, world, draws)
+        fd = _fd_phase(eng, views, ctx, shifts, round_idx, params, kn, world,
+                       draws)
     with record_function("swim.delivery"):
-        inbox, inbox_alive, n_gossip_sent = _delivery_phase(
+        inbox, inbox_alive, g_delivered, n_gossip_sent = _delivery_phase(
             state, eng, views, ctx, fd, shifts, round_idx, params, kn, world,
             draws)
     with record_function("swim.merge"):
         new_state, refuted = _merge_and_timers(
-            state, ctx["status"], ctx["inc"], inbox, inbox_alive, round_idx,
-            params, kn, world, ctx["alive"])
+            state, ctx, inbox, inbox_alive, g_delivered, round_idx, params,
+            kn, world)
     aux = dict(
         messages_gossip=n_gossip_sent,
         messages_ping=fd["active"].sum(dtype=torch.int32),
@@ -805,20 +1258,34 @@ def _carry_encode(state: SwimState, round_idx: int,
                                suspect_deadline=deadline)
 
 
-def _merge_and_timers(state: SwimState, status, inc, inbox, inbox_alive,
-                      round_idx: int, params: SwimParams, kn: Knobs,
-                      world: SwimWorld, alive_here):
+def _merge_and_timers(state: SwimState, ctx: dict, inbox, inbox_alive,
+                      g_delivered, round_idx: int, params: SwimParams,
+                      kn: Knobs, world: SwimWorld):
     """Inbox merge, self-refutation, suspicion timers and the crash/leave
-    freeze in one kernel launch (``kernels/merge.py``).  Returns
-    ``(new_state, refuted [N] bool)``."""
+    freeze in one kernel launch (``kernels/merge.py``), then the user-
+    gossip lanes: newly held gossips open a spread window, rows of
+    crashed members stay frozen.  The rings pass through (delivery
+    updated them in place).  Returns ``(new_state, refuted [N] bool)``."""
+    alive_here = ctx["alive"]
     (new_status, new_inc, spread_until, deadline, self_inc,
      refuted) = merge_kernel.merge_and_timers(
-        status, inc, state.spread_until, state.suspect_deadline, inbox,
-        inbox_alive, state.self_inc, alive_here, world.slot_of_node,
-        round_idx, kn.suspicion_rounds, params.periods_to_spread,
-        _wire_inc_sat(params), fmt=params.wire_format)
+        ctx["status"], ctx["inc"], state.spread_until,
+        state.suspect_deadline, inbox, inbox_alive, state.self_inc,
+        alive_here, world.slot_of_node, round_idx, kn.suspicion_rounds,
+        params.periods_to_spread, _wire_inc_sat(params),
+        fmt=params.wire_format)
+    g_infected, g_spread_until = ctx["g_infected"], ctx["g_spread_until"]
+    if g_delivered is not None:
+        live = alive_here[:, None]
+        newly = g_delivered & ~g_infected & live
+        g_spread_until = torch.where(
+            newly, round_idx + 1 + params.periods_to_spread, g_spread_until)
+        g_infected = g_infected | (g_delivered & live)
     return SwimState(status=new_status, inc=new_inc, spread_until=spread_until,
-                     suspect_deadline=deadline, self_inc=self_inc), refuted
+                     suspect_deadline=deadline, self_inc=self_inc,
+                     inbox_ring=state.inbox_ring, flag_ring=state.flag_ring,
+                     g_infected=g_infected, g_spread_until=g_spread_until,
+                     g_ring=state.g_ring), refuted
 
 
 def _round_metrics(new_state: SwimState, status, aux: dict,
@@ -863,7 +1330,7 @@ def _round_metrics(new_state: SwimState, status, aux: dict,
         false_suspect_rounds = total(false_suspect_rounds)
         stale_view_rounds = total(stale_view_rounds)
         onsets = total(onsets)
-    return dict(
+    metrics = dict(
         counts,
         false_positives=false_suspect_rounds + stale_view_rounds,
         false_suspicion_onsets=onsets,
@@ -875,6 +1342,11 @@ def _round_metrics(new_state: SwimState, status, aux: dict,
         messages_ping_req_sent=aux["messages_ping_req_sent"],
         refutations=aux["refutations"],
     )
+    if params.n_user_gossips > 0:
+        # Per gossip, the members holding it.
+        metrics["user_gossip_infected"] = new_state.g_infected.sum(
+            dim=0, dtype=torch.int32)
+    return metrics
 
 
 def _decoded(state: SwimState, round_idx: int,
@@ -911,14 +1383,27 @@ def _wide_tick(state: SwimState, round_idx: int, params: SwimParams,
     return new_state, metrics
 
 
+def _own_rings(state: SwimState) -> SwimState:
+    """``state`` with copies of its delay rings, which a round updates in
+    place (the input state's rings stay as they were)."""
+    if state.inbox_ring.shape[0] == 0:
+        return state
+    return dataclasses.replace(state, inbox_ring=state.inbox_ring.clone(),
+                               flag_ring=state.flag_ring.clone(),
+                               g_ring=state.g_ring.clone())
+
+
 def swim_tick(state: SwimState, round_idx: int, params: SwimParams,
               world: SwimWorld, draws: prng.RoundDraws,
               knobs: Optional[Knobs] = None
               ) -> Tuple[SwimState, Dict[str, torch.Tensor]]:
-    """One protocol round: (state, round, draws) -> (state', metrics)."""
+    """One protocol round: (state, round, draws) -> (state', metrics);
+    ``state`` is not modified."""
+    check_lanes(state, params)
     kn = knobs if knobs is not None else Knobs.from_params(params)
-    new_state, metrics = _wide_tick(_decoded(state, round_idx, params),
-                                    round_idx, params, world, draws, kn)
+    new_state, metrics = _wide_tick(
+        _decoded(_own_rings(state), round_idx, params), round_idx, params,
+        world, draws, kn)
     return _encoded(new_state, round_idx, params), metrics
 
 
@@ -930,16 +1415,20 @@ def run(seed: int, params: SwimParams, world: SwimWorld, n_rounds: int,
 
     Returns ``(final_state, metrics)`` with every metric stacked on the
     device as ``[n_rounds, ...]``; nothing syncs with the host per round.
-    ``draws`` (default ``TorchDraws(seed, device, params)``) is any
+    ``draws`` (default ``TorchDraws(seed, device, params, world)``) is any
     callable ``round_idx -> RoundDraws``.  ``state``/``start_round``
-    resume a run; ``state`` is not modified.
+    resume a run; ``state`` is not modified (its rings are copied once,
+    then updated in place round after round).
     """
     device = resolve_device(device)
     _check_world_device(world, device)
     if state is None:
         state = initial_state(params, world, device=device)
+    else:
+        check_lanes(state, params)
+        state = _own_rings(state)
     if draws is None:
-        draws = prng.TorchDraws(seed, device, params)
+        draws = prng.TorchDraws(seed, device, params, world)
     kn = Knobs.from_params(params)
     rows = []
     for round_idx in range(start_round, start_round + n_rounds):

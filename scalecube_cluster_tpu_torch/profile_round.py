@@ -1,23 +1,28 @@
-"""Where a main-path round spends its time on the card.
+"""Where a round spends its time on the card.
 
 Runs the bench workload (LAN defaults, loss 0.02, node 3 crashed at
 round 10, focal K subjects) at N members in one carry/wire layout
-(``--layout``: wide, int16_wire, compact, compact_wire24): a warm-up
-window, a window timed on the host clock (ending in a device sync), then
-the same window again under ``torch.profiler``.  Reports, per round:
-wall time, device busy time and idle share, kernel launches, device time
-inside each phase range of ``models/swim.py`` (``swim.carry``/
-``context``/``fd``/``delivery``/``merge``/``metrics``), and the top
-kernels by device time.
+(``--layout``: wide, int16_wire, compact, compact_wire24), or with
+``--network`` the network configuration instead (``network_params`` /
+``network_world``: the same workload with a 50 ms mean link delay, a
+4-slot delay ring, a six-window brownout, a two-way block of node 5
+and four user gossips): a warm-up window, a window timed on the host
+clock (ending in a device sync), then the same window again under
+``torch.profiler``.  Reports, per round: wall time, device busy time and
+idle share, kernel launches, device time and kernel launches inside
+each phase range of ``models/swim.py`` (``swim.carry``/``context``/
+``fd``/``delivery``/``merge``/``metrics``), the top kernels by device
+time, and the delay ring's bytes.
 
 Run on a card: ``python -m scalecube_cluster_tpu_torch.profile_round
-[--n 1000000] [--layout wide [compact ...]]``.
+[--n 1000000] [--layout wide [compact ...]] [--network]``.
 Prints one JSON line per layout, with the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import subprocess
 import time
@@ -41,6 +46,79 @@ LAYOUTS = {"wide": {}, "int16_wire": dict(int16_wire=True),
 _OWN_KERNELS = {"merge_and_timers_kernel": "swim.merge",
                 "carry_decode_kernel": "swim.carry",
                 "carry_encode_kernel": "swim.carry"}
+INT32_MAX = 2**31 - 1
+# The network configuration's schedule for a 600-round run (rounds scale
+# with the run's length): a brownout of the links from the first tenth
+# of the ids to the rest (chaos.Brownout(peak_loss=0.5,
+# peak_delay_ms=400, from_round=100, ramp_rounds=60, hold_rounds=60,
+# steps=3) as its six rule windows: from, until, loss, mean delay ms),
+# node 5 blocked both ways, four user gossips spread at round 20.
+BROWNOUT = ((100, 120, 0.5 * 1 / 3, 400.0 * 1 / 3),
+            (120, 140, 0.5 * 2 / 3, 400.0 * 2 / 3),
+            (140, 160, 0.5, 400.0),
+            (160, 220, 0.5, 400.0),
+            (220, 240, 0.5 * 2 / 3, 400.0 * 2 / 3),
+            (240, 260, 0.5 * 1 / 3, 400.0 * 1 / 3))
+BLOCKED, BLOCK_ROUNDS = 5, (300, 350)
+SPREAD_AT = 20
+NETWORK_ROUNDS = 600
+# A round inside the brownout's hold window (one rule active at its peak
+# loss and delay), where the profiled window of --network starts.
+NETWORK_PEAK = 160
+
+
+def network_params(layout: str, n: int, k: int) -> swim.SwimParams:
+    """The network configuration's params: LAN defaults, loss 0.02, mean
+    link delay 50 ms, a 4-slot delay ring, four user gossips."""
+    return swim.SwimParams.from_config(
+        ClusterConfig.default(), n_members=n, n_subjects=k,
+        loss_probability=0.02, mean_delay_ms=50.0, max_delay_rounds=3,
+        n_user_gossips=4, delivery="shift", **LAYOUTS[layout])
+
+
+def network_world(params: swim.SwimParams, device,
+                  rounds: int = NETWORK_ROUNDS) -> swim.SwimWorld:
+    """The network configuration's world for a run of ``rounds`` rounds
+    (the schedule's rounds scaled by ``rounds / 600``): node 3 crashed at
+    round 10, the brownout from ids [0, N/10) to [N/10, N), node 5
+    blocked both ways, user gossips from nodes 7, N/4, N/2 and N - 1."""
+    n = params.n_members
+
+    def at(r):
+        return r * rounds // NETWORK_ROUNDS
+
+    edge = round(n / 10)
+    world = swim.SwimWorld.healthy(params, device=device).with_crash(
+        3, at_round=10)
+    for lo, hi, loss, delay in BROWNOUT:
+        world = world.with_link_fault((0, edge), (edge, n), loss,
+                                      delay_ms=delay, from_round=at(lo),
+                                      until_round=at(hi))
+    lo, hi = (at(r) for r in BLOCK_ROUNDS)
+    world = (world.with_block(BLOCKED, (0, n), lo, hi)
+             .with_block((0, n), BLOCKED, lo, hi))
+    for g, origin in enumerate((7, n // 4, n // 2, n - 1)):
+        world = world.with_spread(g, origin, at(SPREAD_AT))
+    return world
+
+
+def _range_launches(prof, rounds: int) -> dict:
+    """Kernel launches per round issued inside each phase range: the
+    runtime's launch calls whose start falls in one of the range's host
+    spans (this counts the ctypes launches of the port's kernels too)."""
+    events = prof.events()
+    launches = sorted(e.time_range.start for e in events
+                      if e.name.startswith("cudaLaunchKernel"))
+    out = {}
+    for phase in PHASES:
+        n = 0
+        for e in events:
+            if e.name == phase and e.device_type == DeviceType.CPU:
+                lo = bisect.bisect_left(launches, e.time_range.start)
+                hi = bisect.bisect_right(launches, e.time_range.end)
+                n += hi - lo
+        out[phase] = n / rounds
+    return out
 
 
 def _card() -> str:
@@ -57,7 +135,8 @@ def profile_window(params, world, state, start_round: int, rounds: int,
     the host clock (ending in a device sync), then under
     ``torch.profiler``.  Returns per-round wall ms, device busy ms, idle
     share, kernel launches, device ms per phase range, the top kernels
-    and the window's peak device memory."""
+    the window's peak device memory, the kernel launches issued inside
+    each phase range and the delay ring's bytes."""
     device = world.device
 
     def window():
@@ -89,6 +168,9 @@ def profile_window(params, world, state, start_round: int, rounds: int,
                                  + e.device_time_total * per_round)
     top_kernels = sorted(kernels, key=lambda e: e.device_time_total,
                          reverse=True)
+    ring_bytes = sum(t.numel() * t.element_size()
+                     for t in (state.inbox_ring, state.flag_ring,
+                               state.g_ring))
     return dict(
         rounds=rounds, start_round=start_round,
         wall_ms_per_round=wall_ms,
@@ -97,6 +179,8 @@ def profile_window(params, world, state, start_round: int, rounds: int,
         device_idle_share=1.0 - busy_ms / wall_ms,
         kernel_launches_per_round=sum(e.count for e in kernels) / rounds,
         phase_device_ms_per_round=phases,
+        phase_launches_per_round=_range_launches(prof, rounds),
+        ring_bytes=ring_bytes,
         peak_bytes_allocated=peak_bytes,
         top_kernels=[dict(name=e.key[:100],
                           ms_per_round=e.device_time_total * per_round,
@@ -113,9 +197,15 @@ def main(argv=None) -> list:
                     default=["wide"],
                     help="one or more layouts, profiled in the order given "
                          "(repeat them, e.g. A B B A, to compare in turns)")
-    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--warmup", type=int, default=None,
+                    help="rounds run before the window (default 20; with "
+                         f"--network {NETWORK_PEAK}, the brownout's peak)")
     ap.add_argument("--rounds", type=int, default=50)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--network", action="store_true",
+                    help="profile the network configuration (delays, "
+                         "rules, ring, user gossips) instead of the bench "
+                         "workload")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round needs a CUDA card")
@@ -123,15 +213,23 @@ def main(argv=None) -> list:
     card = _card()
     results = []
     for layout in args.layout:
-        params = swim.SwimParams.from_config(
-            ClusterConfig.default(), n_members=args.n, n_subjects=args.k,
-            loss_probability=0.02, delivery="shift", **LAYOUTS[layout])
-        world = swim.SwimWorld.healthy(params, device=device).with_crash(
-            3, at_round=10)
-        state, _ = swim.run(0, params, world, args.warmup, device=device)
+        if args.network:
+            params = network_params(layout, args.n, args.k)
+            world = network_world(params, device)
+        else:
+            params = swim.SwimParams.from_config(
+                ClusterConfig.default(), n_members=args.n,
+                n_subjects=args.k, loss_probability=0.02, delivery="shift",
+                **LAYOUTS[layout])
+            world = swim.SwimWorld.healthy(params, device=device).with_crash(
+                3, at_round=10)
+        warmup = args.warmup
+        if warmup is None:
+            warmup = NETWORK_PEAK if args.network else 20
+        state, _ = swim.run(0, params, world, warmup, device=device)
         result = dict(card=card, n_members=args.n, n_subjects=args.k,
-                      layout=layout,
-                      **profile_window(params, world, state, args.warmup,
+                      layout=layout, network=args.network,
+                      **profile_window(params, world, state, warmup,
                                        args.rounds, args.top))
         print(json.dumps(result), flush=True)
         results.append(result)

@@ -81,8 +81,10 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
 
 
 def test_port_runs_with_jax_blocked():
-    """Every module imports, and a short CPU run completes, in a process
-    where importing jax or the JAX package fails."""
+    """Every module and ``chip_smoke.py`` import, and short CPU runs (the
+    plain round, and one with a block, delays and a user gossip)
+    complete, in a process where importing jax or the JAX package
+    fails."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(
             ".__init__", "")
@@ -100,6 +102,15 @@ def test_port_runs_with_jax_blocked():
         "w = swim.SwimWorld.healthy(p, device='cpu').with_crash(1, 2)",
         "s, m = swim.run(0, p, w, 12, device='cpu')",
         "assert m['suspect'].shape == (12, 8)",
+        "import dataclasses",
+        "q = dataclasses.replace(p, mean_delay_ms=50.0, max_delay_rounds=2,"
+        " n_user_gossips=1)",
+        "v = (swim.SwimWorld.healthy(q, device='cpu').with_block(3, (0, 64))"
+        ".with_spread(0, 9, 1))",
+        "s, m = swim.run(0, q, v, 12, device='cpu')",
+        "assert s.inbox_ring.shape == (3, 64, 8)",
+        "assert m['user_gossip_infected'].shape == (12, 1)",
+        "importlib.import_module('chip_smoke')",
         "assert not any(k.startswith(('jax', 'scalecube_cluster_tpu.'))"
         " for k in sys.modules if sys.modules[k] is not None)",
         "print('ok')",
@@ -143,10 +154,16 @@ def test_state_and_world_import_reject_unported_lanes():
     compact = dict(arrays, **{"state/inc": np.zeros((32, 4), np.int16)})
     with pytest.raises(ValueError, match="compact_carry"):
         interop.state_from_arrays(compact, device="cpu")
-    with pytest.raises(NotImplementedError, match="LinkFaults"):
-        port_world(jworld.with_link_fault(0, 1, loss=0.5))
-    with pytest.raises(NotImplementedError, match="seed_ids"):
-        port_world(jworld.with_seeds([0]))
+    # Link-fault rules and seeds carry over as the reference holds them.
+    world = port_world(jworld.with_link_fault(0, (1, 9), loss=0.5,
+                                              delay_ms=30.0, from_round=2)
+                       .with_seeds([0, 3]))
+    assert world.faults.n_rules == 1 and world.seed_ids.tolist() == [0, 3]
+    assert world.faults.dst_hi.tolist() == [9]
+    assert world.faults.delay_ms.dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="md_push_at"):
+        interop.world_from_arrays(
+            {"md_push_at": np.zeros(1, np.int32)}, device="cpu")
     with pytest.raises(NotImplementedError, match="delivery='scatter'"):
         port_params(jswim.SwimParams.from_config(fast_config(),
                                                  n_members=32))

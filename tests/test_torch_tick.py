@@ -126,8 +126,8 @@ def test_torch_draws_shapes_and_ranges():
 
 
 UNPORTED = [
-    ("delivery", "scatter"), ("max_delay_rounds", 2), ("mean_delay_ms", 50.0), ("k_block", 8),
-    ("n_user_gossips", 1), ("sync_interval", 8), ("lhm_max", 4),
+    ("delivery", "scatter"), ("k_block", 8),
+    ("sync_interval", 8), ("lhm_max", 4),
     ("dead_suppress_rounds", 8), ("open_world", True), ("metadata_keys", 2),
     ("provenance", True), ("link_counters", True),
 ]
@@ -156,11 +156,22 @@ def test_wire24_raises_and_rounds_per_step_is_accepted():
 
 
 def test_world_rejects_seeds_and_link_faults():
+    """Seeds and link-fault rules are accepted now: each lands in the
+    world as the reference stores it; out-of-range seeds and bad rules
+    still raise."""
     _, world = _small()
-    with pytest.raises(NotImplementedError, match="seed"):
-        world.with_seeds([0])
-    with pytest.raises(NotImplementedError, match="LinkFaults"):
-        world.with_link_fault(0, 1, loss=0.5)
+    seeded = world.with_seeds([0, 5])
+    assert seeded.seed_ids.tolist() == [0, 5]
+    assert seeded.seed_ids.dtype == torch.int32
+    with pytest.raises(ValueError, match="with_seeds"):
+        world.with_seeds([64])
+    faulty = world.with_link_fault(0, 1, loss=0.5).with_block((2, 4), 7, 3, 9)
+    assert faulty.faults.n_rules == 2 and world.faults.n_rules == 0
+    assert faulty.faults.loss.tolist() == [0.5, 1.0]
+    assert faulty.faults.src_hi.tolist() == [1, 4]
+    assert faulty.faults.until_round.tolist() == [2**31 - 1, 9]
+    with pytest.raises(ValueError, match="probability"):
+        world.with_link_fault(0, 1, loss=1.5)
     with pytest.raises(ValueError, match="distinct"):
         dataclasses.replace(world, subject_ids=torch.tensor(
             [0, 0, 1, 2, 3, 4, 5, 6], dtype=torch.int32))

@@ -19,10 +19,11 @@ import torch
 
 from scalecube_cluster_tpu.ops import prng as jprng
 from scalecube_cluster_tpu_torch import interop
-from scalecube_cluster_tpu_torch.ops.prng import RoundDraws
+from scalecube_cluster_tpu_torch.ops.prng import DrawFacts, RoundDraws
 
 STATE_FIELDS = ("status", "inc", "spread_until", "suspect_deadline",
-                "self_inc")
+                "self_inc", "inbox_ring", "flag_ring", "g_infected",
+                "g_spread_until", "g_ring")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -36,36 +37,78 @@ def one_torch_thread():
     torch.set_num_threads(previous)
 
 
-def jax_draws(key, params):
+def jax_draws(key, params, world=None):
     """``round_idx -> RoundDraws`` holding exactly the draws the reference
-    tick consumes under ``key`` (models/swim.py: round keys :1908-1911,
-    channel shifts :1920-1924 + :3609-3616, direct chain :1687 under
-    k_ping_net, proxy chains :3562, drop draws :3770, refute drop
-    :3894)."""
+    tick consumes under ``key`` for ``params`` and ``world`` (the JAX
+    objects; which fields follow from ``prng.DrawFacts``), with the
+    reference's own calls (models/swim.py: round keys :1908-1911, channel
+    shifts :1920-1924 + :3609-3616; FD chains under keys[1] and
+    fold_in(keys[3], r), collapsed :1687 or delayed :1691; drop draws
+    :3770; refute drop :3894; delay bins fold_in(keys[5], 11 + c)
+    :3845, fold_in(keys[7], 13) :3901, fold_in(keys[7], 11) :3968; seed
+    anti-entropy fold_in(keys[7], 29) split in three :2583-2620).  Unit
+    exponentials are ``-jnp.log1p(-u)``, as the reference computes
+    them."""
     n, r, f = params.n_members, params.ping_req_members, params.fanout
+    facts = DrawFacts.of(params, world)
+
+    def unit_exp(u):
+        return -jnp.log1p(-u)
 
     @jax.jit
     def one(round_idx):
-        keys = jax.random.split(
-            jprng.round_key(jprng.round_key(key, round_idx), 0), 8)
-        k_shifts = jax.random.fold_in(jprng.round_key(key, round_idx), 0x5317)
-        shifts = jax.random.randint(k_shifts, (1 + r + f + 1,), 1, n,
-                                    dtype=jnp.int32)
-        u_proxy = jnp.stack(
-            [jax.random.uniform(jax.random.fold_in(keys[3], i), (n,))
-             for i in range(r)]) if r else jnp.zeros((0, n), jnp.float32)
-        return (shifts, jax.random.uniform(keys[1], (n,)), u_proxy,
-                jax.random.uniform(keys[5], (n, f + 1)),
-                jax.random.uniform(keys[7], (n,)))
+        rk = jprng.round_key(key, round_idx)
+        keys = jax.random.split(jprng.round_key(rk, 0), 8)
+        k_shifts = jax.random.fold_in(rk, 0x5317)
+        out = dict(
+            shifts=jax.random.randint(k_shifts, (1 + r + f + 1,), 1, n,
+                                      dtype=jnp.int32))
+        if facts.delayed:
+            u = jax.random.uniform(keys[1], (n, 4))
+            up = jnp.stack([jax.random.uniform(
+                jax.random.fold_in(keys[3], i), (n, 8)) for i in range(r)]
+            ) if r else jnp.zeros((0, n, 8), jnp.float32)
+            out.update(chain_u_direct=u[:, :2],
+                       chain_e_direct=unit_exp(u[:, 2:]),
+                       chain_u_proxy=up[..., :4],
+                       chain_e_proxy=unit_exp(up[..., 4:]))
+        else:
+            out.update(
+                u_direct=jax.random.uniform(keys[1], (n,)),
+                u_proxy=jnp.stack([
+                    jax.random.uniform(jax.random.fold_in(keys[3], i), (n,))
+                    for i in range(r)]) if r else jnp.zeros((0, n),
+                                                            jnp.float32))
+        out.update(drop_u=jax.random.uniform(keys[5], (n, f + 1)),
+                   u_refute=jax.random.uniform(keys[7], (n,)))
+        if facts.delay_bins:
+            def bin_e(k, i):
+                return unit_exp(jax.random.uniform(jax.random.fold_in(k, i),
+                                                   (n,)))
+            out.update(e_gossip=jnp.stack([bin_e(keys[5], 11 + c)
+                                           for c in range(f)]),
+                       e_sync=bin_e(keys[7], 11), e_refute=bin_e(keys[7], 13))
+        if facts.n_seeds:
+            k_sel, k_push, k_ack = jax.random.split(
+                jax.random.fold_in(keys[7], 29), 3)
+            out.update(
+                seed_sel=jax.random.randint(k_sel, (n,), 0, facts.n_seeds),
+                seed_push_u=jnp.stack([jax.random.uniform(
+                    jax.random.fold_in(k_push, si), (n,))
+                    for si in range(facts.n_seeds)]),
+                seed_ack_u=jnp.stack([jax.random.uniform(
+                    jax.random.fold_in(k_ack, si), (n,))
+                    for si in range(facts.n_seeds)]))
+        return out
 
     def draws(round_idx):
-        shifts, u_direct, u_proxy, drop_u, u_refute = one(jnp.int32(round_idx))
-
-        def t(a):
-            return torch.from_numpy(np.array(a))
-
-        return RoundDraws(tuple(int(s) for s in np.asarray(shifts)),
-                          t(u_direct), t(u_proxy), t(drop_u), t(u_refute))
+        out = {name: np.array(value)
+               for name, value in one(jnp.int32(round_idx)).items()}
+        shifts = tuple(int(s) for s in out.pop("shifts"))
+        fields = dict(u_direct=None, u_proxy=None)
+        fields.update((name, torch.from_numpy(value))
+                      for name, value in out.items())
+        return RoundDraws(shifts=shifts, **fields)
 
     return draws
 
