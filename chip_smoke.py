@@ -35,13 +35,19 @@ and prints no result):
    input with ``ValueError``.  The card's clocks, temperature and power
    draw are printed before this phase and before phase 6;
 5. parity canaries, card against CPU with the same CPU-made draws, 200
-   rounds, state (every lane) and metrics bit-identical: wide at 4,096 x
-   16 and full view 512 x 512, compact carry at both, int16 wire at
-   4,096 x 16; the network configuration (``profile_round.network_*``:
-   eight link-fault rules, a 50 ms mean delay, a 4-slot delay ring, four
-   user gossips; its schedule scaled to 200 rounds) at 4,096 x 16 in
-   the wide, int16-wire and compact + wire24 layouts; a seeded cold
-   start (seeds 0, 1, 2, node 5 blocked) at full view 512 x 512;
+   rounds, state (every lane) and metrics bit-identical, and the card's
+   kernel launches one a round for each kernel of the layout.  Shift:
+   wide at 4,096 x 16 and full view 512 x 512, compact carry at both,
+   int16 wire at 4,096 x 16; the network configuration
+   (``profile_round.network_*``: eight link-fault rules, a 50 ms mean
+   delay, a 4-slot delay ring, four user gossips; its schedule scaled to
+   200 rounds) at 4,096 x 16 in the wide, int16-wire and compact +
+   wire24 layouts; a seeded cold start (seeds 0, 1, 2, node 5 blocked)
+   at full view 512 x 512.  Scatter: wide at 4,096 x 16, wide and
+   compact carry at full view 512 x 512 (the known-only probe's Gumbel
+   argmax), int16 wire at 4,096 x 16, the network configuration at
+   4,096 x 16 on the fused wire and on the two-buffer wire
+   (``fused_wire=False``), and the seeded cold start at 512 x 512;
 6. the main path and the layout identity: LAN defaults, N = 1,000,000
    members x K = 16 subjects, loss 0.02, node 3 crashed at round 10, the
    port's own device draws, 600 rounds through ``models.swim.run`` in the
@@ -61,7 +67,9 @@ and prints no result):
    draws, wide and ``int16_wire``.  Each must suspect node 3 within 50
    rounds and have >= 99% of live observers hold it DEAD at the end,
    sum over 10x more SUSPECT entries about live subjects in rounds
-   100-260 than in rounds 20-100, have no live subject held DEAD by 1%
+   100-260 than in rounds 20-100 and at least BROWNOUT_FLOOR_SHARE of
+   the browned-out senders' count for each live subject and round of
+   the window (``brownout_floor``), have no live subject held DEAD by 1%
    or more of live observers at the end, and bring every user gossip to
    >= 99% of live members; the int16 wire must give the wide run's
    metrics and decoded state (rings unpacked) exactly; a run to round
@@ -73,7 +81,13 @@ and prints no result):
 8. the seeded cold start at full view N = K = 4,096 (LAN defaults, loss
    0, seeds 0, 1, 2) for 12 x periods_to_spread rounds: every cell must
    be ALIVE at the end; prints the round membership became full;
-9. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+9. the scatter main path (``delivery="scatter"``, the reference's
+   default): phase 6's workload through ``models.swim.run`` for 600
+   rounds, wide and then ``int16_wire``, under the same gates and the
+   same identity check, printing phase 6's numbers and the shift
+   path's first SUSPECT round and final DEAD share beside its own;
+10. phase 8 under scatter delivery;
+11. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
 
 No phase catches its own failure, and nothing falls back to the CPU or
 to a plain version.  Run from the repository root: ``python3
@@ -116,6 +130,12 @@ SEEDS = [0, 1, 2]
 COLD_N = 4096
 PROFILE_ROUNDS = 20
 INT32_MAX = 2**31 - 1
+# The brownout's floor: each live subject held SUSPECT, on average over
+# the window's rounds, by at least this share of the browned-out
+# senders' count (rounds 100-260 at 1M x 16: 0.1 x 100,000 x 160 rounds
+# x 15 live subjects = 24,000,000 entries, against 503,110,620 measured
+# on the H100).
+BROWNOUT_FLOOR_SHARE = 0.1
 LAYOUTS = profile_round.LAYOUTS
 # Our kernels each layout's round launches, once a round.
 ROUND_KERNELS = {
@@ -234,12 +254,6 @@ PROBE_COPY = ("probe_load16", "probe_load8")
 RAGGED_SHAPES = ((999_999, 13), (3, 5))
 
 
-def layout_params(layout, n, k):
-    return swim.SwimParams.from_config(
-        ClusterConfig.default(), n_members=n, n_subjects=k,
-        loss_probability=0.02, delivery="shift", **LAYOUTS[layout])
-
-
 def max_abs_err(name, got, want):
     """Largest |kernel - plain| over the outputs; raises on a dtype or
     shape mismatch or any difference."""
@@ -337,7 +351,7 @@ def merge_planes(n, k, seed, device, fmt, cap, round_idx=37):
 
 def check_merge_kernel(device, layout):
     """Phase 3: one merge instance vs its plain version at 1M x 16."""
-    params = layout_params(layout, MAIN_N, MAIN_K)
+    params = profile_round.bench_params(layout, MAIN_N, MAIN_K)
     fmt, cap = params.wire_format, swim._wire_inc_sat(params)
     planes = merge_planes(MAIN_N, MAIN_K, seed=1, device=device, fmt=fmt,
                           cap=cap)
@@ -548,22 +562,39 @@ def canaries(device):
     for layout, n, k in (("wide", 4096, 16), ("wide", 512, 512),
                          ("compact", 4096, 16), ("compact", 512, 512),
                          ("int16_wire", 4096, 16)):
-        canary(device, layout, layout, layout_params(layout, n, k),
-               crash_world)
+        canary(device, layout, layout,
+               profile_round.bench_params(layout, n, k), crash_world)
     for layout in ("wide", "int16_wire", "compact_wire24"):
         canary(device, f"network {layout}", layout,
                profile_round.network_params(layout, 4096, 16),
                functools.partial(profile_round.network_world,
                                  rounds=CANARY_ROUNDS))
     canary(device, "seeded cold start", "wide",
-           layout_params("wide", 512, 512), seeded_world, warm=False)
+           profile_round.bench_params("wide", 512, 512), seeded_world,
+           warm=False)
+    for layout, n, k in (("wide", 4096, 16), ("wide", 512, 512),
+                         ("compact", 512, 512), ("int16_wire", 4096, 16)):
+        canary(device, f"scatter {layout}", layout,
+               profile_round.bench_params(layout, n, k, "scatter"),
+               crash_world)
+    for label, overrides in (("", {}),
+                             (" two-buffer wire", dict(fused_wire=False))):
+        canary(device, f"scatter network wide{label}", "wide",
+               profile_round.network_params("wide", 4096, 16, "scatter",
+                                            **overrides),
+               functools.partial(profile_round.network_world,
+                                 rounds=CANARY_ROUNDS))
+    canary(device, "scatter seeded cold start", "wide",
+           profile_round.bench_params("wide", 512, 512, "scatter"),
+           seeded_world, warm=False)
 
 
-def run_layout(device, layout):
-    """Phase 6: one layout of the 1M x 16 round for 600 rounds, with the
-    detection gates; returns what the identity check and the kernel line
-    need."""
-    params = layout_params(layout, MAIN_N, MAIN_K)
+def run_layout(device, layout, delivery="shift"):
+    """Phases 6 and 9: one layout of the 1M x 16 round for 600 rounds, with
+    the detection gates; returns what the identity check and the kernel
+    line need, and the detection round and DEAD share."""
+    tag = "main" if delivery == "shift" else f"{delivery} main"
+    params = profile_round.bench_params(layout, MAIN_N, MAIN_K, delivery)
     world = swim.SwimWorld.healthy(params, device=device).with_crash(
         CRASHED, at_round=CRASH_AT)
     torch.cuda.synchronize()
@@ -605,7 +636,7 @@ def run_layout(device, layout):
     window = profile_round.profile_window(params, world, state, MAIN_ROUNDS,
                                           PROFILE_ROUNDS)
     ms_round = seconds / MAIN_ROUNDS * 1e3
-    log(f"[main] {layout} {MAIN_N}x{MAIN_K}, {MAIN_ROUNDS} rounds in "
+    log(f"[{tag}] {layout} {MAIN_N}x{MAIN_K}, {MAIN_ROUNDS} rounds in "
         f"{seconds:.3f} s: {ms_round:.4f} ms/round, "
         f"{MAIN_N * MAIN_ROUNDS / seconds:.6g} member-rounds/s, peak {peak} "
         f"B allocated ({resident} B resident before the run); profiled "
@@ -614,14 +645,16 @@ def run_layout(device, layout):
         f"device busy {window['device_busy_ms_per_round']:.4f} ms/round, "
         f"wall {window['wall_ms_per_round']:.4f} ms/round, idle share "
         f"{window['device_idle_share']:.4f}, phases "
-        f"{json.dumps(window['phase_device_ms_per_round'])}")
-    log(f"[main] {layout} node {CRASHED}: first SUSPECT at round "
+        f"{json.dumps(window['phase_device_ms_per_round'])}, launches "
+        f"{json.dumps(window['phase_launches_per_round'])}")
+    log(f"[{tag}] {layout} node {CRASHED}: first SUSPECT at round "
         f"{first_suspect}, first DEAD at round "
         f"{int(torch.nonzero(dead > 0)[0])}, {dead_share:.6f} of live "
         f"observers hold it DEAD at the end; false_positives total "
         f"{int(metrics['false_positives'].sum())}, refutations "
         f"{int(metrics['refutations'].sum())}")
-    return params, state, metrics, launches
+    return params, state, metrics, launches, dict(
+        first_suspect=first_suspect, dead_share=dead_share)
 
 
 def decoded(state, params):
@@ -635,17 +668,21 @@ def decoded(state, params):
                 suspect_deadline=deadline, self_inc=state.self_inc)
 
 
-def main_path(device):
-    """Phase 6: wide, then each narrow layout against it."""
+def main_path(device, delivery="shift",
+              narrow=("int16_wire", "compact", "compact_wire24")):
+    """Phases 6 and 9: wide, then each ``narrow`` layout against it;
+    returns the launches and the wide run's detection summary."""
     launches = {}
-    wide_params, wide_state, wide_metrics, counts = run_layout(device, "wide")
+    wide_params, wide_state, wide_metrics, counts, summary = run_layout(
+        device, "wide", delivery)
     launches.update(counts)
     # Held on the host, so that no narrow run's peak counts it.
     want = {name: value.cpu()
             for name, value in decoded(wide_state, wide_params).items()}
     del wide_state
-    for layout in ("int16_wire", "compact", "compact_wire24"):
-        params, state, metrics, counts = run_layout(device, layout)
+    for layout in narrow:
+        params, state, metrics, counts, _ = run_layout(device, layout,
+                                                       delivery)
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
         for name, value in wide_metrics.items():
@@ -656,11 +693,11 @@ def main_path(device):
             if not torch.equal(value.cpu(), want[name]):
                 raise AssertionError(f"{layout}: decoded final {name} "
                                      f"differs from the wide run")
-        log(f"[identity] {layout}: per-round metrics and decoded final "
-            f"state equal the wide run's ({state.inc.dtype} inc, "
+        log(f"[identity] {delivery} {layout}: per-round metrics and decoded "
+            f"final state equal the wide run's ({state.inc.dtype} inc, "
             f"{params.wire_format.name} wire)")
         del state
-    return launches
+    return launches, summary
 
 
 def network_run(device, layout):
@@ -698,10 +735,12 @@ def network_run(device, layout):
     live = torch.arange(MAIN_K) != CRASHED
     brownout = int(suspect[100:260, live].sum())
     before = int(suspect[20:100, live].sum())
-    if not brownout > 10 * before:
+    floor = brownout_floor(MAIN_N, int(live.sum()), 260 - 100)
+    if not (brownout > 10 * before and brownout >= floor):
         raise AssertionError(f"network {layout}: SUSPECT entries about live "
                              f"subjects, rounds 100-260: {brownout}, rounds "
-                             f"20-100: {before} (want more than 10x)")
+                             f"20-100: {before} (want more than 10x, and at "
+                             f"least {floor})")
     stale = dead[-1, live].max().item() / live_observers
     if stale >= 0.01:
         raise AssertionError(f"network {layout}: a live subject is held DEAD "
@@ -744,10 +783,20 @@ def network_run(device, layout):
     log(f"[network] {layout} node {CRASHED}: first SUSPECT at round "
         f"{first_suspect}, {dead_share:.6f} of live observers hold it DEAD at "
         f"the end; SUSPECT entries about live subjects {before} in rounds "
-        f"20-100, {brownout} in rounds 100-260; largest DEAD share of a live "
+        f"20-100, {brownout} in rounds 100-260 (floor {floor}); largest DEAD "
+        f"share of a live "
         f"subject at the end {stale:.6f}; user gossips reach 99% of live "
         f"members at rounds {reach}")
     return params, state, metrics, launches
+
+
+def brownout_floor(n, live_subjects, rounds):
+    """The least SUSPECT entries about live subjects the brownout's
+    window must hold: ``BROWNOUT_FLOOR_SHARE`` of the browned-out
+    senders (ids [0, N/10), ``profile_round.network_world``) for each
+    live subject and round."""
+    senders = round(n / 10)
+    return int(BROWNOUT_FLOOR_SHARE * senders * live_subjects * rounds)
 
 
 def network_state(state, params):
@@ -785,11 +834,12 @@ def network_path(device):
     return launches
 
 
-def cold_start_path(device):
-    """Phase 8: the seeded cold start at full view 4,096 x 4,096."""
+def cold_start_path(device, delivery="shift"):
+    """Phases 8 and 10: the seeded cold start at full view 4,096 x
+    4,096."""
     params = swim.SwimParams.from_config(
         ClusterConfig.default(), n_members=COLD_N, loss_probability=0.0,
-        delivery="shift")
+        delivery=delivery)
     world = swim.SwimWorld.healthy(params, device=device).with_seeds(SEEDS)
     state = swim.initial_state(params, world, warm=False, device=device)
     rounds = 12 * params.periods_to_spread
@@ -812,7 +862,8 @@ def cold_start_path(device):
             f"are not ALIVE after {rounds} rounds")
     known = metrics["alive"].sum(dim=1).cpu()
     full_at = int(torch.nonzero(known == COLD_N * (COLD_N - 1))[0])
-    log(f"[cold start] full view {COLD_N}x{COLD_N}, seeds {SEEDS}, {rounds} "
+    log(f"[cold start] {delivery} full view {COLD_N}x{COLD_N}, seeds {SEEDS}, "
+        f"{rounds} "
         f"rounds (12 x periods_to_spread) in {seconds:.3f} s: "
         f"{seconds / rounds * 1e3:.4f} ms/round, peak "
         f"{torch.cuda.max_memory_allocated()} B; cells known ALIVE "
@@ -846,10 +897,20 @@ def main():
     probe_launches, probe_rows = probe_path(device)
     canaries(device)
     log(clock_line())
-    paths = {"main": main_path(device)}
+    paths = {}
+    paths["main"], shift_summary = main_path(device)
     log(clock_line())
     paths["network"] = network_path(device)
     paths["cold_start"] = cold_start_path(device)
+    log(clock_line())
+    paths["scatter_main"], scatter_summary = main_path(
+        device, "scatter", narrow=("int16_wire",))
+    log(f"[scatter main] node {CRASHED}, wide: first SUSPECT at round "
+        f"{scatter_summary['first_suspect']} (shift "
+        f"{shift_summary['first_suspect']}), DEAD share at round "
+        f"{MAIN_ROUNDS} {scatter_summary['dead_share']:.6f} (shift "
+        f"{shift_summary['dead_share']:.6f})")
+    paths["scatter_cold_start"] = cold_start_path(device, "scatter")
     launches = {}
     for counts in paths.values():
         for name, count in counts.items():
@@ -871,6 +932,8 @@ def main():
             name=name, route="cuda", source=CSRC + "carry_codec.cu",
             replaces=f"scalecube_cluster_tpu/models/swim.py:{line}",
             launches=launches.get(name, 0),
+            launches_by_path={path: counts.get(name, 0)
+                              for path, counts in paths.items()},
             **codec_rows[name]))
     for name in probes.NAMES:
         small = probe_rows[name]["512x128"]

@@ -1,9 +1,12 @@
 """The SWIM round on PyTorch tensors: failure detection, gossip, SYNC,
 merge, suspicion timers.
 
-Counterpart of ``scalecube_cluster_tpu/models/swim.py`` for shift
-delivery (``delivery="shift"``) with no optional planes, in both the
-focal shape (N members x K tracked subjects) and full view (K == N).
+Counterpart of ``scalecube_cluster_tpu/models/swim.py`` for both
+delivery modes with no optional planes, in both the focal shape (N
+members x K tracked subjects) and full view (K == N): ``"scatter"`` (the
+default), where every sender draws its own uniform targets and the
+inbox is max-folded by scatter, and ``"shift"``, where each channel
+shares one cyclic offset a round.
 State is [N, K] per observer row and subject column (``SwimState``); the
 world holds the ground truth and the fault schedule (``SwimWorld``).
 
@@ -37,11 +40,16 @@ Each round (``swim_tick``):
 0. ``kernels/carry.carry_decode`` (compact carry only);
 1. ``_round_context``: liveness and partition slices, the self-record
    pin, user-gossip injections, the FD and SYNC phase gates;
-2. ``_fd_phase``: the FD probe chains and their SUSPECT verdicts;
-3. ``_delivery_phase``: the ring's due slot, F gossip channels, the
-   refute push and the SYNC channel over cyclic shifts (later arrivals
-   binned into the ring), the joiner <-> seed exchange, max-folded into
-   one inbox of the wire format's dtype;
+2. the FD probe chains and their SUSPECT verdicts (``_fd_phase``;
+   scatter: ``_scatter_fd_phase``);
+3. delivery, max-folded into one inbox of the wire format's dtype with
+   the ring's due slot (later arrivals binned into the ring) and the
+   joiner <-> seed exchange: shift (``_delivery_phase``) sends F gossip
+   channels, the refute push and the SYNC channel over cyclic shifts;
+   scatter (``_scatter_send_phase``, ``_scatter_deliver``) scatters
+   each sender's rows to its drawn gossip and SYNC targets (the refute
+   push redirects the SYNC target), with the ALIVE flags in the keys
+   (``fused_wire``, the default) or in a second buffer;
 4. ``_merge_and_timers``: the CUDA kernel ``kernels/merge.py``, one
    instance per wire format (its plain PyTorch version for CPU tensors),
    then the user-gossip lanes;
@@ -52,17 +60,17 @@ Each phase runs under a ``torch.profiler.record_function`` range
 (``swim.carry``, ``swim.context``, ``swim.fd``, ``swim.delivery``,
 ``swim.merge``, ``swim.metrics``), which ``profile_round.py`` reads.
 
-Randomness comes from a ``RoundDraws`` per round (``ops/prng.py``):
-``run(..., draws=None)`` uses the port's ``TorchDraws``; any callable
-``round_idx -> RoundDraws`` can stand in, which is how the tests feed the
-reference's own draws and hold the state and metrics bit-identical.
-Which draws a round takes follows from static facts of the params and
-world (``prng.DrawFacts``).
+Randomness comes from a ``RoundDraws`` (shift) or ``ScatterDraws``
+(scatter) per round (``ops/prng.py``): ``run(..., draws=None)`` uses the
+port's ``TorchDraws``; any callable ``round_idx -> draws`` can stand in,
+which is how the tests feed the reference's own draws and hold the state
+and metrics bit-identical.  Which draws a round takes follows from
+static facts of the params and world (``prng.DrawFacts``).
 
 Settings outside the port raise ``NotImplementedError`` naming the
-knob: ``delivery="scatter"``, ``k_block``, ``sync_interval``,
-``lhm_max``, ``dead_suppress_rounds``, ``open_world``,
-``metadata_keys``, ``provenance`` and ``link_counters``.
+knob: ``k_block``, ``sync_interval``, ``lhm_max``,
+``dead_suppress_rounds``, ``open_world``, ``metadata_keys``,
+``provenance`` and ``link_counters``.
 ``rounds_per_step`` is accepted and ignored: the reference's outputs are
 bit-identical for any value.
 """
@@ -174,21 +182,19 @@ class SwimParams:
             if getattr(self, name) < 0:
                 raise ValueError(f"{name} must be >= 0 "
                                  f"(got {getattr(self, name)})")
-        if self.delivery == "scatter":
-            raise NotImplementedError(
-                "delivery='scatter' is not ported; use delivery='shift'")
         for name, selected in _UNPORTED:
             if selected(self):
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported (the port "
-                    f"carries the plane-off shift round)")
-        if self.ping_known_only != self.full_view:
+                    f"carries the plane-off round)")
+        if self.delivery == "shift" and self.ping_known_only != self.full_view:
             raise ValueError(
                 f"shift delivery requires ping_known_only == full_view "
                 f"(got ping_known_only={self.ping_known_only}, "
                 f"n_subjects={self.n_subjects}, n_members={self.n_members})")
         if self.n_members < 2:
-            raise ValueError("shift delivery needs n_members >= 2")
+            raise ValueError(f"{self.delivery} delivery needs n_members >= 2 "
+                             f"(a sender needs a target other than itself)")
         if not 1 <= self.n_subjects <= self.n_members:
             raise ValueError(f"n_subjects must be in [1, n_members] "
                              f"(got {self.n_subjects})")
@@ -772,11 +778,28 @@ def _round_context(state: SwimState, round_idx: int, params: SwimParams,
 
 def _fma32(e: torch.Tensor, mean: torch.Tensor,
            total: torch.Tensor) -> torch.Tensor:
-    """float32 ``fma(e, mean, total)``: one rounding of ``e * mean +
-    total``, as XLA fuses the reference's delay sum.  The float32 product
-    is exact in float64, so the float64 sum rounds once before the
-    float32 rounding, the same on every device."""
-    return torch.addcmul(total.double(), e.double(), mean.double()).float()
+    """float32 ``fma(e, mean, total)``: the correctly rounded float32 of
+    ``e * mean + total``, as XLA fuses the reference's delay sum.
+
+    The float32 product and ``total`` are exact in float64; their
+    float64 sum ``s`` rounds once, and TwoSum gives that rounding's
+    exact error.  Rounding ``s`` to float32 as it stands would round
+    twice, wrong where ``s`` lands on a float32 midpoint it did not
+    start on; so where the error is nonzero, ``s`` first rounds to odd
+    (its last float64 bit set, stepping one ulp toward the error),
+    which no float32 midpoint is.  Round-to-odd in float64 then
+    round-to-nearest in float32 is one correct rounding (53 >= 24 + 2
+    bits), the same on every device."""
+    p = e.double() * mean.double()
+    t = total.double()
+    s = p + t
+    s_p = s - t
+    err = (p - s_p) + (t - (s - s_p))
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where(even & (err != 0), torch.nextafter(s, toward), s)
+    return s.float()
 
 
 def _chain_ok(u: torch.Tensor, e: Optional[torch.Tensor],
@@ -810,6 +833,16 @@ def _chain_ok(u: torch.Tensor, e: Optional[torch.Tensor],
                                           device=u.device))
 
 
+def _hop_links(pairs, world: SwimWorld, round_idx: int, kn: Knobs,
+               params: SwimParams):
+    """``(losses, delays)``: ``link_eval`` of each (src ids, dst ids) hop
+    of a probe chain, in hop order."""
+    links = [link_eval(world.faults, round_idx, src, dst,
+                       kn.loss_probability, params.mean_delay_ms)
+             for src, dst in pairs]
+    return [lo for lo, _ in links], [de for _, de in links]
+
+
 def _entry_at_slot(mat: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     """``mat[i, slot[i]]`` for ``slot`` in [0, K) (the reference's
     one-hot max over K, equal here because table values are >= 0)."""
@@ -833,10 +866,7 @@ def _shift_fd_chains(eng, d_ids, d_alive, d_part, fd_shift: int,
     part_t = eng.look(d_part, fd_shift)
 
     def hops(pairs):
-        links = [link_eval(world.faults, round_idx, src, dst,
-                           kn.loss_probability, params.mean_delay_ms)
-                 for src, dst in pairs]
-        return [lo for lo, _ in links], [de for _, de in links]
+        return _hop_links(pairs, world, round_idx, kn, params)
 
     delayed = draws.u_direct is None
     losses, delays = hops(((node_ids, t), (t, node_ids)))
@@ -950,10 +980,12 @@ def _fd_phase(eng, views, ctx: dict, shifts, round_idx: int,
 
 class _DelayRing:
     """The state's delay rings during one round's delivery: the due slot
-    is read and cleared at construction, later arrivals are pushed by
-    :meth:`route` (in place: the caller owns the rings)."""
+    is read and cleared at construction (the flag ring's only
+    ``with_flags``), later arrivals are pushed by :meth:`route` or into
+    :meth:`slot` (in place: the caller owns the rings)."""
 
-    def __init__(self, state: SwimState, params: SwimParams, round_idx: int):
+    def __init__(self, state: SwimState, params: SwimParams, round_idx: int,
+                 with_flags: bool = True):
         self.params = params
         self.d = ring_slots(params)
         self.slot0 = round_idx % self.d
@@ -961,8 +993,12 @@ class _DelayRing:
         self.g = state.g_ring if params.n_user_gossips > 0 else None
         self.keys_now = ring_ops.open_slot(self.keys, self.slot0,
                                            delivery.NO_MESSAGE)
-        self.flags_now = ring_ops.open_slot(self.flags, self.slot0,
-                                            0).bool()
+        # The fused scatter wire never writes or reads the flag ring (the
+        # merge gate derives the flags from the folded keys), so it stays
+        # all zeros, as in the reference.
+        self.flags_now = (ring_ops.open_slot(self.flags, self.slot0,
+                                             0).bool()
+                          if with_flags else None)
         self.g_now = (None if self.g is None
                       else ring_ops.open_slot(self.g, self.slot0, False))
 
@@ -987,6 +1023,10 @@ class _DelayRing:
                 ring_ops.push_or(self.g, slot, g_bits & m)
         return ok & (q == 0)
 
+    def slot(self, j: int) -> int:
+        """The ring slot of messages ``j`` rounds late."""
+        return (self.slot0 + j) % self.d
+
 
 def _seed_anti_entropy(status, sync_keys, inbox, inbox_alive,
                        round_idx: int, params: SwimParams, kn: Knobs,
@@ -996,7 +1036,8 @@ def _seed_anti_entropy(status, sync_keys, inbox, inbox_alive,
     every live member still holding ABSENT entries pushes its syncable
     row to its drawn seed (``draws.seed_sel``) and, if the push arrived,
     gets the seed's pre-merge row back the same round.  Returns
-    ``(inbox, inbox_alive)``."""
+    ``(inbox, inbox_alive)``; ``inbox_alive`` None (the fused scatter
+    wire, whose flags follow from the keys) stays None."""
     wf = params.wire_format
     no_msg = delivery.no_message(wf)
     node_ids, alive, part = ctx["node_ids"], ctx["alive"], ctx["part"]
@@ -1014,8 +1055,9 @@ def _seed_anti_entropy(status, sync_keys, inbox, inbox_alive,
                                    no_msg).amax(dim=0)
         inbox = torch.maximum(inbox, torch.where(
             is_seed_row, contribution[None, :], no_msg))
-        inbox_alive |= is_seed_row & delivery.is_alive_key(
-            contribution, fmt=wf)[None, :]
+        if inbox_alive is not None:
+            inbox_alive |= is_seed_row & delivery.is_alive_key(
+                contribution, fmt=wf)[None, :]
         # The ack: the seed's row back to every successful pusher.
         seed_row = sync_keys[sid.long()]
         loss_ack, _ = link_eval(world.faults, round_idx, sid, node_ids,
@@ -1023,8 +1065,9 @@ def _seed_anti_entropy(status, sync_keys, inbox, inbox_alive,
         ok_ack = (ok_push & ~(draws.seed_ack_u[si] < loss_ack))[:, None]
         inbox = torch.maximum(inbox, torch.where(ok_ack, seed_row[None, :],
                                                  no_msg))
-        inbox_alive |= ok_ack & delivery.is_alive_key(seed_row,
-                                                       fmt=wf)[None, :]
+        if inbox_alive is not None:
+            inbox_alive |= ok_ack & delivery.is_alive_key(seed_row,
+                                                           fmt=wf)[None, :]
     return inbox, inbox_alive
 
 
@@ -1162,17 +1205,297 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
     return inbox, inbox_alive, g_delivered, n_gossip_sent
 
 
-def _check_draws(draws: prng.RoundDraws, facts: prng.DrawFacts) -> None:
-    """Raise unless ``draws`` holds exactly the chain draws and every
-    other field ``facts`` call for."""
-    chains = (("chain_u_direct", "chain_e_direct", "chain_u_proxy",
-               "chain_e_proxy"), ("u_direct", "u_proxy"))
-    need, other = chains if facts.delayed else chains[::-1]
-    need = list(need)
-    if facts.delay_bins:
-        need += ["e_gossip", "e_sync", "e_refute"]
-    if facts.n_seeds:
-        need += ["seed_sel", "seed_push_u", "seed_ack_u"]
+# --------------------------------------------------------------------------
+# Scatter delivery: every sender draws its own uniform targets
+# --------------------------------------------------------------------------
+
+
+def _send_payloads(state: SwimState, status, inc, round_idx: int,
+                   params: SwimParams, world: SwimWorld, is_self):
+    """(gossip_keys, sync_keys): the masked payload rows each scatter
+    sender ships (hot records; everything but tombstones)."""
+    record_keys, hot, syncable = _send_components(
+        state, status, inc, round_idx, params, world, is_self)
+    no_msg = delivery.no_message(params.wire_format)
+    return (torch.where(hot, record_keys, no_msg),
+            torch.where(syncable, record_keys, no_msg))
+
+
+def _scatter_fd_phase(ctx: dict, round_idx: int, params: SwimParams,
+                      kn: Knobs, world: SwimWorld,
+                      draws: prng.ScatterDraws) -> dict:
+    """Phase 1 of the scatter round, the failure-detector probe
+    (FailureDetectorImpl.java:128-213): each prober's own target, known-
+    only (a Gumbel argmax over the subjects its row holds live) or
+    uniform over the members (focal), the direct ping round trip and R
+    ping-req proxy chains over gathered ids, the verdicts, the SUSPECT
+    inbox contribution and the refute push."""
+    k = params.n_subjects
+    status, inc = ctx["status"], ctx["inc"]
+    alive, part, node_ids = ctx["alive"], ctx["part"], ctx["node_ids"]
+    if params.ping_known_only:
+        eligible = ~ctx["is_self"] & ((status == records.ALIVE)
+                                      | (status == records.SUSPECT))
+        slot, has_target = prng.choose_eligible(draws.ping_gumbel, eligible)
+        t = world.subject_ids[slot]
+    else:
+        t = prng.targets_excluding_self(draws.ping_t[:, None], node_ids)[:, 0]
+        slot = world.slot_of_node[t.long()]                 # -1: untracked
+        entry = _entry_at_slot(status, torch.clamp(slot, min=0))
+        has_target = (slot >= 0) & ((entry == records.ALIVE)
+                                    | (entry == records.SUSPECT))
+    ping_budget = knob_ping_timeout(kn, params)
+    ping_req_budget = params.ping_interval_ms - ping_budget
+
+    def hops(pairs):
+        return _hop_links(pairs, world, round_idx, kn, params)
+
+    delayed = draws.u_direct is None
+    t_l = t.long()
+    alive_t, part_t = alive[t_l], part[t_l]
+    losses, delays = hops(((node_ids, t), (t, node_ids)))
+    direct_ok = (_chain_ok(draws.chain_u_direct if delayed else draws.u_direct,
+                           draws.chain_e_direct, losses, delays, ping_budget)
+                 & alive_t & (part == part_t))
+    proxies = prng.targets_excluding_self(draws.proxies, node_ids)   # [N, R]
+    p_l = proxies.long()
+    t_col = t[:, None]
+    losses, delays = hops(((node_ids[:, None], proxies), (proxies, t_col),
+                           (t_col, proxies), (proxies, node_ids[:, None])))
+    u, e = ((draws.proxy_chain_u, draws.proxy_chain_e) if delayed
+            else (draws.proxy_u, None))
+    part_p = part[p_l]
+    proxy_ok = (_chain_ok(u, e, losses, delays, ping_req_budget)
+                & alive[p_l] & alive_t[:, None] & (part[:, None] == part_p)
+                & (part_p == part_t[:, None]) & (proxies != t_col))
+    ack_ok = direct_ok | proxy_ok.any(dim=1)
+    probe_active = has_target & alive & ctx["fd_round"]
+    # Every live member probes each fd round; in focal mode whether or
+    # not the target is tracked (``probe_active`` gates the bookkeeping).
+    probes_sent = (probe_active if params.ping_known_only
+                   else alive & ctx["fd_round"])
+    slot_sf = torch.clamp(slot, min=0)
+    fd_slot_onehot = (torch.arange(k, dtype=slot_sf.dtype,
+                                   device=status.device)[None, :]
+                      == slot_sf[:, None])
+    verdict_suspect = probe_active & ~ack_ok
+    wf = params.wire_format
+    fd_suspect_key = delivery.pack_record(records.SUSPECT,
+                                          _entry_at_slot(inc, slot_sf), fmt=wf)
+    return dict(
+        t=t, probe_active=probe_active, probes_sent=probes_sent,
+        ping_req_launches=probes_sent & ~direct_ok,
+        push_refute=(probe_active & ack_ok
+                     & (_entry_at_slot(status, slot_sf) == records.SUSPECT)),
+        fd_inbox=torch.where(fd_slot_onehot & verdict_suspect[:, None],
+                             fd_suspect_key[:, None],
+                             delivery.no_message(wf)),
+    )
+
+
+def _scatter_send_phase(state: SwimState, ctx: dict, fd: dict,
+                        round_idx: int, params: SwimParams, kn: Knobs,
+                        world: SwimWorld, draws: prng.ScatterDraws) -> dict:
+    """Phases 2-3 of the scatter round: the gossip and SYNC sends, as
+    payload rows, targets and drop masks (the reference's
+    ``_scatter_send_phase`` after the probe).  Gossip goes to F drawn
+    targets, each gated on the sender and target being live and in one
+    partition, the contact gate, a loss draw and the channel count; the
+    SYNC goes to one drawn target, or to the probed member where an
+    ALIVE verdict met a SUSPECT entry (the refute push)."""
+    status, inc = ctx["status"], ctx["inc"]
+    alive, part, node_ids = ctx["alive"], ctx["part"], ctx["node_ids"]
+    gossip_keys, sync_keys = _send_payloads(
+        state, status, inc, round_idx, params, world, ctx["is_self"])
+    gate = ctx["is_seed"] is not None
+
+    def contact_ok(targets):
+        """Full view with seeds: the sender holds the target live, or
+        the target is a seed."""
+        held = status.gather(1, targets.long())
+        return ((held == records.ALIVE) | (held == records.SUSPECT)
+                | ctx["is_seed"][targets.long()])
+
+    gossip_targets = prng.targets_excluding_self(draws.gossip_t, node_ids)
+    g_l = gossip_targets.long()
+    send_ok = alive[:, None] & alive[g_l] & (part[:, None] == part[g_l])
+    if gate:
+        send_ok &= contact_ok(gossip_targets)
+    loss_g, delay_g = link_eval(world.faults, round_idx, node_ids[:, None],
+                                gossip_targets, kn.loss_probability,
+                                params.mean_delay_ms)
+    chan_off = (torch.arange(params.fanout, device=status.device)[None, :]
+                >= kn.fanout)
+    gossip_drop = (draws.gossip_drop_u < loss_g) | ~send_ok | chan_off
+
+    # The refute push rides the SYNC channel (it is a SYNC to the
+    # suspected member, MembershipProtocolImpl.java:379-391), so a
+    # disabled channel disables it too.
+    push_refute = fd["push_refute"] & (kn.sync_every > 0)
+    sync_target = prng.targets_excluding_self(draws.sync_t[:, None],
+                                              node_ids)
+    sync_target = torch.where(push_refute[:, None], fd["t"][:, None],
+                              sync_target)
+    do_sync = (alive & ctx["sync_round"]) | push_refute
+    if gate:
+        do_sync &= contact_ok(sync_target)[:, 0] | push_refute
+    target = sync_target[:, 0]
+    loss_s, delay_s = link_eval(world.faults, round_idx, node_ids, target,
+                                kn.loss_probability, params.mean_delay_ms)
+    sync_ok = (alive[target.long()] & (part == part[target.long()])
+               & ~(draws.sync_drop_u < loss_s))
+    wf = params.wire_format
+    hot_any = (gossip_keys >= 0).any(dim=1)
+    hot_g = None
+    if params.n_user_gossips > 0:
+        hot_g = (ctx["g_infected"] & alive[:, None]
+                 & (round_idx < ctx["g_spread_until"]))
+        # A gossip message exists when either family has content.
+        hot_any = hot_any | hot_g.any(dim=1)
+    return dict(
+        gossip_keys=gossip_keys, sync_keys=sync_keys,
+        gossip_targets=gossip_targets, gossip_drop=gossip_drop,
+        sync_target=sync_target, sync_drop=~(do_sync & sync_ok)[:, None],
+        alive_flags=delivery.is_alive_key(gossip_keys, fmt=wf),
+        sync_alive_flags=delivery.is_alive_key(sync_keys, fmt=wf),
+        hot_any=hot_any, hot_g=hot_g, delay_g=delay_g, delay_s=delay_s)
+
+
+def _scatter_channel_bufs(s: dict, params: SwimParams, inbox, inbox_alive,
+                          gossip_extra_drop=None, sync_extra_drop=None
+                          ) -> None:
+    """Fold one delay bin of the round's gossip and SYNC scatters into
+    ``inbox`` (wire keys) and, on the two-buffer wire
+    (``fused_wire=False``), ``inbox_alive`` (ALIVE flags), in place.
+    The ``*_extra_drop`` masks keep the messages of other bins out."""
+    g_drop, s_drop = s["gossip_drop"], s["sync_drop"]
+    if gossip_extra_drop is not None:
+        g_drop = g_drop | gossip_extra_drop
+        s_drop = s_drop | sync_extra_drop
+    delivery.scatter_max_into(inbox, s["gossip_keys"], s["gossip_targets"],
+                              g_drop)
+    delivery.scatter_max_into(inbox, s["sync_keys"], s["sync_target"], s_drop)
+    if not params.fused_wire:
+        delivery.scatter_or_into(inbox_alive, s["alive_flags"],
+                                 s["gossip_targets"], g_drop)
+        delivery.scatter_or_into(inbox_alive, s["sync_alive_flags"],
+                                 s["sync_target"], s_drop)
+
+
+def _scatter_deliver(state: SwimState, ctx: dict, fd: dict, s: dict,
+                     round_idx: int, params: SwimParams, kn: Knobs,
+                     world: SwimWorld, draws: prng.ScatterDraws):
+    """The scatter round's inbox: the FD verdicts, the ring's due slot
+    and the bin-0 scatters max-folded together, later bins pushed into
+    the ring (keys only under the fused wire), the joiner <-> seed
+    exchange, and the user-gossip bits on the gossip channels' targets
+    and drops.  Under the fused wire the ALIVE flags are those of the
+    folded winners.  Returns ``(inbox, inbox_alive, g_delivered)``."""
+    n, k = params.n_members, params.n_subjects
+    wf = params.wire_format
+    inbox = fd["fd_inbox"]
+    inbox_alive = (None if params.fused_wire else
+                   torch.zeros((n, k), dtype=torch.bool, device=inbox.device))
+    ring = None
+    if params.max_delay_rounds > 0:
+        ring = _DelayRing(state, params, round_idx,
+                          with_flags=not params.fused_wire)
+        inbox = torch.maximum(inbox, ring.keys_now)
+        if inbox_alive is not None:
+            inbox_alive |= ring.flags_now
+    # The messages' delay bins; None: every message arrives now.
+    q_g = q_s = None
+    if ring is not None and s["delay_g"] is not None:
+        q_g = ring_ops.delay_bins(draws.gossip_e, s["delay_g"],
+                                  params.round_ms, params.max_delay_rounds)
+        q_s = ring_ops.delay_bins(draws.e_sync, s["delay_s"],
+                                  params.round_ms,
+                                  params.max_delay_rounds)[:, None]
+
+    def late(q, j):
+        return None if q is None else q != j
+
+    _scatter_channel_bufs(s, params, inbox, inbox_alive, late(q_g, 0),
+                          late(q_s, 0))
+    if q_g is not None:
+        for j in range(1, ring.d):
+            slot = ring.slot(j)
+            _scatter_channel_bufs(
+                s, params, ring.keys[slot],
+                None if params.fused_wire else ring.flags[slot],
+                q_g != j, q_s != j)
+    if ctx["is_seed"] is not None and ctx["sync_round"]:
+        inbox, inbox_alive = _seed_anti_entropy(
+            ctx["status"], s["sync_keys"], inbox, inbox_alive, round_idx,
+            params, kn, world, ctx, draws)
+    if params.fused_wire:
+        inbox_alive = delivery.is_alive_key(inbox, fmt=wf)
+    g_delivered = None
+    if params.n_user_gossips > 0:
+        # User gossips ride the same gossip messages: the same targets,
+        # drops and delay bins.
+        g_delivered = (ring.g_now if ring is not None else
+                       torch.zeros((n, params.n_user_gossips),
+                                   dtype=torch.bool, device=inbox.device))
+        g_drop = s["gossip_drop"]
+        delivery.scatter_or_into(
+            g_delivered, s["hot_g"], s["gossip_targets"],
+            g_drop if q_g is None else g_drop | (q_g != 0))
+        if q_g is not None:
+            for j in range(1, ring.d):
+                delivery.scatter_or_into(ring.g[ring.slot(j)], s["hot_g"],
+                                         s["gossip_targets"],
+                                         g_drop | (q_g != j))
+    return inbox, inbox_alive, g_delivered
+
+
+def _scatter_send_aux(fd: dict, s: dict, params: SwimParams) -> dict:
+    """The scatter round's send-side counters; a gossip message counts
+    per channel whose sender has content and whose message was not
+    dropped."""
+    return dict(
+        messages_gossip=(s["hot_any"][:, None] & ~s["gossip_drop"]).sum(
+            dtype=torch.int32),
+        messages_ping=fd["probe_active"].sum(dtype=torch.int32),
+        messages_ping_sent=fd["probes_sent"].sum(dtype=torch.int32),
+        messages_ping_req_sent=(fd["ping_req_launches"].sum(dtype=torch.int32)
+                                * params.ping_req_members),
+    )
+
+
+def _tick_scatter(state: SwimState, ctx: dict, round_idx: int,
+                  params: SwimParams, kn: Knobs, world: SwimWorld,
+                  draws: prng.ScatterDraws):
+    """The scatter round's FD, delivery and merge phases, each under a
+    profiler range (``swim.fd`` / ``swim.delivery`` / ``swim.merge``);
+    returns ``(new_state, aux counters)``."""
+    _check_draws(draws, prng.DrawFacts.of(params, world))
+    with record_function("swim.fd"):
+        fd = _scatter_fd_phase(ctx, round_idx, params, kn, world, draws)
+    with record_function("swim.delivery"):
+        s = _scatter_send_phase(state, ctx, fd, round_idx, params, kn, world,
+                                draws)
+        inbox, inbox_alive, g_delivered = _scatter_deliver(
+            state, ctx, fd, s, round_idx, params, kn, world, draws)
+    with record_function("swim.merge"):
+        new_state, refuted = _merge_and_timers(
+            state, ctx, inbox, inbox_alive, g_delivered, round_idx, params,
+            kn, world)
+    aux = dict(_scatter_send_aux(fd, s, params),
+               refutations=(refuted & ctx["alive"]).sum(dtype=torch.int32))
+    return new_state, aux
+
+
+def _check_draws(draws, facts: prng.DrawFacts) -> None:
+    """Raise unless ``draws`` is the delivery mode's kind of draws and
+    holds exactly the chain draws and every other field ``facts`` call
+    for."""
+    kind = getattr(draws, "DELIVERY", None)
+    if kind != facts.delivery:
+        raise ValueError(
+            f"a {facts.delivery} round got {type(draws).__name__} (draws of "
+            f"{kind} delivery); make the draws for these params")
+    need, other = draws.fields_for(facts)
     missing = [name for name in need if getattr(draws, name) is None]
     stray = [name for name in other if getattr(draws, name) is not None]
     if missing or stray:
@@ -1187,12 +1510,12 @@ def _tick_shift(state: SwimState, ctx: dict, round_idx: int,
     """The shift round's FD, delivery and merge phases, each under a
     profiler range (``swim.fd`` / ``swim.delivery`` / ``swim.merge``);
     returns ``(new_state, aux counters)``."""
+    _check_draws(draws, prng.DrawFacts.of(params, world))
     shifts = draws.shifts
     n_shifts = 1 + params.ping_req_members + params.fanout + 1
     if len(shifts) != n_shifts:
         raise ValueError(f"draws carry {len(shifts)} shifts, the round "
                          f"needs {n_shifts}")
-    _check_draws(draws, prng.DrawFacts.of(params, world))
     # One shift per send channel: [fd, proxies..., gossip..., sync].
     eng = ShiftEngine(params.n_members)
     views = (eng.prep(ctx["node_ids"]), eng.prep(ctx["alive"]),
@@ -1375,8 +1698,8 @@ def _wide_tick(state: SwimState, round_idx: int, params: SwimParams,
     returns (the compact carry is encoded only after that)."""
     with record_function("swim.context"):
         ctx = _round_context(state, round_idx, params, world, kn)
-    new_state, aux = _tick_shift(state, ctx, round_idx, params, kn, world,
-                                 draws)
+    tick = _tick_scatter if params.delivery == "scatter" else _tick_shift
+    new_state, aux = tick(state, ctx, round_idx, params, kn, world, draws)
     with record_function("swim.metrics"):
         metrics = _round_metrics(new_state, ctx["status"], aux, params,
                                  world, ctx["alive"])

@@ -1,9 +1,10 @@
-"""Wire keys and the inbox merge gate.
+"""Wire keys, scatter delivery and the inbox merge gate.
 
-Counterpart of ``scalecube_cluster_tpu/ops/delivery.py`` for the shift
-path: a record (status + incarnation) packs into one key whose max is
-the SWIM merge winner, and :func:`merge_inbox` applies the entry gate
-to a round's max-folded inbox.
+Counterpart of ``scalecube_cluster_tpu/ops/delivery.py``: a record
+(status + incarnation) packs into one key whose max is the SWIM merge
+winner, :func:`scatter_max` / :func:`scatter_or` deliver each sender's
+row to its drawn targets (scatter delivery), and :func:`merge_inbox`
+applies the entry gate to a round's max-folded inbox.
 
 Wire layout, one signed word: ``[sign 0] [dead] [incarnation] [suspect]``
 with the dead bit on top so the max-fold keeps the reference's
@@ -133,3 +134,51 @@ def merge_inbox(entry_status, entry_inc, inbox_key, inbox_any_alive,
     new_inc = torch.where(accepts, win_inc, entry_inc).to(torch.int32)
     changed = accepts & ((new_status != entry_status) | (new_inc != entry_inc))
     return new_status, new_inc, changed
+
+
+def scatter_max_into(inbox: torch.Tensor, values: torch.Tensor,
+                     targets: torch.Tensor, drop: torch.Tensor) -> None:
+    """Max-fold each sender's row of ``values`` [S, K] into ``inbox``
+    [N, K] (in place) at each of its ``targets`` [S, F] whose ``drop``
+    [S, F] is false: one ``index_reduce_`` a fanout column.  Max does
+    not depend on the order of colliding targets, so the result is the
+    same on every device.  Keys stay in ``values``' dtype."""
+    index = targets.long()
+    for f in range(targets.shape[1]):
+        contribution = torch.where(drop[:, f, None], NO_MESSAGE, values)
+        inbox.index_reduce_(0, index[:, f], contribution, "amax",
+                            include_self=True)
+
+
+def scatter_or_into(inbox: torch.Tensor, flags: torch.Tensor,
+                    targets: torch.Tensor, drop: torch.Tensor) -> None:
+    """:func:`scatter_max_into` for flag bits: ``inbox`` [N, K] bool (or
+    int8 0/1) or-folds ``flags`` [S, K] bool at the undropped targets,
+    through an int8 view (a max over 0/1 is the or)."""
+    plane = inbox.view(torch.int8)
+    index = targets.long()
+    for f in range(targets.shape[1]):
+        contribution = (flags & ~drop[:, f, None]).view(torch.int8)
+        plane.index_reduce_(0, index[:, f], contribution, "amax",
+                            include_self=True)
+
+
+def scatter_max(values: torch.Tensor, targets: torch.Tensor,
+                drop: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Deliver each sender's row to its targets: the ``[n_rows, K]``
+    inbox of the max key received a cell, ``NO_MESSAGE`` where nothing
+    arrived (the reference's ``scatter_max``)."""
+    inbox = torch.full((n_rows, values.shape[1]), NO_MESSAGE,
+                       dtype=values.dtype, device=values.device)
+    scatter_max_into(inbox, values, targets, drop)
+    return inbox
+
+
+def scatter_or(flags: torch.Tensor, targets: torch.Tensor,
+               drop: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Boolean :func:`scatter_max`: ``[n_rows, K]`` true where some
+    undropped sender flagged the cell (the reference's ``scatter_or``)."""
+    inbox = torch.zeros((n_rows, flags.shape[1]), dtype=torch.bool,
+                        device=flags.device)
+    scatter_or_into(inbox, flags, targets, drop)
+    return inbox

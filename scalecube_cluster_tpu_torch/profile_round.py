@@ -2,7 +2,8 @@
 
 Runs the bench workload (LAN defaults, loss 0.02, node 3 crashed at
 round 10, focal K subjects) at N members in one carry/wire layout
-(``--layout``: wide, int16_wire, compact, compact_wire24), or with
+(``--layout``: wide, int16_wire, compact, compact_wire24) and delivery
+mode (``--delivery``: shift, the bench's, or scatter), or with
 ``--network`` the network configuration instead (``network_params`` /
 ``network_world``: the same workload with a 50 ms mean link delay, a
 4-slot delay ring, a six-window brownout, a two-way block of node 5
@@ -15,7 +16,8 @@ each phase range of ``models/swim.py`` (``swim.carry``/``context``/
 time, and the delay ring's bytes.
 
 Run on a card: ``python -m scalecube_cluster_tpu_torch.profile_round
-[--n 1000000] [--layout wide [compact ...]] [--network]``.
+[--n 1000000] [--layout wide [compact ...]] [--delivery scatter]
+[--network]``.
 Prints one JSON line per layout, with the card's name and power limit.
 """
 
@@ -67,13 +69,21 @@ NETWORK_ROUNDS = 600
 NETWORK_PEAK = 160
 
 
-def network_params(layout: str, n: int, k: int) -> swim.SwimParams:
-    """The network configuration's params: LAN defaults, loss 0.02, mean
-    link delay 50 ms, a 4-slot delay ring, four user gossips."""
+def bench_params(layout: str, n: int, k: int, delivery: str = "shift",
+                 **overrides) -> swim.SwimParams:
+    """The bench workload's params: LAN defaults, loss 0.02."""
     return swim.SwimParams.from_config(
         ClusterConfig.default(), n_members=n, n_subjects=k,
-        loss_probability=0.02, mean_delay_ms=50.0, max_delay_rounds=3,
-        n_user_gossips=4, delivery="shift", **LAYOUTS[layout])
+        loss_probability=0.02, delivery=delivery, **LAYOUTS[layout],
+        **overrides)
+
+
+def network_params(layout: str, n: int, k: int, delivery: str = "shift",
+                   **overrides) -> swim.SwimParams:
+    """The network configuration's params: the bench workload's with a
+    mean link delay of 50 ms, a 4-slot delay ring, four user gossips."""
+    return bench_params(layout, n, k, delivery, mean_delay_ms=50.0,
+                        max_delay_rounds=3, n_user_gossips=4, **overrides)
 
 
 def network_world(params: swim.SwimParams, device,
@@ -200,6 +210,8 @@ def main(argv=None) -> list:
     ap.add_argument("--warmup", type=int, default=None,
                     help="rounds run before the window (default 20; with "
                          f"--network {NETWORK_PEAK}, the brownout's peak)")
+    ap.add_argument("--delivery", choices=("shift", "scatter"),
+                    default="shift")
     ap.add_argument("--rounds", type=int, default=50)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--network", action="store_true",
@@ -214,13 +226,10 @@ def main(argv=None) -> list:
     results = []
     for layout in args.layout:
         if args.network:
-            params = network_params(layout, args.n, args.k)
+            params = network_params(layout, args.n, args.k, args.delivery)
             world = network_world(params, device)
         else:
-            params = swim.SwimParams.from_config(
-                ClusterConfig.default(), n_members=args.n,
-                n_subjects=args.k, loss_probability=0.02, delivery="shift",
-                **LAYOUTS[layout])
+            params = bench_params(layout, args.n, args.k, args.delivery)
             world = swim.SwimWorld.healthy(params, device=device).with_crash(
                 3, at_round=10)
         warmup = args.warmup
@@ -228,7 +237,8 @@ def main(argv=None) -> list:
             warmup = NETWORK_PEAK if args.network else 20
         state, _ = swim.run(0, params, world, warmup, device=device)
         result = dict(card=card, n_members=args.n, n_subjects=args.k,
-                      layout=layout, network=args.network,
+                      layout=layout, delivery=args.delivery,
+                      network=args.network,
                       **profile_window(params, world, state, warmup,
                                        args.rounds, args.top))
         print(json.dumps(result), flush=True)

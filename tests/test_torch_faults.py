@@ -320,6 +320,56 @@ def test_delayed_chain_ok_matches_reference():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _xla_fma(e, mean, total):
+    """The reference's delay-sum step, ``total + e * mean`` in float32,
+    jitted on XLA:CPU at its default optimizations (as ``_chain_ok``
+    compiles inside ``swim.run``)."""
+    return np.asarray(jax.jit(lambda a, b, c: c + a * b)(e, mean, total))
+
+
+def test_fma32_rounds_once():
+    """The witness of a sum whose float64 value lands on a float32
+    midpoint it did not start on: e * mean = 2^-24 - 2^-54 above
+    1 + 2^-23 rounds down to 1 + 2^-23 in one rounding, and up to
+    1 + 2^-22 through float64 first."""
+    e = np.float32(32767 * 2.0**-27)
+    mean = np.float32(32769 * 2.0**-27)
+    total = np.float32(1 + 2.0**-23)
+    want = _xla_fma(e, mean, total)
+    assert want == np.float32(1 + 2.0**-23)
+    assert np.float32(np.float64(e) * np.float64(mean)
+                      + np.float64(total)) == np.float32(1 + 2.0**-22)
+    got = swim._fma32(*(torch.tensor([x]) for x in (e, mean, total)))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), [want])
+
+
+def test_fma32_matches_xla_near_midpoints():
+    """Triples whose exact sum lies on a float32 midpoint, or a little
+    below one (closer than half a float64 ulp, or farther), among plain
+    triples: the port's ``_fma32`` equals XLA:CPU's fused sum on every
+    one.  The product (x - y)(x + y) = x^2 - y^2 with x = s * 2^17 (s
+    odd) puts x^2 * c at s^2 / 2 float32 ulps of ``total``, a midpoint,
+    and y^2 * c below it."""
+    rng = np.random.default_rng(11)
+    m = 4000
+    total = rng.uniform(0.5, 600.0, m).astype(np.float32)
+    x = (rng.integers(0, 64, m) * 2 + 1) * 2**17
+    y = rng.choice([0, 1, 2, 3, 4, 5, 7, 20], m)
+    c = np.spacing(total).astype(np.float64) * 2.0**-35
+    e = ((x - y) * 2.0**-22).astype(np.float32)
+    mean = ((x + y) * c * 2.0**22).astype(np.float32)
+    plain = rng.uniform(size=m) < 0.2
+    e = np.where(plain, rng.uniform(0, 4, m).astype(np.float32), e)
+    mean = np.where(plain, rng.uniform(0, 400, m).astype(np.float32), mean)
+    want = _xla_fma(e, mean, total)
+    twice = (e.astype(np.float64) * mean + total).astype(np.float32)
+    assert int((twice != want).sum()) > 500       # the cases that matter
+    got = swim._fma32(torch.from_numpy(e), torch.from_numpy(mean),
+                      torch.from_numpy(total))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("args,match", [
     (((0, 4), 5, 1.5), "loss must be a probability"),
     (((0, 4), 5, -0.1), "loss must be a probability"),

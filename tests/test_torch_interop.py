@@ -9,6 +9,7 @@ package, and its entry points must default to CUDA.
 """
 
 import ast
+import dataclasses
 import inspect
 import subprocess
 import sys
@@ -164,6 +165,12 @@ def test_state_and_world_import_reject_unported_lanes():
     with pytest.raises(NotImplementedError, match="md_push_at"):
         interop.world_from_arrays(
             {"md_push_at": np.zeros(1, np.int32)}, device="cpu")
-    with pytest.raises(NotImplementedError, match="delivery='scatter'"):
-        port_params(jswim.SwimParams.from_config(fast_config(),
-                                                 n_members=32))
+    # A scatter params (the reference's default) carries over field for
+    # field.
+    jscatter = jswim.SwimParams.from_config(fast_config(), n_members=32,
+                                            n_subjects=4,
+                                            ping_known_only=True,
+                                            fused_wire=False)
+    scatter = port_params(jscatter)
+    assert scatter.delivery == "scatter" and not scatter.fused_wire
+    assert dataclasses.asdict(scatter) == dataclasses.asdict(jscatter)

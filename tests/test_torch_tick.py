@@ -126,7 +126,7 @@ def test_torch_draws_shapes_and_ranges():
 
 
 UNPORTED = [
-    ("delivery", "scatter"), ("k_block", 8),
+    ("k_block", 8),
     ("sync_interval", 8), ("lhm_max", 4),
     ("dead_suppress_rounds", 8), ("open_world", True), ("metadata_keys", 2),
     ("provenance", True), ("link_counters", True),
@@ -139,6 +139,34 @@ def test_unported_knob_raises_naming_it(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         swim.SwimParams.from_config(fast_config(), n_members=64,
                                     **overrides)
+
+
+@pytest.mark.parametrize("n_subjects", [None, 8])
+def test_default_params_are_scatter_and_construct(n_subjects):
+    """Default-argument params (scatter delivery, the reference's default)
+    construct in full view and focal, as the reference's do."""
+    params = swim.SwimParams.from_config(fast_config(), n_members=64,
+                                         n_subjects=n_subjects)
+    want = jswim.SwimParams.from_config(fast_config(), n_members=64,
+                                        n_subjects=n_subjects)
+    assert params.delivery == want.delivery == "scatter"
+    assert params.fused_wire and params.ping_known_only == params.full_view
+    assert dataclasses.asdict(params) == dataclasses.asdict(want)
+
+
+@pytest.mark.parametrize("n_subjects,known_only",
+                         [(8, True), (None, False)])
+def test_ping_known_only_mismatch_is_scatter_only(n_subjects, known_only):
+    """``ping_known_only != full_view`` is accepted under scatter and still
+    raises under shift, as in the reference."""
+    params = swim.SwimParams.from_config(
+        fast_config(), n_members=64, n_subjects=n_subjects,
+        ping_known_only=known_only)
+    assert params.ping_known_only == known_only != params.full_view
+    with pytest.raises(ValueError, match="ping_known_only == full_view"):
+        swim.SwimParams.from_config(
+            fast_config(), n_members=64, n_subjects=n_subjects,
+            ping_known_only=known_only, delivery="shift")
 
 
 def test_wire24_raises_and_rounds_per_step_is_accepted():

@@ -19,7 +19,8 @@ import torch
 
 from scalecube_cluster_tpu.ops import prng as jprng
 from scalecube_cluster_tpu_torch import interop
-from scalecube_cluster_tpu_torch.ops.prng import DrawFacts, RoundDraws
+from scalecube_cluster_tpu_torch.ops.prng import (DrawFacts, RoundDraws,
+                                                  ScatterDraws)
 
 STATE_FIELDS = ("status", "inc", "spread_until", "suspect_deadline",
                 "self_inc", "inbox_ring", "flag_ring", "g_infected",
@@ -38,10 +39,11 @@ def one_torch_thread():
 
 
 def jax_draws(key, params, world=None):
-    """``round_idx -> RoundDraws`` holding exactly the draws the reference
-    tick consumes under ``key`` for ``params`` and ``world`` (the JAX
-    objects; which fields follow from ``prng.DrawFacts``), with the
-    reference's own calls (models/swim.py: round keys :1908-1911, channel
+    """``round_idx -> RoundDraws`` (or ``ScatterDraws`` under scatter
+    delivery) holding exactly the draws the reference tick consumes
+    under ``key`` for ``params`` and ``world`` (the JAX objects; which
+    fields follow from ``prng.DrawFacts``), with the reference's own
+    calls (shift, models/swim.py: round keys :1908-1911, channel
     shifts :1920-1924 + :3609-3616; FD chains under keys[1] and
     fold_in(keys[3], r), collapsed :1687 or delayed :1691; drop draws
     :3770; refute drop :3894; delay bins fold_in(keys[5], 11 + c)
@@ -51,9 +53,8 @@ def jax_draws(key, params, world=None):
     them."""
     n, r, f = params.n_members, params.ping_req_members, params.fanout
     facts = DrawFacts.of(params, world)
-
-    def unit_exp(u):
-        return -jnp.log1p(-u)
+    if facts.delivery == "scatter":
+        return _jax_scatter_draws(key, params, facts)
 
     @jax.jit
     def one(round_idx):
@@ -89,16 +90,7 @@ def jax_draws(key, params, world=None):
                                            for c in range(f)]),
                        e_sync=bin_e(keys[7], 11), e_refute=bin_e(keys[7], 13))
         if facts.n_seeds:
-            k_sel, k_push, k_ack = jax.random.split(
-                jax.random.fold_in(keys[7], 29), 3)
-            out.update(
-                seed_sel=jax.random.randint(k_sel, (n,), 0, facts.n_seeds),
-                seed_push_u=jnp.stack([jax.random.uniform(
-                    jax.random.fold_in(k_push, si), (n,))
-                    for si in range(facts.n_seeds)]),
-                seed_ack_u=jnp.stack([jax.random.uniform(
-                    jax.random.fold_in(k_ack, si), (n,))
-                    for si in range(facts.n_seeds)]))
+            out.update(_seed_draws(keys, n, facts.n_seeds))
         return out
 
     def draws(round_idx):
@@ -109,6 +101,80 @@ def jax_draws(key, params, world=None):
         fields.update((name, torch.from_numpy(value))
                       for name, value in out.items())
         return RoundDraws(shifts=shifts, **fields)
+
+    return draws
+
+
+def unit_exp(u):
+    return -jnp.log1p(-u)
+
+
+def _seed_draws(keys, n, n_seeds):
+    """The seed anti-entropy's draws under fold_in(keys[7], 29), split in
+    three (models/swim.py:2583-2620), in either delivery mode."""
+    k_sel, k_push, k_ack = jax.random.split(jax.random.fold_in(keys[7], 29),
+                                            3)
+    return dict(
+        seed_sel=jax.random.randint(k_sel, (n,), 0, n_seeds),
+        seed_push_u=jnp.stack([jax.random.uniform(
+            jax.random.fold_in(k_push, si), (n,)) for si in range(n_seeds)]),
+        seed_ack_u=jnp.stack([jax.random.uniform(
+            jax.random.fold_in(k_ack, si), (n,)) for si in range(n_seeds)]))
+
+
+def _jax_scatter_draws(key, params, facts):
+    """The scatter round's draws (models/swim.py:2684-2871, the dispatch
+    passing keys[0] as the probe key, :2117-2125): keys[0] the probe
+    target (``gumbel`` [N, K] known-only, else ``randint`` [N, 1]),
+    keys[1] the direct chain, keys[2] the proxies, keys[3] one
+    ``uniform`` [N, R] (or [N, R, 8] delayed) for the proxy chains,
+    keys[4] the gossip targets, keys[5] the gossip drops and their delay
+    bins under fold_in(keys[5], 7) (ops/ring.py:21), keys[6] the SYNC
+    target, keys[7] its drop, bins under fold_in(keys[7], 7) and the seed
+    exchange under fold_in(keys[7], 29).  Targets are the raw
+    ``randint(0, N - 1)`` draws of ``prng.targets_excluding_self``."""
+    n, k = params.n_members, params.n_subjects
+    r, f = params.ping_req_members, params.fanout
+
+    def targets(kk, width):
+        return jax.random.randint(kk, (n, width), 0, n - 1)
+
+    @jax.jit
+    def one(round_idx):
+        keys = jax.random.split(
+            jprng.round_key(jprng.round_key(key, round_idx), 0), 8)
+        out = dict(proxies=targets(keys[2], r), gossip_t=targets(keys[4], f),
+                   gossip_drop_u=jax.random.uniform(keys[5], (n, f)),
+                   sync_t=targets(keys[6], 1)[:, 0],
+                   sync_drop_u=jax.random.uniform(keys[7], (n,)))
+        if facts.known_only:
+            out["ping_gumbel"] = jax.random.gumbel(keys[0], (n, k))
+        else:
+            out["ping_t"] = targets(keys[0], 1)[:, 0]
+        if facts.delayed:
+            u = jax.random.uniform(keys[1], (n, 4))
+            up = jax.random.uniform(keys[3], (n, r, 8))
+            out.update(chain_u_direct=u[:, :2],
+                       chain_e_direct=unit_exp(u[:, 2:]),
+                       proxy_chain_u=up[..., :4],
+                       proxy_chain_e=unit_exp(up[..., 4:]))
+        else:
+            out.update(u_direct=jax.random.uniform(keys[1], (n,)),
+                       proxy_u=jax.random.uniform(keys[3], (n, r)))
+        if facts.delay_bins:
+            out.update(
+                gossip_e=unit_exp(jax.random.uniform(
+                    jax.random.fold_in(keys[5], 7), (n, f))),
+                e_sync=unit_exp(jax.random.uniform(
+                    jax.random.fold_in(keys[7], 7), (n,))))
+        if facts.n_seeds:
+            out.update(_seed_draws(keys, n, facts.n_seeds))
+        return out
+
+    def draws(round_idx):
+        return ScatterDraws(**{
+            name: torch.from_numpy(np.array(value))
+            for name, value in one(jnp.int32(round_idx)).items()})
 
     return draws
 
