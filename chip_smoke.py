@@ -14,7 +14,12 @@ and prints no result):
    wire24) on seeded planes with every edge case of the merge and
    incarnations at each format's cap, and the compact carry's decode and
    encode on planes with the sentinel, stale negative deadlines and the
-   spread clip edges;
+   spread clip edges; then each of the five in block form (the K-tiled
+   round's): [36,864 x 4,096] planes, blocks of 1,024 columns at columns
+   0, 1,024 and 3,072 read through strided views and written through
+   views into sentinel-filled planes, exact against the plain version on
+   the same views, every other column untouched, timed at one block (row
+   stride 4,096);
 4. the probe path: ``python -m scalecube_cluster_tpu_torch.mosaic_probe``
    at [512, 128] and at [1,000,000, 16] (each probe once, checked against
    its plain version), then each probe timed at both shapes on the
@@ -48,6 +53,9 @@ and prints no result):
    argmax), int16 wire at 4,096 x 16, the network configuration at
    4,096 x 16 on the fused wire and on the two-buffer wire
    (``fused_wire=False``), and the seeded cold start at 512 x 512;
+   ``k_block=128`` at full view 512 x 512 in all four layouts (each
+   kernel launched four times a round); ``link_counters`` on the network
+   configuration at 4,096 x 16 under shift and scatter;
 6. the main path and the layout identity: LAN defaults, N = 1,000,000
    members x K = 16 subjects, loss 0.02, node 3 crashed at round 10, the
    port's own device draws, 600 rounds through ``models.swim.run`` in the
@@ -87,7 +95,24 @@ and prints no result):
    same identity check, printing phase 6's numbers and the shift
    path's first SUSPECT round and final DEAD share beside its own;
 10. phase 8 under scatter delivery;
-11. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``.
+11. blocked == unblocked on the card: the capacity configuration below
+    at N = K = 8,192 for 60 rounds, wide and compact, with
+    ``k_block=1024`` and without; every state lane and metric equal;
+    each run's peak bytes and bytes per cell;
+12. the full-view capacity path: the reference's configuration
+    (``experiments/fullview_ceiling.py:88-94``: LAN defaults, N = K =
+    36,864, compact carry, ``k_block=1024``, suspicion 6 rounds, ping
+    every 2, SYNC every 4, aggregate metrics, loss 0, node 3 crashed at
+    round 2) for 120 rounds: the wire16 merge, decode and encode each
+    launched 36 times a round; at the end >= 99% of live observers hold
+    node 3 DEAD; no false positive in any round; peak allocation <= 18
+    B/cell (two carries and one block's transients); node 0's
+    ``node_snapshot`` lists node 3 DEAD and equals the snapshot of its row
+    made on the CPU.  Prints ms/round, record-updates/s (N^2 x rounds /
+    s), peak bytes and bytes per cell, and a profiled 5-round window;
+13. one ``{"kernels": [...]}`` line (the block-form times and bounds as
+    ``block_*`` fields of their kernels' rows), then ``{"ok": true,
+    "device": ...}``.
 
 No phase catches its own failure, and nothing falls back to the CPU or
 to a plain version.  Run from the repository root: ``python3
@@ -125,6 +150,23 @@ OPS_PER_CELL = {"merge": 60, "carry_decode": 10, "carry_encode": 20,
                 "probe_load8": 6, "probe_merge_core": 25}
 
 MAIN_N, MAIN_K, MAIN_ROUNDS, CRASHED, CRASH_AT = 1_000_000, 16, 600, 3, 10
+# The full-view capacity configuration (experiments/fullview_ceiling.py:
+# 88-94): N = K, k_block column blocks, node 3 crashed at round 2; the
+# reference's 60-round first window plus its 60 timed rounds.
+FULL_N, FULL_KB, FULL_ROUNDS, FULL_CRASH_AT = 36_864, 1_024, 120, 2
+FULL_LAYOUT = "compact"
+# A round's peak allocation may hold two compact carries (the input and
+# the output) and the [N, Kb] transients of one block.
+MAX_BYTES_PER_CELL = 18
+# Blocked against unblocked on the card, at a size both fit.
+PAIR_N, PAIR_ROUNDS = 8_192, 60
+PROFILE_FULL_ROUNDS = 5
+# The block-form kernel checks: a [FULL_N, BLOCK_CARRY_K] carry (the real
+# row count, 1-4 KB row segments), blocks of FULL_KB columns at these
+# offsets, timed at TIMED_COL0.
+BLOCK_CARRY_K = 4_096
+BLOCK_COLS = (0, 1_024, 3_072)
+TIMED_COL0 = 1_024
 CANARY_ROUNDS = 200
 SEEDS = [0, 1, 2]
 COLD_N = 4096
@@ -187,23 +229,28 @@ def time_ms(fn, samples=20, inner=10, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, calls=50, warmup=3):
+def device_ms(fn, calls=50, warmup=3, traces=3):
     """Mean device milliseconds per call of ``fn()``: the summed time of
     the CUDA kernels (and copies) it runs, from a ``torch.profiler``
-    trace of ``calls`` calls, without the host's time between them."""
+    trace of ``calls`` calls, without the host's time between them.  A
+    trace that recorded no device activity at all (the tracer now and
+    then misses a whole window) is taken again, up to ``traces``
+    times."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return us / calls / 1e3
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / calls / 1e3
+    raise AssertionError(f"the profiler saw no device time in {traces} "
+                         f"traces")
 
 
 @functools.lru_cache(maxsize=None)
@@ -376,11 +423,12 @@ def check_merge_kernel(device, layout):
         list(planes.values()) + list(got), "merge", MAIN_N * MAIN_K, err)
 
 
-def check_codec(device, round_idx=300, inc_sat=8191):
-    """Phase 3: the compact carry's decode and encode at 1M x 16."""
-    g = torch.Generator(device=device).manual_seed(2)
-    shape = (MAIN_N, MAIN_K)
-
+def codec_planes(shape, g, device, round_idx, inc_sat):
+    """Seeded codec inputs of ``shape``: compact planes holding every
+    int16/int8 value (the sentinel 32767 among them), and wide planes with
+    no timer, due, stale (past -32766 too) and far-ahead deadlines,
+    spreads below the cursor and beyond 127 ahead, incarnations past the
+    cap."""
     def pick(values):
         values = torch.tensor(values, dtype=torch.int64, device=device)
         idx = torch.randint(0, len(values), shape, generator=g, device=device)
@@ -391,12 +439,9 @@ def check_codec(device, round_idx=300, inc_sat=8191):
         return torch.randint(info.min, info.max + 1, shape, generator=g,
                              device=device, dtype=torch.int64).to(dtype)
 
-    # decode: every int16/int8 value, the sentinel 32767 among them.
     narrow = (full_range(torch.int16), full_range(torch.int8),
               full_range(torch.int16))
     narrow[2].view(-1)[::7] = carry.DEADLINE_NONE16
-    # encode: no timer, due, stale (past -32766 too), far ahead, spreads
-    # below the cursor and beyond 127 ahead, incarnations past the cap.
     nxt = round_idx + 1
     wide = (pick([0, 1, 7, inc_sat - 1, inc_sat, inc_sat + 1, 32767, 40000]),
             nxt + torch.randint(-300, 300, shape, generator=g, device=device,
@@ -404,6 +449,22 @@ def check_codec(device, round_idx=300, inc_sat=8191):
             pick([INT32_MAX, nxt, nxt - 1, nxt - 500, nxt - 32766,
                   nxt - 40000, nxt + 1, nxt + 32765, nxt + 32766,
                   nxt + 32767, nxt + 90000]))
+    return narrow, wide
+
+
+def check_encode_edges(got):
+    dl = got[2]
+    if not (bool((dl == carry.DEADLINE_NONE16).any())
+            and bool((dl < 0).any()) and bool((got[1] == 0).any())
+            and bool((got[1] == 127).any())):
+        raise AssertionError("encode planes missed a clip edge")
+
+
+def check_codec(device, round_idx=300, inc_sat=8191):
+    """Phase 3: the compact carry's decode and encode at 1M x 16."""
+    g = torch.Generator(device=device).manual_seed(2)
+    narrow, wide = codec_planes((MAIN_N, MAIN_K), g, device, round_idx,
+                                inc_sat)
     rows = {}
     for name, fn, ref, ins, extra in (
             (carry.DECODE, carry.carry_decode, carry.carry_decode_reference,
@@ -414,15 +475,125 @@ def check_codec(device, round_idx=300, inc_sat=8191):
         torch.cuda.synchronize()
         err = max_abs_err(name, got, ref(*ins, *extra))
         if name == carry.ENCODE:
-            dl = got[2]
-            if not (bool((dl == carry.DEADLINE_NONE16).any())
-                    and bool((dl < 0).any()) and bool((got[1] == 0).any())
-                    and bool((got[1] == 127).any())):
-                raise AssertionError("encode planes missed a clip edge")
+            check_encode_edges(got)
         rows[name] = timed_row(
             f"{name} {MAIN_N}x{MAIN_K}", lambda: fn(*ins, *extra),
             lambda: ref(*ins, *extra), list(ins) + list(got), name,
             MAIN_N * MAIN_K, err)
+    return rows
+
+
+def untouched(name, planes, blk, fill):
+    """Raise unless every column of ``planes`` outside ``blk`` still
+    holds ``fill``."""
+    rest = torch.ones(planes[0].shape[1], dtype=torch.bool,
+                      device=planes[0].device)
+    rest[blk] = False
+    for p in planes:
+        if not bool((p[:, rest] == fill).all()):
+            raise AssertionError(f"{name}: a column outside the block was "
+                                 f"written")
+
+
+def block_fields(row):
+    """A block-form timing row as the ``block_*`` fields of its kernel's
+    row in the kernels line."""
+    return {f"block_{key}": row[key]
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
+
+
+def check_block_merge(device, layout):
+    """Phase 3: one merge instance in block form: [36,864 x 4,096] planes,
+    blocks of 1,024 columns at columns 0, 1,024 and 3,072 read through
+    strided views and written through ``out`` views into sentinel-filled
+    planes, exact against the plain version on the same views, every
+    column outside the block untouched; timed at one block (row stride
+    4,096)."""
+    params = profile_round.bench_params(layout, FULL_N, BLOCK_CARRY_K)
+    fmt, cap = params.wire_format, swim._wire_inc_sat(params)
+    planes = list(merge_planes(FULL_N, BLOCK_CARRY_K, seed=3, device=device,
+                               fmt=fmt, cap=cap).values())
+    grids, vectors = planes[:6], planes[6:]
+    scalars = (37, params.suspicion_rounds, params.periods_to_spread, cap)
+    name = merge.NAMES[fmt.name]
+    targets = [torch.full((FULL_N, BLOCK_CARRY_K), -7, dtype=p.dtype,
+                          device=device) for p in grids[:4]]
+    refuted = 0
+    for col0 in BLOCK_COLS:
+        blk = slice(col0, col0 + FULL_KB)
+        views = [p[:, blk] for p in grids]
+        outs = [t[:, blk] for t in targets]
+
+        def kernel():
+            return merge.merge_and_timers(*views, *vectors, *scalars, fmt=fmt,
+                                          col0=col0, out=outs)
+
+        def plain():
+            return merge.merge_and_timers_reference(
+                *views, *vectors, *scalars, fmt=fmt, col0=col0)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        err = max_abs_err(f"{name} block at column {col0}", got, plain())
+        untouched(f"{name} block at column {col0}", targets, blk, -7)
+        refuted += int(got[5].sum())
+        if col0 == TIMED_COL0:
+            row = timed_row(
+                f"{name} block {FULL_N}x{FULL_KB} at column {col0}, row "
+                f"stride {BLOCK_CARRY_K}", kernel, plain,
+                views + vectors + list(got), "merge", FULL_N * FULL_KB, err)
+        for t in targets:
+            t.fill_(-7)
+    if refuted == 0:
+        raise AssertionError(f"{name}: the blocks missed the refutation case")
+    log(f"[kernel] {name} block form: exact at columns {list(BLOCK_COLS)} "
+        f"of [{FULL_N}, {BLOCK_CARRY_K}], other columns untouched, "
+        f"{refuted} refutations")
+    return block_fields(row)
+
+
+def check_block_codec(device, round_idx=300, inc_sat=8191):
+    """Phase 3: decode from and encode into [36,864 x 1,024] column views
+    of a [36,864 x 4,096] compact carry, exact against the plain versions
+    on the same views, encode leaving the other columns untouched; timed
+    at one block."""
+    g = torch.Generator(device=device).manual_seed(4)
+    narrow, _ = codec_planes((FULL_N, BLOCK_CARRY_K), g, device, round_idx,
+                             inc_sat)
+    _, wide = codec_planes((FULL_N, FULL_KB), g, device, round_idx, inc_sat)
+    targets = [torch.full((FULL_N, BLOCK_CARRY_K), -5, dtype=t.dtype,
+                          device=device) for t in narrow]
+    rows = {}
+    for col0 in BLOCK_COLS:
+        blk = slice(col0, col0 + FULL_KB)
+        views = [t[:, blk] for t in narrow]
+        outs = [t[:, blk] for t in targets]
+        for name, kernel, plain, ins in (
+                (carry.DECODE,
+                 lambda: carry.carry_decode(*views, round_idx),
+                 lambda: carry.carry_decode_reference(*views, round_idx),
+                 views),
+                (carry.ENCODE,
+                 lambda: carry.carry_encode(*wide, round_idx, inc_sat,
+                                            out=outs),
+                 lambda: carry.carry_encode_reference(*wide, round_idx,
+                                                      inc_sat),
+                 list(wide))):
+            got = kernel()
+            torch.cuda.synchronize()
+            err = max_abs_err(f"{name} block at column {col0}", got, plain())
+            if name == carry.ENCODE:
+                check_encode_edges(got)
+                untouched(f"{name} block at column {col0}", targets, blk, -5)
+            if col0 == TIMED_COL0:
+                rows[name] = block_fields(timed_row(
+                    f"{name} block {FULL_N}x{FULL_KB} at column {col0}, row "
+                    f"stride {BLOCK_CARRY_K}", kernel, plain,
+                    ins + list(got), name, FULL_N * FULL_KB, err))
+        for t in targets:
+            t.fill_(-5)
+    log(f"[kernel] codec block form: exact at columns {list(BLOCK_COLS)} of "
+        f"[{FULL_N}, {BLOCK_CARRY_K}], encode leaves other columns untouched")
     return rows
 
 
@@ -521,6 +692,12 @@ def seeded_world(params, device):
             .with_block(5, (0, n), 50, 120).with_block((0, n), 5, 50, 120))
 
 
+def blocks_of(params):
+    """Column blocks a round merges (and codes) one by one: K / k_block,
+    or 1 for the unblocked round."""
+    return params.n_subjects // params.k_block if params.k_block else 1
+
+
 def canary(device, label, layout, params, make_world, warm=True, seed=5):
     """Phase 5: the same run on the card and on the CPU, same draws."""
     draws = prng.TorchDraws(seed, "cpu", params, make_world(params, "cpu"))
@@ -545,7 +722,8 @@ def canary(device, label, layout, params, make_world, warm=True, seed=5):
         if not torch.equal(value, gm[name].cpu()):
             raise AssertionError(f"canary {label} {n}x{k}: metric {name} "
                                  f"differs")
-    want = {name: CANARY_ROUNDS for name in ROUND_KERNELS[layout]}
+    want = {name: CANARY_ROUNDS * blocks_of(params)
+            for name in ROUND_KERNELS[layout]}
     if cpu_launches or gpu_launches != want:
         raise AssertionError(f"canary {label} {n}x{k}: launches cpu="
                              f"{cpu_launches} card={gpu_launches}, want "
@@ -587,6 +765,16 @@ def canaries(device):
     canary(device, "scatter seeded cold start", "wide",
            profile_round.bench_params("wide", 512, 512, "scatter"),
            seeded_world, warm=False)
+    for layout in LAYOUTS:
+        canary(device, f"k_block=128 {layout}", layout,
+               profile_round.bench_params(layout, 512, 512, k_block=128),
+               crash_world)
+    for delivery in ("shift", "scatter"):
+        canary(device, f"{delivery} network wide link_counters", "wide",
+               profile_round.network_params("wide", 4096, 16, delivery,
+                                            link_counters=True),
+               functools.partial(profile_round.network_world,
+                                 rounds=CANARY_ROUNDS))
 
 
 def run_layout(device, layout, delivery="shift"):
@@ -872,6 +1060,154 @@ def cold_start_path(device, delivery="shift"):
     return launches
 
 
+def capacity_params(n, layout, k_block):
+    """The reference's full-view capacity configuration
+    (experiments/fullview_ceiling.py:88-94): LAN defaults, N = K, shift,
+    suspicion 6 rounds, ping every 2, SYNC every 4, aggregate metrics,
+    loss 0."""
+    return swim.SwimParams.from_config(
+        ClusterConfig.default_local(), n_members=n, delivery="shift",
+        suspicion_rounds=6, ping_every=2, sync_every=4,
+        per_subject_metrics=False, k_block=k_block, **LAYOUTS[layout])
+
+
+def capacity_world(params, device):
+    return swim.SwimWorld.healthy(params, device=device).with_crash(
+        CRASHED, at_round=FULL_CRASH_AT)
+
+
+def timed_run(params, world, rounds, device):
+    """``rounds`` rounds from a fresh state made inside ``run`` (so no
+    caller holds it), timed on the host clock ending in a device sync.
+    Returns the state, metrics on the host, seconds, launches and the
+    peak bytes allocated during the run."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    state, metrics = swim.run(0, params, world, rounds, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    return (state, {name: value.cpu() for name, value in metrics.items()},
+            seconds, launches, peak)
+
+
+def check_launches(label, params, launches, rounds, layout):
+    want = {name: rounds * blocks_of(params)
+            for name in ROUND_KERNELS[layout]}
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches} in "
+                             f"{rounds} rounds, want {want}")
+
+
+def blocked_pair(device):
+    """Phase 11: the capacity configuration at N = 8,192 for 60 rounds,
+    wide and compact, blocked (k_block=1,024) and unblocked: per-round
+    metrics and every state lane equal; peak bytes printed."""
+    launches = {}
+    for layout in ("wide", "compact"):
+        runs = {}
+        for k_block in (FULL_KB, 0):
+            params = capacity_params(PAIR_N, layout, k_block)
+            world = capacity_world(params, device)
+            state, metrics, seconds, counts, peak = timed_run(
+                params, world, PAIR_ROUNDS, device)
+            label = f"pair {layout} k_block={k_block}"
+            check_launches(label, params, counts, PAIR_ROUNDS, layout)
+            for name, count in counts.items():
+                launches[name] = launches.get(name, 0) + count
+            runs[k_block] = ({f.name: getattr(state, f.name).cpu()
+                              for f in dataclasses.fields(state)}, metrics)
+            del state
+            log(f"[pair] {layout} {PAIR_N}x{PAIR_N} k_block={k_block}, "
+                f"{PAIR_ROUNDS} rounds in {seconds:.3f} s: "
+                f"{seconds / PAIR_ROUNDS * 1e3:.4f} ms/round, peak {peak} B "
+                f"allocated, {peak / PAIR_N ** 2:.3f} B/cell; launches "
+                f"{counts}")
+        (blocked, m_blocked), (flat, m_flat) = runs[FULL_KB], runs[0]
+        for name, value in flat.items():
+            if not torch.equal(value, blocked[name]):
+                raise AssertionError(f"pair {layout}: state.{name} differs "
+                                     f"between blocked and unblocked")
+        for name, value in m_flat.items():
+            if not torch.equal(value, m_blocked[name]):
+                raise AssertionError(f"pair {layout}: metric {name} differs "
+                                     f"between blocked and unblocked")
+        log(f"[pair] {layout}: blocked == unblocked, every state lane and "
+            f"metric over {PAIR_ROUNDS} rounds; final dead "
+            f"{int(m_flat['dead'][-1])}")
+    return launches
+
+
+def row_state(state, node):
+    """Row ``node`` of ``state`` copied to the host as a one-row state
+    (``node_snapshot`` of it reads row 0)."""
+    rows = {name: getattr(state, name)[node:node + 1].cpu()
+            for name in ("status", "inc", "spread_until", "suspect_deadline",
+                         "self_inc")}
+    return dataclasses.replace(state, **rows)
+
+
+def capacity_path(device):
+    """Phase 12: the full-width capacity path, 36,864 x 36,864 compact
+    with k_block=1,024, 120 rounds, with its gates."""
+    params = capacity_params(FULL_N, FULL_LAYOUT, FULL_KB)
+    world = capacity_world(params, device)
+    cells = FULL_N * FULL_N
+    state, metrics, seconds, launches, peak = timed_run(
+        params, world, FULL_ROUNDS, device)
+    check_launches("capacity", params, launches, FULL_ROUNDS, FULL_LAYOUT)
+    live_observers = FULL_N - 1
+    dead = metrics["dead"]
+    if int(dead[-1]) < 0.99 * live_observers:
+        raise AssertionError(f"capacity: {int(dead[-1])} DEAD entries at "
+                             f"round {FULL_ROUNDS}, want at least 0.99 x "
+                             f"{live_observers}")
+    false_positives = int(metrics["false_positives"].sum())
+    if false_positives != 0:
+        raise AssertionError(f"capacity: {false_positives} false-positive "
+                             f"observer-rounds (loss 0, no delay)")
+    if peak > MAX_BYTES_PER_CELL * cells:
+        raise AssertionError(f"capacity: peak {peak} B allocated, over "
+                             f"{MAX_BYTES_PER_CELL} B/cell")
+    full = torch.nonzero(dead == live_observers)
+    snapshot = swim.node_snapshot(state, params, world, 0,
+                                  round_idx=FULL_ROUNDS)
+    if CRASHED not in snapshot["dead_tombstones"]:
+        raise AssertionError(f"capacity: node 0's snapshot does not hold "
+                             f"node {CRASHED} DEAD")
+    on_host = swim.node_snapshot(row_state(state, 0), params,
+                                 capacity_world(params, "cpu"), 0,
+                                 round_idx=FULL_ROUNDS)
+    if snapshot != on_host:
+        raise AssertionError("capacity: node 0's snapshot differs from the "
+                             "one made from its row on the CPU")
+    window = profile_round.profile_window(params, world, state, FULL_ROUNDS,
+                                          PROFILE_FULL_ROUNDS)
+    del state
+    ms_round = seconds / FULL_ROUNDS * 1e3
+    log(f"[capacity] {FULL_LAYOUT} {FULL_N}x{FULL_N} k_block={FULL_KB}, "
+        f"{FULL_ROUNDS} rounds in {seconds:.3f} s: {ms_round:.4f} ms/round, "
+        f"{cells * FULL_ROUNDS / seconds:.6g} record-updates/s, peak {peak} B "
+        f"allocated, {peak / cells:.4f} B/cell; launches {launches}")
+    log(f"[capacity] node {CRASHED} crashed at round {FULL_CRASH_AT}: held "
+        f"DEAD by every live observer from round "
+        f"{int(full[0]) if full.numel() else None}, "
+        f"{int(dead[-1])} of {live_observers} at the end; false positives 0; "
+        f"node 0's snapshot: {len(snapshot['alive_members'])} alive, "
+        f"dead {snapshot['dead_tombstones']}, equal to the CPU's")
+    log(f"[capacity] profiled {PROFILE_FULL_ROUNDS} rounds from round "
+        f"{FULL_ROUNDS}: {window['kernel_launches_per_round']:.2f} kernel "
+        f"launches/round, device busy {window['device_busy_ms_per_round']:.4f}"
+        f" ms/round, wall {window['wall_ms_per_round']:.4f} ms/round, idle "
+        f"share {window['device_idle_share']:.4f}, phases "
+        f"{json.dumps(window['phase_device_ms_per_round'])}, launches "
+        f"{json.dumps(window['phase_launches_per_round'])}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -890,9 +1226,12 @@ def main():
     for name, text in logs.items():
         log(f"[build] nvcc {name}: {' '.join(text.split())}")
 
-    merge_rows = {layout: check_merge_kernel(device, layout)
+    merge_rows = {layout: dict(check_merge_kernel(device, layout),
+                               **check_block_merge(device, layout))
                   for layout in ("wide", "int16_wire", "compact_wire24")}
     codec_rows = check_codec(device)
+    for name, row in check_block_codec(device).items():
+        codec_rows[name].update(row)
     log(clock_line())
     probe_launches, probe_rows = probe_path(device)
     canaries(device)
@@ -911,6 +1250,10 @@ def main():
         f"{MAIN_ROUNDS} {scatter_summary['dead_share']:.6f} (shift "
         f"{shift_summary['dead_share']:.6f})")
     paths["scatter_cold_start"] = cold_start_path(device, "scatter")
+    log(clock_line())
+    paths["k_block_pair"] = blocked_pair(device)
+    paths["capacity"] = capacity_path(device)
+    log(clock_line())
     launches = {}
     for counts in paths.values():
         for name, count in counts.items():

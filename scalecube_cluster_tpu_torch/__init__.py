@@ -14,8 +14,12 @@ The port imports ``torch``, numpy and the standard library only — never
 checks both).  Entry points run on ``device="cuda"`` unless the caller
 asks for the CPU.
 
-Slice covered: the focal and full-view shift-delivery round with no
-optional planes, in the wide, ``int16_wire``, ``compact_carry`` and
-``compact_carry`` + ``wire24`` layouts (``models/swim.py`` docstring
-lists what raises ``NotImplementedError``).
+Slice covered: the focal and full-view round in both delivery modes
+(scatter, the default, and shift) with the network model (link rules,
+delays and the delay ring, seeded cold starts, user gossips), in the
+wide, ``int16_wire``, ``compact_carry`` and ``compact_carry`` +
+``wire24`` layouts; the K-tiled full-view capacity round (``k_block``);
+per-sender wire counters (``link_counters``); ``node_snapshot``
+(``models/swim.py`` docstring lists what raises
+``NotImplementedError``).
 """

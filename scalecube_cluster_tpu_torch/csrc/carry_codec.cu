@@ -20,12 +20,22 @@
 //           deadline INT32_MAX or more than 32766 ahead -> 32767,
 //                    else clip(deadline - nxt, -32766, 32766) -> int16
 //
+// Block form (the reference's K-tiled capacity round, models/swim.py
+// _tick_shift_blocked, decodes and encodes one [N, Kb] column block of
+// the carry at a time): each side's three planes are passed as pointers
+// to the block's first element and one row stride in elements, shared by
+// the three (ld_in for the inputs, ld_out for the outputs), so cell
+// (row, col) is element row * ld + col.  decode reads a column view of
+// the compact carry (ld_in = K) into a contiguous wide block (ld_out =
+// Kb); encode writes a contiguous wide block into a column view of the
+// output carry.  The unblocked round passes Kb = K, ld_in = ld_out = K.
+//
 // Bound: bytes.  decode reads 5 B and writes 12 B a cell, encode reads 12 B
 // and writes 5 B: at N = 1,000,000, K = 16, 272,000,000 B each, 0.081 ms
 // at the H100's 3.35 TB/s, against a handful of integer operations a
 // cell.  Design: one thread per cell, consecutive threads on consecutive
-// cells, scalar loads (an int16 [N, 16] row is 32 B, so no wider vector
-// access is assumed).  int32 arithmetic wraps as in the reference (uint32
+// cells of a row, scalar loads (an int16 [N, 16] row is 32 B, so no wider
+// vector access is assumed).  int32 arithmetic wraps as in the reference (uint32
 // adds); narrowing casts go through the unsigned type, which is defined
 // modulo 2^16 / 2^8.
 
@@ -57,14 +67,20 @@ __global__ void carry_decode_kernel(const int16_t* __restrict__ inc16,
                                     int32_t* __restrict__ inc,
                                     int32_t* __restrict__ spread,
                                     int32_t* __restrict__ deadline,
-                                    long long n_cells, int32_t round_idx) {
+                                    long long n_cells, int cols,
+                                    long long ld_in, long long ld_out,
+                                    int32_t round_idx) {
   const long long cell =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (cell >= n_cells) return;
-  inc[cell] = static_cast<int32_t>(inc16[cell]);
-  spread[cell] = add_wrap(round_idx, static_cast<int32_t>(spread8[cell]));
-  const int32_t dl = static_cast<int32_t>(deadline16[cell]);
-  deadline[cell] = dl == kDeadlineNone16 ? kNoTimer : add_wrap(round_idx, dl);
+  const long long row = cell / cols;
+  const long long col = cell - row * cols;
+  const long long src = row * ld_in + col;
+  const long long dst = row * ld_out + col;
+  inc[dst] = static_cast<int32_t>(inc16[src]);
+  spread[dst] = add_wrap(round_idx, static_cast<int32_t>(spread8[src]));
+  const int32_t dl = static_cast<int32_t>(deadline16[src]);
+  deadline[dst] = dl == kDeadlineNone16 ? kNoTimer : add_wrap(round_idx, dl);
 }
 
 __global__ void carry_encode_kernel(const int32_t* __restrict__ inc,
@@ -73,24 +89,29 @@ __global__ void carry_encode_kernel(const int32_t* __restrict__ inc,
                                     int16_t* __restrict__ inc16,
                                     int8_t* __restrict__ spread8,
                                     int16_t* __restrict__ deadline16,
-                                    long long n_cells, int32_t round_idx,
-                                    int32_t inc_sat) {
+                                    long long n_cells, int cols,
+                                    long long ld_in, long long ld_out,
+                                    int32_t round_idx, int32_t inc_sat) {
   const long long cell =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (cell >= n_cells) return;
+  const long long row = cell / cols;
+  const long long col = cell - row * cols;
+  const long long src = row * ld_in + col;
+  const long long dst = row * ld_out + col;
   const int32_t nxt = add_wrap(round_idx, 1);
-  const int32_t v = inc[cell] < inc_sat ? inc[cell] : inc_sat;
-  inc16[cell] = static_cast<int16_t>(
+  const int32_t v = inc[src] < inc_sat ? inc[src] : inc_sat;
+  inc16[dst] = static_cast<int16_t>(
       static_cast<uint16_t>(static_cast<uint32_t>(v)));
-  spread8[cell] =
-      static_cast<int8_t>(clip(sub_wrap(spread[cell], nxt), 0, 127));
-  const int32_t dl = deadline[cell];
+  spread8[dst] =
+      static_cast<int8_t>(clip(sub_wrap(spread[src], nxt), 0, 127));
+  const int32_t dl = deadline[src];
   const int32_t remaining = sub_wrap(dl, nxt);
   const int32_t out =
       (dl == kNoTimer || remaining > kDeadlineNone16 - 1)
           ? kDeadlineNone16
           : clip(remaining, -(kDeadlineNone16 - 1), kDeadlineNone16 - 1);
-  deadline16[cell] = static_cast<int16_t>(out);
+  deadline16[dst] = static_cast<int16_t>(out);
 }
 
 constexpr int kThreads = 256;
@@ -101,34 +122,38 @@ unsigned int blocks_for(long long n_cells) {
 
 }  // namespace
 
-// Each launches on `stream` and returns the launch's cudaError_t
-// (0 = success).
+// Each launches on `stream` over n_rows x cols cells and returns the
+// launch's cudaError_t (0 = success).
 extern "C" int carry_decode_launch(const void* inc16, const void* spread8,
                                    const void* deadline16, void* inc,
                                    void* spread, void* deadline,
-                                   long long n_cells, int round_idx,
-                                   void* stream) {
+                                   long long n_rows, int cols,
+                                   long long ld_in, long long ld_out,
+                                   int round_idx, void* stream) {
+  const long long n_cells = n_rows * cols;
   if (n_cells == 0) return static_cast<int>(cudaSuccess);
   carry_decode_kernel<<<blocks_for(n_cells), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(inc16), static_cast<const int8_t*>(spread8),
       static_cast<const int16_t*>(deadline16), static_cast<int32_t*>(inc),
       static_cast<int32_t*>(spread), static_cast<int32_t*>(deadline), n_cells,
-      round_idx);
+      cols, ld_in, ld_out, round_idx);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int carry_encode_launch(const void* inc, const void* spread,
                                    const void* deadline, void* inc16,
                                    void* spread8, void* deadline16,
-                                   long long n_cells, int round_idx,
-                                   int inc_sat, void* stream) {
+                                   long long n_rows, int cols,
+                                   long long ld_in, long long ld_out,
+                                   int round_idx, int inc_sat, void* stream) {
+  const long long n_cells = n_rows * cols;
   if (n_cells == 0) return static_cast<int>(cudaSuccess);
   carry_encode_kernel<<<blocks_for(n_cells), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(inc), static_cast<const int32_t*>(spread),
       static_cast<const int32_t*>(deadline), static_cast<int16_t*>(inc16),
       static_cast<int8_t*>(spread8), static_cast<int16_t*>(deadline16),
-      n_cells, round_idx, inc_sat);
+      n_cells, cols, ld_in, ld_out, round_idx, inc_sat);
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,15 +27,29 @@
 // 297,000,000 B read (265,000,000 B on the int16 wire) + 213,000,000 B
 // written, i.e. 0.152 ms (0.143 ms) at the H100's 3.35 TB/s, against a
 // few dozen integer operations per cell — far below the card's
-// arithmetic rate.
+// arithmetic rate.  One [36,864 x 1,024] block of the capacity round
+// moves 29 B a cell on the int16 wire, 0.33 ms.
 //
 // Design: one streaming pass, one thread per cell, consecutive threads
-// on consecutive cells of the row-major planes (coalesced along K).  No
+// on consecutive cells of a row (coalesced along the columns).  No
 // intermediate touches device memory.  Subject ids are distinct, so a row
 // has at most one self cell; that cell's thread owns the row's
 // refutation and writes self_inc and refuted.  A row without a self cell
-// (slot_of_node = -1) has them written by its column-0 thread.  All
-// arithmetic is int32 with two's-complement wrap, as in the reference.
+// in the planes has them written by its column-0 thread (the row's
+// self_inc unchanged, refuted 0).  All arithmetic is int32 with
+// two's-complement wrap, as in the reference.
+//
+// Block form (the reference's K-tiled capacity round, models/swim.py
+// _tick_shift_blocked): the planes are an [N, Kb] column block starting
+// at column col0 of [N, K] planes.  Each of the ten planes is passed as a
+// pointer to its block's first element and its own row stride (in
+// elements), so cell (row, col) is element row * ld + col of that
+// pointer: a carry plane's column view (ld = K), a block's own contiguous
+// plane (ld = Kb).  A cell is a self cell where slot_of_node == col0 +
+// col; a row whose self column lies outside [col0, col0 + Kb) gets its
+// unchanged self_inc and refuted = 0, which the caller max- and
+// or-accumulates over the blocks.  The unblocked round is the block
+// col0 = 0, Kb = K, every ld = K.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -70,6 +84,12 @@ __device__ __forceinline__ int32_t pack_key(int status, int32_t inc) {
          static_cast<int32_t>(status == kSuspect);
 }
 
+// Row strides, in elements, of the ten [N, Kb] planes.
+struct RowStrides {
+  long long status, inc, spread, deadline, inbox, inbox_alive;
+  long long status_out, inc_out, spread_out, deadline_out;
+};
+
 template <typename KeyT, int kDeadBit>
 __global__ void merge_and_timers_kernel(
     const int8_t* __restrict__ status, const int32_t* __restrict__ inc,
@@ -80,23 +100,23 @@ __global__ void merge_and_timers_kernel(
     int8_t* __restrict__ status_out, int32_t* __restrict__ inc_out,
     int32_t* __restrict__ spread_out, int32_t* __restrict__ deadline_out,
     int32_t* __restrict__ self_inc_out, uint8_t* __restrict__ refuted_out,
-    long long n_cells, int k, int32_t round_idx, int32_t suspicion_rounds,
-    int32_t periods_to_spread, int32_t inc_sat) {
+    long long n_cells, int kb, int col0, RowStrides ld, int32_t round_idx,
+    int32_t suspicion_rounds, int32_t periods_to_spread, int32_t inc_sat) {
   const long long cell =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (cell >= n_cells) return;
-  const long long row = cell / k;
-  const int col = static_cast<int>(cell - row * k);
+  const long long row = cell / kb;
+  const int col = static_cast<int>(cell - row * kb);
 
-  const int st = status[cell];
-  const int32_t in = inc[cell];
-  const int32_t dl_old = deadline[cell];
+  const int st = status[row * ld.status + col];
+  const int32_t in = inc[row * ld.inc + col];
+  const int32_t dl_old = deadline[row * ld.deadline + col];
   // Sign-extending load: the int16 wire's "no message" widens to -1.
-  const int32_t key = static_cast<int32_t>(inbox[cell]);
+  const int32_t key = static_cast<int32_t>(inbox[row * ld.inbox + col]);
   const bool alive = alive_here[row] != 0;
   const int32_t my_inc = self_inc[row];
   const int slot = slot_of_node[row];
-  const bool is_self = slot == col;
+  const bool is_self = slot == col0 + col;
 
   // Unpack the round's folded winner key; keys < 0 are "no message".
   int win_status = kAbsent;
@@ -110,7 +130,8 @@ __global__ void merge_and_timers_kernel(
   // an ALIVE arrival; a live entry takes a strictly higher key.
   const int gate = st == kDead ? kAbsent : st;
   const bool accepts = gate == kAbsent
-                           ? (inbox_alive[cell] != 0 && key >= 0)
+                           ? (inbox_alive[row * ld.inbox_alive + col] != 0 &&
+                              key >= 0)
                            : key > pack_key<kDeadBit>(gate, in);
   int ns = accepts ? win_status : st;
   int32_t ni = accepts ? win_inc : in;
@@ -156,15 +177,16 @@ __global__ void merge_and_timers_kernel(
     changed = false;
   }
 
-  status_out[cell] = static_cast<int8_t>(ns);
-  inc_out[cell] = ni;
-  deadline_out[cell] = dl;
-  spread_out[cell] = changed ? add_wrap(add_wrap(round_idx, 1), periods_to_spread)
-                             : spread[cell];
+  status_out[row * ld.status_out + col] = static_cast<int8_t>(ns);
+  inc_out[row * ld.inc_out + col] = ni;
+  deadline_out[row * ld.deadline_out + col] = dl;
+  spread_out[row * ld.spread_out + col] =
+      changed ? add_wrap(add_wrap(round_idx, 1), periods_to_spread)
+              : spread[row * ld.spread + col];
   if (is_self) {
     self_inc_out[row] = new_self;
     refuted_out[row] = self_ov ? 1 : 0;
-  } else if (col == 0 && (slot < 0 || slot >= k)) {
+  } else if (col == 0 && (slot < col0 || slot >= col0 + kb)) {
     self_inc_out[row] = my_inc;
     refuted_out[row] = 0;
   }
@@ -176,11 +198,14 @@ int launch(const void* status, const void* inc, const void* spread,
            const void* self_inc, const void* alive_here,
            const void* slot_of_node, void* status_out, void* inc_out,
            void* spread_out, void* deadline_out, void* self_inc_out,
-           void* refuted_out, long long n, int k, int round_idx,
-           int suspicion_rounds, int periods_to_spread, int inc_sat,
-           void* stream) {
-  const long long n_cells = n * static_cast<long long>(k);
+           void* refuted_out, long long n, int kb, int col0,
+           const long long* row_strides, int round_idx, int suspicion_rounds,
+           int periods_to_spread, int inc_sat, void* stream) {
+  const long long n_cells = n * static_cast<long long>(kb);
   if (n_cells == 0) return static_cast<int>(cudaSuccess);
+  const long long* r = row_strides;
+  const RowStrides ld{r[0], r[1], r[2], r[3], r[4], r[5],
+                      r[6], r[7], r[8], r[9]};
   constexpr int kThreads = 256;
   const long long blocks = (n_cells + kThreads - 1) / kThreads;
   merge_and_timers_kernel<KeyT, kDeadBit>
@@ -198,29 +223,31 @@ int launch(const void* status, const void* inc, const void* spread,
           static_cast<int32_t*>(spread_out),
           static_cast<int32_t*>(deadline_out),
           static_cast<int32_t*>(self_inc_out),
-          static_cast<uint8_t*>(refuted_out), n_cells, k, round_idx,
-          suspicion_rounds, periods_to_spread, inc_sat);
+          static_cast<uint8_t*>(refuted_out), n_cells, kb, col0, ld,
+          round_idx, suspicion_rounds, periods_to_spread, inc_sat);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Each launches its instance on `stream` and returns the launch's
-// cudaError_t (0 = success).
+// cudaError_t (0 = success).  `row_strides` points to ten host int64s,
+// the planes' row strides in argument order (status, inc, spread,
+// deadline, inbox, inbox_alive, then the four outputs).
 #define MERGE_AND_TIMERS_ENTRY(NAME, KEY_T, DEAD_BIT)                          \
   extern "C" int NAME(                                                         \
       const void* status, const void* inc, const void* spread,                 \
       const void* deadline, const void* inbox, const void* inbox_alive,        \
       const void* self_inc, const void* alive_here, const void* slot_of_node,  \
       void* status_out, void* inc_out, void* spread_out, void* deadline_out,   \
-      void* self_inc_out, void* refuted_out, long long n, int k,               \
-      int round_idx, int suspicion_rounds, int periods_to_spread,              \
-      int inc_sat, void* stream) {                                             \
+      void* self_inc_out, void* refuted_out, long long n, int kb, int col0,    \
+      const long long* row_strides, int round_idx, int suspicion_rounds,       \
+      int periods_to_spread, int inc_sat, void* stream) {                      \
     return launch<KEY_T, DEAD_BIT>(                                            \
         status, inc, spread, deadline, inbox, inbox_alive, self_inc,           \
         alive_here, slot_of_node, status_out, inc_out, spread_out,             \
-        deadline_out, self_inc_out, refuted_out, n, k, round_idx,              \
-        suspicion_rounds, periods_to_spread, inc_sat, stream);                 \
+        deadline_out, self_inc_out, refuted_out, n, kb, col0, row_strides,     \
+        round_idx, suspicion_rounds, periods_to_spread, inc_sat, stream);      \
   }
 
 MERGE_AND_TIMERS_ENTRY(merge_and_timers_launch, int32_t, 30)

@@ -39,6 +39,39 @@ def check_args(kernel: str, device: torch.device, shape: Tuple[int, ...],
             raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
+def check_block_args(kernel: str, device: torch.device,
+                     shape: Tuple[int, int],
+                     tensors: Mapping[str, Tuple[torch.Tensor, torch.dtype]]
+                     ) -> Tuple[int, ...]:
+    """Raise unless every ``name: (tensor, dtype)`` is a 2-D view of
+    ``shape`` on ``device`` with ``dtype`` whose rows are contiguous (last
+    dim of stride 1, row stride at least the row's length) and which lies
+    inside its storage, e.g. a column block ``plane[:, c0:c0 + kb]`` of a
+    contiguous plane.  Returns each view's row stride in elements."""
+    strides = []
+    for name, (t, dtype) in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, "
+                             f"expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: {name} must be {dtype}, "
+                            f"got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{kernel}: {name} must have shape "
+                             f"{tuple(shape)}, got {tuple(t.shape)}")
+        rows, cols = shape
+        ld = t.stride(0) if rows > 1 else cols
+        if (cols > 1 and t.stride(1) != 1) or ld < cols:
+            raise ValueError(f"{kernel}: {name} must have contiguous rows "
+                             f"(strides {t.stride()})")
+        end = t.storage_offset() + (rows - 1) * ld + cols
+        if rows * cols and end * t.element_size() > \
+                t.untyped_storage().nbytes():
+            raise ValueError(f"{kernel}: {name} reaches past its storage")
+        strides.append(ld)
+    return tuple(strides)
+
+
 def on_cpu(kernel: str, device: torch.device) -> bool:
     """True for CPU tensors (the wrapper takes the plain version), False
     for CUDA tensors (it launches the kernel); raises for anything else."""

@@ -13,6 +13,13 @@ launch of ``csrc/carry_codec.cu``, on CPU tensors the plain version
 below runs.  There is no fallback: a CUDA tensor launches the kernel or
 raises.
 
+Block form (the K-tiled capacity round, ``SwimParams.k_block``): each
+side's three planes may be an [N, Kb] column block of the [N, K] carry,
+given as views with contiguous rows that share one row stride
+(``plane[:, c0:c0 + kb]``); ``out`` names the views the results go to
+(decode: the round's contiguous wide block; encode: the output carry's
+columns).
+
 No single PyTorch library call computes either function, so the kernels
 have no library yardstick.
 """
@@ -24,7 +31,7 @@ import functools
 
 import torch
 
-from scalecube_cluster_tpu_torch.kernels import _build, check_args, i32
+from scalecube_cluster_tpu_torch.kernels import _build, check_block_args, i32
 from scalecube_cluster_tpu_torch.kernels import launch, on_cpu
 
 SOURCE = "carry_codec"
@@ -61,53 +68,75 @@ def carry_encode_reference(inc, spread_until, suspect_deadline,
 def _launcher(symbol: str):
     fn = getattr(_build.load(SOURCE), symbol)
     n_ints = 2 if symbol == "carry_encode_launch" else 1
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+    fn.argtypes = ([ctypes.c_void_p] * 6
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_longlong]
                    + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(name, planes):
-    first = planes[0][1]
-    check_args(name, first.device, tuple(first.shape), dict(
-        (field, (t, dtype)) for field, t, dtype in planes))
-    return on_cpu(name, first.device)
+def _row_stride(name, side, planes, shape, device):
+    """The one row stride of a side's three ``(field, view, dtype)``
+    planes; raises unless they are block views of ``shape`` on ``device``
+    sharing it."""
+    strides = check_block_args(name, device, shape, {
+        field: (t, dtype) for field, t, dtype in planes})
+    if len(set(strides)) != 1:
+        raise ValueError(f"{name}: the {side} planes' row strides differ "
+                         f"{strides}")
+    return strides[0]
 
 
-def _launch(name, planes, out_dtypes, *scalars):
+def _run(name, planes, out_dtypes, out, reference, scalars):
+    """Check both sides, then launch the kernel (CUDA) or run
+    ``reference`` (CPU) into ``out`` (fresh contiguous planes if None)."""
     first = planes[0][1]
-    outs = tuple(torch.empty(first.shape, dtype=d, device=first.device)
-                 for d in out_dtypes)
+    fresh = out is None
+    if fresh:
+        out = tuple(torch.empty(first.shape, dtype=d, device=first.device)
+                    for d in out_dtypes)
+    shape = tuple(first.shape)
+    ld_in = _row_stride(name, "input", planes, shape, first.device)
+    ld_out = _row_stride(name, "output", [
+        (f"out[{i}]", t, d) for i, (t, d) in enumerate(zip(out, out_dtypes))],
+        shape, first.device)
+    if on_cpu(name, first.device):
+        got = reference(*(t for _, t, _ in planes), *scalars)
+        if fresh:
+            return got
+        for view, value in zip(out, got):
+            view.copy_(value)
+        return out
+    rows, cols = first.shape
     launch(name, _launcher(f"{name}_launch"), first.device,
            *(t.data_ptr() for _, t, _ in planes),
-           *(t.data_ptr() for t in outs), first.numel(),
+           *(t.data_ptr() for t in out), rows, cols, ld_in, ld_out,
            *(i32(s) for s in scalars))
-    return outs
+    return out
 
 
-def carry_decode(inc, spread_until, suspect_deadline, round_idx: int):
+def carry_decode(inc, spread_until, suspect_deadline, round_idx: int,
+                 out=None):
     """compact -> wide at ``round_idx``: int16 ``inc``, int8
-    ``spread_until``, int16 ``suspect_deadline`` [N, K] -> the three
-    int32 planes (absolute rounds; the sentinel becomes INT32_MAX)."""
+    ``spread_until``, int16 ``suspect_deadline`` [N, Kb] -> the three
+    int32 planes (absolute rounds; the sentinel becomes INT32_MAX), into
+    ``out`` when given."""
     planes = (("inc", inc, torch.int16),
               ("spread_until", spread_until, torch.int8),
               ("suspect_deadline", suspect_deadline, torch.int16))
-    if _check(DECODE, planes):
-        return carry_decode_reference(inc, spread_until, suspect_deadline,
-                                      round_idx)
-    return _launch(DECODE, planes, (torch.int32,) * 3, round_idx)
+    return _run(DECODE, planes, (torch.int32,) * 3, out,
+                carry_decode_reference, (round_idx,))
 
 
 def carry_encode(inc, spread_until, suspect_deadline, round_idx: int,
-                 inc_sat: int):
-    """wide -> compact, relative to round ``round_idx + 1``: int32 [N, K]
+                 inc_sat: int, out=None):
+    """wide -> compact, relative to round ``round_idx + 1``: int32 [N, Kb]
     planes -> int16 ``inc`` (clamped at ``inc_sat``), int8
-    ``spread_until``, int16 ``suspect_deadline``."""
+    ``spread_until``, int16 ``suspect_deadline``, into ``out`` when
+    given."""
     planes = (("inc", inc, torch.int32),
               ("spread_until", spread_until, torch.int32),
               ("suspect_deadline", suspect_deadline, torch.int32))
-    if _check(ENCODE, planes):
-        return carry_encode_reference(inc, spread_until, suspect_deadline,
-                                      round_idx, inc_sat)
-    return _launch(ENCODE, planes, (torch.int16, torch.int8, torch.int16),
-                   round_idx, inc_sat)
+    return _run(ENCODE, planes, (torch.int16, torch.int8, torch.int16), out,
+                carry_encode_reference, (round_idx, inc_sat))

@@ -13,6 +13,13 @@ format: ``merge_and_timers`` (wide int32 inbox),
 CPU tests hold against the JAX package, in the same format.  There is no
 fallback: a CUDA tensor launches the kernel or raises.
 
+Block form (the K-tiled capacity round, ``SwimParams.k_block``): the
+planes may be an [N, Kb] column block of [N, K] planes, given as views
+with contiguous rows (``plane[:, c0:c0 + kb]``) and ``col0 = c0``, and
+``out`` may name the views the four new planes go to (the output carry's
+columns).  Each plane keeps its own row stride; the self cell of row i
+is column ``slot_of_node[i] - col0`` when that lies in the block.
+
 No single PyTorch library call computes this function, so the kernel has
 no library yardstick.
 """
@@ -26,6 +33,7 @@ import torch
 
 from scalecube_cluster_tpu_torch import records
 from scalecube_cluster_tpu_torch.kernels import _build, check_args, i32
+from scalecube_cluster_tpu_torch.kernels import check_block_args
 from scalecube_cluster_tpu_torch.kernels import launch, on_cpu
 from scalecube_cluster_tpu_torch.ops import delivery
 
@@ -41,14 +49,17 @@ def merge_and_timers_reference(status, inc, spread_until, suspect_deadline,
                                inbox, inbox_alive, self_inc, alive_here,
                                slot_of_node, round_idx: int,
                                suspicion_rounds: int, periods_to_spread: int,
-                               inc_sat: int, fmt: delivery.WireFormat = None):
+                               inc_sat: int, fmt: delivery.WireFormat = None,
+                               col0: int = 0):
     """Plain PyTorch version of the kernel (same arguments and results as
-    :func:`merge_and_timers`), transcribed from the reference's
-    ``_merge_and_timers`` + ``merge_inbox``.  ``status``/``inc`` are the
-    round's pinned planes (self cells ALIVE at ``self_inc``)."""
-    k = status.shape[1]
-    is_self = (torch.arange(k, dtype=torch.int32, device=status.device)[None, :]
-               == slot_of_node[:, None])
+    :func:`merge_and_timers`, without ``out``), transcribed from the
+    reference's ``_merge_and_timers`` + ``merge_inbox``.  ``status``/
+    ``inc`` are the round's pinned planes (self cells ALIVE at
+    ``self_inc``); they may be a column block starting at ``col0``."""
+    kb = status.shape[1]
+    cols = torch.arange(col0, col0 + kb, dtype=torch.int32,
+                        device=status.device)
+    is_self = cols[None, :] == slot_of_node[:, None]
     new_status, new_inc, changed = delivery.merge_inbox(
         status, inc, inbox, inbox_alive, fmt=fmt)
 
@@ -94,18 +105,24 @@ def merge_and_timers_reference(status, inc, spread_until, suspect_deadline,
             deadline.to(torch.int32), new_self_inc.to(torch.int32), refuted)
 
 
-def _check(fmt, status, inc, spread_until, suspect_deadline, inbox,
-           inbox_alive, self_inc, alive_here, slot_of_node):
-    n, k = status.shape
+def _check(fmt, planes, out, self_inc, alive_here, slot_of_node):
+    """Check the planes, the ``out`` views and the row vectors; returns
+    the ten planes' row strides (inputs, then outputs)."""
+    status = planes[0]
     name = NAMES[fmt.name]
-    check_args(name, status.device, (n, k), dict(
-        status=(status, torch.int8), inc=(inc, torch.int32),
-        spread_until=(spread_until, torch.int32),
-        suspect_deadline=(suspect_deadline, torch.int32),
-        inbox=(inbox, fmt.dtype), inbox_alive=(inbox_alive, torch.bool)))
-    check_args(name, status.device, (n,), dict(
+    dtypes = (torch.int8, torch.int32, torch.int32, torch.int32, fmt.dtype,
+              torch.bool)
+    fields = ("status", "inc", "spread_until", "suspect_deadline", "inbox",
+              "inbox_alive")
+    views = {f: (t, d) for f, t, d in zip(fields, planes, dtypes)}
+    views.update((f"out[{i}]", (t, d))
+                 for i, (t, d) in enumerate(zip(out, dtypes)))
+    strides = check_block_args(name, status.device, tuple(status.shape),
+                               views)
+    check_args(name, status.device, (status.shape[0],), dict(
         self_inc=(self_inc, torch.int32), alive_here=(alive_here, torch.bool),
         slot_of_node=(slot_of_node, torch.int32)))
+    return strides
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,8 +131,9 @@ def _launcher(fmt_name: str):
               else f"merge_and_timers_{fmt_name}_launch")
     fn = getattr(_build.load(SOURCE), symbol)
     fn.argtypes = ([ctypes.c_void_p] * 15
-                   + [ctypes.c_longlong] + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -124,33 +142,47 @@ def merge_and_timers(status, inc, spread_until, suspect_deadline, inbox,
                      inbox_alive, self_inc, alive_here, slot_of_node,
                      round_idx: int, suspicion_rounds: int,
                      periods_to_spread: int, inc_sat: int,
-                     fmt: delivery.WireFormat = None):
+                     fmt: delivery.WireFormat = None, col0: int = 0,
+                     out=None):
     """One round's merge + refutation + timers + freeze.
 
-    Planes [N, K]: pinned ``status`` int8, ``inc``, ``spread_until``,
-    ``suspect_deadline`` int32, ``inbox`` in the wire format's dtype
-    (``fmt``, default wide: int32; wire16: int16; wire24: int32),
-    ``inbox_alive`` bool.  Rows [N]: ``self_inc`` int32, ``alive_here``
-    bool, ``slot_of_node`` int32 (each row's self column, -1 for none; at
-    most one per row).  Returns new ``(status, inc, spread_until,
-    suspect_deadline, self_inc, refuted)``.
+    Planes [N, Kb] (Kb = K, or a column block of the [N, K] planes
+    starting at column ``col0``; rows contiguous, any row stride): pinned
+    ``status`` int8, ``inc``, ``spread_until``, ``suspect_deadline``
+    int32, ``inbox`` in the wire format's dtype (``fmt``, default wide:
+    int32; wire16: int16; wire24: int32), ``inbox_alive`` bool.  Rows
+    [N]: ``self_inc`` int32, ``alive_here`` bool, ``slot_of_node`` int32
+    (each row's self column in [0, K), -1 for none; at most one per row).
+    ``out``: four [N, Kb] views (status, inc, spread_until,
+    suspect_deadline dtypes) that receive the new planes, overlapping no
+    input; fresh planes when None.  Returns new ``(status, inc,
+    spread_until, suspect_deadline, self_inc, refuted)``; a row whose
+    self column lies outside the block keeps its ``self_inc`` and is not
+    refuted.
     """
     fmt = delivery.resolve_format(fmt)
-    _check(fmt, status, inc, spread_until, suspect_deadline, inbox,
-           inbox_alive, self_inc, alive_here, slot_of_node)
+    planes = (status, inc, spread_until, suspect_deadline, inbox,
+              inbox_alive)
+    fresh = out is None
+    out = tuple(torch.empty(status.shape, dtype=t.dtype, device=status.device)
+                for t in planes[:4]) if fresh else tuple(out)
+    strides = _check(fmt, planes, out, self_inc, alive_here, slot_of_node)
     scalars = (round_idx, suspicion_rounds, periods_to_spread, inc_sat)
     name = NAMES[fmt.name]
     if on_cpu(name, status.device):
-        return merge_and_timers_reference(
-            status, inc, spread_until, suspect_deadline, inbox, inbox_alive,
-            self_inc, alive_here, slot_of_node, *scalars, fmt=fmt)
-    n, k = status.shape
-    outs = (torch.empty_like(status), torch.empty_like(inc),
-            torch.empty_like(spread_until), torch.empty_like(suspect_deadline),
-            torch.empty_like(self_inc), torch.empty_like(alive_here))
-    ins = (status, inc, spread_until, suspect_deadline, inbox, inbox_alive,
-           self_inc, alive_here, slot_of_node)
+        got = merge_and_timers_reference(*planes, self_inc, alive_here,
+                                         slot_of_node, *scalars, fmt=fmt,
+                                         col0=col0)
+        if fresh:
+            return got
+        for view, value in zip(out, got):
+            view.copy_(value)
+        return (*out, *got[4:])
+    n, kb = status.shape
+    rows = (torch.empty_like(self_inc), torch.empty_like(alive_here))
+    ins = (*planes, self_inc, alive_here, slot_of_node)
     launch(name, _launcher(fmt.name), status.device,
-           *(t.data_ptr() for t in ins + outs), n, k,
+           *(t.data_ptr() for t in ins + out + rows), n, kb, col0,
+           (ctypes.c_longlong * 10)(*strides),
            *(i32(s) for s in scalars))
-    return outs
+    return (*out, *rows)

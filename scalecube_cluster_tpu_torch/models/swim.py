@@ -35,7 +35,8 @@ Each is trace-identical to the wide layout while incarnations stay
 below its cap.  The delay ring holds keys in the wire dtype; the codec
 does not touch it.
 
-Each round (``swim_tick``):
+Each round (``swim_tick``; under ``k_block``, ``_tick_shift_blocked``
+runs steps 0 and 3-6 column block by column block):
 
 0. ``kernels/carry.carry_decode`` (compact carry only);
 1. ``_round_context``: liveness and partition slices, the self-record
@@ -67,10 +68,22 @@ which is how the tests feed the reference's own draws and hold the state
 and metrics bit-identical.  Which draws a round takes follows from
 static facts of the params and world (``prng.DrawFacts``).
 
+Full view has a K-tiled round for capacity runs (``k_block = Kb``,
+``_tick_shift_blocked``, the reference's): shift delivery, no delay
+ring, no seed-gated contacts.  The carry never leaves its stored layout:
+each [N, Kb] column block is decoded, pinned, sent, delivered, merged and
+encoded in turn, and written into an output carry allocated once a round,
+so a round holds two carries plus [N, Kb] transients instead of the
+unblocked round's [N, K] temporaries.  It gives the unblocked round's
+states and metrics exactly.
+
+``link_counters`` adds the per-sender wire counters ``sent_by_node`` /
+``lost_by_node`` [N] to each round's metrics (both delivery modes), and
+``node_snapshot`` is the host-side digest of one observer row.
+
 Settings outside the port raise ``NotImplementedError`` naming the
-knob: ``k_block``, ``sync_interval``, ``lhm_max``,
-``dead_suppress_rounds``, ``open_world``, ``metadata_keys``,
-``provenance`` and ``link_counters``.
+knob: ``sync_interval``, ``lhm_max``, ``dead_suppress_rounds``,
+``open_world``, ``metadata_keys`` and ``provenance``.
 ``rounds_per_step`` is accepted and ignored: the reference's outputs are
 bit-identical for any value.
 """
@@ -118,14 +131,12 @@ def resolve_device(device) -> torch.device:
 
 # Knobs whose non-default values select code the port does not carry.
 _UNPORTED = (
-    ("k_block", lambda p: p.k_block != 0),
     ("sync_interval", lambda p: p.sync_interval != 0),
     ("lhm_max", lambda p: p.lhm_max != 0),
     ("dead_suppress_rounds", lambda p: p.dead_suppress_rounds != 0),
     ("open_world", lambda p: p.open_world),
     ("metadata_keys", lambda p: p.metadata_keys != 0),
     ("provenance", lambda p: p.provenance),
-    ("link_counters", lambda p: p.link_counters),
 )
 
 
@@ -192,6 +203,18 @@ class SwimParams:
                 f"shift delivery requires ping_known_only == full_view "
                 f"(got ping_known_only={self.ping_known_only}, "
                 f"n_subjects={self.n_subjects}, n_members={self.n_members})")
+        if self.k_block:
+            if self.delivery != "shift" or not self.full_view:
+                raise ValueError(
+                    f"k_block is the full-view shift-mode capacity path "
+                    f"(got delivery={self.delivery!r}, n_subjects="
+                    f"{self.n_subjects}, n_members={self.n_members})")
+            if self.n_subjects % self.k_block != 0:
+                raise ValueError(f"k_block ({self.k_block}) must divide "
+                                 f"n_subjects ({self.n_subjects})")
+            if self.max_delay_rounds != 0 or self.link_counters:
+                raise ValueError("k_block supports max_delay_rounds=0 and "
+                                 "link_counters=False only (capacity path)")
         if self.n_members < 2:
             raise ValueError(f"{self.delivery} delivery needs n_members >= 2 "
                              f"(a sender needs a target other than itself)")
@@ -687,39 +710,33 @@ def initial_state(params: SwimParams, world: SwimWorld, warm: bool = True,
     device = resolve_device(device)
     _check_world_device(world, device)
     n, k = params.n_members, params.n_subjects
-    is_self = _is_self(world, n)
+    compact = params.compact_carry
     fill = records.ALIVE if warm else records.ABSENT
     status = torch.full((n, k), fill, dtype=torch.int8, device=device)
     if not warm and world.seed_ids.shape[0] > 0:
         seed_slot = world.slot_of_node[world.seed_ids.long()]
-        is_seed_col = torch.zeros((k,), dtype=torch.bool, device=device)
-        is_seed_col[seed_slot[seed_slot >= 0].long()] = True
-        status = torch.where(is_seed_col[None, :], records.ALIVE, status)
-    status = torch.where(is_self, records.ALIVE, status).to(torch.int8)
-    spread0 = torch.zeros((n, k), dtype=torch.int32, device=device)
+        status[:, seed_slot[seed_slot >= 0].long()] = records.ALIVE
+    # The self cells (subject_ids[c], c), written in place: no [N, K]
+    # mask or wide temporary.
+    self_cells = (world.subject_ids.long(),
+                  torch.arange(k, dtype=torch.long, device=device))
+    status[self_cells] = records.ALIVE
+    spread = torch.zeros((n, k), dtype=torch.int8 if compact else torch.int32,
+                         device=device)
     if not warm:
-        spread0 = torch.where(is_self, params.periods_to_spread + 1,
-                              spread0).to(torch.int32)
-    lanes = initial_lanes(params, device)
-    if params.compact_carry:
-        # Remaining rounds from round 0 (re-relativized every round by
-        # carry_encode).
-        return SwimState(
-            status=status,
-            inc=torch.zeros((n, k), dtype=torch.int16, device=device),
-            spread_until=spread0.to(torch.int8),
-            suspect_deadline=torch.full((n, k), _DEADLINE_NONE16,
-                                        dtype=torch.int16, device=device),
-            self_inc=torch.zeros((n,), dtype=torch.int32, device=device),
-            **lanes)
+        # A full spread window from round 0 (compact: rounds remaining
+        # from round 0, re-relativized every round by carry_encode).
+        spread[self_cells] = params.periods_to_spread + 1
+    narrow = torch.int16 if compact else torch.int32
     return SwimState(
         status=status,
-        inc=torch.zeros((n, k), dtype=torch.int32, device=device),
-        spread_until=spread0,
-        suspect_deadline=torch.full((n, k), INT32_MAX, dtype=torch.int32,
-                                    device=device),
+        inc=torch.zeros((n, k), dtype=narrow, device=device),
+        spread_until=spread,
+        suspect_deadline=torch.full(
+            (n, k), _DEADLINE_NONE16 if compact else INT32_MAX, dtype=narrow,
+            device=device),
         self_inc=torch.zeros((n,), dtype=torch.int32, device=device),
-        **lanes)
+        **initial_lanes(params, device))
 
 
 def _check_world_device(world: SwimWorld, device: torch.device) -> None:
@@ -741,16 +758,24 @@ def _is_self(world: SwimWorld, n: int) -> torch.Tensor:
 def _round_context(state: SwimState, round_idx: int, params: SwimParams,
                    world: SwimWorld, kn: Knobs) -> dict:
     """Per-round preamble: world liveness/partition slices, the self
-    pin (a node always holds itself ALIVE at self_inc), the user-gossip
+    pin (a node always holds itself ALIVE at self_inc; under ``k_block``
+    the raw carry, pinned per block), the user-gossip
     spreads due this round, the contact gate's seed mask and the phase
     gates (host bools: the round index and cadences are host ints)."""
     n = params.n_members
     alive = world.alive_at(round_idx)
     part = world.partition_at(round_idx)
     node_ids = torch.arange(n, dtype=torch.int32, device=world.device)
-    is_self = _is_self(world, n)
-    status = torch.where(is_self, records.ALIVE, state.status).to(torch.int8)
-    inc = torch.where(is_self, state.self_inc[:, None], state.inc)
+    if params.k_block:
+        # The blocked round pins block by block; its FD pre-pass reads the
+        # raw carry (a well-formed carry holds the pinned values, and a
+        # shift is never 0, so no prober targets itself).
+        is_self, status, inc = None, state.status, state.inc
+    else:
+        is_self = _is_self(world, n)
+        status = torch.where(is_self, records.ALIVE,
+                             state.status).to(torch.int8)
+        inc = torch.where(is_self, state.self_inc[:, None], state.inc)
     g_infected, g_spread_until = state.g_infected, state.g_spread_until
     if params.n_user_gossips > 0:
         # A spread() injects gossip g at its live origin, which starts
@@ -1036,19 +1061,25 @@ def _seed_anti_entropy(status, sync_keys, inbox, inbox_alive,
     every live member still holding ABSENT entries pushes its syncable
     row to its drawn seed (``draws.seed_sel``) and, if the push arrived,
     gets the seed's pre-merge row back the same round.  Returns
-    ``(inbox, inbox_alive)``; ``inbox_alive`` None (the fused scatter
-    wire, whose flags follow from the keys) stays None."""
+    ``(inbox, inbox_alive, sent, lost)``; ``inbox_alive`` None (the fused
+    scatter wire, whose flags follow from the keys) stays None; ``sent``/
+    ``lost`` [N] int32 are the exchange's wire counters (pushes at the
+    pushers, acks at the seed; lost: dropped in flight)."""
     wf = params.wire_format
     no_msg = delivery.no_message(wf)
     node_ids, alive, part = ctx["node_ids"], ctx["alive"], ctx["part"]
     pusher = alive & (status == records.ABSENT).any(dim=1)
+    sent = torch.zeros(node_ids.shape, dtype=torch.int32,
+                       device=node_ids.device)
+    lost = torch.zeros_like(sent)
     for si in range(world.seed_ids.shape[0]):
         sid = world.seed_ids[si]
         mask_i = pusher & (draws.seed_sel == si) & (node_ids != sid)
         loss_push, _ = link_eval(world.faults, round_idx, node_ids, sid,
                                  kn.loss_probability, params.mean_delay_ms)
-        ok_push = (mask_i & alive[sid] & (part == part[sid])
-                   & ~(draws.seed_push_u[si] < loss_push))
+        part_ok = part == part[sid]
+        wire_drop_push = draws.seed_push_u[si] < loss_push
+        ok_push = mask_i & alive[sid] & part_ok & ~wire_drop_push
         # The seed merges the columnwise max over its arriving pushes.
         is_seed_row = (node_ids == sid)[:, None]
         contribution = torch.where(ok_push[:, None], sync_keys,
@@ -1062,13 +1093,25 @@ def _seed_anti_entropy(status, sync_keys, inbox, inbox_alive,
         seed_row = sync_keys[sid.long()]
         loss_ack, _ = link_eval(world.faults, round_idx, sid, node_ids,
                                 kn.loss_probability, params.mean_delay_ms)
-        ok_ack = (ok_push & ~(draws.seed_ack_u[si] < loss_ack))[:, None]
+        wire_drop_ack = ok_push & (draws.seed_ack_u[si] < loss_ack)
+        ok_ack = (ok_push & ~wire_drop_ack)[:, None]
         inbox = torch.maximum(inbox, torch.where(ok_ack, seed_row[None, :],
                                                  no_msg))
         if inbox_alive is not None:
             inbox_alive |= ok_ack & delivery.is_alive_key(seed_row,
                                                            fmt=wf)[None, :]
-    return inbox, inbox_alive
+        at_seed = is_seed_row[:, 0]
+        sent += mask_i.to(torch.int32) + torch.where(
+            at_seed, ok_push.sum(dtype=torch.int32), 0)
+        lost += (mask_i & (wire_drop_push | ~part_ok)).to(torch.int32) \
+            + torch.where(at_seed, wire_drop_ack.sum(dtype=torch.int32), 0)
+    return inbox, inbox_alive, sent, lost
+
+
+def _unshift(eng, x: torch.Tensor, s: int) -> torch.Tensor:
+    """A receiver-indexed [N] mask of shift ``s`` back at its senders
+    (sender i's message reaches receiver (i + s) mod N), as int32."""
+    return eng.look(eng.prep(x), s).to(torch.int32)
 
 
 def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
@@ -1079,8 +1122,10 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
     into the ring), and the joiner <-> seed exchange, max-folded with the
     FD verdicts into one inbox of the wire format's dtype.  Sender-side
     gates evaluate at the receiver through shifted views.  Returns
-    ``(inbox, inbox_alive, g_delivered, messages_gossip)``;
-    ``g_delivered`` [N, G] is None without user gossips."""
+    ``(inbox, inbox_alive, g_delivered, messages_gossip, link)``;
+    ``g_delivered`` [N, G] is None without user gossips; ``link`` is
+    None, or under ``link_counters`` the channels' ``(sent, lost)`` [N]
+    int32 wire counters at the senders (the seed exchange's included)."""
     d_ids, d_alive, d_part = views
     n, k = params.n_members, params.n_subjects
     r_proxies, f = params.ping_req_members, params.fanout
@@ -1142,14 +1187,35 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
 
     drop_u = draws.drop_u
     n_gossip_sent = torch.zeros((), dtype=torch.int32, device=status.device)
+    # Per-sender wire counters: a channel's gates evaluate at the
+    # receiver, so its attempt and loss masks are unshifted to the
+    # sender; a message toward a crashed receiver counts as sent, only
+    # in-flight drops (loss, partition walls) count as lost.
+    link = None
+    if params.link_counters:
+        link = (torch.zeros((n,), dtype=torch.int32, device=status.device),
+                torch.zeros((n,), dtype=torch.int32, device=status.device))
+
+    def count(s, attempt, dropped):
+        link[0].add_(_unshift(eng, attempt, s))
+        link[1].add_(_unshift(eng, attempt & dropped, s))
+
     for c, s in enumerate(shifts[1 + r_proxies:1 + r_proxies + f]):
         _, sender_alive, sender_part, loss_c, delay_c = _shift_sender_gate(
             eng, d_ids, d_alive, d_part, s, node_ids, kn, params, world,
             round_idx)
         ok_c = (sender_alive & alive_here & (sender_part == part_here)
                 & (drop_u[:, c] >= loss_c) & (c < kn.fanout))
-        if h_status is not None:
-            ok_c &= contact_ok(s)
+        contact_c = contact_ok(s) if h_status is not None else None
+        if contact_c is not None:
+            ok_c &= contact_c
+        if link is not None:
+            attempt = (sender_alive & eng.deliver(h_hot_any, s)
+                       & (c < kn.fanout))
+            if contact_c is not None:
+                attempt &= contact_c
+            count(s, attempt, (drop_u[:, c] < loss_c)
+                  | (sender_part != part_here))
         delivered, delivered_flags = deliver_channel(s, 1)
         g_bits = eng.deliver(h_g, s) if h_g is not None else None
         e_c = draws.e_gossip[c] if draws.e_gossip is not None else None
@@ -1173,8 +1239,14 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
     _, sender_alive_r, sender_part_r, loss_r, delay_r = _shift_sender_gate(
         eng, d_ids, d_alive, d_part, fd_shift, node_ids, kn, params, world,
         round_idx)
+    pushing_r = eng.deliver(h_pushers, fd_shift)
     ok_r = (sender_alive_r & alive_here & (sender_part_r == part_here)
-            & ~(draws.u_refute < loss_r) & eng.deliver(h_pushers, fd_shift))
+            & ~(draws.u_refute < loss_r) & pushing_r)
+    if link is not None:
+        # The pusher mask is the sender's own; only the loss unshifts.
+        dropped_r = (draws.u_refute < loss_r) | (sender_part_r != part_here)
+        link[0].add_(push_refute.to(torch.int32))
+        link[1].add_(_unshift(eng, pushing_r & dropped_r, fd_shift))
     delivered_r, flags_r = deliver_channel(fd_shift, 2)
     ok_r = arriving(ok_r, delivered_r, flags_r, delay_r, draws.e_refute)
     inbox = torch.maximum(inbox, torch.where(ok_r[:, None], delivered_r,
@@ -1189,8 +1261,15 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
     ok_s = (sender_alive & alive_here & ~sender_refuting
             & (sender_part == part_here) & ~(drop_u[:, f] < loss_sy)
             & ctx["sync_round"])
-    if h_status is not None:
-        ok_s &= contact_ok(sync_shift)
+    contact_s = contact_ok(sync_shift) if h_status is not None else None
+    if contact_s is not None:
+        ok_s &= contact_s
+    if link is not None:
+        attempt = sender_alive & ~sender_refuting & ctx["sync_round"]
+        if contact_s is not None:
+            attempt &= contact_s
+        count(sync_shift, attempt, (drop_u[:, f] < loss_sy)
+              | (sender_part != part_here))
     delivered, delivered_flags = deliver_channel(sync_shift, 2)
     ok_s = arriving(ok_s, delivered, delivered_flags, delay_sy, draws.e_sync)
     inbox = torch.maximum(inbox, torch.where(ok_s[:, None], delivered, no_msg))
@@ -1199,10 +1278,13 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
     # The joiner <-> seed exchange: its pushers are gated on the SYNC
     # round, so other rounds skip it; delivered the same round.
     if h_status is not None and ctx["sync_round"]:
-        inbox, inbox_alive = _seed_anti_entropy(
+        inbox, inbox_alive, ss_sent, ss_lost = _seed_anti_entropy(
             status, torch.where(syncable, record_keys, no_msg), inbox,
             inbox_alive, round_idx, params, kn, world, ctx, draws)
-    return inbox, inbox_alive, g_delivered, n_gossip_sent
+        if link is not None:
+            link[0].add_(ss_sent)
+            link[1].add_(ss_lost)
+    return inbox, inbox_alive, g_delivered, n_gossip_sent, link
 
 
 # --------------------------------------------------------------------------
@@ -1318,15 +1400,20 @@ def _scatter_send_phase(state: SwimState, ctx: dict, fd: dict,
 
     gossip_targets = prng.targets_excluding_self(draws.gossip_t, node_ids)
     g_l = gossip_targets.long()
-    send_ok = alive[:, None] & alive[g_l] & (part[:, None] == part[g_l])
+    # Named components (the link counters tell in-flight drops from
+    # messages never sent), fused into the one drop mask delivery reads.
+    part_ok_g = part[:, None] == part[g_l]
+    contact_ok_g = contact_ok(gossip_targets) if gate else None
+    send_ok = alive[:, None] & alive[g_l] & part_ok_g
     if gate:
-        send_ok &= contact_ok(gossip_targets)
+        send_ok &= contact_ok_g
     loss_g, delay_g = link_eval(world.faults, round_idx, node_ids[:, None],
                                 gossip_targets, kn.loss_probability,
                                 params.mean_delay_ms)
     chan_off = (torch.arange(params.fanout, device=status.device)[None, :]
                 >= kn.fanout)
-    gossip_drop = (draws.gossip_drop_u < loss_g) | ~send_ok | chan_off
+    wire_drop_g = draws.gossip_drop_u < loss_g
+    gossip_drop = wire_drop_g | ~send_ok | chan_off
 
     # The refute push rides the SYNC channel (it is a SYNC to the
     # suspected member, MembershipProtocolImpl.java:379-391), so a
@@ -1342,8 +1429,9 @@ def _scatter_send_phase(state: SwimState, ctx: dict, fd: dict,
     target = sync_target[:, 0]
     loss_s, delay_s = link_eval(world.faults, round_idx, node_ids, target,
                                 kn.loss_probability, params.mean_delay_ms)
-    sync_ok = (alive[target.long()] & (part == part[target.long()])
-               & ~(draws.sync_drop_u < loss_s))
+    part_ok_s = part == part[target.long()]
+    wire_drop_s = draws.sync_drop_u < loss_s
+    sync_ok = alive[target.long()] & part_ok_s & ~wire_drop_s
     wf = params.wire_format
     hot_any = (gossip_keys >= 0).any(dim=1)
     hot_g = None
@@ -1358,7 +1446,10 @@ def _scatter_send_phase(state: SwimState, ctx: dict, fd: dict,
         sync_target=sync_target, sync_drop=~(do_sync & sync_ok)[:, None],
         alive_flags=delivery.is_alive_key(gossip_keys, fmt=wf),
         sync_alive_flags=delivery.is_alive_key(sync_keys, fmt=wf),
-        hot_any=hot_any, hot_g=hot_g, delay_g=delay_g, delay_s=delay_s)
+        hot_any=hot_any, hot_g=hot_g, delay_g=delay_g, delay_s=delay_s,
+        wire_drop_g=wire_drop_g, part_ok_g=part_ok_g,
+        contact_ok_g=contact_ok_g, chan_off=chan_off,
+        wire_drop_s=wire_drop_s, part_ok_s=part_ok_s, do_sync=do_sync)
 
 
 def _scatter_channel_bufs(s: dict, params: SwimParams, inbox, inbox_alive,
@@ -1390,7 +1481,9 @@ def _scatter_deliver(state: SwimState, ctx: dict, fd: dict, s: dict,
     the ring (keys only under the fused wire), the joiner <-> seed
     exchange, and the user-gossip bits on the gossip channels' targets
     and drops.  Under the fused wire the ALIVE flags are those of the
-    folded winners.  Returns ``(inbox, inbox_alive, g_delivered)``."""
+    folded winners.  Returns ``(inbox, inbox_alive, g_delivered,
+    seed_counters)``, the last the seed exchange's ``(sent, lost)`` [N]
+    or None where it did not run."""
     n, k = params.n_members, params.n_subjects
     wf = params.wire_format
     inbox = fd["fd_inbox"]
@@ -1424,8 +1517,9 @@ def _scatter_deliver(state: SwimState, ctx: dict, fd: dict, s: dict,
                 s, params, ring.keys[slot],
                 None if params.fused_wire else ring.flags[slot],
                 q_g != j, q_s != j)
+    seed_counters = None
     if ctx["is_seed"] is not None and ctx["sync_round"]:
-        inbox, inbox_alive = _seed_anti_entropy(
+        inbox, inbox_alive, *seed_counters = _seed_anti_entropy(
             ctx["status"], s["sync_keys"], inbox, inbox_alive, round_idx,
             params, kn, world, ctx, draws)
     if params.fused_wire:
@@ -1446,14 +1540,37 @@ def _scatter_deliver(state: SwimState, ctx: dict, fd: dict, s: dict,
                 delivery.scatter_or_into(ring.g[ring.slot(j)], s["hot_g"],
                                          s["gossip_targets"],
                                          g_drop | (q_g != j))
-    return inbox, inbox_alive, g_delivered
+    return inbox, inbox_alive, g_delivered, seed_counters
 
 
-def _scatter_send_aux(fd: dict, s: dict, params: SwimParams) -> dict:
+def _scatter_send_aux(fd: dict, s: dict, params: SwimParams, alive,
+                      seed_counters) -> dict:
     """The scatter round's send-side counters; a gossip message counts
     per channel whose sender has content and whose message was not
-    dropped."""
+    dropped.  Under ``link_counters`` also the per-sender wire counters:
+    a gossip message per live sender with content, open channel and
+    admitting contact gate, the SYNC (or refute push), the probes and
+    ping-req fan-outs, the seed exchange; lost: wire drops and partition
+    walls."""
+    aux = {}
+    if params.link_counters:
+        g_attempt = (alive & s["hot_any"])[:, None] & ~s["chan_off"]
+        if s["contact_ok_g"] is not None:
+            g_attempt &= s["contact_ok_g"]
+        g_lost = g_attempt & (s["wire_drop_g"] | ~s["part_ok_g"])
+        s_lost = s["do_sync"] & (s["wire_drop_s"] | ~s["part_ok_s"])
+        sent = (g_attempt.sum(dim=1, dtype=torch.int32)
+                + s["do_sync"].to(torch.int32)
+                + fd["probes_sent"].to(torch.int32)
+                + fd["ping_req_launches"].to(torch.int32)
+                * params.ping_req_members)
+        lost = g_lost.sum(dim=1, dtype=torch.int32) + s_lost.to(torch.int32)
+        if seed_counters is not None:
+            sent = sent + seed_counters[0]
+            lost = lost + seed_counters[1]
+        aux = dict(sent_by_node=sent, lost_by_node=lost)
     return dict(
+        aux,
         messages_gossip=(s["hot_any"][:, None] & ~s["gossip_drop"]).sum(
             dtype=torch.int32),
         messages_ping=fd["probe_active"].sum(dtype=torch.int32),
@@ -1475,13 +1592,13 @@ def _tick_scatter(state: SwimState, ctx: dict, round_idx: int,
     with record_function("swim.delivery"):
         s = _scatter_send_phase(state, ctx, fd, round_idx, params, kn, world,
                                 draws)
-        inbox, inbox_alive, g_delivered = _scatter_deliver(
+        inbox, inbox_alive, g_delivered, seed_counters = _scatter_deliver(
             state, ctx, fd, s, round_idx, params, kn, world, draws)
     with record_function("swim.merge"):
         new_state, refuted = _merge_and_timers(
             state, ctx, inbox, inbox_alive, g_delivered, round_idx, params,
             kn, world)
-    aux = dict(_scatter_send_aux(fd, s, params),
+    aux = dict(_scatter_send_aux(fd, s, params, ctx["alive"], seed_counters),
                refutations=(refuted & ctx["alive"]).sum(dtype=torch.int32))
     return new_state, aux
 
@@ -1504,29 +1621,37 @@ def _check_draws(draws, facts: prng.DrawFacts) -> None:
             f"{facts} (make them for these params and this world)")
 
 
-def _tick_shift(state: SwimState, ctx: dict, round_idx: int,
-                params: SwimParams, kn: Knobs, world: SwimWorld,
-                draws: prng.RoundDraws):
-    """The shift round's FD, delivery and merge phases, each under a
-    profiler range (``swim.fd`` / ``swim.delivery`` / ``swim.merge``);
-    returns ``(new_state, aux counters)``."""
+def _shift_setup(ctx: dict, params: SwimParams, world: SwimWorld,
+                 draws: prng.RoundDraws):
+    """Check a shift round's draws; returns its channel shifts ([fd,
+    proxies..., gossip..., sync]), the shift engine, and the doubled id,
+    liveness and partition vectors the channel views slice."""
     _check_draws(draws, prng.DrawFacts.of(params, world))
     shifts = draws.shifts
     n_shifts = 1 + params.ping_req_members + params.fanout + 1
     if len(shifts) != n_shifts:
         raise ValueError(f"draws carry {len(shifts)} shifts, the round "
                          f"needs {n_shifts}")
-    # One shift per send channel: [fd, proxies..., gossip..., sync].
     eng = ShiftEngine(params.n_members)
     views = (eng.prep(ctx["node_ids"]), eng.prep(ctx["alive"]),
              eng.prep(ctx["part"]))
+    return shifts, eng, views
+
+
+def _tick_shift(state: SwimState, ctx: dict, round_idx: int,
+                params: SwimParams, kn: Knobs, world: SwimWorld,
+                draws: prng.RoundDraws):
+    """The shift round's FD, delivery and merge phases, each under a
+    profiler range (``swim.fd`` / ``swim.delivery`` / ``swim.merge``);
+    returns ``(new_state, aux counters)``."""
+    shifts, eng, views = _shift_setup(ctx, params, world, draws)
     with record_function("swim.fd"):
         fd = _fd_phase(eng, views, ctx, shifts, round_idx, params, kn, world,
                        draws)
     with record_function("swim.delivery"):
-        inbox, inbox_alive, g_delivered, n_gossip_sent = _delivery_phase(
-            state, eng, views, ctx, fd, shifts, round_idx, params, kn, world,
-            draws)
+        inbox, inbox_alive, g_delivered, n_gossip_sent, link = \
+            _delivery_phase(state, eng, views, ctx, fd, shifts, round_idx,
+                            params, kn, world, draws)
     with record_function("swim.merge"):
         new_state, refuted = _merge_and_timers(
             state, ctx, inbox, inbox_alive, g_delivered, round_idx, params,
@@ -1539,7 +1664,204 @@ def _tick_shift(state: SwimState, ctx: dict, round_idx: int,
                                 * params.ping_req_members),
         refutations=(refuted & ctx["alive"]).sum(dtype=torch.int32),
     )
+    if link is not None:
+        aux["sent_by_node"] = (link[0] + fd["probes_sent"].to(torch.int32)
+                               + fd["ping_req_launches"].to(torch.int32)
+                               * params.ping_req_members)
+        aux["lost_by_node"] = link[1]
     return new_state, aux
+
+
+def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
+                        params: SwimParams, kn: Knobs, world: SwimWorld,
+                        draws: prng.RoundDraws):
+    """The shift round as a loop over [N, Kb] column blocks of the full-
+    view carry (``k_block = Kb``; the reference's ``_tick_shift_blocked``),
+    giving ``_tick_shift``'s states and metrics exactly: the shifts rotate
+    rows, so each column block's delivery and merge is independent of
+    the others, and every draw is K-independent.
+
+    The FD chains and every channel's gates are [N] vectors made once
+    (the FD target's entry read from the raw carry).  Each block is
+    decoded (compact carry), pinned, turned into payloads, delivered over
+    the F gossip channels, the refute push and the SYNC channel with the
+    FD verdicts on its columns, merged (the merge kernel in block form,
+    writing the output carry's columns) and encoded into the output
+    carry; its column reductions fill the metric histograms.  ``self_inc``
+    is the maximum and ``refuted`` the or over the blocks, each block
+    reading the pre-round ``self_inc``.  The output carry is allocated
+    once a round, so the input state is not modified.  Returns
+    ``(new_state, aux counters)``, the column reductions in
+    ``aux["hists"]``."""
+    if ctx["is_seed"] is not None:
+        raise NotImplementedError(
+            "k_block does not support seed-gated contacts (the gate reads a "
+            "full-status column per channel)")
+    shifts, eng, (d_ids, d_alive, d_part) = _shift_setup(ctx, params, world,
+                                                         draws)
+    n, k, kb = params.n_members, params.n_subjects, params.k_block
+    r_proxies, f = params.ping_req_members, params.fanout
+    node_ids, alive_here = ctx["node_ids"], ctx["alive"]
+    part_here = ctx["part"]
+    fd_shift, sync_shift = shifts[0], shifts[-1]
+    gossip_shifts = shifts[1 + r_proxies:1 + r_proxies + f]
+    compact, wf = params.compact_carry, params.wire_format
+    no_msg = delivery.no_message(wf)
+    device = node_ids.device
+
+    with record_function("swim.fd"):
+        t, _, _, direct_ok, ack_ok = _shift_fd_chains(
+            eng, d_ids, d_alive, d_part, fd_shift,
+            shifts[1:1 + r_proxies], draws, params, kn, world, round_idx,
+            node_ids, part_here)
+        entry_t_status = _entry_at_slot(state.status, t)
+        entry_t_inc = _entry_at_slot(state.inc, t).to(torch.int32)
+        has_target = ((entry_t_status == records.ALIVE)
+                      | (entry_t_status == records.SUSPECT))
+        active = has_target & alive_here & ctx["fd_round"]
+        verdict_suspect = active & ~ack_ok
+        push_refute = (active & ack_ok
+                       & (entry_t_status == records.SUSPECT)
+                       & (kn.sync_every > 0))
+        ping_req_launches = active & ~direct_ok
+        fd_key = delivery.pack_record(records.SUSPECT, entry_t_inc, fmt=wf)
+
+    with record_function("swim.delivery"):
+        # The channels' receiver-indexed gates, as in _delivery_phase.
+        def gate(s):
+            return _shift_sender_gate(eng, d_ids, d_alive, d_part, s,
+                                      node_ids, kn, params, world,
+                                      round_idx)
+
+        drop_u = draws.drop_u
+        ok_gossip = []
+        for c, s in enumerate(gossip_shifts):
+            _, sender_alive, sender_part, loss_c, _ = gate(s)
+            ok_gossip.append(sender_alive & alive_here
+                             & (sender_part == part_here)
+                             & (drop_u[:, c] >= loss_c) & (c < kn.fanout))
+        h_pushers = eng.prep(push_refute)
+        _, sender_alive, sender_part, loss_r, _ = gate(fd_shift)
+        ok_refute = (sender_alive & alive_here & (sender_part == part_here)
+                     & ~(draws.u_refute < loss_r)
+                     & eng.deliver(h_pushers, fd_shift))
+        sender_refuting = eng.deliver(h_pushers, sync_shift)
+        _, sender_alive, sender_part, loss_sy, _ = gate(sync_shift)
+        ok_sync = (sender_alive & alive_here & ~sender_refuting
+                   & (sender_part == part_here) & ~(drop_u[:, f] < loss_sy)
+                   & ctx["sync_round"])
+        channels = ([(s, 1, ok[:, None]) for s, ok in zip(gossip_shifts,
+                                                          ok_gossip)]
+                    + [(fd_shift, 2, ok_refute[:, None]),
+                       (sync_shift, 2, ok_sync[:, None])])
+        g_delivered = hot_g = None
+        if params.n_user_gossips > 0:
+            hot_g = (ctx["g_infected"] & alive_here[:, None]
+                     & (round_idx < ctx["g_spread_until"]))
+            h_g = eng.prep(hot_g)
+            g_delivered = torch.zeros((n, params.n_user_gossips),
+                                      dtype=torch.bool, device=device)
+            for s, ok in zip(gossip_shifts, ok_gossip):
+                g_delivered |= eng.deliver(h_g, s) & ok[:, None]
+
+    new = SwimState(
+        status=torch.empty_like(state.status),
+        inc=torch.empty_like(state.inc),
+        spread_until=torch.empty_like(state.spread_until),
+        suspect_deadline=torch.empty_like(state.suspect_deadline),
+        self_inc=state.self_inc, inbox_ring=state.inbox_ring,
+        flag_ring=state.flag_ring, g_infected=state.g_infected,
+        g_spread_until=state.g_spread_until, g_ring=state.g_ring)
+    hists = {name: torch.zeros((k,), dtype=torch.int32, device=device)
+             for name in ("hist_alive", "hist_suspect", "hist_dead",
+                          "still_suspect")}
+    hot_any = torch.zeros((n,), dtype=torch.bool, device=device)
+    refuted = torch.zeros((n,), dtype=torch.bool, device=device)
+    self_inc = state.self_inc
+    for c0 in range(0, k, kb):
+        blk = slice(c0, c0 + kb)
+        with record_function("swim.carry"):
+            timers = (state.inc[:, blk], state.spread_until[:, blk],
+                      state.suspect_deadline[:, blk])
+            if compact:
+                timers = carry.carry_decode(*timers, round_idx)
+        with record_function("swim.delivery"):
+            inc_b, spread_b, deadline_b = timers
+            cols = torch.arange(c0, c0 + kb, dtype=torch.int32,
+                                device=device)
+            is_self_b = cols[None, :] == node_ids[:, None]
+            status_b = torch.where(is_self_b, records.ALIVE,
+                                   state.status[:, blk]).to(torch.int8)
+            inc_b = torch.where(is_self_b, state.self_inc[:, None], inc_b)
+            record_keys, hot, syncable = _send_components(
+                dataclasses.replace(state, spread_until=spread_b), status_b,
+                inc_b, round_idx, params, world, is_self_b)
+            hot_any |= hot.any(dim=1)
+            h_keys = eng.prep(record_keys)
+            h_tx = eng.prep(hot.to(torch.int8)
+                            | (syncable.to(torch.int8) << 1))
+            inbox = torch.where((cols[None, :] == t[:, None])
+                                & verdict_suspect[:, None],
+                                fd_key[:, None], no_msg)
+            inbox_alive = torch.zeros((n, kb), dtype=torch.bool,
+                                      device=device)
+            for s, tx_bit, ok in channels:
+                tx = (eng.deliver(h_tx, s) & tx_bit) != 0
+                payload = torch.where(tx & ok, eng.deliver(h_keys, s),
+                                      no_msg)
+                inbox = torch.maximum(inbox, payload)
+                inbox_alive |= delivery.is_alive_key(payload, fmt=wf)
+        with record_function("swim.merge"):
+            # The new planes go straight into the output carry's columns
+            # (compact: the status; the wide timers to the encode).
+            if compact:
+                timers_out = tuple(torch.empty((n, kb), dtype=torch.int32,
+                                               device=device)
+                                   for _ in range(3))
+            else:
+                timers_out = (new.inc[:, blk], new.spread_until[:, blk],
+                              new.suspect_deadline[:, blk])
+            merged = merge_kernel.merge_and_timers(
+                status_b, inc_b, spread_b, deadline_b, inbox, inbox_alive,
+                state.self_inc, alive_here, world.slot_of_node, round_idx,
+                kn.suspicion_rounds, params.periods_to_spread,
+                _wire_inc_sat(params), fmt=wf, col0=c0,
+                out=(new.status[:, blk], *timers_out))
+            self_inc = torch.maximum(self_inc, merged[4])
+            refuted |= merged[5]
+        if compact:
+            with record_function("swim.carry"):
+                carry.carry_encode(
+                    *merged[1:4], round_idx, _wire_inc_sat(params),
+                    out=(new.inc[:, blk], new.spread_until[:, blk],
+                         new.suspect_deadline[:, blk]))
+        with record_function("swim.metrics"):
+            for name, value in _column_hists(merged[0], status_b,
+                                             alive_here).items():
+                hists[name][blk] = value
+
+    with record_function("swim.delivery"):
+        if hot_g is not None:
+            hot_any |= hot_g.any(dim=1)
+        h_hot_any = eng.prep(hot_any)
+        n_gossip_sent = torch.zeros((), dtype=torch.int32, device=device)
+        for s, ok in zip(gossip_shifts, ok_gossip):
+            n_gossip_sent += (ok & eng.deliver(h_hot_any, s)).sum(
+                dtype=torch.int32)
+    g_infected, g_spread_until = _gossip_lanes(ctx, g_delivered, round_idx,
+                                               params)
+    new = dataclasses.replace(new, self_inc=self_inc, g_infected=g_infected,
+                              g_spread_until=g_spread_until)
+    aux = dict(
+        messages_gossip=n_gossip_sent,
+        messages_ping=active.sum(dtype=torch.int32),
+        messages_ping_sent=active.sum(dtype=torch.int32),
+        messages_ping_req_sent=(ping_req_launches.sum(dtype=torch.int32)
+                                * r_proxies),
+        refutations=(refuted & alive_here).sum(dtype=torch.int32),
+        hists=hists,
+    )
+    return new, aux
 
 
 def _wire_inc_sat(params: SwimParams) -> int:
@@ -1581,6 +1903,21 @@ def _carry_encode(state: SwimState, round_idx: int,
                                suspect_deadline=deadline)
 
 
+def _gossip_lanes(ctx: dict, g_delivered, round_idx: int,
+                  params: SwimParams):
+    """``(g_infected, g_spread_until)`` after the round: newly held user
+    gossips open a spread window, rows of crashed members stay frozen
+    (``g_delivered`` None: no user gossips, the lanes pass through)."""
+    g_infected, g_spread_until = ctx["g_infected"], ctx["g_spread_until"]
+    if g_delivered is not None:
+        live = ctx["alive"][:, None]
+        newly = g_delivered & ~g_infected & live
+        g_spread_until = torch.where(
+            newly, round_idx + 1 + params.periods_to_spread, g_spread_until)
+        g_infected = g_infected | (g_delivered & live)
+    return g_infected, g_spread_until
+
+
 def _merge_and_timers(state: SwimState, ctx: dict, inbox, inbox_alive,
                       g_delivered, round_idx: int, params: SwimParams,
                       kn: Knobs, world: SwimWorld):
@@ -1597,13 +1934,8 @@ def _merge_and_timers(state: SwimState, ctx: dict, inbox, inbox_alive,
         alive_here, world.slot_of_node, round_idx, kn.suspicion_rounds,
         params.periods_to_spread, _wire_inc_sat(params),
         fmt=params.wire_format)
-    g_infected, g_spread_until = ctx["g_infected"], ctx["g_spread_until"]
-    if g_delivered is not None:
-        live = alive_here[:, None]
-        newly = g_delivered & ~g_infected & live
-        g_spread_until = torch.where(
-            newly, round_idx + 1 + params.periods_to_spread, g_spread_until)
-        g_infected = g_infected | (g_delivered & live)
+    g_infected, g_spread_until = _gossip_lanes(ctx, g_delivered, round_idx,
+                                               params)
     return SwimState(status=new_status, inc=new_inc, spread_until=spread_until,
                      suspect_deadline=deadline, self_inc=self_inc,
                      inbox_ring=state.inbox_ring, flag_ring=state.flag_ring,
@@ -1611,29 +1943,44 @@ def _merge_and_timers(state: SwimState, ctx: dict, inbox, inbox_alive,
                      g_ring=state.g_ring), refuted
 
 
-def _round_metrics(new_state: SwimState, status, aux: dict,
-                   params: SwimParams, world: SwimWorld,
-                   alive) -> Dict[str, torch.Tensor]:
-    """Per-round observability counters from the post-merge state and the
-    send-side counters; ``status`` is the pre-merge pinned status.
-
-    Four column reductions plus per-column post-ops: the self cell (pinned
-    ALIVE) is subtracted after the reduce, and "absent" follows from the
-    histogram identity."""
-    new_status = new_state.status
+def _column_hists(new_status, status, alive) -> dict:
+    """The four column reductions of ``_round_metrics`` over [N, Kb]
+    planes (the whole table, or one column block): live observers
+    holding each subject ALIVE, SUSPECT, DEAD, and SUSPECT both after
+    and before the merge (``status``: the pinned pre-merge status)."""
     observer_alive = alive[:, None]
-    subject_alive_i = alive[world.subject_ids.long()].to(torch.int32)
 
     def col_sum(mask):
         return mask.sum(dim=0, dtype=torch.int32)
 
-    hist_alive = col_sum((new_status == records.ALIVE) & observer_alive)
-    hist_suspect = col_sum((new_status == records.SUSPECT) & observer_alive)
-    hist_dead = col_sum((new_status == records.DEAD) & observer_alive)
-    still_suspect = col_sum((new_status == records.SUSPECT)
-                            & (status == records.SUSPECT) & observer_alive)
-    live_observers = alive.sum(dtype=torch.int32)
+    suspect = new_status == records.SUSPECT
+    return dict(
+        hist_alive=col_sum((new_status == records.ALIVE) & observer_alive),
+        hist_suspect=col_sum(suspect & observer_alive),
+        hist_dead=col_sum((new_status == records.DEAD) & observer_alive),
+        still_suspect=col_sum(suspect & (status == records.SUSPECT)
+                              & observer_alive))
 
+
+def _round_metrics(new_state: SwimState, status, aux: dict,
+                   params: SwimParams, world: SwimWorld,
+                   alive) -> Dict[str, torch.Tensor]:
+    """Per-round observability counters from the post-merge state and the
+    send-side counters; ``status`` is the pre-merge pinned status.  The
+    blocked round hands its column reductions in as ``aux["hists"]``,
+    made block by block.
+
+    Four column reductions plus per-column post-ops: the self cell (pinned
+    ALIVE) is subtracted after the reduce, and "absent" follows from the
+    histogram identity."""
+    hists = aux.get("hists")
+    if hists is None:
+        hists = _column_hists(new_state.status, status, alive)
+    hist_alive, hist_suspect, hist_dead, still_suspect = (
+        hists["hist_alive"], hists["hist_suspect"], hists["hist_dead"],
+        hists["still_suspect"])
+    subject_alive_i = alive[world.subject_ids.long()].to(torch.int32)
+    live_observers = alive.sum(dtype=torch.int32)
     counts = {
         "alive": hist_alive - subject_alive_i,
         "suspect": hist_suspect,
@@ -1665,6 +2012,9 @@ def _round_metrics(new_state: SwimState, status, aux: dict,
         messages_ping_req_sent=aux["messages_ping_req_sent"],
         refutations=aux["refutations"],
     )
+    if params.link_counters:
+        metrics["sent_by_node"] = aux["sent_by_node"]
+        metrics["lost_by_node"] = aux["lost_by_node"]
     if params.n_user_gossips > 0:
         # Per gossip, the members holding it.
         metrics["user_gossip_infected"] = new_state.g_infected.sum(
@@ -1674,8 +2024,9 @@ def _round_metrics(new_state: SwimState, status, aux: dict,
 
 def _decoded(state: SwimState, round_idx: int,
              params: SwimParams) -> SwimState:
-    """The round's input carry in the wide layout (decoded if compact)."""
-    if not params.compact_carry:
+    """The round's input carry in the wide layout (decoded if compact;
+    under ``k_block`` the blocked round decodes block by block)."""
+    if not params.compact_carry or params.k_block:
         return state
     with record_function("swim.carry"):
         return _carry_decode(state, round_idx)
@@ -1684,8 +2035,8 @@ def _decoded(state: SwimState, round_idx: int,
 def _encoded(state: SwimState, round_idx: int,
              params: SwimParams) -> SwimState:
     """The round's output carry in the params' layout (encoded if
-    compact)."""
-    if not params.compact_carry:
+    compact and not already encoded block by block)."""
+    if not params.compact_carry or params.k_block:
         return state
     with record_function("swim.carry"):
         return _carry_encode(state, round_idx, _wire_inc_sat(params))
@@ -1694,11 +2045,15 @@ def _encoded(state: SwimState, round_idx: int,
 def _wide_tick(state: SwimState, round_idx: int, params: SwimParams,
                world: SwimWorld, draws: prng.RoundDraws, kn: Knobs
                ) -> Tuple[SwimState, Dict[str, torch.Tensor]]:
-    """One round on the wide carry; the input planes are free once this
-    returns (the compact carry is encoded only after that)."""
+    """One round on the wide carry (under ``k_block``, on the stored
+    carry block by block); the input planes are free once this returns
+    (the compact carry is encoded only after that)."""
     with record_function("swim.context"):
         ctx = _round_context(state, round_idx, params, world, kn)
-    tick = _tick_scatter if params.delivery == "scatter" else _tick_shift
+    if params.k_block:
+        tick = _tick_shift_blocked
+    else:
+        tick = _tick_scatter if params.delivery == "scatter" else _tick_shift
     new_state, aux = tick(state, ctx, round_idx, params, kn, world, draws)
     with record_function("swim.metrics"):
         metrics = _round_metrics(new_state, ctx["status"], aux, params,
@@ -1766,3 +2121,47 @@ def run(seed: int, params: SwimParams, world: SwimWorld, n_rounds: int,
     metrics = {name: torch.stack([m[name] for m in rows])
                for name in (rows[0] if rows else {})}
     return state, metrics
+
+
+def node_snapshot(state: SwimState, params: SwimParams, world: SwimWorld,
+                  node_id: int, round_idx: Optional[int] = None) -> dict:
+    """Host-side digest of one observer row (the reference's
+    ``node_snapshot``, after MembershipProtocolImpl's JMX monitor):
+    incarnation, the members held ALIVE, SUSPECT, DEAD and ABSENT, the
+    pending suspicion timers and the held incarnations.
+
+    ``round_idx`` is the round cursor the state is encoded against (the
+    number of rounds run so far); it is required for a ``compact_carry``
+    state, whose timers are relative, and optional for the wide one.
+    Only row ``node_id`` is copied to the host and decoded."""
+    row = slice(node_id, node_id + 1)
+    inc, deadline = state.inc[row].cpu(), state.suspect_deadline[row].cpu()
+    if params.compact_carry:
+        if round_idx is None:
+            raise ValueError(
+                "node_snapshot of a compact_carry state needs round_idx "
+                "(the cursor its relative encodings decode against); pass "
+                "the number of rounds executed so far")
+        inc, _, deadline = carry.carry_decode(
+            inc, state.spread_until[row].cpu(), deadline, round_idx)
+    status = state.status[node_id].cpu().tolist()
+    inc, deadline = inc[0].tolist(), deadline[0].tolist()
+    subjects = world.subject_ids.cpu().tolist()
+
+    def ids_with(code):
+        return [s for s, st in zip(subjects, status)
+                if st == code and s != node_id]
+
+    return {
+        "node_id": int(node_id),
+        "incarnation": int(state.self_inc[node_id]),
+        "alive_members": ids_with(records.ALIVE),
+        "suspected_members": ids_with(records.SUSPECT),
+        "dead_tombstones": ids_with(records.DEAD),
+        "unknown_members": ids_with(records.ABSENT),
+        "pending_suspicion_timers": {
+            s: d for s, d in zip(subjects, deadline) if d != INT32_MAX},
+        "record_incarnations": {
+            s: i for s, i, st in zip(subjects, inc, status)
+            if st != records.ABSENT},
+    }

@@ -189,3 +189,40 @@ def test_wrapper_rejects_bad_inputs(field, bad):
     with pytest.raises((TypeError, ValueError), match=field):
         merge.merge_and_timers(*args, ROUND, 20, 12, CAP)
 
+
+
+@pytest.mark.parametrize("col0", [0, 16, 32])
+def test_block_form_equals_the_whole_planes_columns(col0):
+    """The merge of an [N, 16] column block of full-view 48 x 48 planes,
+    read through strided views with ``col0`` and written through ``out``
+    views into [N, K] planes, equals the whole merge's columns and leaves
+    the other columns untouched; rows whose self column lies outside the
+    block keep their ``self_inc`` and do not refute."""
+    n, k, kb = 48, 48, 16
+    planes = make_planes(n, k, 5)
+    args = port_args(planes)
+    params = jswim.SwimParams.from_config(fast_config(), n_members=n,
+                                          delivery="shift")
+    whole = merge.merge_and_timers(*args, *scalars(params))
+    blk = slice(col0, col0 + kb)
+    views = [a[:, blk] for a in args[:6]]
+    assert not views[1].is_contiguous()
+    target = [torch.full((n, k), -7, dtype=t.dtype) for t in whole[:4]]
+    got = merge.merge_and_timers(*views, *args[6:], *scalars(params),
+                                 col0=col0, out=[t[:, blk] for t in target])
+    rest = torch.ones(k, dtype=torch.bool)
+    rest[blk] = False
+    for g, t, w in zip(got[:4], target, whole[:4]):
+        assert g.data_ptr() == t[:, blk].data_ptr()
+        assert torch.equal(t[:, blk], w[:, blk])
+        assert bool((t[:, rest] == -7).all())
+    slot = args[8]
+    inside = (slot >= col0) & (slot < col0 + kb)
+    assert bool(inside.any()) and bool((~inside).any())
+    assert torch.equal(got[4], torch.where(inside, whole[4], args[6]))
+    assert torch.equal(got[5], whole[5] & inside)
+    assert bool((whole[5] & inside).any())
+    # The twin itself, on the same views.
+    twin = merge.merge_and_timers_reference(*views, *args[6:],
+                                            *scalars(params), col0=col0)
+    assert all(torch.equal(a, b) for a, b in zip(twin, got))

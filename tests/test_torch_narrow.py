@@ -332,6 +332,37 @@ def test_codec_wrappers_take_plain_version_on_cpu_and_check_inputs():
         carry.carry_decode(got[0], got[1], got[2][:, :-1].contiguous(), 9)
 
 
+@pytest.mark.parametrize("col0", [0, 8, 16])
+def test_codec_block_form_on_column_views(col0):
+    """Decode from, and encode into, an [N, 8] column view of a [48, 24]
+    compact carry (row stride 24): the block equals the whole-plane
+    codec's columns, and encode leaves the carry's other columns as they
+    were."""
+    kb, round_idx = 8, 37
+    wide = tuple(torch.from_numpy(a)
+                 for a in _wide_planes(48, 24, 3 + col0, round_idx))
+    compact = carry.carry_encode(*wide, round_idx, 8191)
+    blk = slice(col0, col0 + kb)
+    views = tuple(t[:, blk] for t in compact)
+    assert not views[0].is_contiguous()
+    got = carry.carry_decode(*views, round_idx + 1)
+    want = carry.carry_decode(*compact, round_idx + 1)
+    for g, w in zip(got, want):
+        assert g.is_contiguous() and torch.equal(g, w[:, blk])
+    target = tuple(torch.full_like(t, -5) for t in compact)
+    outs = carry.carry_encode(*(t[:, blk].contiguous() for t in wide),
+                              round_idx, 8191,
+                              out=tuple(t[:, blk] for t in target))
+    for o, tgt, c in zip(outs, target, compact):
+        assert o.data_ptr() == tgt[:, blk].data_ptr()
+        assert torch.equal(tgt[:, blk], c[:, blk])
+        rest = torch.ones(tgt.shape[1], dtype=torch.bool)
+        rest[blk] = False
+        assert bool((tgt[:, rest] == -5).all())
+    with pytest.raises(ValueError, match="row strides differ"):
+        carry.carry_decode(views[0], views[1].contiguous(), views[2], 1)
+
+
 # The reference merge, compiled once per layout (eagerly it compiles
 # op by op, several times slower).
 _jax_merge = jax.jit(jswim._merge_and_timers, static_argnums=(6,))

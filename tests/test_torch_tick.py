@@ -126,10 +126,9 @@ def test_torch_draws_shapes_and_ranges():
 
 
 UNPORTED = [
-    ("k_block", 8),
     ("sync_interval", 8), ("lhm_max", 4),
     ("dead_suppress_rounds", 8), ("open_world", True), ("metadata_keys", 2),
-    ("provenance", True), ("link_counters", True),
+    ("provenance", True),
 ]
 
 
