@@ -19,7 +19,15 @@ and prints no result):
    0, 1,024 and 3,072 read through strided views and written through
    views into sentinel-filled planes, exact against the plain version on
    the same views, every other column untouched, timed at one block (row
-   stride 4,096);
+   stride 4,096); the merge instances again with both plane branches on
+   (``planes_*`` and ``block_planes_*`` fields): per-row armed rounds
+   from seeded multipliers in [1, 8], a 64-round suppression window, on
+   planes with suppressed and unsuppressed tombstones and expiries at the
+   round and one round either side, checked to reach each case.  The
+   merge instances at 1M x 16 are timed on the device clock
+   (:func:`device_ms`), and their wrapper calls on CUDA events too
+   (``events_ms``, ``planes_events_ms``), which at this shape also time
+   the wrapper's host-side checks;
 4. the probe path: ``python -m scalecube_cluster_tpu_torch.mosaic_probe``
    at [512, 128] and at [1,000,000, 16] (each probe once, checked against
    its plain version), then each probe timed at both shapes on the
@@ -37,8 +45,8 @@ and prints no result):
    The four vectorised probes (all but the merge core) are also held
    exactly against their plain versions at ragged shapes ([999,999, 13],
    [3, 5]: the scalar tail runs) and must refuse a 16-byte-misaligned
-   input with ``ValueError``.  The card's clocks, temperature and power
-   draw are printed before this phase and before phase 6;
+   input with ``ValueError``.  After each stage the seconds since the
+   start and the card's clocks, temperature and power draw are printed;
 5. parity canaries, card against CPU with the same CPU-made draws, 200
    rounds, state (every lane) and metrics bit-identical, and the card's
    kernel launches one a round for each kernel of the layout.  Shift:
@@ -55,7 +63,11 @@ and prints no result):
    (``fused_wire=False``), and the seeded cold start at 512 x 512;
    ``k_block=128`` at full view 512 x 512 in all four layouts (each
    kernel launched four times a round); ``link_counters`` on the network
-   configuration at 4,096 x 16 under shift and scatter;
+   configuration at 4,096 x 16 under shift and scatter; the three
+   tick-level planes on (``sync_interval=8``, ``lhm_max=8``,
+   ``dead_suppress_rounds=64``) across a partition of rounds 0-63 at
+   4,096 x 16 (shift and scatter) and ``k_block=128`` compact at 512 x
+   512, and on the network configuration at 4,096 x 16;
 6. the main path and the layout identity: LAN defaults, N = 1,000,000
    members x K = 16 subjects, loss 0.02, node 3 crashed at round 10, the
    port's own device draws, 600 rounds through ``models.swim.run`` in the
@@ -86,20 +98,36 @@ and prints no result):
    round from 20 rounds profiled from round 160 (device busy time and
    idle share, device time and launches per phase range, the ring's
    bytes);
-8. the seeded cold start at full view N = K = 4,096 (LAN defaults, loss
+8. the planes at full width: (a) the partition heal of ``bench.py
+   --sync``'s scale arm (``bench.py:1625-1690``: the chaos campaign's
+   config, N = 1,000,000, K = 16 subjects at ``arange(16) * 62,500``,
+   shift, ``sync_every=0``, ``sync_interval=32``, seed 7; a half/half
+   split of 320 rounds, then a 204-round window probed every 2 rounds):
+   the split must leave divergent columns, the tables must agree inside
+   the window, and the gossip-only control (``sync_interval=0``, 524
+   rounds) must not; prints ``sync_rounds_to_converge``, ms/round,
+   member-rounds/s, a profiled 20-round window and peak bytes; (b) the
+   network configuration at 1M x 16, wide, 600 rounds, with
+   ``lhm_max=8`` and ``dead_suppress_rounds = periods_to_spread + 2``:
+   at every segment's end each live row's multiplier in [1, 8] and the
+   reference monitor's TIMER_BOUND contract (no timer past round +
+   ``suspicion_rounds * 8``), node 3 suspected within 50 rounds; prints
+   its numbers beside phase 7's wide run;
+9. the seeded cold start at full view N = K = 4,096 (LAN defaults, loss
    0, seeds 0, 1, 2) for 12 x periods_to_spread rounds: every cell must
    be ALIVE at the end; prints the round membership became full;
-9. the scatter main path (``delivery="scatter"``, the reference's
-   default): phase 6's workload through ``models.swim.run`` for 600
-   rounds, wide and then ``int16_wire``, under the same gates and the
-   same identity check, printing phase 6's numbers and the shift
-   path's first SUSPECT round and final DEAD share beside its own;
-10. phase 8 under scatter delivery;
-11. blocked == unblocked on the card: the capacity configuration below
+10. the scatter main path (``delivery="scatter"``, the reference's
+    default): phase 6's workload through ``models.swim.run`` for 600
+    rounds, wide and then ``int16_wire``, under the same gates and the
+    same identity check, printing phase 6's numbers and the shift
+    path's first SUSPECT round and final DEAD share beside its own;
+11. phase 9 under scatter delivery;
+12. blocked == unblocked on the card: the capacity configuration below
     at N = K = 8,192 for 60 rounds, wide and compact, with
     ``k_block=1024`` and without; every state lane and metric equal;
-    each run's peak bytes and bytes per cell;
-12. the full-view capacity path: the reference's configuration
+    each run's peak bytes and bytes per cell; then compact again with
+    the three planes on (the exchange every 8 rounds);
+13. the full-view capacity path: the reference's configuration
     (``experiments/fullview_ceiling.py:88-94``: LAN defaults, N = K =
     36,864, compact carry, ``k_block=1024``, suspicion 6 rounds, ping
     every 2, SYNC every 4, aggregate metrics, loss 0, node 3 crashed at
@@ -110,15 +138,19 @@ and prints no result):
     ``node_snapshot`` lists node 3 DEAD and equals the snapshot of its row
     made on the CPU.  Prints ms/round, record-updates/s (N^2 x rounds /
     s), peak bytes and bytes per cell, and a profiled 5-round window;
-13. one ``{"kernels": [...]}`` line (the block-form times and bounds as
-    ``block_*`` fields of their kernels' rows), then ``{"ok": true,
-    "device": ...}``.
+14. one ``{"kernels": [...]}`` line (the block-form times and bounds as
+    ``block_*`` fields of their kernels' rows, the plane-on ones as
+    ``planes_*`` / ``block_planes_*``), then ``{"ok": true, "device":
+    ...}``.
 
 No phase catches its own failure, and nothing falls back to the CPU or
 to a plain version.  Run from the repository root: ``python3
-chip_smoke.py``.
+chip_smoke.py``.  ``--merge-baseline PATH`` adds :func:`merge_ab`, the
+plane-off merge timed in turns against an earlier ``merge_timers.cu``.
 """
 
+import argparse
+import ctypes
 import dataclasses
 import functools
 import json
@@ -135,7 +167,8 @@ from scalecube_cluster_tpu_torch import mosaic_probe, profile_round, records
 from scalecube_cluster_tpu_torch.config import ClusterConfig
 from scalecube_cluster_tpu_torch.kernels import LAUNCHES, _build
 from scalecube_cluster_tpu_torch.kernels import carry, merge, probes
-from scalecube_cluster_tpu_torch.models import swim
+from scalecube_cluster_tpu_torch.models import lifeguard, swim
+from scalecube_cluster_tpu_torch.models import sync as sync_plane
 from scalecube_cluster_tpu_torch.ops import delivery, prng
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the float32
@@ -168,6 +201,25 @@ BLOCK_CARRY_K = 4_096
 BLOCK_COLS = (0, 1_024, 3_072)
 TIMED_COL0 = 1_024
 CANARY_ROUNDS = 200
+# The planes' canaries: the anti-entropy exchange every 8 rounds,
+# multipliers up to 8, a 64-round suppression window, across a partition
+# of rounds 0-63.
+CANARY_PLANES = dict(sync_interval=8, lhm_max=8, dead_suppress_rounds=64)
+CANARY_SPLIT = 64
+# The partition heal at full width, bench.py --sync's scale arm
+# (bench.py:1625-1690): the chaos campaign's config, N = 1M, 16 focal
+# subjects at arange(16) * (N // 16), shift delivery, no per-round SYNC,
+# the exchange every 32 rounds, seed 7.  The reference's
+# quiesced_heal_scenario at this size (computed on the CPU): a half/half
+# split of 320 rounds (RollingPartition: split, healed, healed phases of
+# 320 rounds), horizon 844, so a post-heal window of 204 rounds, probed
+# every 2.
+HEAL_N, HEAL_K, HEAL_SEED, HEAL_SYNC_INTERVAL = 1_000_000, 16, 7, 32
+HEAL_SPLIT, HEAL_HORIZON, HEAL_PROBE_STEP = 320, 844, 2
+HEAL_WINDOW = HEAL_HORIZON - 2 * HEAL_SPLIT
+# The Lifeguard network run's checkpoints (rounds), and the round its
+# profiled window starts from (the plane-off network path's).
+LIFEGUARD_SEGMENTS = (0, 50, 100, 160, 200, 260, 300, 400, 500, 600)
 SEEDS = [0, 1, 2]
 COLD_N = 4096
 PROFILE_ROUNDS = 20
@@ -187,6 +239,11 @@ ROUND_KERNELS = {
     "compact_wire24": (merge.NAMES["wire24"], carry.DECODE, carry.ENCODE),
 }
 CSRC = "scalecube_cluster_tpu_torch/csrc/"
+# The merge kernel's plane branches in phase 3: multipliers in [1, 8], a
+# 64-round suppression window, and deadlines (relative to the round; None
+# = no timer) with expiries at the round and one round either side.
+PLANE_LHM_MAX, PLANE_SUPPRESS = 8, 64
+PLANE_DEADLINES = (None, None, -1, 0, 1, -3, 4, -37)
 
 
 def log(msg):
@@ -199,6 +256,13 @@ def card_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def stage(label, t_start):
+    """Log the seconds since ``t_start`` as ``label`` ends, and the card's
+    clocks, temperature and power draw."""
+    log(f"[stage] {label} done at {time.perf_counter() - t_start:.1f} s")
+    log(clock_line())
 
 
 def clock_line():
@@ -346,12 +410,15 @@ def timed_row(name, kernel, plain, tensors, ops_key, shape_cells, err,
                 library_ms=library_ms)
 
 
-def merge_planes(n, k, seed, device, fmt, cap, round_idx=37):
+def merge_planes(n, k, seed, device, fmt, cap, round_idx=37,
+                 deadlines=None):
     """Seeded merge inputs reaching every branch: ABSENT and DEAD entries,
     the ABSENT opener with and without ALIVE arrivals, self cells
     overridden and not, frozen rows, timers pending/firing/none, and
     incarnations at ``cap``.  ``status``/``inc`` are pinned; the inbox is
-    packed in ``fmt`` (its dtype)."""
+    packed in ``fmt`` (its dtype).  ``deadlines``: the deadline lane's
+    values relative to the round (None: the plane-off set; the planes'
+    set adds expiries one round either side of it)."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def randint(lo, hi, shape):
@@ -381,8 +448,10 @@ def merge_planes(n, k, seed, device, fmt, cap, round_idx=37):
                                                cap), win_inc)
     inbox = delivery.pack_record(randint(0, 4, (n, k)), win_inc, fmt=fmt)
     inbox = torch.where(rand((n, k)) < 0.15, -1, inbox)
-    deadline = choice([INT32_MAX, INT32_MAX, round_idx - 3, round_idx,
-                       round_idx + 4, 0], (n, k)).to(torch.int32)
+    if deadlines is None:
+        deadlines = (None, None, -3, 0, 4, -round_idx)
+    deadline = choice([INT32_MAX if d is None else round_idx + d
+                       for d in deadlines], (n, k)).to(torch.int32)
     return dict(
         status=torch.where(is_self, records.ALIVE, status).to(torch.int8),
         inc=torch.where(is_self, self_inc[:, None], inc).to(torch.int32),
@@ -396,31 +465,93 @@ def merge_planes(n, k, seed, device, fmt, cap, round_idx=37):
     )
 
 
+def plane_arguments(planes, params, seed, device):
+    """The merge's plane arguments on seeded planes: ``armed_rounds`` of
+    multipliers drawn in [1, PLANE_LHM_MAX] at the planes' live count,
+    and the suppression window ``PLANE_SUPPRESS``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = planes["status"].shape[0]
+    lhm = torch.randint(1, PLANE_LHM_MAX + 1, (n,), generator=g,
+                        device=device, dtype=torch.int32)
+    armed = lifeguard.suspicion_deadline_rounds(
+        params.suspicion_rounds, lhm,
+        planes["alive_here"].sum(dtype=torch.int32), n)
+    return dict(armed_rounds=armed, dead_suppress_rounds=PLANE_SUPPRESS)
+
+
+def check_plane_cases(name, planes, got, round_idx=37):
+    """Raise unless the plane-on merge met suppressed tombstones that
+    held against an ALIVE arrival, opened suppression windows, and armed
+    timers of more than one length; returns the three counts."""
+    status, deadline = planes["status"], planes["suspect_deadline"]
+    live = planes["alive_here"][:, None]
+    suppressed = (live & (status == records.DEAD)
+                  & (deadline != INT32_MAX) & (round_idx < deadline))
+    alive_in = planes["inbox_alive"] & (planes["inbox"] >= 0)
+    held = int((suppressed & alive_in & (got[0] == records.DEAD)).sum())
+    opened = int((live & (status != records.DEAD) & (got[0] == records.DEAD)
+                  & (got[3] == round_idx + PLANE_SUPPRESS)).sum())
+    armed = got[3][live & (got[0] == records.SUSPECT)
+                   & (deadline == INT32_MAX) & (got[3] != INT32_MAX)]
+    lengths = torch.unique(armed - round_idx).numel()
+    if not (held and opened and lengths > 1):
+        raise AssertionError(f"{name}: plane-on planes missed a case (held "
+                             f"{held}, opened {opened}, armed lengths "
+                             f"{lengths})")
+    return held, opened, lengths
+
+
 def check_merge_kernel(device, layout):
-    """Phase 3: one merge instance vs its plain version at 1M x 16."""
+    """Phase 3: one merge instance vs its plain version at 1M x 16, plane
+    off, then with both plane branches (``planes_*`` fields)."""
     params = profile_round.bench_params(layout, MAIN_N, MAIN_K)
     fmt, cap = params.wire_format, swim._wire_inc_sat(params)
-    planes = merge_planes(MAIN_N, MAIN_K, seed=1, device=device, fmt=fmt,
-                          cap=cap)
-    if planes["inbox"].dtype != fmt.dtype:
-        raise AssertionError(f"{fmt.name} planes carry a "
-                             f"{planes['inbox'].dtype} inbox")
-    args = list(planes.values()) + [37, params.suspicion_rounds,
-                                    params.periods_to_spread, cap]
-    got = merge.merge_and_timers(*args, fmt=fmt)
-    torch.cuda.synchronize()
-    want = merge.merge_and_timers_reference(*args, fmt=fmt)
     name = merge.NAMES[fmt.name]
-    err = max_abs_err(name, got, want)
-    if not bool(got[5].any()):
-        raise AssertionError(f"{name}: planes missed the refutation case")
-    if int(got[4].max()) != cap:
-        raise AssertionError(f"{name}: no self_inc at the cap {cap}")
-    return timed_row(
-        f"{name} {MAIN_N}x{MAIN_K} (inbox {fmt.dtype}, cap {cap})",
-        lambda: merge.merge_and_timers(*args, fmt=fmt),
-        lambda: merge.merge_and_timers_reference(*args, fmt=fmt),
-        list(planes.values()) + list(got), "merge", MAIN_N * MAIN_K, err)
+    row = {}
+    for plane_on in (False, True):
+        planes = merge_planes(MAIN_N, MAIN_K, seed=1 + 4 * plane_on,
+                              device=device, fmt=fmt, cap=cap,
+                              deadlines=PLANE_DEADLINES if plane_on else None)
+        if planes["inbox"].dtype != fmt.dtype:
+            raise AssertionError(f"{fmt.name} planes carry a "
+                                 f"{planes['inbox'].dtype} inbox")
+        args = list(planes.values()) + [37, params.suspicion_rounds,
+                                        params.periods_to_spread, cap]
+        extra = (plane_arguments(planes, params, 6, device) if plane_on
+                 else {})
+        got = merge.merge_and_timers(*args, fmt=fmt, **extra)
+        torch.cuda.synchronize()
+        want = merge.merge_and_timers_reference(*args, fmt=fmt, **extra)
+        err = max_abs_err(name, got, want)
+        if not bool(got[5].any()):
+            raise AssertionError(f"{name}: planes missed the refutation case")
+        if int(got[4].max()) != cap:
+            raise AssertionError(f"{name}: no self_inc at the cap {cap}")
+        label = f"{name} {MAIN_N}x{MAIN_K} (inbox {fmt.dtype}, cap {cap})"
+        if plane_on:
+            cases = check_plane_cases(name, planes, got)
+            label += (f" planes on (held {cases[0]}, opened {cases[1]}, "
+                      f"{cases[2]} armed lengths)")
+        def kernel():
+            return merge.merge_and_timers(*args, fmt=fmt, **extra)
+
+        timed = timed_row(
+            label, kernel,
+            lambda: merge.merge_and_timers_reference(*args, fmt=fmt,
+                                                     **extra),
+            list(planes.values()) + list(extra.values())[:1] + list(got),
+            "merge", MAIN_N * MAIN_K, err, clock="device")
+        # CUDA events around back-to-back wrapper calls, the clock of the
+        # earlier rows: at this shape they time the wrapper's host-side
+        # checks as much as the kernel.
+        events_ms = time_ms(kernel)
+        log(f"[kernel] {name} {MAIN_N}x{MAIN_K}{' planes on' * plane_on}: "
+            f"{events_ms:.4f} ms a wrapper call on CUDA events")
+        if plane_on:
+            row.update(prefixed(timed, "planes_"), planes_events_ms=events_ms)
+        else:
+            row.update(timed, events_ms=events_ms)
+    return row
 
 
 def codec_planes(shape, g, device, round_idx, inc_sat):
@@ -495,10 +626,11 @@ def untouched(name, planes, blk, fill):
                                  f"written")
 
 
-def block_fields(row):
-    """A block-form timing row as the ``block_*`` fields of its kernel's
-    row in the kernels line."""
-    return {f"block_{key}": row[key]
+def prefixed(row, prefix):
+    """A timing row as ``<prefix>*`` fields of its kernel's row in the
+    kernels line (block form: ``block_``; plane branches on:
+    ``planes_``, ``block_planes_``)."""
+    return {f"{prefix}{key}": row[key]
             for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
 
 
@@ -508,48 +640,61 @@ def check_block_merge(device, layout):
     strided views and written through ``out`` views into sentinel-filled
     planes, exact against the plain version on the same views, every
     column outside the block untouched; timed at one block (row stride
-    4,096)."""
+    4,096); plane off, then with both plane branches."""
     params = profile_round.bench_params(layout, FULL_N, BLOCK_CARRY_K)
     fmt, cap = params.wire_format, swim._wire_inc_sat(params)
-    planes = list(merge_planes(FULL_N, BLOCK_CARRY_K, seed=3, device=device,
-                               fmt=fmt, cap=cap).values())
-    grids, vectors = planes[:6], planes[6:]
-    scalars = (37, params.suspicion_rounds, params.periods_to_spread, cap)
     name = merge.NAMES[fmt.name]
-    targets = [torch.full((FULL_N, BLOCK_CARRY_K), -7, dtype=p.dtype,
-                          device=device) for p in grids[:4]]
-    refuted = 0
-    for col0 in BLOCK_COLS:
-        blk = slice(col0, col0 + FULL_KB)
-        views = [p[:, blk] for p in grids]
-        outs = [t[:, blk] for t in targets]
+    fields = {}
+    for plane_on in (False, True):
+        planes = merge_planes(FULL_N, BLOCK_CARRY_K, seed=3 + 4 * plane_on,
+                              device=device, fmt=fmt, cap=cap,
+                              deadlines=PLANE_DEADLINES if plane_on else None)
+        extra = (plane_arguments(planes, params, 7, device) if plane_on
+                 else {})
+        planes = list(planes.values())
+        grids, vectors = planes[:6], planes[6:]
+        scalars = (37, params.suspicion_rounds, params.periods_to_spread, cap)
+        targets = [torch.full((FULL_N, BLOCK_CARRY_K), -7, dtype=p.dtype,
+                              device=device) for p in grids[:4]]
+        refuted = 0
+        for col0 in BLOCK_COLS:
+            blk = slice(col0, col0 + FULL_KB)
+            views = [p[:, blk] for p in grids]
+            outs = [t[:, blk] for t in targets]
 
-        def kernel():
-            return merge.merge_and_timers(*views, *vectors, *scalars, fmt=fmt,
-                                          col0=col0, out=outs)
+            def kernel():
+                return merge.merge_and_timers(*views, *vectors, *scalars,
+                                              fmt=fmt, col0=col0, out=outs,
+                                              **extra)
 
-        def plain():
-            return merge.merge_and_timers_reference(
-                *views, *vectors, *scalars, fmt=fmt, col0=col0)
+            def plain():
+                return merge.merge_and_timers_reference(
+                    *views, *vectors, *scalars, fmt=fmt, col0=col0, **extra)
 
-        got = kernel()
-        torch.cuda.synchronize()
-        err = max_abs_err(f"{name} block at column {col0}", got, plain())
-        untouched(f"{name} block at column {col0}", targets, blk, -7)
-        refuted += int(got[5].sum())
-        if col0 == TIMED_COL0:
-            row = timed_row(
-                f"{name} block {FULL_N}x{FULL_KB} at column {col0}, row "
-                f"stride {BLOCK_CARRY_K}", kernel, plain,
-                views + vectors + list(got), "merge", FULL_N * FULL_KB, err)
-        for t in targets:
-            t.fill_(-7)
-    if refuted == 0:
-        raise AssertionError(f"{name}: the blocks missed the refutation case")
-    log(f"[kernel] {name} block form: exact at columns {list(BLOCK_COLS)} "
-        f"of [{FULL_N}, {BLOCK_CARRY_K}], other columns untouched, "
-        f"{refuted} refutations")
-    return block_fields(row)
+            got = kernel()
+            torch.cuda.synchronize()
+            label = f"{name} block at column {col0}" + (
+                " planes on" if plane_on else "")
+            err = max_abs_err(label, got, plain())
+            untouched(label, targets, blk, -7)
+            refuted += int(got[5].sum())
+            if col0 == TIMED_COL0:
+                row = timed_row(
+                    f"{label}, {FULL_N}x{FULL_KB}, row stride "
+                    f"{BLOCK_CARRY_K}", kernel, plain,
+                    views + vectors + list(extra.values())[:1] + list(got),
+                    "merge", FULL_N * FULL_KB, err)
+            for t in targets:
+                t.fill_(-7)
+        if refuted == 0:
+            raise AssertionError(f"{name}: the blocks missed the refutation "
+                                 f"case")
+        log(f"[kernel] {name} block form{' planes on' * plane_on}: exact at "
+            f"columns {list(BLOCK_COLS)} of [{FULL_N}, {BLOCK_CARRY_K}], "
+            f"other columns untouched, {refuted} refutations")
+        fields.update(prefixed(row, "block_planes_" if plane_on
+                               else "block_"))
+    return fields
 
 
 def check_block_codec(device, round_idx=300, inc_sat=8191):
@@ -586,10 +731,10 @@ def check_block_codec(device, round_idx=300, inc_sat=8191):
                 check_encode_edges(got)
                 untouched(f"{name} block at column {col0}", targets, blk, -5)
             if col0 == TIMED_COL0:
-                rows[name] = block_fields(timed_row(
+                rows[name] = prefixed(timed_row(
                     f"{name} block {FULL_N}x{FULL_KB} at column {col0}, row "
                     f"stride {BLOCK_CARRY_K}", kernel, plain,
-                    ins + list(got), name, FULL_N * FULL_KB, err))
+                    ins + list(got), name, FULL_N * FULL_KB, err), "block_")
         for t in targets:
             t.fill_(-5)
     log(f"[kernel] codec block form: exact at columns {list(BLOCK_COLS)} of "
@@ -775,10 +920,37 @@ def canaries(device):
                                             link_counters=True),
                functools.partial(profile_round.network_world,
                                  rounds=CANARY_ROUNDS))
+    # The three tick-level planes on, across a partition healed at round
+    # 64.
+    for delivery in ("shift", "scatter"):
+        canary(device, f"{delivery} planes", "wide",
+               profile_round.bench_params("wide", 4096, 16, delivery,
+                                          **CANARY_PLANES),
+               split_world(crash_world))
+    canary(device, "k_block=128 compact planes", "compact",
+           profile_round.bench_params("compact", 512, 512, k_block=128,
+                                      **CANARY_PLANES),
+           split_world(crash_world))
+    canary(device, "network wide planes", "wide",
+           profile_round.network_params("wide", 4096, 16, **CANARY_PLANES),
+           functools.partial(profile_round.network_world,
+                             rounds=CANARY_ROUNDS))
+
+
+def split_world(make_world, split=CANARY_SPLIT):
+    """``make_world`` with its members split half/half over rounds
+    [0, split), then healed."""
+    def make(params, device):
+        n = params.n_members
+        part = torch.zeros((4, n), dtype=torch.int8)
+        part[0, :n // 2] = 1
+        return make_world(params, device).with_partition_schedule(part,
+                                                                  split)
+    return make
 
 
 def run_layout(device, layout, delivery="shift"):
-    """Phases 6 and 9: one layout of the 1M x 16 round for 600 rounds, with
+    """Phases 6 and 10: one layout of the 1M x 16 round for 600 rounds, with
     the detection gates; returns what the identity check and the kernel
     line need, and the detection round and DEAD share."""
     tag = "main" if delivery == "shift" else f"{delivery} main"
@@ -858,7 +1030,7 @@ def decoded(state, params):
 
 def main_path(device, delivery="shift",
               narrow=("int16_wire", "compact", "compact_wire24")):
-    """Phases 6 and 9: wide, then each ``narrow`` layout against it;
+    """Phases 6 and 10: wide, then each ``narrow`` layout against it;
     returns the launches and the wide run's detection summary."""
     launches = {}
     wide_params, wide_state, wide_metrics, counts, summary = run_layout(
@@ -891,7 +1063,8 @@ def main_path(device, delivery="shift",
 def network_run(device, layout):
     """Phase 7: one layout of the network configuration at 1M x 16 for 600
     rounds, with its gates; returns what the identity check and the
-    kernel line need."""
+    kernel line need, and a summary the planes' network run prints
+    beside its own."""
     params = profile_round.network_params(layout, MAIN_N, MAIN_K)
     world = profile_round.network_world(params, device)
     torch.cuda.synchronize()
@@ -975,7 +1148,9 @@ def network_run(device, layout):
         f"share of a live "
         f"subject at the end {stale:.6f}; user gossips reach 99% of live "
         f"members at rounds {reach}")
-    return params, state, metrics, launches
+    summary = dict(ms_round=ms_round, window=window, brownout=brownout,
+                   dead_share=dead_share, first_suspect=first_suspect)
+    return params, state, metrics, launches, summary
 
 
 def brownout_floor(n, live_subjects, rounds):
@@ -998,15 +1173,16 @@ def network_state(state, params):
 
 
 def network_path(device):
-    """Phase 7: wide, then int16_wire against it."""
+    """Phase 7: wide, then int16_wire against it; returns the launches
+    and the wide run's summary."""
     launches = {}
-    wide_params, wide_state, wide_metrics, counts = network_run(device,
-                                                                "wide")
+    wide_params, wide_state, wide_metrics, counts, summary = network_run(
+        device, "wide")
     launches.update(counts)
     want = {name: value.cpu() for name, value in
             network_state(wide_state, wide_params).items()}
     del wide_state
-    params, state, metrics, counts = network_run(device, "int16_wire")
+    params, state, metrics, counts, _ = network_run(device, "int16_wire")
     for name, count in counts.items():
         launches[name] = launches.get(name, 0) + count
     for name, value in wide_metrics.items():
@@ -1019,11 +1195,213 @@ def network_path(device):
                                  f"from the wide run")
     log(f"[identity] network int16_wire: per-round metrics and final state "
         f"(rings unpacked) equal the wide run's")
+    return launches, summary
+
+
+def campaign_config():
+    """The reference's chaos campaign config
+    (``chaos/campaign.campaign_config``): the loopback defaults with a
+    100 ms gossip round, pings every 200 ms with a 100 ms timeout, SYNC
+    every second, suspicion multiplier 3."""
+    return ClusterConfig.default_local().replace(
+        gossip_interval=100, ping_interval=200, ping_timeout=100,
+        sync_interval=1_000, suspicion_mult=3)
+
+
+def heal_params(sync_interval):
+    return swim.SwimParams.from_config(
+        campaign_config(), n_members=HEAL_N, n_subjects=HEAL_K,
+        delivery="shift", sync_every=0, sync_interval=sync_interval)
+
+
+def heal_world(params, device):
+    """Focal subjects spread over the ids, split half/half over rounds
+    [0, 320), then healed (the reference's RollingPartition phases)."""
+    n = params.n_members
+    world = swim.SwimWorld.healthy(
+        params, subject_ids=torch.arange(HEAL_K, dtype=torch.int32)
+        * (n // HEAL_K), device=device)
+    part = torch.zeros((3, n), dtype=torch.int8)
+    part[0, :n // 2] = 1
+    return world.with_partition_schedule(part, HEAL_SPLIT)
+
+
+def heal_path(device):
+    """Phase 8 (a), the planes at full width: the partition heal of
+    ``bench.py --sync``'s scale arm.  The split's 320 rounds, then 2 at a
+    time with the divergence probe after each, until the tables agree
+    or the 204-round window ends; then the gossip-only control (no
+    exchange) over the split and the whole window.  Gates: the split
+    left divergent columns, the plane converges inside the window, the
+    control does not."""
+    params = heal_params(HEAL_SYNC_INTERVAL)
+    world = heal_world(params, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    state, _ = swim.run(HEAL_SEED, params, world, HEAL_SPLIT, device=device)
+    at_heal = int(sync_plane.divergence_probe(state, params, world,
+                                              HEAL_SPLIT))
+    converge_at, r = None, HEAL_SPLIT
+    while r < HEAL_SPLIT + HEAL_WINDOW:
+        state, _ = swim.run(HEAL_SEED, params, world, HEAL_PROBE_STEP,
+                            state=state, start_round=r, device=device)
+        r += HEAL_PROBE_STEP
+        if int(sync_plane.divergence_probe(state, params, world, r)) == 0:
+            converge_at = r - HEAL_SPLIT
+            break
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("heal", params, launches, r, "wide")
+    if at_heal == 0:
+        raise AssertionError("heal: no divergent column at the heal")
+    if converge_at is None:
+        raise AssertionError(f"heal: the tables did not agree within "
+                             f"{HEAL_WINDOW} rounds of the heal")
+    window = profile_round.profile_window(params, world, state, r,
+                                          PROFILE_ROUNDS)
+    del state
+    control = dataclasses.replace(params, sync_interval=0)
+    c_state, _, c_seconds, c_launches, c_peak = timed_run(
+        control, world, HEAL_SPLIT + HEAL_WINDOW, device, seed=HEAL_SEED)
+    check_launches("heal control", control, c_launches,
+                   HEAL_SPLIT + HEAL_WINDOW, "wide")
+    c_div = int(sync_plane.divergence_probe(c_state, control, world,
+                                            HEAL_SPLIT + HEAL_WINDOW))
+    del c_state
+    if c_div == 0:
+        raise AssertionError("heal: the gossip-only control converged")
+    ms_round = seconds / r * 1e3
+    c_ms = c_seconds / (HEAL_SPLIT + HEAL_WINDOW) * 1e3
+    log(f"[heal] {HEAL_N}x{HEAL_K} shift, split {HEAL_SPLIT} rounds, "
+        f"sync_interval {HEAL_SYNC_INTERVAL}, seed {HEAL_SEED}: divergent "
+        f"columns at the heal {at_heal}; sync_rounds_to_converge "
+        f"{converge_at} (window {HEAL_WINDOW}); {r} rounds in {seconds:.3f} "
+        f"s with a probe every {HEAL_PROBE_STEP}: {ms_round:.4f} ms/round, "
+        f"{HEAL_N * r / seconds:.6g} member-rounds/s, peak {peak} B; "
+        f"profiled {PROFILE_ROUNDS} rounds from round {r}: "
+        f"{window['kernel_launches_per_round']:.2f} kernel launches/round, "
+        f"device busy {window['device_busy_ms_per_round']:.4f} ms/round, "
+        f"wall {window['wall_ms_per_round']:.4f} ms/round, idle share "
+        f"{window['device_idle_share']:.4f}, phases "
+        f"{json.dumps(window['phase_device_ms_per_round'])}")
+    log(f"[heal] gossip-only control (sync_interval 0), "
+        f"{HEAL_SPLIT + HEAL_WINDOW} rounds in {c_seconds:.3f} s: "
+        f"{c_ms:.4f} ms/round, peak {c_peak} B; divergent columns at heal + "
+        f"{HEAL_WINDOW}: {c_div}")
+    for name, count in c_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    return launches
+
+
+def timer_bound(state, params, alive, cursor):
+    """The reference monitor's TIMER_BOUND contract over live observers
+    after round ``cursor - 1`` (Lifeguard and the suppression window on):
+    a SUSPECT entry holds a timer still ahead and at most
+    ``suspicion_rounds * lhm_max`` out, a DEAD entry's lane holds no
+    timer or an expiry at most the window out, any other entry none.
+    Returns the count of cells breaking it."""
+    r = cursor - 1
+    dl, _ = swim._wide_timer_fields(state, params, cursor)
+    live = alive[:, None]
+    suspect = state.status == records.SUSPECT
+    dead_hold = (state.status == records.DEAD) & (dl != INT32_MAX)
+    has_timer = dl != INT32_MAX
+    bad = ((has_timer & ~suspect & ~dead_hold) | (suspect & ~has_timer)
+           | (suspect & has_timer & (dl <= r))
+           | (suspect & (dl > r + params.suspicion_rounds * params.lhm_max))
+           | (dead_hold & (dl > r + params.dead_suppress_rounds)))
+    return int((bad & live).sum())
+
+
+def lifeguard_network_path(device, plane_off):
+    """Phase 8 (b), the planes at full width: the network configuration
+    at 1M x 16 (wide, 600 rounds) with Lifeguard (multipliers up to 8)
+    and a suppression window of periods_to_spread + 2 rounds, run in
+    segments.
+    Gates at every segment's end: every live row's multiplier in [1, 8],
+    the TIMER_BOUND contract (:func:`timer_bound`); and node 3 suspected
+    within 50 rounds of its crash.  Prints its numbers beside the
+    plane-off network run's (``plane_off``, phase 7's wide summary), the
+    SUSPECT entries about live subjects in the brownout window and the
+    share of live observers holding node 3 DEAD at the end."""
+    params = profile_round.with_planes(
+        profile_round.network_params("wide", MAIN_N, MAIN_K),
+        sync_interval=0)
+    world = profile_round.network_world(params, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    state, rows, seconds, mid = None, [], 0.0, None
+    for lo, hi in zip(LIFEGUARD_SEGMENTS, LIFEGUARD_SEGMENTS[1:]):
+        t0 = time.perf_counter()
+        state, metrics = swim.run(0, params, world, hi - lo, state=state,
+                                  start_round=lo, device=device)
+        torch.cuda.synchronize()
+        seconds += time.perf_counter() - t0
+        rows.append({name: value.cpu() for name, value in metrics.items()})
+        lhm = state.lhm
+        if int(lhm.min()) < 1 or int(lhm.max()) > params.lhm_max:
+            raise AssertionError(f"lifeguard: lhm outside [1, "
+                                 f"{params.lhm_max}] at round {hi}")
+        bad = timer_bound(state, params, world.alive_at(hi - 1), hi)
+        if bad:
+            raise AssertionError(f"lifeguard: {bad} cells break the timer "
+                                 f"contract at round {hi}")
+        if hi == profile_round.NETWORK_PEAK:
+            mid = state
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("lifeguard", params, launches, MAIN_ROUNDS, "wide")
+    metrics = {name: torch.cat([row[name] for row in rows])
+               for name in rows[0]}
+    suspect, dead = metrics["suspect"], metrics["dead"]
+    onset = torch.nonzero(suspect[:, CRASHED] > 0)
+    first_suspect = int(onset[0]) if onset.numel() else None
+    if first_suspect is None or first_suspect > CRASH_AT + 50:
+        raise AssertionError(f"lifeguard: node {CRASHED} not suspected "
+                             f"within 50 rounds (first at {first_suspect})")
+    live = torch.arange(MAIN_K) != CRASHED
+    brownout = int(suspect[100:260, live].sum())
+    dead_share = int(dead[-1, CRASHED]) / (MAIN_N - 1)
+    window = profile_round.profile_window(params, world, mid,
+                                          profile_round.NETWORK_PEAK,
+                                          PROFILE_ROUNDS)
+    del mid, state
+    ms_round = seconds / MAIN_ROUNDS * 1e3
+    off_window = plane_off["window"]
+    log(f"[lifeguard] network wide {MAIN_N}x{MAIN_K}, lhm_max "
+        f"{params.lhm_max}, dead_suppress_rounds "
+        f"{params.dead_suppress_rounds}, {MAIN_ROUNDS} rounds: "
+        f"{ms_round:.4f} ms/round (planes off {plane_off['ms_round']:.4f}), "
+        f"{MAIN_N * MAIN_ROUNDS / seconds:.6g} member-rounds/s, peak {peak} B;"
+        f" profiled rounds {profile_round.NETWORK_PEAK}-"
+        f"{profile_round.NETWORK_PEAK + PROFILE_ROUNDS}: device busy "
+        f"{window['device_busy_ms_per_round']:.4f} ms/round (off "
+        f"{off_window['device_busy_ms_per_round']:.4f}), "
+        f"{window['kernel_launches_per_round']:.2f} kernel launches/round "
+        f"(off {off_window['kernel_launches_per_round']:.2f}), wall "
+        f"{window['wall_ms_per_round']:.4f} ms/round, idle share "
+        f"{window['device_idle_share']:.4f}, phases "
+        f"{json.dumps(window['phase_device_ms_per_round'])}, launches "
+        f"{json.dumps(window['phase_launches_per_round'])}")
+    log(f"[lifeguard] lhm in [1, {params.lhm_max}] and the timer contract "
+        f"held at rounds {list(LIFEGUARD_SEGMENTS[1:])}; node {CRASHED}: "
+        f"first SUSPECT at round {first_suspect} (off "
+        f"{plane_off['first_suspect']}), {dead_share:.6f} of live observers "
+        f"hold it DEAD at the end (off {plane_off['dead_share']:.6f}); "
+        f"SUSPECT entries about live subjects in rounds 100-260: {brownout} "
+        f"(off {plane_off['brownout']}); final lhm: mean "
+        f"{float(lhm.double().mean()):.4f}, max {int(lhm.max())}, rows above "
+        f"1: {int((lhm > 1).sum())}")
     return launches
 
 
 def cold_start_path(device, delivery="shift"):
-    """Phases 8 and 10: the seeded cold start at full view 4,096 x
+    """Phases 9 and 11: the seeded cold start at full view 4,096 x
     4,096."""
     params = swim.SwimParams.from_config(
         ClusterConfig.default(), n_members=COLD_N, loss_probability=0.0,
@@ -1076,7 +1454,7 @@ def capacity_world(params, device):
         CRASHED, at_round=FULL_CRASH_AT)
 
 
-def timed_run(params, world, rounds, device):
+def timed_run(params, world, rounds, device, seed=0):
     """``rounds`` rounds from a fresh state made inside ``run`` (so no
     caller holds it), timed on the host clock ending in a device sync.
     Returns the state, metrics on the host, seconds, launches and the
@@ -1085,7 +1463,7 @@ def timed_run(params, world, rounds, device):
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
     t0 = time.perf_counter()
-    state, metrics = swim.run(0, params, world, rounds, device=device)
+    state, metrics = swim.run(seed, params, world, rounds, device=device)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(LAUNCHES)
@@ -1102,26 +1480,33 @@ def check_launches(label, params, launches, rounds, layout):
                              f"{rounds} rounds, want {want}")
 
 
-def blocked_pair(device):
-    """Phase 11: the capacity configuration at N = 8,192 for 60 rounds,
+def blocked_pair(device, planes=False):
+    """Phase 12: the capacity configuration at N = 8,192 for 60 rounds,
     wide and compact, blocked (k_block=1,024) and unblocked: per-round
-    metrics and every state lane equal; peak bytes printed."""
+    metrics and every state lane equal; peak bytes printed.  ``planes``:
+    compact only, with the three tick-level planes on (the exchange
+    every 8 rounds)."""
     launches = {}
-    for layout in ("wide", "compact"):
+    for layout in ("compact",) if planes else ("wide", "compact"):
         runs = {}
         for k_block in (FULL_KB, 0):
             params = capacity_params(PAIR_N, layout, k_block)
+            if planes:
+                params = profile_round.with_planes(params, sync_interval=8)
+                layout_label = f"{layout} planes"
+            else:
+                layout_label = layout
             world = capacity_world(params, device)
             state, metrics, seconds, counts, peak = timed_run(
                 params, world, PAIR_ROUNDS, device)
-            label = f"pair {layout} k_block={k_block}"
+            label = f"pair {layout_label} k_block={k_block}"
             check_launches(label, params, counts, PAIR_ROUNDS, layout)
             for name, count in counts.items():
                 launches[name] = launches.get(name, 0) + count
             runs[k_block] = ({f.name: getattr(state, f.name).cpu()
                               for f in dataclasses.fields(state)}, metrics)
             del state
-            log(f"[pair] {layout} {PAIR_N}x{PAIR_N} k_block={k_block}, "
+            log(f"[pair] {layout_label} {PAIR_N}x{PAIR_N} k_block={k_block}, "
                 f"{PAIR_ROUNDS} rounds in {seconds:.3f} s: "
                 f"{seconds / PAIR_ROUNDS * 1e3:.4f} ms/round, peak {peak} B "
                 f"allocated, {peak / PAIR_N ** 2:.3f} B/cell; launches "
@@ -1129,14 +1514,14 @@ def blocked_pair(device):
         (blocked, m_blocked), (flat, m_flat) = runs[FULL_KB], runs[0]
         for name, value in flat.items():
             if not torch.equal(value, blocked[name]):
-                raise AssertionError(f"pair {layout}: state.{name} differs "
-                                     f"between blocked and unblocked")
+                raise AssertionError(f"pair {layout_label}: state.{name} "
+                                     f"differs between blocked and unblocked")
         for name, value in m_flat.items():
             if not torch.equal(value, m_blocked[name]):
-                raise AssertionError(f"pair {layout}: metric {name} differs "
-                                     f"between blocked and unblocked")
-        log(f"[pair] {layout}: blocked == unblocked, every state lane and "
-            f"metric over {PAIR_ROUNDS} rounds; final dead "
+                raise AssertionError(f"pair {layout_label}: metric {name} "
+                                     f"differs between blocked and unblocked")
+        log(f"[pair] {layout_label}: blocked == unblocked, every state lane "
+            f"and metric over {PAIR_ROUNDS} rounds; final dead "
             f"{int(m_flat['dead'][-1])}")
     return launches
 
@@ -1151,7 +1536,7 @@ def row_state(state, node):
 
 
 def capacity_path(device):
-    """Phase 12: the full-width capacity path, 36,864 x 36,864 compact
+    """Phase 13: the full-width capacity path, 36,864 x 36,864 compact
     with k_block=1,024, 120 rounds, with its gates."""
     params = capacity_params(FULL_N, FULL_LAYOUT, FULL_KB)
     world = capacity_world(params, device)
@@ -1208,10 +1593,78 @@ def capacity_path(device):
     return launches
 
 
+def merge_ab(device, baseline):
+    """``--merge-baseline PATH``: the plane-off merge at 1M x 16 against
+    an earlier ``merge_timers.cu`` at ``PATH`` (the entry points before
+    the plane arguments: no ``armed_rounds``, no window), built with the
+    same flags, on the same planes: exact, then timed in turns (earlier,
+    this, this, earlier) on the device clock (:func:`device_ms`), each
+    side launched through its bare entry point, for each instance."""
+    out = _build.BUILD_DIR / "libmerge_timers_baseline.so"
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                    baseline], check=True, capture_output=True, text=True,
+                   timeout=600)
+    lib = ctypes.CDLL(str(out))
+    for layout in ("wide", "int16_wire", "compact_wire24"):
+        params = profile_round.bench_params(layout, MAIN_N, MAIN_K)
+        fmt, cap = params.wire_format, swim._wire_inc_sat(params)
+        planes = list(merge_planes(MAIN_N, MAIN_K, seed=1, device=device,
+                                   fmt=fmt, cap=cap).values())
+        scalars = [37, params.suspicion_rounds, params.periods_to_spread, cap]
+        mine = merge.merge_and_timers(*planes, *scalars, fmt=fmt)
+        outs = [torch.empty_like(t) for t in mine]
+        strides = merge._check(fmt, planes[:6], outs[:4], *planes[6:], None)
+        fn = getattr(lib, "merge_and_timers_launch" if fmt.name == "wide"
+                     else f"merge_and_timers_{fmt.name}_launch")
+        fn.argtypes = ([ctypes.c_void_p] * 15
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        ptrs = [t.data_ptr() for t in planes + outs]
+        stride_arr = (ctypes.c_longlong * 10)(*strides)
+
+        def earlier():
+            err = fn(*ptrs, MAIN_N, MAIN_K, 0, stride_arr, *scalars,
+                     torch.cuda.current_stream(device).cuda_stream)
+            if err:
+                raise RuntimeError(f"baseline launch failed: {err}")
+
+        this_fn = merge._launcher(fmt.name)
+        this_ptrs = ([t.data_ptr() for t in planes] + [None]
+                     + [t.data_ptr() for t in outs])
+
+        def this():
+            err = this_fn(*this_ptrs, MAIN_N, MAIN_K, 0, stride_arr, *scalars,
+                          0, torch.cuda.current_stream(device).cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed: {err}")
+
+        for fn_ in (earlier, this):
+            for t in outs:
+                t.fill_(-3)
+            fn_()
+            torch.cuda.synchronize()
+            max_abs_err(f"{merge.NAMES[fmt.name]} against the baseline",
+                        outs, mine)
+        turns = [(label, device_ms(fn_)) for label, fn_ in
+                 (("earlier", earlier), ("this", this), ("this", this),
+                  ("earlier", earlier))]
+        log(f"[merge A/B] {merge.NAMES[fmt.name]} {MAIN_N}x{MAIN_K}, plane "
+            f"off, same planes and outputs as the baseline at {baseline}: "
+            + ", ".join(f"{label} {ms:.4f} ms" for label, ms in turns))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "smoke run needs a CUDA card")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--merge-baseline", metavar="PATH",
+                    help="also time the plane-off merge against an earlier "
+                         "merge_timers.cu (merge_ab)")
+    args = ap.parse_args()
     t_start = time.perf_counter()
     device = swim.resolve_device("cuda")
     log(card_line())
@@ -1229,19 +1682,26 @@ def main():
     merge_rows = {layout: dict(check_merge_kernel(device, layout),
                                **check_block_merge(device, layout))
                   for layout in ("wide", "int16_wire", "compact_wire24")}
+    if args.merge_baseline:
+        merge_ab(device, args.merge_baseline)
     codec_rows = check_codec(device)
     for name, row in check_block_codec(device).items():
         codec_rows[name].update(row)
-    log(clock_line())
+    stage("kernels", t_start)
     probe_launches, probe_rows = probe_path(device)
+    stage("probes", t_start)
     canaries(device)
-    log(clock_line())
+    stage("canaries", t_start)
     paths = {}
     paths["main"], shift_summary = main_path(device)
-    log(clock_line())
-    paths["network"] = network_path(device)
+    stage("main path", t_start)
+    paths["network"], network_summary = network_path(device)
+    stage("network path", t_start)
+    paths["heal"] = heal_path(device)
+    paths["lifeguard_network"] = lifeguard_network_path(device,
+                                                        network_summary)
+    stage("planes at full width", t_start)
     paths["cold_start"] = cold_start_path(device)
-    log(clock_line())
     paths["scatter_main"], scatter_summary = main_path(
         device, "scatter", narrow=("int16_wire",))
     log(f"[scatter main] node {CRASHED}, wide: first SUSPECT at round "
@@ -1250,10 +1710,11 @@ def main():
         f"{MAIN_ROUNDS} {scatter_summary['dead_share']:.6f} (shift "
         f"{shift_summary['dead_share']:.6f})")
     paths["scatter_cold_start"] = cold_start_path(device, "scatter")
-    log(clock_line())
+    stage("cold starts and scatter", t_start)
     paths["k_block_pair"] = blocked_pair(device)
+    paths["k_block_pair_planes"] = blocked_pair(device, planes=True)
     paths["capacity"] = capacity_path(device)
-    log(clock_line())
+    stage("k_block pair and capacity", t_start)
     launches = {}
     for counts in paths.values():
         for name, count in counts.items():

@@ -3,11 +3,22 @@
 //
 // Replaces the TPU kernel experiments/merge_kernel_bench.py::kernel
 // (launched by pallas_step through pl.pallas_call).  Written from the
-// reference's models/swim._merge_and_timers + ops/delivery.merge_inbox at
-// the port's settings (no epoch lane, no dead-member suppression, no
-// Lifeguard scaling), not from that prototype: suspicion and spread
-// lengths are arguments, the refutation bump clamps at inc_sat, and the
-// self cell's `changed` follows the reference's self-cell rule.
+// reference's models/swim._merge_and_timers + ops/delivery.merge_inbox
+// (no epoch lane), not from that prototype, which has neither plane
+// branch: suspicion and spread lengths are arguments, the refutation bump
+// clamps at inc_sat, and the self cell's `changed` follows the
+// reference's self-cell rule.
+//
+// Two plane branches, both off with their default arguments:
+//   armed_rounds (Lifeguard's LHA Suspicion): [N] int32, the rounds to
+//     DEAD each row arms for a new SUSPECT entry; nullptr arms the scalar
+//     suspicion_rounds everywhere.
+//   dead_suppress_rounds (the dead-member suppression window), 0 = off: a
+//     tombstone whose deadline lane holds an expiry still ahead gates by
+//     its true DEAD key (no reopen for an ALIVE arrival); a DEAD cell
+//     holds no suspicion timer; an accepted DEAD keeps its expiry; and
+//     every cell that changed into DEAD arms the expiry round_idx +
+//     dead_suppress_rounds.
 //
 // One template, three instances, one per rung of the wire-format ladder
 // (ops/delivery.WIRE_FORMATS): the inbox key type and the dead bit; the
@@ -22,17 +33,25 @@
 // Bound: bytes.  Per cell it reads status (1 B), inc, spread_until,
 // suspect_deadline (4 B each), the inbox key (4 B, or 2 B on the int16
 // wire) and inbox_alive (1 B) and writes status (1 B) plus three int32
-// planes; per row it reads self_inc, alive_here, slot_of_node (9 B) and
-// writes self_inc, refuted (5 B).  At N = 1,000,000, K = 16 that is
-// 297,000,000 B read (265,000,000 B on the int16 wire) + 213,000,000 B
-// written, i.e. 0.152 ms (0.143 ms) at the H100's 3.35 TB/s, against a
-// few dozen integer operations per cell — far below the card's
-// arithmetic rate.  One [36,864 x 1,024] block of the capacity round
-// moves 29 B a cell on the int16 wire, 0.33 ms.
+// planes; per row it reads self_inc, alive_here, slot_of_node (9 B, and
+// armed_rounds, 4 B, with Lifeguard on) and writes self_inc, refuted
+// (5 B).  At N = 1,000,000, K = 16 that is 297,000,000 B read
+// (265,000,000 B on the int16 wire) + 213,000,000 B written, i.e. 0.152
+// ms (0.143 ms) at the H100's 3.35 TB/s; with armed_rounds 514,000,000 B,
+// 0.153 ms.  The suppression window adds no bytes.  A few dozen integer
+// operations per cell are far below the card's arithmetic rate.  One
+// [36,864 x 1,024] block of the capacity round moves 29 B a cell on the
+// int16 wire, 0.33 ms.
 //
-// Design: one streaming pass, one thread per cell, consecutive threads
-// on consecutive cells of a row (coalesced along the columns).  No
-// intermediate touches device memory.  Subject ids are distinct, so a row
+// Design: one streaming pass, one thread per cell, on a 2-D grid: a
+// block is tx columns by ty rows (tx the row length rounded up to a power
+// of two, at most 256; tx * ty = 256), consecutive threads on consecutive
+// cells of a row (coalesced along the columns), blockIdx.x over row
+// tiles and blockIdx.y over column tiles, so no thread divides to find
+// its row.  No intermediate touches device memory.  Each instance comes
+// in two forms, chosen at launch: with the plane branches compiled out
+// (no armed_rounds, window 0), so the plane-off round runs no code of
+// them, and with them in.  Subject ids are distinct, so a row
 // has at most one self cell; that cell's thread owns the row's
 // refutation and writes self_inc and refuted.  A row without a self cell
 // in the planes has them written by its column-0 thread (the row's
@@ -90,23 +109,24 @@ struct RowStrides {
   long long status_out, inc_out, spread_out, deadline_out;
 };
 
-template <typename KeyT, int kDeadBit>
+template <typename KeyT, int kDeadBit, bool kPlanes>
 __global__ void merge_and_timers_kernel(
     const int8_t* __restrict__ status, const int32_t* __restrict__ inc,
     const int32_t* __restrict__ spread, const int32_t* __restrict__ deadline,
     const KeyT* __restrict__ inbox, const uint8_t* __restrict__ inbox_alive,
     const int32_t* __restrict__ self_inc, const uint8_t* __restrict__ alive_here,
     const int32_t* __restrict__ slot_of_node,
+    const int32_t* __restrict__ armed_rounds,
     int8_t* __restrict__ status_out, int32_t* __restrict__ inc_out,
     int32_t* __restrict__ spread_out, int32_t* __restrict__ deadline_out,
     int32_t* __restrict__ self_inc_out, uint8_t* __restrict__ refuted_out,
-    long long n_cells, int kb, int col0, RowStrides ld, int32_t round_idx,
-    int32_t suspicion_rounds, int32_t periods_to_spread, int32_t inc_sat) {
-  const long long cell =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (cell >= n_cells) return;
-  const long long row = cell / kb;
-  const int col = static_cast<int>(cell - row * kb);
+    long long n, int kb, int col0, RowStrides ld, int32_t round_idx,
+    int32_t suspicion_rounds, int32_t periods_to_spread, int32_t inc_sat,
+    int32_t dead_suppress_rounds) {
+  const int col = static_cast<int>(blockIdx.y * blockDim.x + threadIdx.x);
+  const long long row =
+      static_cast<long long>(blockIdx.x) * blockDim.y + threadIdx.y;
+  if (col >= kb || row >= n) return;
 
   const int st = status[row * ld.status + col];
   const int32_t in = inc[row * ld.inc + col];
@@ -127,12 +147,17 @@ __global__ void merge_and_timers_kernel(
   }
 
   // merge_inbox: a stored DEAD gates like ABSENT; ABSENT opens only for
-  // an ALIVE arrival; a live entry takes a strictly higher key.
+  // an ALIVE arrival; a live entry takes a strictly higher key.  Inside
+  // its suppression window a tombstone gates by its true DEAD key.
+  const bool suppress_on = kPlanes && dead_suppress_rounds > 0;
+  const bool suppress = suppress_on && st == kDead && dl_old != kNoTimer &&
+                        round_idx < dl_old;
   const int gate = st == kDead ? kAbsent : st;
-  const bool accepts = gate == kAbsent
-                           ? (inbox_alive[row * ld.inbox_alive + col] != 0 &&
-                              key >= 0)
-                           : key > pack_key<kDeadBit>(gate, in);
+  bool accepts = gate == kAbsent
+                     ? (inbox_alive[row * ld.inbox_alive + col] != 0 &&
+                        key >= 0)
+                     : key > pack_key<kDeadBit>(gate, in);
+  if (suppress) accepts = key > pack_key<kDeadBit>(kDead, in);
   int ns = accepts ? win_status : st;
   int32_t ni = accepts ? win_inc : in;
   bool changed = accepts && (ns != st || ni != in);
@@ -156,17 +181,26 @@ __global__ void merge_and_timers_kernel(
   }
 
   // Suspicion timers: an accepted SUSPECT arms a timer only if none is
-  // pending; any accepted non-SUSPECT cancels; a due timer fires DEAD.
+  // pending (with suppression on, a DEAD cell's lane holds an expiry, not
+  // a timer); any accepted non-SUSPECT cancels (with suppression on, not
+  // an accepted DEAD); a due timer fires DEAD.
   int32_t dl = dl_old;
-  if (changed && ns == kSuspect && dl_old == kNoTimer) {
-    dl = add_wrap(round_idx, suspicion_rounds);
-  } else if (changed && ns != kSuspect) {
+  const bool no_timer = dl_old == kNoTimer || (suppress_on && st == kDead);
+  if (changed && ns == kSuspect && no_timer) {
+    dl = add_wrap(round_idx, kPlanes && armed_rounds != nullptr
+                                 ? armed_rounds[row]
+                                 : suspicion_rounds);
+  } else if (changed && ns != kSuspect && !(suppress_on && ns == kDead)) {
     dl = kNoTimer;
   }
   if (ns == kSuspect && round_idx >= dl) {
     ns = kDead;
     dl = kNoTimer;
     changed = true;
+  }
+  // Every newly stored tombstone opens its suppression window.
+  if (suppress_on && ns == kDead && changed) {
+    dl = add_wrap(round_idx, dead_suppress_rounds);
   }
 
   // Crashed or departed rows are frozen.
@@ -196,21 +230,27 @@ template <typename KeyT, int kDeadBit>
 int launch(const void* status, const void* inc, const void* spread,
            const void* deadline, const void* inbox, const void* inbox_alive,
            const void* self_inc, const void* alive_here,
-           const void* slot_of_node, void* status_out, void* inc_out,
-           void* spread_out, void* deadline_out, void* self_inc_out,
-           void* refuted_out, long long n, int kb, int col0,
-           const long long* row_strides, int round_idx, int suspicion_rounds,
-           int periods_to_spread, int inc_sat, void* stream) {
-  const long long n_cells = n * static_cast<long long>(kb);
-  if (n_cells == 0) return static_cast<int>(cudaSuccess);
+           const void* slot_of_node, const void* armed_rounds,
+           void* status_out, void* inc_out, void* spread_out,
+           void* deadline_out, void* self_inc_out, void* refuted_out,
+           long long n, int kb, int col0, const long long* row_strides,
+           int round_idx, int suspicion_rounds, int periods_to_spread,
+           int inc_sat, int dead_suppress_rounds, void* stream) {
+  if (n == 0 || kb == 0) return static_cast<int>(cudaSuccess);
   const long long* r = row_strides;
   const RowStrides ld{r[0], r[1], r[2], r[3], r[4], r[5],
                       r[6], r[7], r[8], r[9]};
   constexpr int kThreads = 256;
-  const long long blocks = (n_cells + kThreads - 1) / kThreads;
-  merge_and_timers_kernel<KeyT, kDeadBit>
-      <<<static_cast<unsigned int>(blocks), kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(
+  int tx = 1;
+  while (tx < kb && tx < kThreads) tx *= 2;
+  const int ty = kThreads / tx;
+  const dim3 block(tx, ty);
+  const dim3 grid(static_cast<unsigned int>((n + ty - 1) / ty),
+                  static_cast<unsigned int>((kb + tx - 1) / tx));
+  const bool planes = armed_rounds != nullptr || dead_suppress_rounds > 0;
+  const auto kernel = planes ? merge_and_timers_kernel<KeyT, kDeadBit, true>
+                             : merge_and_timers_kernel<KeyT, kDeadBit, false>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int8_t*>(status), static_cast<const int32_t*>(inc),
           static_cast<const int32_t*>(spread),
           static_cast<const int32_t*>(deadline),
@@ -219,12 +259,13 @@ int launch(const void* status, const void* inc, const void* spread,
           static_cast<const int32_t*>(self_inc),
           static_cast<const uint8_t*>(alive_here),
           static_cast<const int32_t*>(slot_of_node),
+          static_cast<const int32_t*>(armed_rounds),
           static_cast<int8_t*>(status_out), static_cast<int32_t*>(inc_out),
           static_cast<int32_t*>(spread_out),
           static_cast<int32_t*>(deadline_out),
           static_cast<int32_t*>(self_inc_out),
-          static_cast<uint8_t*>(refuted_out), n_cells, kb, col0, ld,
-          round_idx, suspicion_rounds, periods_to_spread, inc_sat);
+          static_cast<uint8_t*>(refuted_out), n, kb, col0, ld, round_idx,
+          suspicion_rounds, periods_to_spread, inc_sat, dead_suppress_rounds);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -233,21 +274,25 @@ int launch(const void* status, const void* inc, const void* spread,
 // Each launches its instance on `stream` and returns the launch's
 // cudaError_t (0 = success).  `row_strides` points to ten host int64s,
 // the planes' row strides in argument order (status, inc, spread,
-// deadline, inbox, inbox_alive, then the four outputs).
+// deadline, inbox, inbox_alive, then the four outputs).  `armed_rounds`
+// may be null (the scalar suspicion_rounds everywhere).
 #define MERGE_AND_TIMERS_ENTRY(NAME, KEY_T, DEAD_BIT)                          \
   extern "C" int NAME(                                                         \
       const void* status, const void* inc, const void* spread,                 \
       const void* deadline, const void* inbox, const void* inbox_alive,        \
       const void* self_inc, const void* alive_here, const void* slot_of_node,  \
-      void* status_out, void* inc_out, void* spread_out, void* deadline_out,   \
-      void* self_inc_out, void* refuted_out, long long n, int kb, int col0,    \
+      const void* armed_rounds, void* status_out, void* inc_out,               \
+      void* spread_out, void* deadline_out, void* self_inc_out,                \
+      void* refuted_out, long long n, int kb, int col0,                        \
       const long long* row_strides, int round_idx, int suspicion_rounds,       \
-      int periods_to_spread, int inc_sat, void* stream) {                      \
+      int periods_to_spread, int inc_sat, int dead_suppress_rounds,            \
+      void* stream) {                                                          \
     return launch<KEY_T, DEAD_BIT>(                                            \
         status, inc, spread, deadline, inbox, inbox_alive, self_inc,           \
-        alive_here, slot_of_node, status_out, inc_out, spread_out,             \
-        deadline_out, self_inc_out, refuted_out, n, kb, col0, row_strides,     \
-        round_idx, suspicion_rounds, periods_to_spread, inc_sat, stream);      \
+        alive_here, slot_of_node, armed_rounds, status_out, inc_out,           \
+        spread_out, deadline_out, self_inc_out, refuted_out, n, kb, col0,      \
+        row_strides, round_idx, suspicion_rounds, periods_to_spread, inc_sat,  \
+        dead_suppress_rounds, stream);                                         \
   }
 
 MERGE_AND_TIMERS_ENTRY(merge_and_timers_launch, int32_t, 30)

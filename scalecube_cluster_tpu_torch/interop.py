@@ -8,15 +8,18 @@ a dict of the ``LinkFaults`` arrays), and checkpoints as the ``.npz``
 that ``scalecube_cluster_tpu.utils.checkpoint.save`` writes
 (``state/<field>`` arrays, ``next_round``, optional ``key_data``,
 ``meta_json``).  A world's fault rules, seeds and user-gossip schedule
-and a state's delay rings and user-gossip lanes carry over; lanes and
-schedules of planes the port does not carry must be empty, and anything
-else raises ``NotImplementedError`` naming it.  A state's carry layout
+and a state's delay rings, user-gossip lanes and Lifeguard ``lhm`` lane
+carry over; lanes and schedules of planes the port does not carry must
+be empty, and anything else raises ``NotImplementedError`` naming it.
+:func:`state_to_arrays` carries a port state back, under the names the
+reference's ``checkpoint.state_from_arrays`` reads.  A state's carry layout
 (wide, or the ``compact_carry`` int16/int8 lanes) must be the one its
 params name.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from typing import Mapping, Optional, Tuple
 
@@ -28,10 +31,10 @@ from scalecube_cluster_tpu_torch.models import swim
 _STATE_FIELDS = ("status", "inc", "spread_until", "suspect_deadline",
                  "self_inc")
 _LANE_FIELDS = ("inbox_ring", "flag_ring", "g_infected", "g_spread_until",
-                "g_ring")
+                "g_ring", "lhm")
 # Reference state lanes of planes the port does not carry, and the axis
 # that is zero when the plane is off.
-_PLANE_LANES = {"lhm": 0, "epoch": 1, "md": 1, "md_spread": 1}
+_PLANE_LANES = {"epoch": 1, "md": 1, "md_spread": 1}
 
 
 def params_from_fields(fields: Mapping) -> swim.SwimParams:
@@ -97,10 +100,10 @@ def state_from_arrays(arrays: Mapping, device="cuda",
     (keys with or without the ``state/`` prefix).  The carry must be the
     layout ``params`` names: the compact one under
     ``params.compact_carry``, else (and when ``params`` is None) the wide
-    one.  The ring and user-gossip lanes are taken as given (absent:
-    empty lanes of the shapes ``params`` gives, zero-size without
-    params); ``run`` checks them against its params.  Lanes of other
-    planes must be zero-size or absent."""
+    one.  The ring, user-gossip and ``lhm`` lanes are taken as given
+    (absent: fresh lanes of the shapes ``params`` gives, zero-size
+    without params); ``run`` checks them against its params.  Lanes of
+    other planes must be zero-size or absent."""
     device = swim.resolve_device(device)
     fields = {name[len("state/"):] if name.startswith("state/") else name:
               np.asarray(value) for name, value in arrays.items()}
@@ -127,6 +130,15 @@ def state_from_arrays(arrays: Mapping, device="cuda",
     return swim.SwimState(**{
         name: torch.tensor(fields[name], device=device)
         for name in _STATE_FIELDS}, **lanes)
+
+
+def state_to_arrays(state: swim.SwimState) -> dict:
+    """A port state as ``{"state/<field>": numpy array}``, every lane in
+    its own dtype (the reference's ``checkpoint.state_to_arrays`` naming;
+    its ``state_from_arrays`` reads them after the prefix is taken off,
+    the planes the port does not carry as off)."""
+    return {f"state/{f.name}": getattr(state, f.name).cpu().numpy()
+            for f in dataclasses.fields(state)}
 
 
 def load_jax_checkpoint(path: str, device="cuda",

@@ -13,6 +13,11 @@ format: ``merge_and_timers`` (wide int32 inbox),
 CPU tests hold against the JAX package, in the same format.  There is no
 fallback: a CUDA tensor launches the kernel or raises.
 
+Two plane branches, off by default: ``armed_rounds`` [N] int32, the
+rounds to DEAD each row arms for a new SUSPECT entry (Lifeguard's LHA
+Suspicion; None arms ``suspicion_rounds`` everywhere), and
+``dead_suppress_rounds``, the dead-member suppression window (0 = off).
+
 Block form (the K-tiled capacity round, ``SwimParams.k_block``): the
 planes may be an [N, Kb] column block of [N, K] planes, given as views
 with contiguous rows (``plane[:, c0:c0 + kb]``) and ``col0 = c0``, and
@@ -50,7 +55,8 @@ def merge_and_timers_reference(status, inc, spread_until, suspect_deadline,
                                slot_of_node, round_idx: int,
                                suspicion_rounds: int, periods_to_spread: int,
                                inc_sat: int, fmt: delivery.WireFormat = None,
-                               col0: int = 0):
+                               col0: int = 0, armed_rounds=None,
+                               dead_suppress_rounds: int = 0):
     """Plain PyTorch version of the kernel (same arguments and results as
     :func:`merge_and_timers`, without ``out``), transcribed from the
     reference's ``_merge_and_timers`` + ``merge_inbox``.  ``status``/
@@ -60,8 +66,15 @@ def merge_and_timers_reference(status, inc, spread_until, suspect_deadline,
     cols = torch.arange(col0, col0 + kb, dtype=torch.int32,
                         device=status.device)
     is_self = cols[None, :] == slot_of_node[:, None]
+    # Dead-member suppression: a tombstone whose deadline lane holds an
+    # expiry still ahead gates by its true DEAD key.
+    suppress = None
+    if dead_suppress_rounds > 0:
+        suppress = ((status == records.DEAD)
+                    & (suspect_deadline != INT32_MAX)
+                    & (round_idx < suspect_deadline))
     new_status, new_inc, changed = delivery.merge_inbox(
-        status, inc, inbox, inbox_alive, fmt=fmt)
+        status, inc, inbox, inbox_alive, fmt=fmt, suppress=suppress)
 
     # Self-refutation: the winner about ME overriding ALIVE@self_inc bumps
     # self_inc to max(inc)+1, clamped at ``inc_sat`` (the wire key's and
@@ -81,17 +94,35 @@ def merge_and_timers_reference(status, inc, spread_until, suspect_deadline,
                           changed)
 
     # Suspicion timers (computeIfAbsent: an accepted SUSPECT keeps a
-    # pending timer; any accepted non-SUSPECT cancels it).
+    # pending timer; any accepted non-SUSPECT cancels it).  With
+    # suppression on, a DEAD cell's lane holds its expiry, not a timer,
+    # and an accepted DEAD keeps it.
     no_timer = suspect_deadline == INT32_MAX
+    if suppress is not None:
+        no_timer = no_timer | (status == records.DEAD)
+    if armed_rounds is None:
+        armed = i32(round_idx + suspicion_rounds)
+    else:
+        armed = (torch.tensor(i32(round_idx), dtype=torch.int32,
+                              device=status.device)
+                 + armed_rounds)[:, None]
     start_timer = changed & (new_status == records.SUSPECT) & no_timer
     cancel_timer = changed & (new_status != records.SUSPECT)
+    if suppress is not None:
+        cancel_timer = cancel_timer & (new_status != records.DEAD)
     deadline = torch.where(
-        start_timer, i32(round_idx + suspicion_rounds),
+        start_timer, armed,
         torch.where(cancel_timer, INT32_MAX, suspect_deadline))
     fired = (new_status == records.SUSPECT) & (round_idx >= deadline)
     new_status = torch.where(fired, records.DEAD, new_status).to(torch.int8)
     deadline = torch.where(fired, INT32_MAX, deadline)
     changed = changed | fired
+    if suppress is not None:
+        # Every newly stored tombstone opens its suppression window.
+        became_dead = (new_status == records.DEAD) & changed
+        deadline = torch.where(became_dead,
+                               i32(round_idx + dead_suppress_rounds),
+                               deadline)
 
     # Crashed/left rows are frozen.
     frozen = ~alive_here[:, None]
@@ -105,7 +136,8 @@ def merge_and_timers_reference(status, inc, spread_until, suspect_deadline,
             deadline.to(torch.int32), new_self_inc.to(torch.int32), refuted)
 
 
-def _check(fmt, planes, out, self_inc, alive_here, slot_of_node):
+def _check(fmt, planes, out, self_inc, alive_here, slot_of_node,
+           armed_rounds):
     """Check the planes, the ``out`` views and the row vectors; returns
     the ten planes' row strides (inputs, then outputs)."""
     status = planes[0]
@@ -119,9 +151,12 @@ def _check(fmt, planes, out, self_inc, alive_here, slot_of_node):
                  for i, (t, d) in enumerate(zip(out, dtypes)))
     strides = check_block_args(name, status.device, tuple(status.shape),
                                views)
-    check_args(name, status.device, (status.shape[0],), dict(
-        self_inc=(self_inc, torch.int32), alive_here=(alive_here, torch.bool),
-        slot_of_node=(slot_of_node, torch.int32)))
+    rows = dict(self_inc=(self_inc, torch.int32),
+                alive_here=(alive_here, torch.bool),
+                slot_of_node=(slot_of_node, torch.int32))
+    if armed_rounds is not None:
+        rows["armed_rounds"] = (armed_rounds, torch.int32)
+    check_args(name, status.device, (status.shape[0],), rows)
     return strides
 
 
@@ -130,10 +165,10 @@ def _launcher(fmt_name: str):
     symbol = ("merge_and_timers_launch" if fmt_name == "wide"
               else f"merge_and_timers_{fmt_name}_launch")
     fn = getattr(_build.load(SOURCE), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 15
+    fn.argtypes = ([ctypes.c_void_p] * 16
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                       ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -143,7 +178,8 @@ def merge_and_timers(status, inc, spread_until, suspect_deadline, inbox,
                      round_idx: int, suspicion_rounds: int,
                      periods_to_spread: int, inc_sat: int,
                      fmt: delivery.WireFormat = None, col0: int = 0,
-                     out=None):
+                     out=None, armed_rounds=None,
+                     dead_suppress_rounds: int = 0):
     """One round's merge + refutation + timers + freeze.
 
     Planes [N, Kb] (Kb = K, or a column block of the [N, K] planes
@@ -155,7 +191,10 @@ def merge_and_timers(status, inc, spread_until, suspect_deadline, inbox,
     (each row's self column in [0, K), -1 for none; at most one per row).
     ``out``: four [N, Kb] views (status, inc, spread_until,
     suspect_deadline dtypes) that receive the new planes, overlapping no
-    input; fresh planes when None.  Returns new ``(status, inc,
+    input; fresh planes when None.  ``armed_rounds``: [N] int32 rounds
+    to DEAD a row arms (None: ``suspicion_rounds``);
+    ``dead_suppress_rounds``: the suppression window, 0 = off.  Returns
+    new ``(status, inc,
     spread_until, suspect_deadline, self_inc, refuted)``; a row whose
     self column lies outside the block keeps its ``self_inc`` and is not
     refuted.
@@ -166,13 +205,18 @@ def merge_and_timers(status, inc, spread_until, suspect_deadline, inbox,
     fresh = out is None
     out = tuple(torch.empty(status.shape, dtype=t.dtype, device=status.device)
                 for t in planes[:4]) if fresh else tuple(out)
-    strides = _check(fmt, planes, out, self_inc, alive_here, slot_of_node)
+    if dead_suppress_rounds < 0:
+        raise ValueError(f"dead_suppress_rounds must be >= 0 (got "
+                         f"{dead_suppress_rounds})")
+    strides = _check(fmt, planes, out, self_inc, alive_here, slot_of_node,
+                     armed_rounds)
     scalars = (round_idx, suspicion_rounds, periods_to_spread, inc_sat)
     name = NAMES[fmt.name]
     if on_cpu(name, status.device):
-        got = merge_and_timers_reference(*planes, self_inc, alive_here,
-                                         slot_of_node, *scalars, fmt=fmt,
-                                         col0=col0)
+        got = merge_and_timers_reference(
+            *planes, self_inc, alive_here, slot_of_node, *scalars, fmt=fmt,
+            col0=col0, armed_rounds=armed_rounds,
+            dead_suppress_rounds=dead_suppress_rounds)
         if fresh:
             return got
         for view, value in zip(out, got):
@@ -181,8 +225,10 @@ def merge_and_timers(status, inc, spread_until, suspect_deadline, inbox,
     n, kb = status.shape
     rows = (torch.empty_like(self_inc), torch.empty_like(alive_here))
     ins = (*planes, self_inc, alive_here, slot_of_node)
+    armed_ptr = None if armed_rounds is None else armed_rounds.data_ptr()
     launch(name, _launcher(fmt.name), status.device,
-           *(t.data_ptr() for t in ins + out + rows), n, kb, col0,
+           *(t.data_ptr() for t in ins), armed_ptr,
+           *(t.data_ptr() for t in out + rows), n, kb, col0,
            (ctypes.c_longlong * 10)(*strides),
-           *(i32(s) for s in scalars))
+           *(i32(s) for s in scalars), i32(dead_suppress_rounds))
     return (*out, *rows)

@@ -2,7 +2,7 @@
 merge, suspicion timers.
 
 Counterpart of ``scalecube_cluster_tpu/models/swim.py`` for both
-delivery modes with no optional planes, in both the focal shape (N
+delivery modes, in both the focal shape (N
 members x K tracked subjects) and full view (K == N): ``"scatter"`` (the
 default), where every sender draws its own uniform targets and the
 inbox is max-folded by scatter, and ``"shift"``, where each channel
@@ -81,9 +81,21 @@ states and metrics exactly.
 ``lost_by_node`` [N] to each round's metrics (both delivery modes), and
 ``node_snapshot`` is the host-side digest of one observer row.
 
+Three tick-level planes, each off by default and then leaving the round
+and its draws as they are, run in all three tick bodies:
+
+- ``sync_interval`` (``models/sync.py``): every ``sync_interval`` rounds
+  the paired full-table exchange at a shared offset, two more channels
+  delivered the same round (metric ``messages_anti_entropy``);
+- ``lhm_max`` (``models/lifeguard.py``): the ``lhm`` [N] lane, the
+  probe gate and health-scaled budgets in the FD phase, per-row armed
+  suspicion rounds in the merge kernel, and the refute push on the ack
+  path whatever ``sync_every`` says;
+- ``dead_suppress_rounds``: the merge kernel's suppression window, in
+  which a fresh tombstone does not reopen.
+
 Settings outside the port raise ``NotImplementedError`` naming the
-knob: ``sync_interval``, ``lhm_max``, ``dead_suppress_rounds``,
-``open_world``, ``metadata_keys`` and ``provenance``.
+knob: ``open_world``, ``metadata_keys`` and ``provenance``.
 ``rounds_per_step`` is accepted and ignored: the reference's outputs are
 bit-identical for any value.
 """
@@ -99,6 +111,8 @@ from torch.profiler import record_function
 from scalecube_cluster_tpu_torch import records
 from scalecube_cluster_tpu_torch.kernels import carry
 from scalecube_cluster_tpu_torch.kernels import merge as merge_kernel
+from scalecube_cluster_tpu_torch.models import lifeguard
+from scalecube_cluster_tpu_torch.models import sync as sync_plane
 from scalecube_cluster_tpu_torch.ops import delivery
 from scalecube_cluster_tpu_torch.ops import prng
 from scalecube_cluster_tpu_torch.ops import ring as ring_ops
@@ -131,9 +145,6 @@ def resolve_device(device) -> torch.device:
 
 # Knobs whose non-default values select code the port does not carry.
 _UNPORTED = (
-    ("sync_interval", lambda p: p.sync_interval != 0),
-    ("lhm_max", lambda p: p.lhm_max != 0),
-    ("dead_suppress_rounds", lambda p: p.dead_suppress_rounds != 0),
     ("open_world", lambda p: p.open_world),
     ("metadata_keys", lambda p: p.metadata_keys != 0),
     ("provenance", lambda p: p.provenance),
@@ -239,6 +250,19 @@ class SwimParams:
                     f"compact_carry stores remaining suspicion rounds as "
                     f"int16; suspicion_rounds={self.suspicion_rounds} "
                     f"exceeds 32765")
+            if (self.lhm_max > 0 and self.suspicion_rounds * self.lhm_max
+                    >= _DEADLINE_NONE16 - 1):
+                raise ValueError(
+                    f"compact_carry stores remaining suspicion rounds as "
+                    f"int16 and lhm_max arms deadlines up to "
+                    f"suspicion_rounds * lhm_max = "
+                    f"{self.suspicion_rounds * self.lhm_max} rounds out "
+                    f"(exceeds 32765)")
+            if self.dead_suppress_rounds >= _DEADLINE_NONE16 - 1:
+                raise ValueError(
+                    f"compact_carry stores the dead-suppression expiry in "
+                    f"the int16 deadline lane; dead_suppress_rounds="
+                    f"{self.dead_suppress_rounds} exceeds 32765")
 
     @property
     def compact_wire(self) -> bool:
@@ -310,6 +334,17 @@ class Knobs:
             lhm_max=int(params.lhm_max),
             ping_timeout_ms=float(params.ping_timeout_ms),
         )
+
+
+def knob_dead_suppress(kn: Knobs, params: SwimParams) -> int:
+    """The suppression window: the knob, capped at the params' window
+    (the int16 deadline lane was checked against that)."""
+    return min(kn.dead_suppress_rounds, params.dead_suppress_rounds)
+
+
+def knob_lhm_cap(kn: Knobs, params: SwimParams) -> int:
+    """The LHM clamp cap: the knob clipped into [1, params.lhm_max]."""
+    return min(max(kn.lhm_max, 1), params.lhm_max)
 
 
 def knob_ping_timeout(kn: Knobs, params: SwimParams) -> float:
@@ -645,7 +680,9 @@ class SwimState:
     (G = ``n_user_gossips``): ``g_infected`` [N, G] bool possession,
     ``g_spread_until`` [N, G] int32 absolute retransmission window (in
     both carry layouts), ``g_ring`` [D or 0, N, G] bool delayed bits.
-    Lanes of a feature that is off are zero-size.
+    Lifeguard (``lhm_max > 0``): ``lhm`` [N] int32 Local Health
+    Multipliers in [1, lhm_max], int32 in both carry layouts.  Lanes of
+    a feature that is off are zero-size.
     """
 
     status: torch.Tensor
@@ -658,6 +695,7 @@ class SwimState:
     g_infected: torch.Tensor
     g_spread_until: torch.Tensor
     g_ring: torch.Tensor
+    lhm: torch.Tensor
 
 
 def ring_slots(params: SwimParams) -> int:
@@ -669,8 +707,10 @@ def empty_lanes(n: int, k: int, device, d: int = 0, g: int = 0,
                 wire_dtype: torch.dtype = torch.int32) -> dict:
     """Empty delay-ring and user-gossip lanes: a ``d``-slot ring of [n, k]
     keys in ``wire_dtype`` and flags, and ``g`` user gossips held by no
-    one (zero-size where ``d`` or ``g`` is 0)."""
+    one (zero-size where ``d`` or ``g`` is 0), and a zero-size ``lhm``
+    lane."""
     return dict(
+        lhm=torch.zeros((0,), dtype=torch.int32, device=device),
         inbox_ring=torch.full((d, n, k), delivery.NO_MESSAGE,
                               dtype=wire_dtype, device=device),
         flag_ring=torch.zeros((d, n, k), dtype=torch.int8, device=device),
@@ -682,15 +722,17 @@ def empty_lanes(n: int, k: int, device, d: int = 0, g: int = 0,
 
 
 def initial_lanes(params: SwimParams, device) -> dict:
-    """The ring and user-gossip lanes of a fresh state under ``params``."""
-    return empty_lanes(params.n_members, params.n_subjects, device,
-                       d=ring_slots(params), g=params.n_user_gossips,
-                       wire_dtype=params.wire_format.dtype)
+    """The ring, user-gossip and ``lhm`` lanes of a fresh state under
+    ``params``."""
+    return dict(empty_lanes(params.n_members, params.n_subjects, device,
+                            d=ring_slots(params), g=params.n_user_gossips,
+                            wire_dtype=params.wire_format.dtype),
+                lhm=lifeguard.initial_lhm(params, device))
 
 
 def check_lanes(state: SwimState, params: SwimParams) -> None:
-    """Raise unless the ring and gossip lanes have the shapes and dtypes
-    ``params`` gives them."""
+    """Raise unless the ring, gossip and ``lhm`` lanes have the shapes and
+    dtypes ``params`` gives them."""
     for name, want in initial_lanes(params, "meta").items():
         got = getattr(state, name)
         if got.shape != want.shape or got.dtype != want.dtype:
@@ -698,7 +740,7 @@ def check_lanes(state: SwimState, params: SwimParams) -> None:
                 f"state.{name} is {got.dtype}{tuple(got.shape)}, the params "
                 f"need {want.dtype}{tuple(want.shape)} (max_delay_rounds="
                 f"{params.max_delay_rounds}, n_user_gossips="
-                f"{params.n_user_gossips})")
+                f"{params.n_user_gossips}, lhm_max={params.lhm_max})")
 
 
 def initial_state(params: SwimParams, world: SwimWorld, warm: bool = True,
@@ -760,8 +802,9 @@ def _round_context(state: SwimState, round_idx: int, params: SwimParams,
     """Per-round preamble: world liveness/partition slices, the self
     pin (a node always holds itself ALIVE at self_inc; under ``k_block``
     the raw carry, pinned per block), the user-gossip
-    spreads due this round, the contact gate's seed mask and the phase
-    gates (host bools: the round index and cadences are host ints)."""
+    spreads due this round, the contact gate's seed mask, the ``lhm``
+    lane and the phase gates (host bools: the round index and cadences
+    are host ints, so is the anti-entropy exchange's ``ae_due``)."""
     n = params.n_members
     alive = world.alive_at(round_idx)
     part = world.partition_at(round_idx)
@@ -795,10 +838,13 @@ def _round_context(state: SwimState, round_idx: int, params: SwimParams,
         is_seed[world.seed_ids.long()] = True
     fd_round = kn.ping_every > 0 and round_idx % max(kn.ping_every, 1) == 0
     sync_round = kn.sync_every > 0 and round_idx % max(kn.sync_every, 1) == 0
+    ae_due = (params.sync_interval > 0
+              and sync_plane.due(round_idx, params.sync_interval))
     return dict(alive=alive, part=part, node_ids=node_ids, is_self=is_self,
                 status=status, inc=inc, g_infected=g_infected,
                 g_spread_until=g_spread_until, is_seed=is_seed,
-                fd_round=fd_round, sync_round=sync_round)
+                lhm=state.lhm, fd_round=fd_round, sync_round=sync_round,
+                ae_due=ae_due)
 
 
 def _fma32(e: torch.Tensor, mean: torch.Tensor,
@@ -877,15 +923,19 @@ def _entry_at_slot(mat: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
 def _shift_fd_chains(eng, d_ids, d_alive, d_part, fd_shift: int,
                      proxy_shifts: Sequence[int], draws: prng.RoundDraws,
                      params: SwimParams, kn: Knobs, world: SwimWorld,
-                     round_idx: int, node_ids, part_here):
+                     round_idx: int, node_ids, part_here, ping_budget=None,
+                     ping_req_budget=None):
     """FD network outcomes as [N] vectors: the direct ping round trip and
     the ping-req proxy chains (FailureDetectorImpl.java:128-213), each
-    hop with its link's loss and delay.
+    hop with its link's loss and delay.  ``ping_budget`` /
+    ``ping_req_budget``: [N] float32 budgets (Lifeguard's scaled ones),
+    or None for the knobs' base budgets.
 
     Returns ``(t, alive_t, part_t, direct_ok, ack_ok)`` with ``t`` each
     prober's target and ``ack_ok`` including proxy rescues."""
-    ping_budget = knob_ping_timeout(kn, params)
-    ping_req_budget = params.ping_interval_ms - ping_budget
+    if ping_budget is None:
+        ping_budget = knob_ping_timeout(kn, params)
+        ping_req_budget = params.ping_interval_ms - ping_budget
     t = eng.look(d_ids, fd_shift)
     alive_t = eng.look(d_alive, fd_shift)
     part_t = eng.look(d_part, fd_shift)
@@ -957,16 +1007,19 @@ def _fd_phase(eng, views, ctx: dict, shifts, round_idx: int,
               draws: prng.RoundDraws) -> dict:
     """Phase 1, the failure-detector probe: each prober's verdict about
     its shared-offset target, as [N] masks plus the SUSPECT verdicts as an
-    [N, K] inbox contribution.  Verdicts are masked by the fd round."""
+    [N, K] inbox contribution.  Verdicts are masked by the fd round and,
+    with Lifeguard on, by the probe gate."""
     d_ids, d_alive, d_part = views
     k = params.n_subjects
     status, inc = ctx["status"], ctx["inc"]
     alive_here, part_here = ctx["alive"], ctx["part"]
     fd_shift = shifts[0]
+    ping_budget, ping_req_budget, gate = lifeguard.lha_probe_setup(
+        params, ctx["lhm"], draws.lhm_gate_u, knob_ping_timeout(kn, params))
     t, _, _, direct_ok, ack_ok = _shift_fd_chains(
         eng, d_ids, d_alive, d_part, fd_shift,
         shifts[1:1 + params.ping_req_members], draws, params, kn, world,
-        round_idx, ctx["node_ids"], part_here)
+        round_idx, ctx["node_ids"], part_here, ping_budget, ping_req_budget)
     if params.full_view:
         slot = t
         entry_t_status = _entry_at_slot(status, t)
@@ -981,11 +1034,15 @@ def _fd_phase(eng, views, ctx: dict, shifts, round_idx: int,
         has_target = (slot >= 0) & ((entry_t_status == records.ALIVE)
                                     | (entry_t_status == records.SUSPECT))
     active = has_target & alive_here & ctx["fd_round"]
+    if gate is not None:
+        active = active & gate
     verdict_suspect = active & ~ack_ok
     # Every live member probes its offset target each fd round; ``active``
     # gates only the tracked-subject bookkeeping.
     probes_sent = (active if params.ping_known_only
                    else alive_here & ctx["fd_round"])
+    if gate is not None and not params.ping_known_only:
+        probes_sent = probes_sent & gate
     fd_slot_onehot = (torch.arange(k, dtype=torch.int32,
                                    device=status.device)[None, :]
                       == torch.clamp(slot, min=0)[:, None])
@@ -997,6 +1054,7 @@ def _fd_phase(eng, views, ctx: dict, shifts, round_idx: int,
         push_refute=active & ack_ok & (entry_t_status == records.SUSPECT),
         probes_sent=probes_sent,
         ping_req_launches=probes_sent & ~direct_ok,
+        lhm_clean=probes_sent & direct_ok,
         fd_inbox=torch.where(fd_slot_onehot & verdict_suspect[:, None],
                              fd_suspect_key[:, None],
                              delivery.no_message(wf)),
@@ -1119,13 +1177,15 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
                     world: SwimWorld, draws: prng.RoundDraws):
     """Phases 2-3: the ring's due slot, the F gossip channels, the refute
     push and the SYNC channel over cyclic shifts (delayed messages binned
-    into the ring), and the joiner <-> seed exchange, max-folded with the
-    FD verdicts into one inbox of the wire format's dtype.  Sender-side
-    gates evaluate at the receiver through shifted views.  Returns
-    ``(inbox, inbox_alive, g_delivered, messages_gossip, link)``;
+    into the ring), the anti-entropy exchange on its rounds, and the
+    joiner <-> seed exchange, max-folded with the FD verdicts into one
+    inbox of the wire format's dtype.  Sender-side gates evaluate at the
+    receiver through shifted views.  Returns ``(inbox, inbox_alive,
+    g_delivered, messages_gossip, link, messages_anti_entropy)``;
     ``g_delivered`` [N, G] is None without user gossips; ``link`` is
     None, or under ``link_counters`` the channels' ``(sent, lost)`` [N]
-    int32 wire counters at the senders (the seed exchange's included)."""
+    int32 wire counters at the senders (the exchanges' included);
+    ``messages_anti_entropy`` is None with the plane off."""
     d_ids, d_alive, d_part = views
     n, k = params.n_members, params.n_subjects
     r_proxies, f = params.ping_req_members, params.fanout
@@ -1233,8 +1293,9 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
     # its row to the probed member t = (i + fd_shift), i.e. receiver j
     # hears sender (j - fd_shift).  A refuting sender skips its regular
     # SYNC push, seen at the receiver through the sync shift.  No contact
-    # gate (as in the reference).
-    push_refute = fd["push_refute"] & (kn.sync_every > 0)
+    # gate (as in the reference).  With Lifeguard on (the buddy system)
+    # the push rides the probe's ack path, whatever the SYNC cadence.
+    push_refute = _buddy_push(fd["push_refute"], params, kn)
     h_pushers = eng.prep(push_refute)
     _, sender_alive_r, sender_part_r, loss_r, delay_r = _shift_sender_gate(
         eng, d_ids, d_alive, d_part, fd_shift, node_ids, kn, params, world,
@@ -1275,6 +1336,29 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
     inbox = torch.maximum(inbox, torch.where(ok_s[:, None], delivered, no_msg))
     inbox_alive |= delivered_flags & ok_s[:, None]
 
+    # The anti-entropy exchange: two syncable-payload channels at the
+    # shared offset +s and N - s, so receiver j hears partners j - s and
+    # j + s; delivered the same round, never through the ring.  Rounds
+    # that are not due skip both (the reference computes and masks them).
+    ae_sent = None
+    if params.sync_interval > 0:
+        ae_sent = sync_plane.sent_count(ctx["ae_due"], alive_here)
+    if ctx["ae_due"]:
+        for d_i, sft in enumerate(_ae_shifts(draws, n)):
+            ok_ae, attempt_ae, dropped_ae = _ae_gate(
+                eng, views, sft, draws.ae_drop_u[d_i], ctx, kn, params, world,
+                round_idx)
+            if h_status is not None:
+                contact_ae = contact_ok(sft)
+                ok_ae &= contact_ae
+                attempt_ae &= contact_ae
+            if link is not None:
+                count(sft, attempt_ae, dropped_ae)
+            delivered, delivered_flags = deliver_channel(sft, 2)
+            inbox = torch.maximum(inbox, torch.where(ok_ae[:, None],
+                                                     delivered, no_msg))
+            inbox_alive |= delivered_flags & ok_ae[:, None]
+
     # The joiner <-> seed exchange: its pushers are gated on the SYNC
     # round, so other rounds skip it; delivered the same round.
     if h_status is not None and ctx["sync_round"]:
@@ -1284,7 +1368,35 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
         if link is not None:
             link[0].add_(ss_sent)
             link[1].add_(ss_lost)
-    return inbox, inbox_alive, g_delivered, n_gossip_sent, link
+    return inbox, inbox_alive, g_delivered, n_gossip_sent, link, ae_sent
+
+
+def _buddy_push(push_refute, params: SwimParams, kn: Knobs):
+    """The refute push as sent: it rides the SYNC channel, so a disabled
+    channel (``sync_every == 0``) disables it, unless Lifeguard's buddy
+    system carries it on the probe's ack path (``lhm_max > 0``)."""
+    if params.lhm_max > 0:
+        return push_refute
+    return push_refute & (kn.sync_every > 0)
+
+
+def _ae_shifts(draws, n: int) -> Tuple[int, int]:
+    """The anti-entropy exchange's two channel shifts: +s and N - s."""
+    return draws.ae_offset, n - draws.ae_offset
+
+
+def _ae_gate(eng, views, sft: int, drop_u, ctx: dict, kn: Knobs,
+             params: SwimParams, world: SwimWorld, round_idx: int):
+    """One anti-entropy channel's receiver-indexed gates on a due round:
+    ``(ok, attempt, dropped)`` [N] bool, the message arriving, the
+    sender's attempt (live sender), and its in-flight drop (loss or a
+    partition wall).  The contact gate is the caller's."""
+    _, sender_alive, sender_part, loss, _ = _shift_sender_gate(
+        eng, *views, sft, ctx["node_ids"], kn, params, world, round_idx)
+    part_ok = sender_part == ctx["part"]
+    wire_drop = drop_u < loss
+    ok = sender_alive & ctx["alive"] & part_ok & ~wire_drop
+    return ok, sender_alive.clone(), wire_drop | ~part_ok
 
 
 # --------------------------------------------------------------------------
@@ -1310,8 +1422,9 @@ def _scatter_fd_phase(ctx: dict, round_idx: int, params: SwimParams,
     (FailureDetectorImpl.java:128-213): each prober's own target, known-
     only (a Gumbel argmax over the subjects its row holds live) or
     uniform over the members (focal), the direct ping round trip and R
-    ping-req proxy chains over gathered ids, the verdicts, the SUSPECT
-    inbox contribution and the refute push."""
+    ping-req proxy chains over gathered ids, the verdicts (with Lifeguard
+    on: the probe gate and the health-scaled budgets), the SUSPECT inbox
+    contribution and the refute push."""
     k = params.n_subjects
     status, inc = ctx["status"], ctx["inc"]
     alive, part, node_ids = ctx["alive"], ctx["part"], ctx["node_ids"]
@@ -1326,8 +1439,13 @@ def _scatter_fd_phase(ctx: dict, round_idx: int, params: SwimParams,
         entry = _entry_at_slot(status, torch.clamp(slot, min=0))
         has_target = (slot >= 0) & ((entry == records.ALIVE)
                                     | (entry == records.SUSPECT))
-    ping_budget = knob_ping_timeout(kn, params)
-    ping_req_budget = params.ping_interval_ms - ping_budget
+    ping_budget, ping_req_budget, gate = lifeguard.lha_probe_setup(
+        params, ctx["lhm"], draws.lhm_gate_u, knob_ping_timeout(kn, params))
+    if gate is None:
+        ping_budget = knob_ping_timeout(kn, params)
+        proxy_budget = params.ping_interval_ms - ping_budget
+    else:
+        proxy_budget = ping_req_budget[:, None]
 
     def hops(pairs):
         return _hop_links(pairs, world, round_idx, kn, params)
@@ -1347,15 +1465,19 @@ def _scatter_fd_phase(ctx: dict, round_idx: int, params: SwimParams,
     u, e = ((draws.proxy_chain_u, draws.proxy_chain_e) if delayed
             else (draws.proxy_u, None))
     part_p = part[p_l]
-    proxy_ok = (_chain_ok(u, e, losses, delays, ping_req_budget)
+    proxy_ok = (_chain_ok(u, e, losses, delays, proxy_budget)
                 & alive[p_l] & alive_t[:, None] & (part[:, None] == part_p)
                 & (part_p == part_t[:, None]) & (proxies != t_col))
     ack_ok = direct_ok | proxy_ok.any(dim=1)
     probe_active = has_target & alive & ctx["fd_round"]
+    if gate is not None:
+        probe_active = probe_active & gate
     # Every live member probes each fd round; in focal mode whether or
     # not the target is tracked (``probe_active`` gates the bookkeeping).
     probes_sent = (probe_active if params.ping_known_only
                    else alive & ctx["fd_round"])
+    if gate is not None and not params.ping_known_only:
+        probes_sent = probes_sent & gate
     slot_sf = torch.clamp(slot, min=0)
     fd_slot_onehot = (torch.arange(k, dtype=slot_sf.dtype,
                                    device=status.device)[None, :]
@@ -1367,6 +1489,7 @@ def _scatter_fd_phase(ctx: dict, round_idx: int, params: SwimParams,
     return dict(
         t=t, probe_active=probe_active, probes_sent=probes_sent,
         ping_req_launches=probes_sent & ~direct_ok,
+        lhm_clean=probes_sent & direct_ok,
         push_refute=(probe_active & ack_ok
                      & (_entry_at_slot(status, slot_sf) == records.SUSPECT)),
         fd_inbox=torch.where(fd_slot_onehot & verdict_suspect[:, None],
@@ -1384,7 +1507,10 @@ def _scatter_send_phase(state: SwimState, ctx: dict, fd: dict,
     targets, each gated on the sender and target being live and in one
     partition, the contact gate, a loss draw and the channel count; the
     SYNC goes to one drawn target, or to the probed member where an
-    ALIVE verdict met a SUSPECT entry (the refute push)."""
+    ALIVE verdict met a SUSPECT entry (the refute push); on an
+    anti-entropy round the SYNC payload also goes to the two exchange
+    partners (``ae_targets`` [N, 2], ``ae_drop``, and the link
+    counters' ``ae_attempt`` / ``ae_lost``)."""
     status, inc = ctx["status"], ctx["inc"]
     alive, part, node_ids = ctx["alive"], ctx["part"], ctx["node_ids"]
     gossip_keys, sync_keys = _send_payloads(
@@ -1417,8 +1543,9 @@ def _scatter_send_phase(state: SwimState, ctx: dict, fd: dict,
 
     # The refute push rides the SYNC channel (it is a SYNC to the
     # suspected member, MembershipProtocolImpl.java:379-391), so a
-    # disabled channel disables it too.
-    push_refute = fd["push_refute"] & (kn.sync_every > 0)
+    # disabled channel disables it too, unless Lifeguard's buddy system
+    # carries it on the ack path.
+    push_refute = _buddy_push(fd["push_refute"], params, kn)
     sync_target = prng.targets_excluding_self(draws.sync_t[:, None],
                                               node_ids)
     sync_target = torch.where(push_refute[:, None], fd["t"][:, None],
@@ -1440,7 +1567,29 @@ def _scatter_send_phase(state: SwimState, ctx: dict, fd: dict,
                  & (round_idx < ctx["g_spread_until"]))
         # A gossip message exists when either family has content.
         hot_any = hot_any | hot_g.any(dim=1)
+    ae = {}
+    if params.sync_interval > 0:
+        ae["messages_anti_entropy"] = sync_plane.sent_count(ctx["ae_due"],
+                                                            alive)
+    if ctx["ae_due"]:
+        ae_targets = sync_plane.exchange_targets(
+            node_ids, draws.ae_offset, params.n_members)
+        a_l = ae_targets.long()
+        loss_ae, _ = link_eval(world.faults, round_idx, node_ids[:, None],
+                               ae_targets, kn.loss_probability,
+                               params.mean_delay_ms)
+        wire_drop_ae = draws.ae_drop_u < loss_ae
+        part_ok_ae = part[:, None] == part[a_l]
+        attempt_ae = alive[:, None].expand(-1, 2)
+        if gate:
+            attempt_ae = attempt_ae & contact_ok(ae_targets)
+        ae.update(ae_targets=ae_targets,
+                  ae_drop=~(attempt_ae & alive[a_l] & part_ok_ae
+                            & ~wire_drop_ae),
+                  ae_attempt=attempt_ae,
+                  ae_lost=attempt_ae & (wire_drop_ae | ~part_ok_ae))
     return dict(
+        ae,
         gossip_keys=gossip_keys, sync_keys=sync_keys,
         gossip_targets=gossip_targets, gossip_drop=gossip_drop,
         sync_target=sync_target, sync_drop=~(do_sync & sync_ok)[:, None],
@@ -1453,24 +1602,27 @@ def _scatter_send_phase(state: SwimState, ctx: dict, fd: dict,
 
 
 def _scatter_channel_bufs(s: dict, params: SwimParams, inbox, inbox_alive,
-                          gossip_extra_drop=None, sync_extra_drop=None
-                          ) -> None:
+                          gossip_extra_drop=None, sync_extra_drop=None,
+                          with_ae: bool = True) -> None:
     """Fold one delay bin of the round's gossip and SYNC scatters into
     ``inbox`` (wire keys) and, on the two-buffer wire
     (``fused_wire=False``), ``inbox_alive`` (ALIVE flags), in place.
-    The ``*_extra_drop`` masks keep the messages of other bins out."""
+    The ``*_extra_drop`` masks keep the messages of other bins out.
+    ``with_ae``: also the anti-entropy exchange's two scatters, where the
+    round has them (bin 0 only: the exchange is same-round)."""
     g_drop, s_drop = s["gossip_drop"], s["sync_drop"]
     if gossip_extra_drop is not None:
         g_drop = g_drop | gossip_extra_drop
         s_drop = s_drop | sync_extra_drop
-    delivery.scatter_max_into(inbox, s["gossip_keys"], s["gossip_targets"],
-                              g_drop)
-    delivery.scatter_max_into(inbox, s["sync_keys"], s["sync_target"], s_drop)
-    if not params.fused_wire:
-        delivery.scatter_or_into(inbox_alive, s["alive_flags"],
-                                 s["gossip_targets"], g_drop)
-        delivery.scatter_or_into(inbox_alive, s["sync_alive_flags"],
-                                 s["sync_target"], s_drop)
+    channels = [("gossip_keys", "alive_flags", "gossip_targets", g_drop),
+                ("sync_keys", "sync_alive_flags", "sync_target", s_drop)]
+    if with_ae and "ae_targets" in s:
+        channels.append(("sync_keys", "sync_alive_flags", "ae_targets",
+                         s["ae_drop"]))
+    for keys, flags, targets, drop in channels:
+        delivery.scatter_max_into(inbox, s[keys], s[targets], drop)
+        if not params.fused_wire:
+            delivery.scatter_or_into(inbox_alive, s[flags], s[targets], drop)
 
 
 def _scatter_deliver(state: SwimState, ctx: dict, fd: dict, s: dict,
@@ -1516,7 +1668,7 @@ def _scatter_deliver(state: SwimState, ctx: dict, fd: dict, s: dict,
             _scatter_channel_bufs(
                 s, params, ring.keys[slot],
                 None if params.fused_wire else ring.flags[slot],
-                q_g != j, q_s != j)
+                q_g != j, q_s != j, with_ae=False)
     seed_counters = None
     if ctx["is_seed"] is not None and ctx["sync_round"]:
         inbox, inbox_alive, *seed_counters = _seed_anti_entropy(
@@ -1550,8 +1702,8 @@ def _scatter_send_aux(fd: dict, s: dict, params: SwimParams, alive,
     dropped.  Under ``link_counters`` also the per-sender wire counters:
     a gossip message per live sender with content, open channel and
     admitting contact gate, the SYNC (or refute push), the probes and
-    ping-req fan-outs, the seed exchange; lost: wire drops and partition
-    walls."""
+    ping-req fan-outs, the seed exchange, the anti-entropy exchange's
+    two messages; lost: wire drops and partition walls."""
     aux = {}
     if params.link_counters:
         g_attempt = (alive & s["hot_any"])[:, None] & ~s["chan_off"]
@@ -1568,7 +1720,12 @@ def _scatter_send_aux(fd: dict, s: dict, params: SwimParams, alive,
         if seed_counters is not None:
             sent = sent + seed_counters[0]
             lost = lost + seed_counters[1]
+        if "ae_attempt" in s:
+            sent = sent + s["ae_attempt"].sum(dim=1, dtype=torch.int32)
+            lost = lost + s["ae_lost"].sum(dim=1, dtype=torch.int32)
         aux = dict(sent_by_node=sent, lost_by_node=lost)
+    if "messages_anti_entropy" in s:
+        aux["messages_anti_entropy"] = s["messages_anti_entropy"]
     return dict(
         aux,
         messages_gossip=(s["hot_any"][:, None] & ~s["gossip_drop"]).sum(
@@ -1597,7 +1754,8 @@ def _tick_scatter(state: SwimState, ctx: dict, round_idx: int,
     with record_function("swim.merge"):
         new_state, refuted = _merge_and_timers(
             state, ctx, inbox, inbox_alive, g_delivered, round_idx, params,
-            kn, world)
+            kn, world, lhm_signals=(fd["ping_req_launches"],
+                                    fd["lhm_clean"]))
     aux = dict(_scatter_send_aux(fd, s, params, ctx["alive"], seed_counters),
                refutations=(refuted & ctx["alive"]).sum(dtype=torch.int32))
     return new_state, aux
@@ -1649,13 +1807,14 @@ def _tick_shift(state: SwimState, ctx: dict, round_idx: int,
         fd = _fd_phase(eng, views, ctx, shifts, round_idx, params, kn, world,
                        draws)
     with record_function("swim.delivery"):
-        inbox, inbox_alive, g_delivered, n_gossip_sent, link = \
+        inbox, inbox_alive, g_delivered, n_gossip_sent, link, ae_sent = \
             _delivery_phase(state, eng, views, ctx, fd, shifts, round_idx,
                             params, kn, world, draws)
     with record_function("swim.merge"):
         new_state, refuted = _merge_and_timers(
             state, ctx, inbox, inbox_alive, g_delivered, round_idx, params,
-            kn, world)
+            kn, world, lhm_signals=(fd["ping_req_launches"],
+                                    fd["lhm_clean"]))
     aux = dict(
         messages_gossip=n_gossip_sent,
         messages_ping=fd["active"].sum(dtype=torch.int32),
@@ -1664,6 +1823,8 @@ def _tick_shift(state: SwimState, ctx: dict, round_idx: int,
                                 * params.ping_req_members),
         refutations=(refuted & ctx["alive"]).sum(dtype=torch.int32),
     )
+    if ae_sent is not None:
+        aux["messages_anti_entropy"] = ae_sent
     if link is not None:
         aux["sent_by_node"] = (link[0] + fd["probes_sent"].to(torch.int32)
                                + fd["ping_req_launches"].to(torch.int32)
@@ -1682,14 +1843,17 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
     the others, and every draw is K-independent.
 
     The FD chains and every channel's gates are [N] vectors made once
-    (the FD target's entry read from the raw carry).  Each block is
-    decoded (compact carry), pinned, turned into payloads, delivered over
-    the F gossip channels, the refute push and the SYNC channel with the
-    FD verdicts on its columns, merged (the merge kernel in block form,
+    (the FD target's entry read from the raw carry), as are the merge's
+    plane arguments (Lifeguard's armed rounds, the suppression window).
+    Each block is decoded (compact carry), pinned, turned into payloads,
+    delivered over the F gossip channels, the refute push, the SYNC
+    channel and, on its rounds, the anti-entropy pair with the FD
+    verdicts on its columns, merged (the merge kernel in block form,
     writing the output carry's columns) and encoded into the output
     carry; its column reductions fill the metric histograms.  ``self_inc``
     is the maximum and ``refuted`` the or over the blocks, each block
-    reading the pre-round ``self_inc``.  The output carry is allocated
+    reading the pre-round ``self_inc``; the ``lhm`` lane is updated once,
+    after the loop, with that or.  The output carry is allocated
     once a round, so the input state is not modified.  Returns
     ``(new_state, aux counters)``, the column reductions in
     ``aux["hists"]``."""
@@ -1710,19 +1874,24 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
     device = node_ids.device
 
     with record_function("swim.fd"):
+        ping_budget, ping_req_budget, gate = lifeguard.lha_probe_setup(
+            params, ctx["lhm"], draws.lhm_gate_u,
+            knob_ping_timeout(kn, params))
         t, _, _, direct_ok, ack_ok = _shift_fd_chains(
             eng, d_ids, d_alive, d_part, fd_shift,
             shifts[1:1 + r_proxies], draws, params, kn, world, round_idx,
-            node_ids, part_here)
+            node_ids, part_here, ping_budget, ping_req_budget)
         entry_t_status = _entry_at_slot(state.status, t)
         entry_t_inc = _entry_at_slot(state.inc, t).to(torch.int32)
         has_target = ((entry_t_status == records.ALIVE)
                       | (entry_t_status == records.SUSPECT))
         active = has_target & alive_here & ctx["fd_round"]
+        if gate is not None:
+            active = active & gate
         verdict_suspect = active & ~ack_ok
-        push_refute = (active & ack_ok
-                       & (entry_t_status == records.SUSPECT)
-                       & (kn.sync_every > 0))
+        push_refute = _buddy_push(
+            active & ack_ok & (entry_t_status == records.SUSPECT), params,
+            kn)
         ping_req_launches = active & ~direct_ok
         fd_key = delivery.pack_record(records.SUSPECT, entry_t_inc, fmt=wf)
 
@@ -1754,6 +1923,16 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
                                                           ok_gossip)]
                     + [(fd_shift, 2, ok_refute[:, None]),
                        (sync_shift, 2, ok_sync[:, None])])
+        # The anti-entropy pair's gates, in the reference's order.
+        ae_sent = None
+        if params.sync_interval > 0:
+            ae_sent = sync_plane.sent_count(ctx["ae_due"], alive_here)
+        if ctx["ae_due"]:
+            for d_i, sft in enumerate(_ae_shifts(draws, n)):
+                ok_ae, _, _ = _ae_gate(eng, (d_ids, d_alive, d_part), sft,
+                                       draws.ae_drop_u[d_i], ctx, kn,
+                                       params, world, round_idx)
+                channels.append((sft, 2, ok_ae[:, None]))
         g_delivered = hot_g = None
         if params.n_user_gossips > 0:
             hot_g = (ctx["g_infected"] & alive_here[:, None]
@@ -1771,7 +1950,9 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
         suspect_deadline=torch.empty_like(state.suspect_deadline),
         self_inc=state.self_inc, inbox_ring=state.inbox_ring,
         flag_ring=state.flag_ring, g_infected=state.g_infected,
-        g_spread_until=state.g_spread_until, g_ring=state.g_ring)
+        g_spread_until=state.g_spread_until, g_ring=state.g_ring,
+        lhm=state.lhm)
+    plane_args = _merge_plane_args(ctx, params, kn)
     hists = {name: torch.zeros((k,), dtype=torch.int32, device=device)
              for name in ("hist_alive", "hist_suspect", "hist_dead",
                           "still_suspect")}
@@ -1826,7 +2007,7 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
                 state.self_inc, alive_here, world.slot_of_node, round_idx,
                 kn.suspicion_rounds, params.periods_to_spread,
                 _wire_inc_sat(params), fmt=wf, col0=c0,
-                out=(new.status[:, blk], *timers_out))
+                out=(new.status[:, blk], *timers_out), **plane_args)
             self_inc = torch.maximum(self_inc, merged[4])
             refuted |= merged[5]
         if compact:
@@ -1850,8 +2031,11 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
                 dtype=torch.int32)
     g_infected, g_spread_until = _gossip_lanes(ctx, g_delivered, round_idx,
                                                params)
-    new = dataclasses.replace(new, self_inc=self_inc, g_infected=g_infected,
-                              g_spread_until=g_spread_until)
+    new = dataclasses.replace(
+        new, self_inc=self_inc, g_infected=g_infected,
+        g_spread_until=g_spread_until,
+        lhm=_lhm_update(ctx, (ping_req_launches, active & direct_ok),
+                        refuted, params, kn))
     aux = dict(
         messages_gossip=n_gossip_sent,
         messages_ping=active.sum(dtype=torch.int32),
@@ -1861,6 +2045,8 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
         refutations=(refuted & alive_here).sum(dtype=torch.int32),
         hists=hists,
     )
+    if ae_sent is not None:
+        aux["messages_anti_entropy"] = ae_sent
     return new, aux
 
 
@@ -1918,14 +2104,51 @@ def _gossip_lanes(ctx: dict, g_delivered, round_idx: int,
     return g_infected, g_spread_until
 
 
+def _merge_plane_args(ctx: dict, params: SwimParams, kn: Knobs):
+    """The merge kernel's plane arguments for the round: ``armed_rounds``
+    (Lifeguard on: [N] int32 ``lifeguard.suspicion_deadline_rounds`` of
+    each row's multiplier and the live count, once a round; else None)
+    and ``dead_suppress_rounds`` (the window, 0 with suppression off)."""
+    armed = None
+    if params.lhm_max > 0:
+        armed = lifeguard.suspicion_deadline_rounds(
+            kn.suspicion_rounds, ctx["lhm"],
+            ctx["alive"].sum(dtype=torch.int32), params.n_members)
+    window = 0
+    if params.dead_suppress_rounds > 0:
+        window = knob_dead_suppress(kn, params)
+        if window <= 0:
+            raise ValueError(
+                f"Knobs.dead_suppress_rounds={kn.dead_suppress_rounds} under "
+                f"params.dead_suppress_rounds={params.dead_suppress_rounds}: "
+                f"a window of 0 with the plane on is not carried")
+    return dict(armed_rounds=armed, dead_suppress_rounds=window)
+
+
+def _lhm_update(ctx: dict, lhm_signals, refuted, params: SwimParams,
+                kn: Knobs):
+    """The ``lhm`` lane after the round (``lifeguard.update`` with the FD
+    phase's ``(probe_fail, probe_clean)`` signals); passes through with
+    the plane off."""
+    if params.lhm_max == 0:
+        return ctx["lhm"]
+    probe_fail, probe_clean = lhm_signals
+    alive = ctx["alive"]
+    return lifeguard.update(ctx["lhm"], probe_fail, probe_clean,
+                            refuted & alive, alive, knob_lhm_cap(kn, params))
+
+
 def _merge_and_timers(state: SwimState, ctx: dict, inbox, inbox_alive,
                       g_delivered, round_idx: int, params: SwimParams,
-                      kn: Knobs, world: SwimWorld):
-    """Inbox merge, self-refutation, suspicion timers and the crash/leave
-    freeze in one kernel launch (``kernels/merge.py``), then the user-
-    gossip lanes: newly held gossips open a spread window, rows of
-    crashed members stay frozen.  The rings pass through (delivery
-    updated them in place).  Returns ``(new_state, refuted [N] bool)``."""
+                      kn: Knobs, world: SwimWorld, lhm_signals):
+    """Inbox merge, self-refutation, suspicion timers (per-row armed
+    rounds with Lifeguard on, the suppression window with
+    ``dead_suppress_rounds``) and the crash/leave freeze in one kernel
+    launch (``kernels/merge.py``), then the user-gossip lanes (newly held
+    gossips open a spread window, rows of crashed members stay frozen)
+    and the ``lhm`` lane (``lhm_signals``: the FD phase's ``(probe_fail,
+    probe_clean)`` [N] masks).  The rings pass through (delivery updated
+    them in place).  Returns ``(new_state, refuted [N] bool)``."""
     alive_here = ctx["alive"]
     (new_status, new_inc, spread_until, deadline, self_inc,
      refuted) = merge_kernel.merge_and_timers(
@@ -1933,14 +2156,16 @@ def _merge_and_timers(state: SwimState, ctx: dict, inbox, inbox_alive,
         state.suspect_deadline, inbox, inbox_alive, state.self_inc,
         alive_here, world.slot_of_node, round_idx, kn.suspicion_rounds,
         params.periods_to_spread, _wire_inc_sat(params),
-        fmt=params.wire_format)
+        fmt=params.wire_format, **_merge_plane_args(ctx, params, kn))
     g_infected, g_spread_until = _gossip_lanes(ctx, g_delivered, round_idx,
                                                params)
     return SwimState(status=new_status, inc=new_inc, spread_until=spread_until,
                      suspect_deadline=deadline, self_inc=self_inc,
                      inbox_ring=state.inbox_ring, flag_ring=state.flag_ring,
                      g_infected=g_infected, g_spread_until=g_spread_until,
-                     g_ring=state.g_ring), refuted
+                     g_ring=state.g_ring,
+                     lhm=_lhm_update(ctx, lhm_signals, refuted, params,
+                                     kn)), refuted
 
 
 def _column_hists(new_status, status, alive) -> dict:
@@ -2012,6 +2237,8 @@ def _round_metrics(new_state: SwimState, status, aux: dict,
         messages_ping_req_sent=aux["messages_ping_req_sent"],
         refutations=aux["refutations"],
     )
+    if params.sync_interval > 0:
+        metrics["messages_anti_entropy"] = aux["messages_anti_entropy"]
     if params.link_counters:
         metrics["sent_by_node"] = aux["sent_by_node"]
         metrics["lost_by_node"] = aux["lost_by_node"]

@@ -108,14 +108,17 @@ def is_alive_key(key, fmt: WireFormat = None):
 
 
 def merge_inbox(entry_status, entry_inc, inbox_key, inbox_any_alive,
-                fmt: WireFormat = None, epoch_bits: int = 0):
+                fmt: WireFormat = None, epoch_bits: int = 0, suppress=None):
     """Merge one round's max-folded inbox into the table entries.
 
     One valid arrival-order serialization of the reference's
     ``updateMembership`` loop (MembershipProtocolImpl.java:475-541): an
     ABSENT entry opens only if an ALIVE record arrived; a live entry
     takes the winner when its key is strictly above the entry's key.  A
-    stored DEAD gates like ABSENT (the reference deletes the record).
+    stored DEAD gates like ABSENT (the reference deletes the record),
+    except where ``suppress`` [N, K] bool (the dead-member suppression
+    window) holds: there the tombstone gates by its true DEAD key, so
+    only a strictly higher DEAD key overrides it.
 
     ``inbox_key`` is in the format's dtype; the entry's key is packed in
     the same format, so the gate compares like with like.
@@ -130,6 +133,9 @@ def merge_inbox(entry_status, entry_inc, inbox_key, inbox_any_alive,
     absent = gate_status == records.ABSENT
     accepts = torch.where(absent, inbox_any_alive & (inbox_key >= 0),
                           inbox_key > entry_key)
+    if suppress is not None:
+        true_key = pack_record(entry_status, entry_inc, fmt=f)
+        accepts = torch.where(suppress, inbox_key > true_key, accepts)
     new_status = torch.where(accepts, win_status, entry_status).to(torch.int8)
     new_inc = torch.where(accepts, win_inc, entry_inc).to(torch.int32)
     changed = accepts & ((new_status != entry_status) | (new_inc != entry_inc))

@@ -44,13 +44,17 @@ class DrawFacts:
     Bernoulli.  ``delay_bins``: delayed and the ring is on
     (``max_delay_rounds > 0``), so each delivery channel bins its
     messages.  ``n_seeds``: the seed count when the contact gate is on
-    (full view with seeds), else 0."""
+    (full view with seeds), else 0.  ``sync_plane``: the anti-entropy
+    exchange is on (``sync_interval > 0``).  ``lifeguard``: the health
+    plane is on (``lhm_max > 0``)."""
 
     delivery: str
     known_only: bool
     delayed: bool
     delay_bins: bool
     n_seeds: int
+    sync_plane: bool = False
+    lifeguard: bool = False
 
     @staticmethod
     def of(params, world=None) -> "DrawFacts":
@@ -63,7 +67,9 @@ class DrawFacts:
                         and bool(params.ping_known_only)),
             delayed=delayed,
             delay_bins=delayed and params.max_delay_rounds > 0,
-            n_seeds=n_seeds if params.full_view else 0)
+            n_seeds=n_seeds if params.full_view else 0,
+            sync_plane=params.sync_interval > 0,
+            lifeguard=params.lhm_max > 0)
 
 
 @dataclasses.dataclass
@@ -95,6 +101,12 @@ class RoundDraws:
     [0, S), each member's seed, and the push and ack loss uniforms
     ``seed_push_u`` / ``seed_ack_u`` [S, N] float32.
 
+    The anti-entropy exchange (``sync_plane``): ``ae_offset``, its
+    shared partner offset, a host int in [1, N), and ``ae_drop_u`` [2,
+    N] float32, the loss uniforms of its two directions.  Lifeguard
+    (``lifeguard``): ``lhm_gate_u`` [N] float32, the probe gate's
+    uniforms.
+
     A unit exponential is ``-log1p(-u)`` of a uniform, computed once by
     the draw source, so that the CPU, the card and the reference read
     the same float32 values.  Fields a round does not take are None.
@@ -115,6 +127,9 @@ class RoundDraws:
     seed_sel: Optional[torch.Tensor] = None
     seed_push_u: Optional[torch.Tensor] = None
     seed_ack_u: Optional[torch.Tensor] = None
+    ae_offset: Optional[int] = None
+    ae_drop_u: Optional[torch.Tensor] = None
+    lhm_gate_u: Optional[torch.Tensor] = None
 
     DELIVERY = "shift"
 
@@ -130,7 +145,7 @@ class RoundDraws:
             need += ("e_gossip", "e_sync", "e_refute")
         if facts.n_seeds:
             need += ("seed_sel", "seed_push_u", "seed_ack_u")
-        return need, other
+        return _plane_fields(facts, need, other)
 
     def to(self, device) -> "RoundDraws":
         return _draws_to(self, device)
@@ -160,9 +175,12 @@ class ScatterDraws:
 
     Delay bins: unit exponentials ``gossip_e`` [N, F] and ``e_sync``
     [N].  Seed anti-entropy: ``seed_sel`` / ``seed_push_u`` /
-    ``seed_ack_u`` as in :class:`RoundDraws`.  There are no channel
-    shifts and no refute draw: the refute push redirects the SYNC
-    target.  Fields a round does not take are None."""
+    ``seed_ack_u`` as in :class:`RoundDraws`.  The anti-entropy
+    exchange: ``ae_offset`` as in :class:`RoundDraws` and ``ae_drop_u``
+    [N, 2] float32 (sender-indexed, one column a direction); Lifeguard:
+    ``lhm_gate_u`` [N].  There are no channel shifts and no refute
+    draw: the refute push redirects the SYNC target.  Fields a round
+    does not take are None."""
 
     proxies: torch.Tensor
     gossip_t: torch.Tensor
@@ -182,6 +200,9 @@ class ScatterDraws:
     seed_sel: Optional[torch.Tensor] = None
     seed_push_u: Optional[torch.Tensor] = None
     seed_ack_u: Optional[torch.Tensor] = None
+    ae_offset: Optional[int] = None
+    ae_drop_u: Optional[torch.Tensor] = None
+    lhm_gate_u: Optional[torch.Tensor] = None
 
     DELIVERY = "scatter"
 
@@ -200,10 +221,22 @@ class ScatterDraws:
             need += ("gossip_e", "e_sync")
         if facts.n_seeds:
             need += ("seed_sel", "seed_push_u", "seed_ack_u")
-        return need, other
+        return _plane_fields(facts, need, other)
 
     def to(self, device) -> "ScatterDraws":
         return _draws_to(self, device)
+
+
+def _plane_fields(facts: DrawFacts, need, other):
+    """``(need, other)`` with the planes' draws added to the side their
+    facts put them on."""
+    for on, names in ((facts.sync_plane, ("ae_offset", "ae_drop_u")),
+                      (facts.lifeguard, ("lhm_gate_u",))):
+        if on:
+            need += names
+        else:
+            other += names
+    return need, other
 
 
 def _draws_to(draws, device):
@@ -278,6 +311,16 @@ class TorchDraws:
             draws.seed_push_u = self._uniform(facts.n_seeds, n)
             draws.seed_ack_u = self._uniform(facts.n_seeds, n)
 
+    def _planes(self, draws, drop_shape) -> None:
+        """The planes' draws, taken after every other draw of the round
+        (so a plane that is off leaves the other draws as they were)."""
+        if self.facts.sync_plane:
+            draws.ae_offset = int(torch.randint(1, self.n, (1,),
+                                                generator=self._host))
+            draws.ae_drop_u = self._uniform(*drop_shape)
+        if self.facts.lifeguard:
+            draws.lhm_gate_u = self._uniform(self.n)
+
     def __call__(self, round_idx: int):
         s = round_seed(self.seed, round_idx)
         self._host.manual_seed(s)
@@ -305,6 +348,7 @@ class TorchDraws:
             draws.e_sync = unit_exponential(uniform(n))
             draws.e_refute = unit_exponential(uniform(n))
         self._seeds(draws)
+        self._planes(draws, (2, n))
         return draws
 
     def _scatter(self) -> ScatterDraws:
@@ -337,4 +381,5 @@ class TorchDraws:
             draws.gossip_e = unit_exponential(uniform(n, f))
             draws.e_sync = unit_exponential(uniform(n))
         self._seeds(draws)
+        self._planes(draws, (n, 2))
         return draws

@@ -7,8 +7,11 @@ mode (``--delivery``: shift, the bench's, or scatter), or with
 ``--network`` the network configuration instead (``network_params`` /
 ``network_world``: the same workload with a 50 ms mean link delay, a
 4-slot delay ring, a six-window brownout, a two-way block of node 5
-and four user gossips): a warm-up window, a window timed on the host
-clock (ending in a device sync), then the same window again under
+and four user gossips), and with ``--planes`` with the three tick-level
+planes on (``with_planes``: the anti-entropy exchange every 32 rounds,
+Lifeguard multipliers up to 8, a dead-member suppression window two
+rounds past the spread window): a warm-up window, a window timed on the
+host clock (ending in a device sync), then the same window again under
 ``torch.profiler``.  Reports, per round: wall time, device busy time and
 idle share, kernel launches, device time and kernel launches inside
 each phase range of ``models/swim.py`` (``swim.carry``/``context``/
@@ -17,7 +20,7 @@ time, and the delay ring's bytes.
 
 Run on a card: ``python -m scalecube_cluster_tpu_torch.profile_round
 [--n 1000000] [--layout wide [compact ...]] [--delivery scatter]
-[--network]``.
+[--network] [--planes]``.
 Prints one JSON line per layout, with the card's name and power limit.
 """
 
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import dataclasses
 import json
 import subprocess
 import time
@@ -67,6 +71,17 @@ NETWORK_ROUNDS = 600
 # A round inside the brownout's hold window (one rule active at its peak
 # loss and delay), where the profiled window of --network starts.
 NETWORK_PEAK = 160
+
+
+def with_planes(params: swim.SwimParams,
+                sync_interval: int = 32) -> swim.SwimParams:
+    """``params`` with the three tick-level planes on: the anti-entropy
+    exchange every ``sync_interval`` rounds (``bench.py --sync``'s 32; 0
+    leaves it off), Lifeguard with multipliers up to 8, and a suppression
+    window of ``periods_to_spread + 2`` rounds."""
+    return dataclasses.replace(
+        params, sync_interval=sync_interval, lhm_max=8,
+        dead_suppress_rounds=params.periods_to_spread + 2)
 
 
 def bench_params(layout: str, n: int, k: int, delivery: str = "shift",
@@ -218,6 +233,9 @@ def main(argv=None) -> list:
                     help="profile the network configuration (delays, "
                          "rules, ring, user gossips) instead of the bench "
                          "workload")
+    ap.add_argument("--planes", action="store_true",
+                    help="with the three tick-level planes on "
+                         "(with_planes)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round needs a CUDA card")
@@ -232,13 +250,15 @@ def main(argv=None) -> list:
             params = bench_params(layout, args.n, args.k, args.delivery)
             world = swim.SwimWorld.healthy(params, device=device).with_crash(
                 3, at_round=10)
+        if args.planes:
+            params = with_planes(params)
         warmup = args.warmup
         if warmup is None:
             warmup = NETWORK_PEAK if args.network else 20
         state, _ = swim.run(0, params, world, warmup, device=device)
         result = dict(card=card, n_members=args.n, n_subjects=args.k,
                       layout=layout, delivery=args.delivery,
-                      network=args.network,
+                      network=args.network, planes=args.planes,
                       **profile_window(params, world, state, warmup,
                                        args.rounds, args.top))
         print(json.dumps(result), flush=True)

@@ -148,9 +148,9 @@ def test_state_and_world_import_reject_unported_lanes():
     arrays = checkpoint.state_to_arrays(jswim.initial_state(jparams, jworld))
     state = interop.state_from_arrays(arrays, device="cpu")
     assert state.status.shape == (32, 4) and state.status.dtype == torch.int8
-    lhm = dict(arrays, **{"state/lhm": np.ones(32, np.int32)})
-    with pytest.raises(NotImplementedError, match="lhm"):
-        interop.state_from_arrays(lhm, device="cpu")
+    epoch = dict(arrays, **{"state/epoch": np.zeros((32, 4), np.int32)})
+    with pytest.raises(NotImplementedError, match="epoch"):
+        interop.state_from_arrays(epoch, device="cpu")
     # A compact lane in a state whose params name the wide carry.
     compact = dict(arrays, **{"state/inc": np.zeros((32, 4), np.int16)})
     with pytest.raises(ValueError, match="compact_carry"):
@@ -174,3 +174,32 @@ def test_state_and_world_import_reject_unported_lanes():
     scatter = port_params(jscatter)
     assert scatter.delivery == "scatter" and not scatter.fused_wire
     assert dataclasses.asdict(scatter) == dataclasses.asdict(jscatter)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_lhm_lane_converts_both_ways(compact):
+    """A reference state with the Lifeguard lane (multipliers set) comes
+    across with its ``lhm``, and the port's state goes back through
+    ``interop.state_to_arrays`` to the reference's
+    ``checkpoint.state_from_arrays`` field for field."""
+    jparams = jswim.SwimParams.from_config(
+        fast_config(), n_members=32, n_subjects=4, delivery="shift",
+        lhm_max=8, compact_carry=compact)
+    jworld = jswim.SwimWorld.healthy(jparams)
+    lhm = np.random.default_rng(0).integers(1, 9, 32).astype(np.int32)
+    jstate = dataclasses.replace(jswim.initial_state(jparams, jworld),
+                                 lhm=jax.numpy.asarray(lhm))
+    state = interop.state_from_arrays(checkpoint.state_to_arrays(jstate),
+                                      device="cpu",
+                                      params=port_params(jparams))
+    assert state.lhm.dtype == torch.int32 and state.lhm.tolist() == \
+        lhm.tolist()
+    swim.check_lanes(state, port_params(jparams))
+    arrays = interop.state_to_arrays(state)
+    back = checkpoint.state_from_arrays(
+        {name[len("state/"):]: value for name, value in arrays.items()})
+    for field in dataclasses.fields(jstate):
+        want = np.asarray(getattr(jstate, field.name))
+        got = np.asarray(getattr(back, field.name))
+        assert got.dtype == want.dtype and got.shape == want.shape, field.name
+        np.testing.assert_array_equal(got, want, err_msg=field.name)

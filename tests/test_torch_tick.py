@@ -125,11 +125,8 @@ def test_torch_draws_shapes_and_ranges():
     assert prng.TorchDraws(4, "cpu", params)(11).shifts != d.shifts
 
 
-UNPORTED = [
-    ("sync_interval", 8), ("lhm_max", 4),
-    ("dead_suppress_rounds", 8), ("open_world", True), ("metadata_keys", 2),
-    ("provenance", True),
-]
+UNPORTED = [("open_world", True), ("metadata_keys", 2), ("provenance", True)]
+PLANES = [("sync_interval", 8), ("lhm_max", 4), ("dead_suppress_rounds", 8)]
 
 
 @pytest.mark.parametrize("knob,value", UNPORTED, ids=[k for k, _ in UNPORTED])
@@ -138,6 +135,25 @@ def test_unported_knob_raises_naming_it(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         swim.SwimParams.from_config(fast_config(), n_members=64,
                                     **overrides)
+
+
+@pytest.mark.parametrize("knob,value", PLANES, ids=[k for k, _ in PLANES])
+def test_plane_knob_constructs_and_rejects_a_negative_value(knob, value):
+    """The three ported planes' knobs construct in every tick body and
+    layout, and a negative value raises ``ValueError`` naming the knob,
+    as in the reference."""
+    for overrides in (dict(delivery="shift"), dict(delivery="scatter"),
+                      dict(delivery="shift", k_block=16),
+                      dict(delivery="shift", int16_wire=True),
+                      dict(delivery="shift", compact_carry=True),
+                      dict(delivery="shift", compact_carry=True,
+                           wire24=True)):
+        params = swim.SwimParams.from_config(fast_config(), n_members=64,
+                                             **overrides, **{knob: value})
+        assert getattr(params, knob) == value
+    with pytest.raises(ValueError, match=knob):
+        swim.SwimParams.from_config(fast_config(), n_members=64,
+                                    delivery="shift", **{knob: -1})
 
 
 @pytest.mark.parametrize("n_subjects", [None, 8])

@@ -24,7 +24,7 @@ from scalecube_cluster_tpu_torch.ops.prng import (DrawFacts, RoundDraws,
 
 STATE_FIELDS = ("status", "inc", "spread_until", "suspect_deadline",
                 "self_inc", "inbox_ring", "flag_ring", "g_infected",
-                "g_spread_until", "g_ring")
+                "g_spread_until", "g_ring", "lhm")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -48,9 +48,9 @@ def jax_draws(key, params, world=None):
     fold_in(keys[3], r), collapsed :1687 or delayed :1691; drop draws
     :3770; refute drop :3894; delay bins fold_in(keys[5], 11 + c)
     :3845, fold_in(keys[7], 13) :3901, fold_in(keys[7], 11) :3968; seed
-    anti-entropy fold_in(keys[7], 29) split in three :2583-2620).  Unit
-    exponentials are ``-jnp.log1p(-u)``, as the reference computes
-    them."""
+    anti-entropy fold_in(keys[7], 29) split in three :2583-2620; the
+    planes' draws as :func:`_plane_draws` says).  Unit exponentials are
+    ``-jnp.log1p(-u)``, as the reference computes them."""
     n, r, f = params.n_members, params.ping_req_members, params.fanout
     facts = DrawFacts.of(params, world)
     if facts.delivery == "scatter":
@@ -91,6 +91,7 @@ def jax_draws(key, params, world=None):
                        e_sync=bin_e(keys[7], 11), e_refute=bin_e(keys[7], 13))
         if facts.n_seeds:
             out.update(_seed_draws(keys, n, facts.n_seeds))
+        out.update(_plane_draws(k_shifts, keys, n, facts))
         return out
 
     def draws(round_idx):
@@ -98,6 +99,8 @@ def jax_draws(key, params, world=None):
                for name, value in one(jnp.int32(round_idx)).items()}
         shifts = tuple(int(s) for s in out.pop("shifts"))
         fields = dict(u_direct=None, u_proxy=None)
+        if "ae_offset" in out:
+            fields["ae_offset"] = int(out.pop("ae_offset"))
         fields.update((name, torch.from_numpy(value))
                       for name, value in out.items())
         return RoundDraws(shifts=shifts, **fields)
@@ -122,6 +125,35 @@ def _seed_draws(keys, n, n_seeds):
             jax.random.fold_in(k_ack, si), (n,)) for si in range(n_seeds)]))
 
 
+def _plane_draws(k_shifts, keys, n, facts):
+    """The planes' draws, from the reference's folds.  The anti-entropy
+    offset: ``randint(fold_in(k_shifts, sync._OFFSET_FOLD = 0x53CA), (),
+    1, N)`` (models/sync.py:121, :151-164; ``k_shifts`` is the round's
+    channel key, fold_in(round key, 0x5317), models/swim.py:1920, the
+    scatter tick's ``k_channel`` :2894).  Its drop uniforms under
+    ``fold_in(keys[7], sync._DROP_FOLD = 41)`` (sync.py:122, :167-170):
+    shift, one ``uniform((N,))`` a direction under a further fold_in by
+    the direction, [2, N] (models/swim.py:4008-4009); scatter,
+    ``bernoulli_mask``'s one ``uniform((N, 2))`` (:2903-2905).
+    Lifeguard's probe gate: ``uniform(fold_in(keys[1], lifeguard.
+    _PROBE_GATE_FOLD = 0x11F6), (N,))`` (lifeguard.py:69, :104-107;
+    keys[1] is the tick's ``k_ping_net``)."""
+    out = {}
+    if facts.sync_plane:
+        k_drop = jax.random.fold_in(keys[7], 41)
+        out["ae_offset"] = jax.random.randint(
+            jax.random.fold_in(k_shifts, 0x53CA), (), 1, n, dtype=jnp.int32)
+        if facts.delivery == "shift":
+            out["ae_drop_u"] = jnp.stack([jax.random.uniform(
+                jax.random.fold_in(k_drop, d), (n,)) for d in range(2)])
+        else:
+            out["ae_drop_u"] = jax.random.uniform(k_drop, (n, 2))
+    if facts.lifeguard:
+        out["lhm_gate_u"] = jax.random.uniform(
+            jax.random.fold_in(keys[1], 0x11F6), (n,))
+    return out
+
+
 def _jax_scatter_draws(key, params, facts):
     """The scatter round's draws (models/swim.py:2684-2871, the dispatch
     passing keys[0] as the probe key, :2117-2125): keys[0] the probe
@@ -141,8 +173,8 @@ def _jax_scatter_draws(key, params, facts):
 
     @jax.jit
     def one(round_idx):
-        keys = jax.random.split(
-            jprng.round_key(jprng.round_key(key, round_idx), 0), 8)
+        rk = jprng.round_key(key, round_idx)
+        keys = jax.random.split(jprng.round_key(rk, 0), 8)
         out = dict(proxies=targets(keys[2], r), gossip_t=targets(keys[4], f),
                    gossip_drop_u=jax.random.uniform(keys[5], (n, f)),
                    sync_t=targets(keys[6], 1)[:, 0],
@@ -169,12 +201,18 @@ def _jax_scatter_draws(key, params, facts):
                     jax.random.fold_in(keys[7], 7), (n,))))
         if facts.n_seeds:
             out.update(_seed_draws(keys, n, facts.n_seeds))
+        out.update(_plane_draws(jax.random.fold_in(rk, 0x5317), keys, n,
+                                facts))
         return out
 
     def draws(round_idx):
+        out = {name: np.array(value)
+               for name, value in one(jnp.int32(round_idx)).items()}
+        if "ae_offset" in out:
+            out["ae_offset"] = int(out["ae_offset"])
         return ScatterDraws(**{
-            name: torch.from_numpy(np.array(value))
-            for name, value in one(jnp.int32(round_idx)).items()})
+            name: value if isinstance(value, int) else torch.from_numpy(value)
+            for name, value in out.items()})
 
     return draws
 
