@@ -23,11 +23,19 @@ and prints no result):
    (``planes_*`` and ``block_planes_*`` fields): per-row armed rounds
    from seeded multipliers in [1, 8], a 64-round suppression window, on
    planes with suppressed and unsuppressed tombstones and expiries at the
-   round and one round either side, checked to reach each case.  The
-   merge instances at 1M x 16 are timed on the device clock
-   (:func:`device_ms`), and their wrapper calls on CUDA events too
-   (``events_ms``, ``planes_events_ms``), which at this shape also time
-   the wrapper's host-side checks;
+   round and one round either side, checked to reach each case; then
+   each of the three in its open-world epoch form (``epoch_*``,
+   ``epoch_planes_*``, ``block_epoch_*``, ``block_epoch_planes_*``),
+   plane off and on, at 1M x 16 and in block form, on planes checked to
+   reach a lower-epoch winner, higher-epoch ALIVE, SUSPECT and DEAD
+   winners, a higher-epoch ALIVE over a suppressed tombstone, equal
+   epochs at the format's epoch-reduced incarnation cap, a self cell
+   with a winner of another epoch (no refutation), frozen rows and an
+   epoch change alone.  The merge instances at 1M x 16 are timed on the
+   device clock (:func:`device_ms`), and their wrapper calls on CUDA
+   events too (``events_ms``, ``planes_events_ms``), which at this shape
+   also time the wrapper's host-side checks; the codec's two kernels on
+   both clocks (``device_ms``);
 4. the probe path: ``python -m scalecube_cluster_tpu_torch.mosaic_probe``
    at [512, 128] and at [1,000,000, 16] (each probe once, checked against
    its plain version), then each probe timed at both shapes on the
@@ -47,14 +55,14 @@ and prints no result):
    [3, 5]: the scalar tail runs) and must refuse a 16-byte-misaligned
    input with ``ValueError``.  After each stage the seconds since the
    start and the card's clocks, temperature and power draw are printed;
-5. parity canaries, card against CPU with the same CPU-made draws, 200
+5. parity canaries, card against CPU with the same CPU-made draws, 100
    rounds, state (every lane) and metrics bit-identical, and the card's
    kernel launches one a round for each kernel of the layout.  Shift:
    wide at 4,096 x 16 and full view 512 x 512, compact carry at both,
    int16 wire at 4,096 x 16; the network configuration
    (``profile_round.network_*``: eight link-fault rules, a 50 ms mean
    delay, a 4-slot delay ring, four user gossips; its schedule scaled to
-   200 rounds) at 4,096 x 16 in the wide, int16-wire and compact +
+   100 rounds) at 4,096 x 16 in the wide, int16-wire and compact +
    wire24 layouts; a seeded cold start (seeds 0, 1, 2, node 5 blocked)
    at full view 512 x 512.  Scatter: wide at 4,096 x 16, wide and
    compact carry at full view 512 x 512 (the known-only probe's Gumbel
@@ -67,7 +75,12 @@ and prints no result):
    tick-level planes on (``sync_interval=8``, ``lhm_max=8``,
    ``dead_suppress_rounds=64``) across a partition of rounds 0-63 at
    4,096 x 16 (shift and scatter) and ``k_block=128`` compact at 512 x
-   512, and on the network configuration at 4,096 x 16;
+   512, and on the network configuration at 4,096 x 16; the open-world
+   plane: the churn storm (below) at 4,096 x 16 with its schedule at that
+   size, shift guard and naive arms, scatter guard, ``int16_wire`` and
+   compact + ``wire24``, the network configuration with node 3 rejoining
+   at round 60, and ``k_block=128`` compact at 512 x 512 with node 3
+   rejoining at round 40 and the three planes on;
 6. the main path and the layout identity: LAN defaults, N = 1,000,000
    members x K = 16 subjects, loss 0.02, node 3 crashed at round 10, the
    port's own device draws, 600 rounds through ``models.swim.run`` in the
@@ -79,6 +92,31 @@ and prints no result):
    exactly.  Each layout prints ms/round, member-rounds/s, kernel
    launches per round (a profiled 20-round window) and peak memory (and
    the bytes already allocated when its run began);
+6b. the churn storm at full width, the open-world plane's path: the
+    reference's ``chaos.churn_growth_scenario`` geometry (``bench.py
+    --churn``'s workload) at N = 1,000,000 x K = 16 focal subjects at
+    ``arange(16) * 62,500``, the chaos campaign's config, shift, wide,
+    its pools drawn from the subjects: 3 waves of 2 victims 16 rounds
+    apart, each scared by 6 rounds of inbound loss 1.0 ending 14 rounds
+    before its crash, 3 new identities a wave 10 rounds after its
+    crashes, into 3 pre-dead arrival slots first; a horizon of the last
+    join + ``completeness_bound`` (284) + 24, rounded up to 64; the
+    port's own draws, the monitor's join codes
+    (``chaos/monitor.join_codes``) after the first join's round, every
+    16 rounds on and after the last.  The guard arm, then under
+    ``int16_wire`` and compact + ``wire24`` (each equal to the wide run's
+    per-round metrics, decoded final state and codes), the naive arm
+    (``epoch_guard=False``) on the same world and draws, and the guard
+    arm under scatter delivery.  Gates: each guard arm's
+    ``NO_RESURRECTION`` and ``JOIN_COMPLETENESS`` 0 and every eligible
+    observer holding every joined slot ALIVE at epoch 1 at the end; the
+    naive arm's joined rows burn incarnations (each above 0, the guard's
+    0) and refute more than the guard's.  Prints the codes, the joined
+    rows' incarnations, refutations, ms/round, peak bytes, and a
+    profiled window after the storm and of the last join round.  Then
+    ``bench.py --churn``'s own A/B at its size (N = 48, full view,
+    seeds 3-5), the codes after every round, on the card and on the CPU
+    (card == CPU): guard 0, naive ``NO_RESURRECTION`` above 0;
 7. the network path at full width: the network configuration at N =
    1,000,000 x K = 16 for 600 rounds (node 3 crashed at round 10, a
    brownout from ids [0, 100,000) to the rest over rounds 100-260 at up
@@ -159,11 +197,13 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from scalecube_cluster_tpu_torch import mosaic_probe, profile_round, records
+from scalecube_cluster_tpu_torch.chaos import monitor
 from scalecube_cluster_tpu_torch.config import ClusterConfig
 from scalecube_cluster_tpu_torch.kernels import LAUNCHES, _build
 from scalecube_cluster_tpu_torch.kernels import carry, merge, probes
@@ -200,7 +240,7 @@ PROFILE_FULL_ROUNDS = 5
 BLOCK_CARRY_K = 4_096
 BLOCK_COLS = (0, 1_024, 3_072)
 TIMED_COL0 = 1_024
-CANARY_ROUNDS = 200
+CANARY_ROUNDS = 100
 # The planes' canaries: the anti-entropy exchange every 8 rounds,
 # multipliers up to 8, a 64-round suppression window, across a partition
 # of rounds 0-63.
@@ -244,6 +284,18 @@ CSRC = "scalecube_cluster_tpu_torch/csrc/"
 # = no timer) with expiries at the round and one round either side.
 PLANE_LHM_MAX, PLANE_SUPPRESS = 8, 64
 PLANE_DEADLINES = (None, None, -1, 0, 1, -3, 4, -37)
+# The churn storm (the reference's chaos.churn_growth_scenario geometry,
+# chaos/scenarios.py:996-1100, its pools drawn from the K focal
+# subjects): 3 waves of 2 victims 16 rounds apart, each scared by an
+# inbound blockade of 6 rounds; 3 new identities a wave, 10 rounds after
+# its crashes, into 3 pre-dead arrival slots first; the monitor's join
+# codes every 16 rounds from the first join and after the last round.
+STORM_SEED, STORM_WAVES, STORM_WAVE_SIZE, STORM_JOINS = 3, 3, 2, 3
+STORM_JOIN_LAG, STORM_SCARE, STORM_CHECK_EVERY = 10, 6, 16
+STORM_HORIZON_QUANTUM = 64
+# The network configuration's canary with a join: node 3 (crashed at
+# round 10) rejoins at this round.
+NETWORK_JOIN_AT = 60
 
 
 def log(msg):
@@ -501,57 +553,172 @@ def check_plane_cases(name, planes, got, round_idx=37):
     return held, opened, lengths
 
 
+def epoch_inputs(planes, fmt, cap, seed, device):
+    """The epoch form's inputs on seeded ``merge_planes``: a raw epoch
+    lane and each row's own epoch in [0, 2] (clipped to the field), and
+    the inbox re-packed with epochs at, one below and one above the
+    entry's (pinned) epoch, some winners at the cap.  Returns the new
+    inbox and the kernel's ``epoch`` / ``own_epoch`` arguments."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n, k = planes["status"].shape
+    top = min(2, fmt.epoch_cap())
+
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=device)
+
+    epoch = randint(0, top + 1, (n, k)).to(torch.int32)
+    own = randint(0, top + 1, (n,)).to(torch.int32)
+    is_self = (torch.arange(k, device=device)[None, :]
+               == planes["slot_of_node"][:, None])
+    pinned = torch.where(is_self, own[:, None], epoch)
+    win_ep = torch.clamp(pinned + randint(-1, 2, (n, k)), 0, fmt.epoch_cap())
+    win_status, win_inc = delivery.unpack_record(planes["inbox"], fmt=fmt)
+    win_status = torch.where(planes["inbox"] < 0,
+                             randint(0, 3, (n, k)).to(torch.int8), win_status)
+    win_inc = torch.where(randint(0, 10, (n, k)) == 0, cap,
+                          torch.clamp(win_inc, max=cap))
+    inbox = delivery.pack_record(win_status, win_inc, fmt=fmt, epoch=win_ep,
+                                 epoch_bits=fmt.epoch_bits)
+    inbox = torch.where(randint(0, 100, (n, k)) < 15, -1, inbox)
+    return inbox, dict(epoch=epoch, own_epoch=own)
+
+
+def check_epoch_cases(name, planes, extra, got, fmt, cap, plane_on,
+                      round_idx=37):
+    """Raise unless the epoch-form planes reached every case (a lower-
+    epoch winner, higher-epoch ALIVE, SUSPECT and DEAD winners, equal
+    epochs at the epoch-reduced incarnation cap, a self cell with a
+    winner of another epoch, frozen rows, an epoch change alone, and with
+    the planes on a higher-epoch ALIVE over a suppressed tombstone) and
+    each went as the gate says; returns the cases' counts."""
+    eb = fmt.epoch_bits
+    key, status = planes["inbox"], planes["status"]
+    live = planes["alive_here"][:, None]
+    is_self = (torch.arange(status.shape[1], device=status.device)[None, :]
+               == planes["slot_of_node"][:, None])
+    own = extra["own_epoch"][:, None]
+    entry_ep = torch.where(is_self, own, extra["epoch"])
+    win_status, win_inc = delivery.unpack_record(key, fmt=fmt, epoch_bits=eb)
+    win_ep = delivery.unpack_epoch(key, fmt=fmt, epoch_bits=eb)
+    other = live & ~is_self & (key >= 0)
+    new_status, new_inc, new_ep = got[0], got[1], got[6]
+    higher = other & (win_ep > entry_ep)
+    cases = dict(
+        lower=other & (win_ep < entry_ep),
+        higher_alive=higher & (win_status == records.ALIVE),
+        higher_suspect=higher & (win_status == records.SUSPECT),
+        higher_dead=higher & (win_status == records.DEAD),
+        at_cap=other & (win_ep == entry_ep) & (win_inc == cap),
+        self_other_epoch=live & is_self & (key >= 0) & (win_ep != own)
+        & records.is_overrides_array(win_status, win_inc, records.ALIVE,
+                                     planes["self_inc"][:, None]),
+        frozen=~live.expand_as(status),
+        epoch_only=other & (new_status == status) & (new_inc == planes["inc"])
+        & (new_ep != entry_ep))
+    if plane_on:
+        suppressed = ((status == records.DEAD)
+                      & (planes["suspect_deadline"] != INT32_MAX)
+                      & (round_idx < planes["suspect_deadline"]))
+        cases["alive_over_tombstone"] = cases["higher_alive"] & suppressed
+    counts = {c: int(m.sum()) for c, m in cases.items()}
+    missed = [c for c, count in counts.items() if count == 0]
+    wrong = []
+    if bool((new_ep[cases["lower"]] != entry_ep[cases["lower"]]).any()):
+        wrong.append("a lower-epoch winner was taken")
+    if bool((new_ep[cases["higher_alive"]]
+             != win_ep[cases["higher_alive"]]).any()):
+        wrong.append("a higher-epoch ALIVE winner was refused")
+    refused = cases["higher_suspect"] | cases["higher_dead"]
+    if bool((new_ep[refused] != entry_ep[refused]).any()):
+        wrong.append("a higher-epoch SUSPECT or DEAD winner was taken")
+    if bool(got[5][cases["self_other_epoch"].any(dim=1)].any()):
+        wrong.append("a self cell refuted a winner of another epoch")
+    if bool((new_ep[cases["frozen"]] != entry_ep[cases["frozen"]]).any()):
+        wrong.append("a frozen row changed its epochs")
+    if bool((new_ep[is_self] != own.expand_as(status)[is_self]).any()):
+        wrong.append("a self cell left its own epoch")
+    if plane_on and bool((new_status[cases["alive_over_tombstone"]]
+                          != records.ALIVE).any()):
+        wrong.append("a suppressed tombstone held against a new identity")
+    if missed or wrong:
+        raise AssertionError(f"{name}: epoch planes missed {missed}; "
+                             f"{wrong}")
+    return counts
+
+
 def check_merge_kernel(device, layout):
     """Phase 3: one merge instance vs its plain version at 1M x 16, plane
-    off, then with both plane branches (``planes_*`` fields)."""
-    params = profile_round.bench_params(layout, MAIN_N, MAIN_K)
-    fmt, cap = params.wire_format, swim._wire_inc_sat(params)
-    name = merge.NAMES[fmt.name]
+    off, then with both plane branches (``planes_*`` fields); then the
+    epoch form, plane off and on (``epoch_*``, ``epoch_planes_*``)."""
     row = {}
-    for plane_on in (False, True):
-        planes = merge_planes(MAIN_N, MAIN_K, seed=1 + 4 * plane_on,
-                              device=device, fmt=fmt, cap=cap,
-                              deadlines=PLANE_DEADLINES if plane_on else None)
-        if planes["inbox"].dtype != fmt.dtype:
-            raise AssertionError(f"{fmt.name} planes carry a "
-                                 f"{planes['inbox'].dtype} inbox")
-        args = list(planes.values()) + [37, params.suspicion_rounds,
-                                        params.periods_to_spread, cap]
-        extra = (plane_arguments(planes, params, 6, device) if plane_on
-                 else {})
-        got = merge.merge_and_timers(*args, fmt=fmt, **extra)
-        torch.cuda.synchronize()
-        want = merge.merge_and_timers_reference(*args, fmt=fmt, **extra)
-        err = max_abs_err(name, got, want)
-        if not bool(got[5].any()):
-            raise AssertionError(f"{name}: planes missed the refutation case")
-        if int(got[4].max()) != cap:
-            raise AssertionError(f"{name}: no self_inc at the cap {cap}")
-        label = f"{name} {MAIN_N}x{MAIN_K} (inbox {fmt.dtype}, cap {cap})"
-        if plane_on:
-            cases = check_plane_cases(name, planes, got)
-            label += (f" planes on (held {cases[0]}, opened {cases[1]}, "
-                      f"{cases[2]} armed lengths)")
-        def kernel():
-            return merge.merge_and_timers(*args, fmt=fmt, **extra)
+    for epoch_form in (False, True):
+        params = profile_round.bench_params(layout, MAIN_N, MAIN_K,
+                                            open_world=epoch_form)
+        fmt, cap = params.wire_format, swim._wire_inc_sat(params)
+        name = merge.NAMES[fmt.name]
+        for plane_on in (False, True):
+            planes = merge_planes(
+                MAIN_N, MAIN_K, seed=1 + 4 * plane_on + 8 * epoch_form,
+                device=device, fmt=fmt, cap=cap,
+                deadlines=PLANE_DEADLINES if plane_on else None)
+            if planes["inbox"].dtype != fmt.dtype:
+                raise AssertionError(f"{fmt.name} planes carry a "
+                                     f"{planes['inbox'].dtype} inbox")
+            extra = (plane_arguments(planes, params, 6, device) if plane_on
+                     else {})
+            if epoch_form:
+                planes["inbox"], epochs = epoch_inputs(planes, fmt, cap, 9,
+                                                       device)
+                extra.update(epochs)
+            args = list(planes.values()) + [37, params.suspicion_rounds,
+                                            params.periods_to_spread, cap]
+            got = merge.merge_and_timers(*args, fmt=fmt, **extra)
+            torch.cuda.synchronize()
+            want = merge.merge_and_timers_reference(*args, fmt=fmt, **extra)
+            err = max_abs_err(name, got, want)
+            if not bool(got[5].any()):
+                raise AssertionError(f"{name}: planes missed the refutation "
+                                     f"case")
+            if int(got[4].max()) != cap:
+                raise AssertionError(f"{name}: no self_inc at the cap {cap}")
+            label = f"{name} {MAIN_N}x{MAIN_K} (inbox {fmt.dtype}, cap {cap})"
+            if plane_on:
+                cases = check_plane_cases(name, planes, got)
+                label += (f" planes on (held {cases[0]}, opened {cases[1]}, "
+                          f"{cases[2]} armed lengths)")
+            if epoch_form:
+                cases = check_epoch_cases(name, planes, extra, got, fmt, cap,
+                                          plane_on)
+                label += f" epoch form ({fmt.epoch_bits} bits, cases {cases})"
 
-        timed = timed_row(
-            label, kernel,
-            lambda: merge.merge_and_timers_reference(*args, fmt=fmt,
-                                                     **extra),
-            list(planes.values()) + list(extra.values())[:1] + list(got),
-            "merge", MAIN_N * MAIN_K, err, clock="device")
-        # CUDA events around back-to-back wrapper calls, the clock of the
-        # earlier rows: at this shape they time the wrapper's host-side
-        # checks as much as the kernel.
-        events_ms = time_ms(kernel)
-        log(f"[kernel] {name} {MAIN_N}x{MAIN_K}{' planes on' * plane_on}: "
-            f"{events_ms:.4f} ms a wrapper call on CUDA events")
-        if plane_on:
-            row.update(prefixed(timed, "planes_"), planes_events_ms=events_ms)
-        else:
-            row.update(timed, events_ms=events_ms)
+            def kernel():
+                return merge.merge_and_timers(*args, fmt=fmt, **extra)
+
+            timed = timed_row(
+                label, kernel,
+                lambda: merge.merge_and_timers_reference(*args, fmt=fmt,
+                                                         **extra),
+                list(planes.values()) + tensors_of(extra) + list(got),
+                "merge", MAIN_N * MAIN_K, err, clock="device")
+            prefix = "epoch_" * epoch_form + "planes_" * plane_on
+            row.update(prefixed(timed, prefix) if prefix else timed)
+            if epoch_form:
+                continue
+            # CUDA events around back-to-back wrapper calls, the clock of
+            # the earlier rows: at this shape they time the wrapper's
+            # host-side checks as much as the kernel.
+            events_ms = time_ms(kernel)
+            log(f"[kernel] {name} {MAIN_N}x{MAIN_K}"
+                f"{' planes on' * plane_on}: {events_ms:.4f} ms a wrapper "
+                f"call on CUDA events")
+            row[f"{prefix}events_ms"] = events_ms
     return row
+
+
+def tensors_of(extra):
+    """The tensors among a merge call's keyword arguments (their bytes
+    count toward the bound)."""
+    return [v for v in extra.values() if isinstance(v, torch.Tensor)]
 
 
 def codec_planes(shape, g, device, round_idx, inc_sat):
@@ -611,6 +778,11 @@ def check_codec(device, round_idx=300, inc_sat=8191):
             f"{name} {MAIN_N}x{MAIN_K}", lambda: fn(*ins, *extra),
             lambda: ref(*ins, *extra), list(ins) + list(got), name,
             MAIN_N * MAIN_K, err)
+        # The device clock too: CUDA events around back-to-back wrapper
+        # calls also time the wrapper's host-side checks.
+        rows[name]["device_ms"] = device_ms(lambda: fn(*ins, *extra))
+        log(f"[kernel] {name} {MAIN_N}x{MAIN_K}: "
+            f"{rows[name]['device_ms']:.4f} ms on the device clock")
     return rows
 
 
@@ -640,60 +812,77 @@ def check_block_merge(device, layout):
     strided views and written through ``out`` views into sentinel-filled
     planes, exact against the plain version on the same views, every
     column outside the block untouched; timed at one block (row stride
-    4,096); plane off, then with both plane branches."""
-    params = profile_round.bench_params(layout, FULL_N, BLOCK_CARRY_K)
-    fmt, cap = params.wire_format, swim._wire_inc_sat(params)
-    name = merge.NAMES[fmt.name]
+    4,096); plane off, then with both plane branches, each in the
+    epoch-free and the epoch form."""
     fields = {}
-    for plane_on in (False, True):
-        planes = merge_planes(FULL_N, BLOCK_CARRY_K, seed=3 + 4 * plane_on,
-                              device=device, fmt=fmt, cap=cap,
-                              deadlines=PLANE_DEADLINES if plane_on else None)
-        extra = (plane_arguments(planes, params, 7, device) if plane_on
-                 else {})
-        planes = list(planes.values())
-        grids, vectors = planes[:6], planes[6:]
-        scalars = (37, params.suspicion_rounds, params.periods_to_spread, cap)
-        targets = [torch.full((FULL_N, BLOCK_CARRY_K), -7, dtype=p.dtype,
-                              device=device) for p in grids[:4]]
-        refuted = 0
-        for col0 in BLOCK_COLS:
-            blk = slice(col0, col0 + FULL_KB)
-            views = [p[:, blk] for p in grids]
-            outs = [t[:, blk] for t in targets]
+    for epoch_form in (False, True):
+        params = profile_round.bench_params(layout, FULL_N, BLOCK_CARRY_K,
+                                            open_world=epoch_form)
+        fmt, cap = params.wire_format, swim._wire_inc_sat(params)
+        name = merge.NAMES[fmt.name]
+        for plane_on in (False, True):
+            planes = merge_planes(
+                FULL_N, BLOCK_CARRY_K, seed=3 + 4 * plane_on + 8 * epoch_form,
+                device=device, fmt=fmt, cap=cap,
+                deadlines=PLANE_DEADLINES if plane_on else None)
+            extra = (plane_arguments(planes, params, 7, device) if plane_on
+                     else {})
+            epochs = {}
+            if epoch_form:
+                planes["inbox"], epochs = epoch_inputs(planes, fmt, cap, 10,
+                                                       device)
+            planes = list(planes.values())
+            grids, vectors = planes[:6], planes[6:]
+            scalars = (37, params.suspicion_rounds, params.periods_to_spread,
+                       cap)
+            lanes = grids[:4] + ([epochs["epoch"]] if epoch_form else [])
+            targets = [torch.full((FULL_N, BLOCK_CARRY_K), -7, dtype=p.dtype,
+                                  device=device) for p in lanes]
+            refuted = 0
+            for col0 in BLOCK_COLS:
+                blk = slice(col0, col0 + FULL_KB)
+                views = [p[:, blk] for p in grids]
+                outs = [t[:, blk] for t in targets]
+                block_extra = dict(extra)
+                if epoch_form:
+                    block_extra.update(epoch=epochs["epoch"][:, blk],
+                                       own_epoch=epochs["own_epoch"])
 
-            def kernel():
-                return merge.merge_and_timers(*views, *vectors, *scalars,
-                                              fmt=fmt, col0=col0, out=outs,
-                                              **extra)
+                def kernel():
+                    return merge.merge_and_timers(
+                        *views, *vectors, *scalars, fmt=fmt, col0=col0,
+                        out=outs, **block_extra)
 
-            def plain():
-                return merge.merge_and_timers_reference(
-                    *views, *vectors, *scalars, fmt=fmt, col0=col0, **extra)
+                def plain():
+                    return merge.merge_and_timers_reference(
+                        *views, *vectors, *scalars, fmt=fmt, col0=col0,
+                        **block_extra)
 
-            got = kernel()
-            torch.cuda.synchronize()
-            label = f"{name} block at column {col0}" + (
-                " planes on" if plane_on else "")
-            err = max_abs_err(label, got, plain())
-            untouched(label, targets, blk, -7)
-            refuted += int(got[5].sum())
-            if col0 == TIMED_COL0:
-                row = timed_row(
-                    f"{label}, {FULL_N}x{FULL_KB}, row stride "
-                    f"{BLOCK_CARRY_K}", kernel, plain,
-                    views + vectors + list(extra.values())[:1] + list(got),
-                    "merge", FULL_N * FULL_KB, err)
-            for t in targets:
-                t.fill_(-7)
-        if refuted == 0:
-            raise AssertionError(f"{name}: the blocks missed the refutation "
-                                 f"case")
-        log(f"[kernel] {name} block form{' planes on' * plane_on}: exact at "
-            f"columns {list(BLOCK_COLS)} of [{FULL_N}, {BLOCK_CARRY_K}], "
-            f"other columns untouched, {refuted} refutations")
-        fields.update(prefixed(row, "block_planes_" if plane_on
-                               else "block_"))
+                got = kernel()
+                torch.cuda.synchronize()
+                label = (f"{name} block at column {col0}"
+                         + " planes on" * plane_on
+                         + " epoch form" * epoch_form)
+                err = max_abs_err(label, got, plain())
+                untouched(label, targets, blk, -7)
+                refuted += int(got[5].sum())
+                if col0 == TIMED_COL0:
+                    row = timed_row(
+                        f"{label}, {FULL_N}x{FULL_KB}, row stride "
+                        f"{BLOCK_CARRY_K}", kernel, plain,
+                        views + vectors + tensors_of(block_extra) + list(got),
+                        "merge", FULL_N * FULL_KB, err)
+                for t in targets:
+                    t.fill_(-7)
+            if refuted == 0:
+                raise AssertionError(f"{name}: the blocks missed the "
+                                     f"refutation case")
+            log(f"[kernel] {name} block form{' planes on' * plane_on}"
+                f"{' epoch form' * epoch_form}: exact at columns "
+                f"{list(BLOCK_COLS)} of [{FULL_N}, {BLOCK_CARRY_K}], other "
+                f"columns untouched, {refuted} refutations")
+            fields.update(prefixed(row, "block_" + "epoch_" * epoch_form
+                                   + "planes_" * plane_on))
     return fields
 
 
@@ -935,6 +1124,29 @@ def canaries(device):
            profile_round.network_params("wide", 4096, 16, **CANARY_PLANES),
            functools.partial(profile_round.network_world,
                              rounds=CANARY_ROUNDS))
+    # The open-world plane: the churn storm at 4,096 x 16 (its schedule at
+    # this size), both arms, scatter and the narrow layouts; the network
+    # configuration with node 3 rejoining; k_block compact with a join and
+    # the three planes on.
+    for label, layout, delivery, guard in (
+            ("storm", "wide", "shift", True),
+            ("storm naive", "wide", "shift", False),
+            ("scatter storm", "wide", "scatter", True),
+            ("storm int16_wire", "int16_wire", "shift", True),
+            ("storm compact_wire24", "compact_wire24", "shift", True)):
+        canary(device, label, layout,
+               storm_params(4096, 16, layout, delivery, guard),
+               storm_world_of)
+    canary(device, "network wide join", "wide",
+           profile_round.network_params("wide", 4096, 16, open_world=True),
+           lambda params, dev: profile_round.network_world(
+               params, dev, rounds=CANARY_ROUNDS).with_join(
+                   CRASHED, NETWORK_JOIN_AT))
+    canary(device, "k_block=128 compact planes join", "compact",
+           profile_round.bench_params("compact", 512, 512, k_block=128,
+                                      open_world=True, **CANARY_PLANES),
+           lambda params, dev: split_world(crash_world)(params, dev)
+           .with_join(CRASHED, CANARY_SPLIT - 24))
 
 
 def split_world(make_world, split=CANARY_SPLIT):
@@ -1014,7 +1226,7 @@ def run_layout(device, layout, delivery="shift"):
         f"{int(metrics['false_positives'].sum())}, refutations "
         f"{int(metrics['refutations'].sum())}")
     return params, state, metrics, launches, dict(
-        first_suspect=first_suspect, dead_share=dead_share)
+        first_suspect=first_suspect, dead_share=dead_share, window=window)
 
 
 def decoded(state, params):
@@ -1593,13 +1805,352 @@ def capacity_path(device):
     return launches
 
 
+def storm_params(n, k, layout="wide", delivery="shift", guard=True):
+    """The storm's params: the chaos campaign's config with the open-world
+    plane on (``epoch_guard=False``: the naive-reuse arm), loss 0."""
+    return swim.SwimParams.from_config(
+        campaign_config(), n_members=n, n_subjects=k, delivery=delivery,
+        open_world=True, epoch_guard=guard, **LAYOUTS[layout])
+
+
+def storm_world(params, device, seed=STORM_SEED):
+    """The churn storm's world, the reference's ``churn_growth_scenario``
+    geometry with its pools drawn from the K focal subjects (spread over
+    the ids): waves of victims, each scared first (inbound loss 1.0 for
+    6 rounds, ending 14 rounds before its crash, so it dies at
+    incarnation >= 1), new identities joining mid-suspicion into the
+    free slots in FIFO order (the pre-dead arrivals first).  Returns
+    ``(world, horizon, disruption_end, joins)`` with the horizon the
+    last join + ``completeness_bound`` + 24, rounded up to 64, and
+    ``joins`` the (slot, round) schedule."""
+    n, k = params.n_members, params.n_subjects
+    subjects = [c * (n // k) for c in range(k)]
+    world = swim.SwimWorld.healthy(
+        params, subject_ids=torch.tensor(subjects, dtype=torch.int32),
+        device=device)
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 0x10E6]))
+    pool = [subjects[int(i)] for i in rng.permutation(k)]
+    n_pool = STORM_WAVES * STORM_WAVE_SIZE
+    nodes = pool[:n_pool]
+    arrivals = pool[n_pool:n_pool + STORM_WAVES * (STORM_JOINS
+                                                  - STORM_WAVE_SIZE)]
+    wave_every = max(STORM_JOIN_LAG + 2, 16)
+    scare_gap = min(params.suspicion_rounds - STORM_SCARE - 2, 14)
+    scare_lead = STORM_SCARE + max(scare_gap, 6)
+    start = scare_lead + int(rng.integers(4, 11))
+    disruption_end = 0
+    for w in range(STORM_WAVES):
+        at = start + w * wave_every
+        for v in nodes[w * STORM_WAVE_SIZE:(w + 1) * STORM_WAVE_SIZE]:
+            until = at - scare_lead + STORM_SCARE
+            world = world.with_link_fault((0, n), v, 1.0,
+                                          from_round=at - scare_lead,
+                                          until_round=until)
+            disruption_end = max(disruption_end, until)
+    world = world.with_crash(arrivals, 0)
+    free, joins = [(slot, 0) for slot in arrivals], []
+    for w in range(STORM_WAVES):
+        at = start + w * wave_every
+        wave = nodes[w * STORM_WAVE_SIZE:(w + 1) * STORM_WAVE_SIZE]
+        world = world.with_crash(wave, at)
+        free += [(slot, at) for slot in wave]
+        join_at = at + STORM_JOIN_LAG
+        for _ in range(STORM_JOINS):
+            if not free or free[0][1] >= join_at:
+                raise AssertionError(f"storm wave {w} cannot fill its joins")
+            joins.append((free.pop(0)[0], join_at))
+    for slot, at in joins:
+        world = world.with_join(slot, at)
+    last_join = max(at for _, at in joins)
+    horizon = -(-(last_join + monitor.completeness_bound(params, n) + 24)
+                // STORM_HORIZON_QUANTUM) * STORM_HORIZON_QUANTUM
+    return world, horizon, disruption_end, joins
+
+
+def storm_world_of(params, device):
+    """``storm_world``'s world alone (the canaries' ``make_world``)."""
+    return storm_world(params, device)[0]
+
+
+def joined_unknown(state, world, joins, round_idx):
+    """Eligible observer cells (alive at ``round_idx``, continuously since
+    the join, not the slot itself) that do not hold a joined slot ALIVE
+    at epoch 1 after round ``round_idx``."""
+    alive = world.alive_at(round_idx)
+    missing = 0
+    for slot, at in joins:
+        col = int(world.slot_of_node[slot])
+        eligible = alive & ~((world.down_from <= round_idx)
+                             & (world.down_until > at))
+        eligible[slot] = False
+        held = ((state.status[:, col] == records.ALIVE)
+                & (state.epoch[:, col].to(torch.int32) == 1))
+        missing += int((eligible & ~held).sum())
+    return missing
+
+
+def storm_run(device, layout="wide", delivery="shift", guard=True,
+              profile=False, join_round=False):
+    """One arm of the 1M x 16 churn storm, run in segments through
+    ``models.swim.run`` (the port's own draws on the card), with the
+    monitor's join codes after the first join's round, every 16 rounds
+    on, and after the last round.  ``profile``: also a profiled window
+    after the storm; ``join_round``: and of the last join round.  Returns
+    the params, world, final state, metrics, launches and a summary."""
+    params = storm_params(MAIN_N, MAIN_K, layout, delivery, guard)
+    world, horizon, disruption_end, joins = storm_world(params, device)
+    known_by, check = monitor.join_deadlines(params, world, disruption_end)
+    if not check:
+        raise AssertionError("storm: no join is checkable")
+    first_join = min(at for _, at in joins)
+    last_join = max(at for _, at in joins)
+    checks = sorted(set(range(first_join, horizon, STORM_CHECK_EVERY))
+                    | {horizon - 1})
+    stops = sorted({r + 1 for r in checks} | {last_join})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    state, rows, cursor, codes, at_last_join = None, [], 0, {}, None
+    t0 = time.perf_counter()
+    for stop in stops:
+        state, metrics = swim.run(0, params, world, stop - cursor,
+                                  state=state, start_round=cursor,
+                                  device=device)
+        rows.append(metrics)
+        cursor = stop
+        if cursor - 1 in checks:
+            for code, count in monitor.join_codes(state, params, world,
+                                                  known_by,
+                                                  cursor - 1).items():
+                codes[code] = codes.get(code, 0) + int(count)
+        if cursor == last_join and join_round:
+            at_last_join = state
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(f"storm {layout}", params, launches, horizon, layout)
+    metrics = {name: torch.cat([row[name] for row in rows]).cpu()
+               for name in rows[0]}
+    joined = [slot for slot, _ in joins]
+    summary = dict(
+        horizon=horizon, codes=codes, seconds=seconds,
+        ms_round=seconds / horizon * 1e3, peak=peak, joins=joins,
+        joined_self_inc=state.self_inc[joined].tolist(),
+        refutations=int(metrics["refutations"].sum()),
+        unknown=joined_unknown(state, world, joins, horizon - 1)
+        if params.epoch_bits else None)
+    if profile:
+        summary["window"] = profile_round.profile_window(
+            params, world, state, horizon, PROFILE_ROUNDS)
+    if join_round:
+        summary["join_round"] = profile_round.profile_window(
+            params, world, at_last_join, last_join, 1)
+        del at_last_join
+    arm = "guard" if guard else "naive"
+    log(f"[storm] {delivery} {layout} {arm} {MAIN_N}x{MAIN_K}, joins "
+        f"{joins}, horizon {horizon} (deadlines {known_by.unique().tolist()}"
+        f"), {horizon} rounds in {seconds:.3f} s: "
+        f"{summary['ms_round']:.4f} ms/round, peak {peak} B; codes "
+        f"{codes} at rounds {checks}; joined rows' self_inc "
+        f"{summary['joined_self_inc']}, refutations "
+        f"{summary['refutations']}; eligible cells not holding a joined "
+        f"slot ALIVE at epoch 1 at the end: {summary['unknown']}")
+    return params, world, state, metrics, launches, summary
+
+
+def storm_path(device, shift_main):
+    """The new path: the 1M x 16 churn storm.  The guard arm (shift wide,
+    profiled), the naive arm on the same world and draws, the guard arm
+    under ``int16_wire`` and compact + ``wire24`` (each equal to the wide
+    run's decoded states and metrics exactly), and under scatter
+    delivery.  Gates: the guard arms' ``NO_RESURRECTION`` and
+    ``JOIN_COMPLETENESS`` are 0 and every eligible observer holds every
+    joined slot ALIVE at epoch 1 at the end; the naive arm's
+    ``NO_RESURRECTION`` is above 0.  Prints each arm's counts, the joined
+    rows' incarnations and refutations, ms/round, peak bytes, and for
+    the wide guard arm a profiled window after the storm beside the
+    shift wide main path's (``shift_main``) and its last join round."""
+    launches = {}
+
+    def add(counts):
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+
+    def guard_gates(label, summary):
+        codes = summary["codes"]
+        if any(codes.values()) or summary["unknown"]:
+            raise AssertionError(f"storm {label}: codes {codes}, "
+                                 f"{summary['unknown']} eligible cells do "
+                                 f"not hold a joined slot at epoch 1")
+
+    params, world, state, metrics, counts, wide = storm_run(
+        device, profile=True, join_round=True)
+    add(counts)
+    guard_gates("wide", wide)
+    want = {name: value.cpu() for name, value in
+            storm_state(state, params, wide["horizon"]).items()}
+    del state
+    for layout in ("int16_wire", "compact_wire24"):
+        p, _, s, m, counts, summary = storm_run(device, layout)
+        add(counts)
+        guard_gates(layout, summary)
+        for name, value in metrics.items():
+            if not torch.equal(m[name], value):
+                raise AssertionError(f"storm {layout}: metric {name} "
+                                     f"differs from the wide run")
+        for name, value in storm_state(s, p, wide["horizon"]).items():
+            if not torch.equal(value.cpu(), want[name]):
+                raise AssertionError(f"storm {layout}: decoded final {name} "
+                                     f"differs from the wide run")
+        if summary["codes"] != wide["codes"]:
+            raise AssertionError(f"storm {layout}: codes differ")
+        log(f"[identity] storm {layout}: per-round metrics, decoded final "
+            f"state (epoch lane included) and codes equal the wide run's")
+        del s
+    _, _, s, _, counts, naive = storm_run(device, guard=False, profile=True)
+    add(counts)
+    del s
+    # At this width a joiner hears its predecessor's records in its join
+    # round and outbids them at once, so the incarnation forensics find
+    # no ghost at any round (the reference's own per-round monitor counts
+    # none either, at 65,536 x 16 on the CPU): the naive hazard shows as
+    # the joiners' incarnation burn, the reference's second naive pin
+    # (tests/test_open_world.py:384-386).  bench_churn_path holds
+    # NO_RESURRECTION > 0 at the reference's bench size.
+    if (min(naive["joined_self_inc"]) < 1
+            or max(wide["joined_self_inc"]) != 0
+            or naive["refutations"] <= wide["refutations"]):
+        raise AssertionError(
+            f"storm naive: joined rows' self_inc {naive['joined_self_inc']}"
+            f" (guard {wide['joined_self_inc']}), refutations "
+            f"{naive['refutations']} (guard {wide['refutations']}): the "
+            f"epoch-blind arm burns no incarnation")
+    _, _, s, _, counts, scatter = storm_run(device, delivery="scatter")
+    add(counts)
+    guard_gates("scatter", scatter)
+    del s
+    window, join_round = wide["window"], wide["join_round"]
+    main_window, naive_window = shift_main["window"], naive["window"]
+    log(f"[storm] guard / naive: NO_RESURRECTION "
+        f"{wide['codes'][monitor.NO_RESURRECTION]} / "
+        f"{naive['codes'][monitor.NO_RESURRECTION]}, JOIN_COMPLETENESS "
+        f"{wide['codes'][monitor.JOIN_COMPLETENESS]} / "
+        f"{naive['codes'][monitor.JOIN_COMPLETENESS]}; joined rows' self_inc "
+        f"{wide['joined_self_inc']} / {naive['joined_self_inc']}; "
+        f"refutations {wide['refutations']} / {naive['refutations']}; "
+        f"scatter guard {scatter['codes']}, {scatter['ms_round']:.4f} "
+        f"ms/round")
+    log(f"[storm] wide guard, profiled {PROFILE_ROUNDS} rounds from round "
+        f"{wide['horizon']}: device busy "
+        f"{window['device_busy_ms_per_round']:.4f} ms/round (naive arm, no "
+        f"epoch lane, {naive_window['device_busy_ms_per_round']:.4f}; shift "
+        f"wide main path {main_window['device_busy_ms_per_round']:.4f}), "
+        f"{window['kernel_launches_per_round']:.2f} kernel launches/round "
+        f"(naive {naive_window['kernel_launches_per_round']:.2f}, main "
+        f"{main_window['kernel_launches_per_round']:.2f}), wall "
+        f"{window['wall_ms_per_round']:.4f} ms/round, idle share "
+        f"{window['device_idle_share']:.4f}, phases "
+        f"{json.dumps(window['phase_device_ms_per_round'])}, launches "
+        f"{json.dumps(window['phase_launches_per_round'])}; naive phases "
+        f"{json.dumps(naive_window['phase_device_ms_per_round'])}; the last "
+        f"join round ({join_round['start_round']}): busy "
+        f"{join_round['device_busy_ms_per_round']:.4f} ms, "
+        f"{join_round['kernel_launches_per_round']:.0f} launches, wall "
+        f"{join_round['wall_ms_per_round']:.4f} ms, phases "
+        f"{json.dumps(join_round['phase_device_ms_per_round'])}, launches "
+        f"{json.dumps(join_round['phase_launches_per_round'])}, top kernels "
+        f"{json.dumps(join_round['top_kernels'][:8])}")
+    return launches
+
+
+def bench_churn_path(device):
+    """``bench.py --churn``'s own A/B on the card (``bench.py:2911-3090``:
+    N = 48, full view, shift, ``churn_growth_scenario(seed, n=48)`` for
+    seeds 3, 4 and 5, each run with its seed; ``storm_world`` at full
+    view draws its pools from every member, as the reference does), the
+    monitor's join codes after every round, both arms, on the card and
+    on the CPU with the same CPU-made draws.  Gates: card == CPU (every
+    state lane, the codes); the guard arm's codes 0 and every joined
+    slot known at epoch 1 at the end of each scenario; the naive arm's
+    ``NO_RESURRECTION`` summed over the scenarios above 0, the hazard
+    the guard kills (the bench's gate)."""
+    n = 48
+    launches, totals = {}, {}
+    for seed in (STORM_SEED, STORM_SEED + 1, STORM_SEED + 2):
+        for guard in (True, False):
+            params = storm_params(n, n, guard=guard)
+            world_cpu, horizon, disruption_end, joins = storm_world(
+                params, "cpu", seed)
+            draws = prng.TorchDraws(seed, "cpu", params, world_cpu)
+            runs = []
+            for dev in ("cpu", device):
+                world = storm_world(params, dev, seed)[0]
+                known_by, _ = monitor.join_deadlines(params, world,
+                                                     disruption_end)
+                LAUNCHES.clear()
+                state, codes = None, {}
+                for r in range(horizon):
+                    state, _ = swim.run(seed, params, world, 1, state=state,
+                                        start_round=r,
+                                        draws=lambda q: draws(q).to(dev),
+                                        device=dev)
+                    for code, count in monitor.join_codes(
+                            state, params, world, known_by, r).items():
+                        codes[code] = codes.get(code, 0) + int(count)
+                runs.append((state, codes, dict(LAUNCHES), world))
+            (cs, c_codes, _, _), (gs, codes, g_launches, world) = runs
+            label = f"bench churn seed {seed} {'guard' if guard else 'naive'}"
+            for field in dataclasses.fields(swim.SwimState):
+                if not torch.equal(getattr(cs, field.name),
+                                   getattr(gs, field.name).cpu()):
+                    raise AssertionError(f"{label}: state.{field.name} "
+                                         f"differs between card and CPU")
+            if c_codes != codes:
+                raise AssertionError(f"{label}: codes {codes} on the card, "
+                                     f"{c_codes} on the CPU")
+            check_launches(label, params, g_launches, horizon, "wide")
+            for name, count in g_launches.items():
+                launches[name] = launches.get(name, 0) + count
+            arm = totals.setdefault(guard, {})
+            for code, count in codes.items():
+                arm[code] = arm.get(code, 0) + count
+            unknown = (joined_unknown(gs, world, joins, horizon - 1)
+                       if guard else None)
+            if guard and (any(codes.values()) or unknown):
+                raise AssertionError(f"{label}: codes {codes}, {unknown} "
+                                     f"eligible cells do not hold a joined "
+                                     f"slot at epoch 1")
+            log(f"[bench churn] {label}, {n}x{n} shift, joins {joins}, "
+                f"{horizon} rounds: codes after every round {codes} (card "
+                f"== CPU, every state lane); joined rows' self_inc "
+                f"{gs.self_inc[[slot for slot, _ in joins]].tolist()}")
+    if totals[False][monitor.NO_RESURRECTION] == 0:
+        raise AssertionError("bench churn naive: no resurrection counted; "
+                             "the epoch-blind arm shows no hazard")
+    log(f"[bench churn] summed over seeds 3-5: guard {totals[True]}, naive "
+        f"{totals[False]}")
+    return launches
+
+
+def storm_state(state, params, cursor):
+    """The storm's final state as absolute int32 planes (``decoded``'s
+    rule at ``cursor``) with the epoch lane."""
+    deadline, spread = swim._wide_timer_fields(state, params, cursor)
+    return dict(status=state.status, inc=state.inc.to(torch.int32),
+                spread_until=torch.clamp(spread, min=cursor),
+                suspect_deadline=deadline, self_inc=state.self_inc,
+                epoch=state.epoch.to(torch.int32))
+
+
 def merge_ab(device, baseline):
-    """``--merge-baseline PATH``: the plane-off merge at 1M x 16 against
-    an earlier ``merge_timers.cu`` at ``PATH`` (the entry points before
-    the plane arguments: no ``armed_rounds``, no window), built with the
-    same flags, on the same planes: exact, then timed in turns (earlier,
-    this, this, earlier) on the device clock (:func:`device_ms`), each
-    side launched through its bare entry point, for each instance."""
+    """``--merge-baseline PATH``: the plane-off, epoch-free merge at 1M x
+    16 against an earlier ``merge_timers.cu`` at ``PATH`` (PR 8's entry
+    points: the armed rounds but no epoch arguments, ten row strides),
+    built with the same flags, on the same planes: exact, then timed in
+    turns (earlier, this, this, earlier) on the device clock
+    (:func:`device_ms`), each side launched through its bare entry
+    point, for each instance."""
     out = _build.BUILD_DIR / "libmerge_timers_baseline.so"
     _build.BUILD_DIR.mkdir(exist_ok=True)
     subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
@@ -1617,27 +2168,31 @@ def merge_ab(device, baseline):
         strides = merge._check(fmt, planes[:6], outs[:4], *planes[6:], None)
         fn = getattr(lib, "merge_and_timers_launch" if fmt.name == "wide"
                      else f"merge_and_timers_{fmt.name}_launch")
-        fn.argtypes = ([ctypes.c_void_p] * 15
+        fn.argtypes = ([ctypes.c_void_p] * 16
                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                           ctypes.POINTER(ctypes.c_longlong)]
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        ptrs = [t.data_ptr() for t in planes + outs]
-        stride_arr = (ctypes.c_longlong * 10)(*strides)
+        earlier_ptrs = ([t.data_ptr() for t in planes] + [None]
+                        + [t.data_ptr() for t in outs])
+        earlier_strides = (ctypes.c_longlong * 10)(*strides[:10])
 
         def earlier():
-            err = fn(*ptrs, MAIN_N, MAIN_K, 0, stride_arr, *scalars,
+            err = fn(*earlier_ptrs, MAIN_N, MAIN_K, 0, earlier_strides,
+                     *scalars, 0,
                      torch.cuda.current_stream(device).cuda_stream)
             if err:
                 raise RuntimeError(f"baseline launch failed: {err}")
 
         this_fn = merge._launcher(fmt.name)
-        this_ptrs = ([t.data_ptr() for t in planes] + [None]
-                     + [t.data_ptr() for t in outs])
+        this_ptrs = ([t.data_ptr() for t in planes] + [None, None, None]
+                     + [t.data_ptr() for t in outs] + [None])
+        this_strides = (ctypes.c_longlong * 12)(*strides)
 
         def this():
-            err = this_fn(*this_ptrs, MAIN_N, MAIN_K, 0, stride_arr, *scalars,
-                          0, torch.cuda.current_stream(device).cuda_stream)
+            err = this_fn(*this_ptrs, MAIN_N, MAIN_K, 0, this_strides,
+                          *scalars, 0,
+                          torch.cuda.current_stream(device).cuda_stream)
             if err:
                 raise RuntimeError(f"launch failed: {err}")
 
@@ -1652,7 +2207,8 @@ def merge_ab(device, baseline):
                  (("earlier", earlier), ("this", this), ("this", this),
                   ("earlier", earlier))]
         log(f"[merge A/B] {merge.NAMES[fmt.name]} {MAIN_N}x{MAIN_K}, plane "
-            f"off, same planes and outputs as the baseline at {baseline}: "
+            f"off, epoch-free, same planes and outputs as the baseline at "
+            f"{baseline}: "
             + ", ".join(f"{label} {ms:.4f} ms" for label, ms in turns))
 
 
@@ -1695,6 +2251,9 @@ def main():
     paths = {}
     paths["main"], shift_summary = main_path(device)
     stage("main path", t_start)
+    paths["storm"] = storm_path(device, shift_summary)
+    paths["bench_churn"] = bench_churn_path(device)
+    stage("churn storm", t_start)
     paths["network"], network_summary = network_path(device)
     stage("network path", t_start)
     paths["heal"] = heal_path(device)

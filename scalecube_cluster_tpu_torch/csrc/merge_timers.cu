@@ -9,6 +9,24 @@
 // clamps at inc_sat, and the self cell's `changed` follows the
 // reference's self-cell rule.
 //
+// The open-world epoch form (the reference's merge_inbox epoch branch with
+// the guard on, and the identity checks of _merge_and_timers): every wire
+// key carries an identity epoch in the kEpochBits under the dead bit
+// (ops/delivery.pack_record), the incarnation field shrinks by as much,
+// and the kernel reads the raw [N, K] epoch lane (any row stride) and
+// own_epoch [N], each row's ground-truth epoch, and writes the new lane.
+// It pins the self cell's entry epoch to own_epoch itself, so no pinned
+// [N, K] copy exists.  Per cell: the winner unpacks with the narrowed
+// incarnation mask and its epoch; the same-epoch gate compares the
+// epoch-stripped keys in the wide layout (dead bit 30); a lower-epoch
+// winner drops; a higher-epoch winner is admitted only if ALIVE, over a
+// suppressed tombstone too; the new epoch is the winner's where the cell
+// accepts; an accepted epoch change counts as a change (resets the
+// spread); the self cell refutes only a winner at its own epoch and keeps
+// own_epoch; a frozen row keeps the pinned lane.  A launch without the
+// lane (epoch pointer null) runs the epoch-free form, which holds none of
+// this code.
+//
 // Two plane branches, both off with their default arguments:
 //   armed_rounds (Lifeguard's LHA Suspicion): [N] int32, the rounds to
 //     DEAD each row arms for a new SUSPECT entry; nullptr arms the scalar
@@ -38,7 +56,10 @@
 // (5 B).  At N = 1,000,000, K = 16 that is 297,000,000 B read
 // (265,000,000 B on the int16 wire) + 213,000,000 B written, i.e. 0.152
 // ms (0.143 ms) at the H100's 3.35 TB/s; with armed_rounds 514,000,000 B,
-// 0.153 ms.  The suppression window adds no bytes.  A few dozen integer
+// 0.153 ms.  The suppression window adds no bytes.  The epoch form adds
+// 4 B read and 4 B written a cell and 4 B read a row (own_epoch): 28 + 4
+// B a cell + 18 B a row, 642,000,000 B wide, 0.1916 ms (610,000,000 B,
+// 0.182 ms, on the int16 wire); with armed_rounds 4,000,000 B more.  A few dozen integer
 // operations per cell are far below the card's arithmetic rate.  One
 // [36,864 x 1,024] block of the capacity round moves 29 B a cell on the
 // int16 wire, 0.33 ms.
@@ -60,7 +81,8 @@
 //
 // Block form (the reference's K-tiled capacity round, models/swim.py
 // _tick_shift_blocked): the planes are an [N, Kb] column block starting
-// at column col0 of [N, K] planes.  Each of the ten planes is passed as a
+// at column col0 of [N, K] planes.  Each of the twelve planes (the ten
+// and the epoch lane in and out) is passed as a
 // pointer to its block's first element and its own row stride (in
 // elements), so cell (row, col) is element row * ld + col of that
 // pointer: a carry plane's column view (ld = K), a block's own contiguous
@@ -81,9 +103,10 @@ constexpr int kDead = 2;
 constexpr int kAbsent = 3;
 constexpr int32_t kNoTimer = 2147483647;  // INT32_MAX: no suspicion timer
 
-template <int kDeadBit>
+// The incarnation field's mask: bits 1..kDeadBit-1-kEpochBits.
+template <int kDeadBit, int kEpochBits = 0>
 __host__ __device__ constexpr int32_t inc_mask() {
-  return (int32_t{1} << (kDeadBit - 1)) - 1;
+  return (int32_t{1} << (kDeadBit - 1 - kEpochBits)) - 1;
 }
 
 __device__ __forceinline__ int32_t add_wrap(int32_t a, int32_t b) {
@@ -103,13 +126,16 @@ __device__ __forceinline__ int32_t pack_key(int status, int32_t inc) {
          static_cast<int32_t>(status == kSuspect);
 }
 
-// Row strides, in elements, of the ten [N, Kb] planes.
+// Row strides, in elements, of the twelve [N, Kb] planes.
 struct RowStrides {
   long long status, inc, spread, deadline, inbox, inbox_alive;
   long long status_out, inc_out, spread_out, deadline_out;
+  long long epoch, epoch_out;
 };
 
-template <typename KeyT, int kDeadBit, bool kPlanes>
+// kEpochBits: the epoch form's field width (6 wide, 4 wire24, 2 wire16),
+// 0 for the epoch-free form.
+template <typename KeyT, int kDeadBit, int kEpochBits, bool kPlanes>
 __global__ void merge_and_timers_kernel(
     const int8_t* __restrict__ status, const int32_t* __restrict__ inc,
     const int32_t* __restrict__ spread, const int32_t* __restrict__ deadline,
@@ -117,9 +143,11 @@ __global__ void merge_and_timers_kernel(
     const int32_t* __restrict__ self_inc, const uint8_t* __restrict__ alive_here,
     const int32_t* __restrict__ slot_of_node,
     const int32_t* __restrict__ armed_rounds,
+    const int32_t* __restrict__ epoch, const int32_t* __restrict__ own_epoch,
     int8_t* __restrict__ status_out, int32_t* __restrict__ inc_out,
     int32_t* __restrict__ spread_out, int32_t* __restrict__ deadline_out,
     int32_t* __restrict__ self_inc_out, uint8_t* __restrict__ refuted_out,
+    int32_t* __restrict__ epoch_out,
     long long n, int kb, int col0, RowStrides ld, int32_t round_idx,
     int32_t suspicion_rounds, int32_t periods_to_spread, int32_t inc_sat,
     int32_t dead_suppress_rounds) {
@@ -141,9 +169,20 @@ __global__ void merge_and_timers_kernel(
   // Unpack the round's folded winner key; keys < 0 are "no message".
   int win_status = kAbsent;
   int32_t win_inc = 0;
+  int32_t win_ep = 0;
   if (key >= 0) {
     win_status = ((key >> kDeadBit) & 1) ? kDead : ((key & 1) ? kSuspect : kAlive);
-    win_inc = (key >> 1) & inc_mask<kDeadBit>();
+    win_inc = (key >> 1) & inc_mask<kDeadBit, kEpochBits>();
+    if (kEpochBits > 0) {
+      win_ep = (key >> (kDeadBit - kEpochBits)) & ((1 << kEpochBits) - 1);
+    }
+  }
+  // The entry's epoch, pinned: the self cell holds the row's own epoch.
+  int32_t entry_ep = 0;
+  int32_t my_ep = 0;
+  if (kEpochBits > 0) {
+    my_ep = own_epoch[row];
+    entry_ep = is_self ? my_ep : epoch[row * ld.epoch + col];
   }
 
   // merge_inbox: a stored DEAD gates like ABSENT; ABSENT opens only for
@@ -152,15 +191,34 @@ __global__ void merge_and_timers_kernel(
   const bool suppress_on = kPlanes && dead_suppress_rounds > 0;
   const bool suppress = suppress_on && st == kDead && dl_old != kNoTimer &&
                         round_idx < dl_old;
+  // The epoch form compares the epoch-stripped keys in the wide layout,
+  // then drops a lower-epoch winner and admits a higher-epoch one only if
+  // it is ALIVE.
   const int gate = st == kDead ? kAbsent : st;
-  bool accepts = gate == kAbsent
-                     ? (inbox_alive[row * ld.inbox_alive + col] != 0 &&
-                        key >= 0)
-                     : key > pack_key<kDeadBit>(gate, in);
-  if (suppress) accepts = key > pack_key<kDeadBit>(kDead, in);
+  bool accepts;
+  if (kEpochBits > 0) {
+    const int32_t win_key0 = pack_key<30>(win_status, win_inc);
+    accepts = gate == kAbsent
+                  ? (inbox_alive[row * ld.inbox_alive + col] != 0 &&
+                     key >= 0)
+                  : win_key0 > pack_key<30>(gate, in);
+    if (suppress) accepts = win_key0 > pack_key<30>(kDead, in);
+    if (win_ep > entry_ep) {
+      accepts = win_status == kAlive;
+    } else if (win_ep < entry_ep) {
+      accepts = false;
+    }
+  } else {
+    accepts = gate == kAbsent
+                  ? (inbox_alive[row * ld.inbox_alive + col] != 0 &&
+                     key >= 0)
+                  : key > pack_key<kDeadBit>(gate, in);
+    if (suppress) accepts = key > pack_key<kDeadBit>(kDead, in);
+  }
   int ns = accepts ? win_status : st;
   int32_t ni = accepts ? win_inc : in;
-  bool changed = accepts && (ns != st || ni != in);
+  int32_t ne = accepts ? win_ep : entry_ep;
+  bool changed = accepts && (ns != st || ni != in || ne != entry_ep);
 
   // Self-refutation: is_overrides(winner, ALIVE@self_inc) on the self cell.
   bool self_ov = false;
@@ -171,12 +229,15 @@ __global__ void merge_and_timers_kernel(
     } else if (win_status != kAbsent) {
       self_ov = win_inc == my_inc ? win_status == kSuspect : win_inc > my_inc;
     }
+    // A record about this slot at another epoch is not about this member.
+    if (kEpochBits > 0 && win_ep != my_ep) self_ov = false;
     const int32_t row_max = self_ov ? win_inc : 0;
     int32_t bumped = add_wrap(my_inc > row_max ? my_inc : row_max, 1);
     bumped = bumped < inc_sat ? bumped : inc_sat;
     if (self_ov && alive) new_self = bumped;
     ns = kAlive;
     ni = new_self;
+    ne = my_ep;
     changed = self_ov && alive;
   }
 
@@ -207,11 +268,13 @@ __global__ void merge_and_timers_kernel(
   if (!alive) {
     ns = st;
     ni = in;
+    ne = entry_ep;
     dl = dl_old;
     changed = false;
   }
 
   status_out[row * ld.status_out + col] = static_cast<int8_t>(ns);
+  if (kEpochBits > 0) epoch_out[row * ld.epoch_out + col] = ne;
   inc_out[row * ld.inc_out + col] = ni;
   deadline_out[row * ld.deadline_out + col] = dl;
   spread_out[row * ld.spread_out + col] =
@@ -226,31 +289,20 @@ __global__ void merge_and_timers_kernel(
   }
 }
 
-template <typename KeyT, int kDeadBit>
-int launch(const void* status, const void* inc, const void* spread,
-           const void* deadline, const void* inbox, const void* inbox_alive,
-           const void* self_inc, const void* alive_here,
-           const void* slot_of_node, const void* armed_rounds,
-           void* status_out, void* inc_out, void* spread_out,
-           void* deadline_out, void* self_inc_out, void* refuted_out,
-           long long n, int kb, int col0, const long long* row_strides,
-           int round_idx, int suspicion_rounds, int periods_to_spread,
-           int inc_sat, int dead_suppress_rounds, void* stream) {
-  if (n == 0 || kb == 0) return static_cast<int>(cudaSuccess);
-  const long long* r = row_strides;
-  const RowStrides ld{r[0], r[1], r[2], r[3], r[4], r[5],
-                      r[6], r[7], r[8], r[9]};
-  constexpr int kThreads = 256;
-  int tx = 1;
-  while (tx < kb && tx < kThreads) tx *= 2;
-  const int ty = kThreads / tx;
-  const dim3 block(tx, ty);
-  const dim3 grid(static_cast<unsigned int>((n + ty - 1) / ty),
-                  static_cast<unsigned int>((kb + tx - 1) / tx));
-  const bool planes = armed_rounds != nullptr || dead_suppress_rounds > 0;
-  const auto kernel = planes ? merge_and_timers_kernel<KeyT, kDeadBit, true>
-                             : merge_and_timers_kernel<KeyT, kDeadBit, false>;
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+template <typename KeyT, int kDeadBit, int kEpochBits, bool kPlanes>
+void start(dim3 grid, dim3 block, cudaStream_t stream, const void* status,
+           const void* inc, const void* spread, const void* deadline,
+           const void* inbox, const void* inbox_alive, const void* self_inc,
+           const void* alive_here, const void* slot_of_node,
+           const void* armed_rounds, const void* epoch,
+           const void* own_epoch, void* status_out, void* inc_out,
+           void* spread_out, void* deadline_out, void* self_inc_out,
+           void* refuted_out, void* epoch_out, long long n, int kb,
+           int col0, const RowStrides& ld, int round_idx,
+           int suspicion_rounds, int periods_to_spread, int inc_sat,
+           int dead_suppress_rounds) {
+  merge_and_timers_kernel<KeyT, kDeadBit, kEpochBits, kPlanes>
+      <<<grid, block, 0, stream>>>(
           static_cast<const int8_t*>(status), static_cast<const int32_t*>(inc),
           static_cast<const int32_t*>(spread),
           static_cast<const int32_t*>(deadline),
@@ -260,41 +312,87 @@ int launch(const void* status, const void* inc, const void* spread,
           static_cast<const uint8_t*>(alive_here),
           static_cast<const int32_t*>(slot_of_node),
           static_cast<const int32_t*>(armed_rounds),
+          static_cast<const int32_t*>(epoch),
+          static_cast<const int32_t*>(own_epoch),
           static_cast<int8_t*>(status_out), static_cast<int32_t*>(inc_out),
           static_cast<int32_t*>(spread_out),
           static_cast<int32_t*>(deadline_out),
           static_cast<int32_t*>(self_inc_out),
-          static_cast<uint8_t*>(refuted_out), n, kb, col0, ld, round_idx,
+          static_cast<uint8_t*>(refuted_out),
+          static_cast<int32_t*>(epoch_out), n, kb, col0, ld, round_idx,
           suspicion_rounds, periods_to_spread, inc_sat, dead_suppress_rounds);
+}
+
+template <typename KeyT, int kDeadBit, int kEpochBits>
+int launch(const void* status, const void* inc, const void* spread,
+           const void* deadline, const void* inbox, const void* inbox_alive,
+           const void* self_inc, const void* alive_here,
+           const void* slot_of_node, const void* armed_rounds,
+           const void* epoch, const void* own_epoch,
+           void* status_out, void* inc_out, void* spread_out,
+           void* deadline_out, void* self_inc_out, void* refuted_out,
+           void* epoch_out, long long n, int kb, int col0,
+           const long long* row_strides, int round_idx,
+           int suspicion_rounds, int periods_to_spread, int inc_sat,
+           int dead_suppress_rounds, void* stream) {
+  if (n == 0 || kb == 0) return static_cast<int>(cudaSuccess);
+  const long long* r = row_strides;
+  const RowStrides ld{r[0], r[1], r[2], r[3], r[4],  r[5],
+                      r[6], r[7], r[8], r[9], r[10], r[11]};
+  constexpr int kThreads = 256;
+  int tx = 1;
+  while (tx < kb && tx < kThreads) tx *= 2;
+  const int ty = kThreads / tx;
+  const dim3 block(tx, ty);
+  const dim3 grid(static_cast<unsigned int>((n + ty - 1) / ty),
+                  static_cast<unsigned int>((kb + tx - 1) / tx));
+  const bool planes = armed_rounds != nullptr || dead_suppress_rounds > 0;
+  const bool epochs = epoch != nullptr;
+  const auto s = static_cast<cudaStream_t>(stream);
+#define MERGE_START(EPOCH_BITS, PLANES)                                       \
+  start<KeyT, kDeadBit, EPOCH_BITS, PLANES>(                                  \
+      grid, block, s, status, inc, spread, deadline, inbox, inbox_alive,      \
+      self_inc, alive_here, slot_of_node, armed_rounds, epoch, own_epoch,     \
+      status_out, inc_out, spread_out, deadline_out, self_inc_out,            \
+      refuted_out, epoch_out, n, kb, col0, ld, round_idx, suspicion_rounds,   \
+      periods_to_spread, inc_sat, dead_suppress_rounds)
+  if (epochs) {
+    if (planes) MERGE_START(kEpochBits, true); else MERGE_START(kEpochBits, false);
+  } else {
+    if (planes) MERGE_START(0, true); else MERGE_START(0, false);
+  }
+#undef MERGE_START
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Each launches its instance on `stream` and returns the launch's
-// cudaError_t (0 = success).  `row_strides` points to ten host int64s,
+// cudaError_t (0 = success).  `row_strides` points to twelve host int64s,
 // the planes' row strides in argument order (status, inc, spread,
-// deadline, inbox, inbox_alive, then the four outputs).  `armed_rounds`
-// may be null (the scalar suspicion_rounds everywhere).
-#define MERGE_AND_TIMERS_ENTRY(NAME, KEY_T, DEAD_BIT)                          \
+// deadline, inbox, inbox_alive, the four outputs, then epoch and
+// epoch_out).  `armed_rounds` may be null (the scalar suspicion_rounds
+// everywhere); `epoch` null selects the epoch-free form (own_epoch and
+// epoch_out are then not read or written).
+#define MERGE_AND_TIMERS_ENTRY(NAME, KEY_T, DEAD_BIT, EPOCH_BITS)              \
   extern "C" int NAME(                                                         \
       const void* status, const void* inc, const void* spread,                 \
       const void* deadline, const void* inbox, const void* inbox_alive,        \
       const void* self_inc, const void* alive_here, const void* slot_of_node,  \
-      const void* armed_rounds, void* status_out, void* inc_out,               \
-      void* spread_out, void* deadline_out, void* self_inc_out,                \
-      void* refuted_out, long long n, int kb, int col0,                        \
-      const long long* row_strides, int round_idx, int suspicion_rounds,       \
-      int periods_to_spread, int inc_sat, int dead_suppress_rounds,            \
-      void* stream) {                                                          \
-    return launch<KEY_T, DEAD_BIT>(                                            \
+      const void* armed_rounds, const void* epoch, const void* own_epoch,      \
+      void* status_out, void* inc_out, void* spread_out, void* deadline_out,   \
+      void* self_inc_out, void* refuted_out, void* epoch_out, long long n,     \
+      int kb, int col0, const long long* row_strides, int round_idx,           \
+      int suspicion_rounds, int periods_to_spread, int inc_sat,                \
+      int dead_suppress_rounds, void* stream) {                                \
+    return launch<KEY_T, DEAD_BIT, EPOCH_BITS>(                                \
         status, inc, spread, deadline, inbox, inbox_alive, self_inc,           \
-        alive_here, slot_of_node, armed_rounds, status_out, inc_out,           \
-        spread_out, deadline_out, self_inc_out, refuted_out, n, kb, col0,      \
-        row_strides, round_idx, suspicion_rounds, periods_to_spread, inc_sat,  \
-        dead_suppress_rounds, stream);                                         \
+        alive_here, slot_of_node, armed_rounds, epoch, own_epoch, status_out,  \
+        inc_out, spread_out, deadline_out, self_inc_out, refuted_out,          \
+        epoch_out, n, kb, col0, row_strides, round_idx, suspicion_rounds,      \
+        periods_to_spread, inc_sat, dead_suppress_rounds, stream);             \
   }
 
-MERGE_AND_TIMERS_ENTRY(merge_and_timers_launch, int32_t, 30)
-MERGE_AND_TIMERS_ENTRY(merge_and_timers_wire16_launch, int16_t, 14)
-MERGE_AND_TIMERS_ENTRY(merge_and_timers_wire24_launch, int32_t, 23)
+MERGE_AND_TIMERS_ENTRY(merge_and_timers_launch, int32_t, 30, 6)
+MERGE_AND_TIMERS_ENTRY(merge_and_timers_wire16_launch, int16_t, 14, 2)
+MERGE_AND_TIMERS_ENTRY(merge_and_timers_wire24_launch, int32_t, 23, 4)

@@ -94,8 +94,18 @@ and its draws as they are, run in all three tick bodies:
 - ``dead_suppress_rounds``: the merge kernel's suppression window, in
   which a fresh tombstone does not reopen.
 
+The open-world plane (``open_world``, the reference's slot-recycling
+lane) runs in all three tick bodies and every layout: a join scheduled
+with ``SwimWorld.with_join`` resets its slot's row to a cold start at
+the start of its round (``_apply_joins``), and with the epoch guard on
+(``epoch_guard``, the default) every wire key carries the record's
+identity epoch, the ``epoch`` lane [N, K] holds each observer's belief,
+and the merge kernel drops a dead identity's records.  With
+``epoch_guard=False`` (the naive-reuse control) the joins run on the
+epoch-free wire.
+
 Settings outside the port raise ``NotImplementedError`` naming the
-knob: ``open_world``, ``metadata_keys`` and ``provenance``.
+knob: ``metadata_keys`` and ``provenance``.
 ``rounds_per_step`` is accepted and ignored: the reference's outputs are
 bit-identical for any value.
 """
@@ -145,7 +155,6 @@ def resolve_device(device) -> torch.device:
 
 # Knobs whose non-default values select code the port does not carry.
 _UNPORTED = (
-    ("open_world", lambda p: p.open_world),
     ("metadata_keys", lambda p: p.metadata_keys != 0),
     ("provenance", lambda p: p.provenance),
 )
@@ -281,6 +290,16 @@ class SwimParams:
     @property
     def full_view(self) -> bool:
         return self.n_subjects == self.n_members
+
+    @property
+    def epoch_bits(self) -> int:
+        """Width of the wire keys' identity-epoch field: the wire
+        format's (6 wide, 4 wire24, 2 wire16) with the open-world plane
+        and its epoch guard on, else 0 (no lane, the epoch-free keys;
+        the naive-reuse control runs that wire)."""
+        if not (self.open_world and self.epoch_guard):
+            return 0
+        return self.wire_format.epoch_bits
 
     @staticmethod
     def from_config(config, n_members: int, n_subjects: Optional[int] = None,
@@ -505,7 +524,10 @@ class SwimWorld:
     ``slot_of_node`` [N] int32 (slot -1 = not a tracked subject).
     ``gossip_origin``/``gossip_spread_at`` [G] int32: user gossip g is
     spread by its origin in round ``gossip_spread_at[g]`` (INT32_MAX =
-    never; ``SwimParams.n_user_gossips`` = G).
+    never; ``SwimParams.n_user_gossips`` = G).  ``join_at`` [N] int32:
+    slot i admits a new member (a fresh identity, epoch 1) in round
+    ``join_at[i]`` (INT32_MAX = never; ``with_join``, carried out under
+    ``SwimParams.open_world``); None at construction means no join.
     """
 
     down_from: torch.Tensor
@@ -519,9 +541,12 @@ class SwimWorld:
     slot_of_node: torch.Tensor
     gossip_origin: torch.Tensor
     gossip_spread_at: torch.Tensor
+    join_at: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         n = self.down_from.shape[0]
+        if self.join_at is None:
+            self.join_at = torch.full_like(self.down_from, INT32_MAX)
         ids = self.subject_ids.to("cpu", torch.int64)
         if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= n):
             raise ValueError(f"subject_ids out of range for n_members={n}")
@@ -642,6 +667,63 @@ class SwimWorld:
         ids = self._node_ids(seed_ids, "with_seeds")
         return dataclasses.replace(self, seed_ids=ids.to(torch.int32))
 
+    def with_join(self, slot, at_round: int) -> "SwimWorld":
+        """Admit a new member (a fresh identity: epoch 1, incarnation 0,
+        a cold table) into the dead ``slot`` (id or ids) at ``at_round``
+        (the reference's open-world arrival schedule; run it under
+        ``SwimParams.open_world``).  Raises, as the reference does, for a
+        slot with no scheduled death, a join not strictly after the
+        death, and a crash window that revives the old identity before
+        the join.  Sets ``down_until`` to the join round."""
+        ids = self._node_ids(slot, "with_join")
+        at_round = int(at_round)
+        cpu = ids.cpu()
+        down_from, down_until = self.down_from.cpu(), self.down_until.cpu()
+        fault = torch.minimum(down_from, self.leave_at.cpu())[cpu]
+        live = fault >= INT32_MAX
+        if bool(live.any()):
+            raise ValueError(
+                f"with_join: slot(s) {cpu[live].tolist()} have no scheduled "
+                f"death before round {at_round}; joining a live slot would "
+                f"overwrite a living member's identity (schedule "
+                f"with_crash/with_leave first)")
+        early = ~live & (fault >= at_round)
+        if bool(early.any()):
+            raise ValueError(
+                f"with_join: join at round {at_round} is not strictly after "
+                f"slot(s) {cpu[early].tolist()}'s scheduled death "
+                f"(down_from/leave_at {fault[early].tolist()}); the old "
+                f"identity must die before the new one joins")
+        revived = down_until[cpu] <= at_round
+        if bool(revived.any()):
+            raise ValueError(
+                f"with_join: slot(s) {cpu[revived].tolist()} revive the old "
+                f"identity at {down_until[cpu][revived].tolist()} before the "
+                f"join at {at_round}; crash it for good (or until the join "
+                f"round) first")
+        down_until, join_at = self.down_until.clone(), self.join_at.clone()
+        down_until[ids] = at_round
+        join_at[ids] = at_round
+        return dataclasses.replace(self, down_until=down_until,
+                                   join_at=join_at)
+
+    def epoch_at(self, round_idx: int) -> torch.Tensor:
+        """[N] int32 ground-truth identity epoch per slot at a round: 0
+        the original occupant, 1 the joined identity."""
+        return (self.join_at <= round_idx).to(torch.int32)
+
+    def joining_at(self, round_idx: int) -> torch.Tensor:
+        """[N] bool: the slots whose join fires this round."""
+        return self.join_at == round_idx
+
+    def join_rows(self) -> Dict[int, torch.Tensor]:
+        """The join schedule read to the host once: each round with a
+        join, mapped to its joining rows (int64 on the device)."""
+        at = self.join_at.cpu()
+        rows = torch.nonzero(at < INT32_MAX)[:, 0]
+        return {int(r): rows[at[rows] == r].to(self.device)
+                for r in torch.unique(at[rows]).tolist()}
+
     def alive_at(self, round_idx: int) -> torch.Tensor:
         """[N] bool ground-truth liveness at a round."""
         return ~((self.down_from <= round_idx) & (round_idx < self.down_until))
@@ -681,8 +763,12 @@ class SwimState:
     ``g_spread_until`` [N, G] int32 absolute retransmission window (in
     both carry layouts), ``g_ring`` [D or 0, N, G] bool delayed bits.
     Lifeguard (``lhm_max > 0``): ``lhm`` [N] int32 Local Health
-    Multipliers in [1, lhm_max], int32 in both carry layouts.  Lanes of
-    a feature that is off are zero-size.
+    Multipliers in [1, lhm_max], int32 in both carry layouts.  The
+    open-world plane with its epoch guard (``epoch_bits > 0``):
+    ``epoch`` [N, K] each observer's belief of each subject's identity
+    epoch (0 = the original occupant), int32 in the wide carry and int16
+    in the compact one; [N, 0] int32 when off.  Lanes of a feature that
+    is off are zero-size.
     """
 
     status: torch.Tensor
@@ -696,6 +782,7 @@ class SwimState:
     g_spread_until: torch.Tensor
     g_ring: torch.Tensor
     lhm: torch.Tensor
+    epoch: torch.Tensor
 
 
 def ring_slots(params: SwimParams) -> int:
@@ -707,10 +794,11 @@ def empty_lanes(n: int, k: int, device, d: int = 0, g: int = 0,
                 wire_dtype: torch.dtype = torch.int32) -> dict:
     """Empty delay-ring and user-gossip lanes: a ``d``-slot ring of [n, k]
     keys in ``wire_dtype`` and flags, and ``g`` user gossips held by no
-    one (zero-size where ``d`` or ``g`` is 0), and a zero-size ``lhm``
-    lane."""
+    one (zero-size where ``d`` or ``g`` is 0), and zero-size ``lhm`` and
+    ``epoch`` lanes."""
     return dict(
         lhm=torch.zeros((0,), dtype=torch.int32, device=device),
+        epoch=torch.zeros((n, 0), dtype=torch.int32, device=device),
         inbox_ring=torch.full((d, n, k), delivery.NO_MESSAGE,
                               dtype=wire_dtype, device=device),
         flag_ring=torch.zeros((d, n, k), dtype=torch.int8, device=device),
@@ -721,18 +809,30 @@ def empty_lanes(n: int, k: int, device, d: int = 0, g: int = 0,
     )
 
 
+def initial_epoch(params: SwimParams, device) -> torch.Tensor:
+    """The identity-epoch lane of a fresh state: zeros (every record the
+    original occupant's) [N, K], int16 in the compact carry, with the
+    epoch guard on; [N, 0] int32 when ``epoch_bits`` is 0."""
+    n = params.n_members
+    if params.epoch_bits == 0:
+        return torch.zeros((n, 0), dtype=torch.int32, device=device)
+    dtype = torch.int16 if params.compact_carry else torch.int32
+    return torch.zeros((n, params.n_subjects), dtype=dtype, device=device)
+
+
 def initial_lanes(params: SwimParams, device) -> dict:
-    """The ring, user-gossip and ``lhm`` lanes of a fresh state under
-    ``params``."""
+    """The ring, user-gossip, ``lhm`` and ``epoch`` lanes of a fresh
+    state under ``params``."""
     return dict(empty_lanes(params.n_members, params.n_subjects, device,
                             d=ring_slots(params), g=params.n_user_gossips,
                             wire_dtype=params.wire_format.dtype),
-                lhm=lifeguard.initial_lhm(params, device))
+                lhm=lifeguard.initial_lhm(params, device),
+                epoch=initial_epoch(params, device))
 
 
 def check_lanes(state: SwimState, params: SwimParams) -> None:
-    """Raise unless the ring, gossip and ``lhm`` lanes have the shapes and
-    dtypes ``params`` gives them."""
+    """Raise unless the ring, gossip, ``lhm`` and ``epoch`` lanes have the
+    shapes and dtypes ``params`` gives them."""
     for name, want in initial_lanes(params, "meta").items():
         got = getattr(state, name)
         if got.shape != want.shape or got.dtype != want.dtype:
@@ -740,7 +840,8 @@ def check_lanes(state: SwimState, params: SwimParams) -> None:
                 f"state.{name} is {got.dtype}{tuple(got.shape)}, the params "
                 f"need {want.dtype}{tuple(want.shape)} (max_delay_rounds="
                 f"{params.max_delay_rounds}, n_user_gossips="
-                f"{params.n_user_gossips}, lhm_max={params.lhm_max})")
+                f"{params.n_user_gossips}, lhm_max={params.lhm_max}, "
+                f"epoch_bits={params.epoch_bits})")
 
 
 def initial_state(params: SwimParams, world: SwimWorld, warm: bool = True,
@@ -797,14 +898,72 @@ def _is_self(world: SwimWorld, n: int) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+def _apply_joins(state: SwimState, rows: torch.Tensor, round_idx: int,
+                 params: SwimParams, world: SwimWorld) -> SwimState:
+    """Reset the rows of the slots whose join fires this round (``rows``
+    int64) to a fresh identity's cold start, in the state's stored
+    layout (the reference's ``_apply_joins``): ABSENT except self and
+    the configured seeds, which are ALIVE; incarnation 0; a hot
+    self-announcement; no timer; ``self_inc`` 0, ``lhm`` 1, epoch beliefs
+    0; the rows of the delay rings (in place: the round owns them) and
+    of the user-gossip lanes cleared.  The planes are copied, so the
+    input state is not modified.  Under ``k_block`` with the compact
+    carry the stored form is the relative one: spread ``periods_to_spread
+    + 1`` and the int16 no-timer sentinel; otherwise the carry is wide
+    here (decoded first)."""
+    compact_layout = params.compact_carry and bool(params.k_block)
+    k = state.status.shape[1]
+    device = state.status.device
+    cols = torch.arange(k, dtype=torch.int32, device=device)
+    own = cols[None, :] == world.slot_of_node[rows][:, None]      # [J, K]
+    reset = torch.full((k,), records.ABSENT, dtype=torch.int8, device=device)
+    if world.seed_ids.shape[0] > 0:
+        seed_slot = world.slot_of_node[world.seed_ids.long()]
+        reset[seed_slot[seed_slot >= 0].long()] = records.ALIVE
+    fresh_spread = (params.periods_to_spread + 1 if compact_layout
+                    else round_idx + 1 + params.periods_to_spread)
+
+    def reset_rows(lane, value):
+        lane = lane.clone()
+        lane[rows] = torch.as_tensor(value, device=device).to(lane.dtype)
+        return lane
+
+    new = dict(
+        status=reset_rows(state.status,
+                          torch.where(own, records.ALIVE, reset[None, :])),
+        inc=reset_rows(state.inc, 0),
+        spread_until=reset_rows(state.spread_until,
+                                torch.where(own, fresh_spread, 0)),
+        suspect_deadline=reset_rows(
+            state.suspect_deadline,
+            _DEADLINE_NONE16 if compact_layout else INT32_MAX),
+        self_inc=reset_rows(state.self_inc, 0))
+    if params.epoch_bits:
+        new["epoch"] = reset_rows(state.epoch, 0)
+    if params.lhm_max > 0:
+        new["lhm"] = reset_rows(state.lhm, 1)
+    if params.max_delay_rounds > 0:
+        # Messages in flight to the old occupant die with it.
+        state.inbox_ring[:, rows] = delivery.NO_MESSAGE
+        state.flag_ring[:, rows] = 0
+    if params.n_user_gossips > 0:
+        new["g_infected"] = reset_rows(state.g_infected, False)
+        new["g_spread_until"] = reset_rows(state.g_spread_until, 0)
+        if state.g_ring.shape[0] > 0:
+            state.g_ring[:, rows] = False
+    return dataclasses.replace(state, **new)
+
+
 def _round_context(state: SwimState, round_idx: int, params: SwimParams,
                    world: SwimWorld, kn: Knobs) -> dict:
     """Per-round preamble: world liveness/partition slices, the self
     pin (a node always holds itself ALIVE at self_inc; under ``k_block``
     the raw carry, pinned per block), the user-gossip
     spreads due this round, the contact gate's seed mask, the ``lhm``
-    lane and the phase gates (host bools: the round index and cadences
-    are host ints, so is the anti-entropy exchange's ``ae_due``)."""
+    lane, the raw ``epoch`` lane and each row's ground-truth epoch
+    (``own_epoch``, with the epoch guard on) and the phase gates (host
+    bools: the round index and cadences are host ints, so is the
+    anti-entropy exchange's ``ae_due``)."""
     n = params.n_members
     alive = world.alive_at(round_idx)
     part = world.partition_at(round_idx)
@@ -840,11 +999,15 @@ def _round_context(state: SwimState, round_idx: int, params: SwimParams,
     sync_round = kn.sync_every > 0 and round_idx % max(kn.sync_every, 1) == 0
     ae_due = (params.sync_interval > 0
               and sync_plane.due(round_idx, params.sync_interval))
+    # The open-world plane: the raw epoch lane (the FD reads it at
+    # targets, never at the self cell; the send and the merge kernel pin
+    # the self cell) and each row's ground-truth epoch.
+    own_epoch = world.epoch_at(round_idx) if params.epoch_bits else None
     return dict(alive=alive, part=part, node_ids=node_ids, is_self=is_self,
                 status=status, inc=inc, g_infected=g_infected,
                 g_spread_until=g_spread_until, is_seed=is_seed,
                 lhm=state.lhm, fd_round=fd_round, sync_round=sync_round,
-                ae_due=ae_due)
+                ae_due=ae_due, epoch=state.epoch, own_epoch=own_epoch)
 
 
 def _fma32(e: torch.Tensor, mean: torch.Tensor,
@@ -920,6 +1083,15 @@ def _entry_at_slot(mat: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     return mat.gather(1, slot[:, None].long())[:, 0]
 
 
+def _held_epoch(epoch: torch.Tensor, slot: torch.Tensor,
+                params: SwimParams) -> Optional[torch.Tensor]:
+    """Each prober's held epoch of its target (raw lane; a target is
+    never the prober itself) as int32, or None with the guard off."""
+    if not params.epoch_bits:
+        return None
+    return _entry_at_slot(epoch, slot).to(torch.int32)
+
+
 def _shift_fd_chains(eng, d_ids, d_alive, d_part, fd_shift: int,
                      proxy_shifts: Sequence[int], draws: prng.RoundDraws,
                      params: SwimParams, kn: Knobs, world: SwimWorld,
@@ -982,21 +1154,30 @@ def _shift_sender_gate(eng, d_ids, d_alive, d_part, s: int, node_ids,
 
 
 def _send_components(state: SwimState, status, inc, round_idx: int,
-                     params: SwimParams, world: SwimWorld, is_self):
+                     params: SwimParams, world: SwimWorld, is_self,
+                     epoch=None, own_epoch=None):
     """(record_keys, hot, syncable): one payload in the wire format, two
     transmit masks.
 
     Gossip carries hot records (changed within the spread window); a
     leaver's final-round gossip carries its own DEAD@inc+1
     (MembershipProtocolImpl.java:197-206); SYNC carries the row minus
-    tombstones, masked on the sender's table status."""
-    wf = params.wire_format
+    tombstones, masked on the sender's table status.  With the epoch
+    guard on, every key carries its record's epoch: ``epoch`` is the raw
+    lane (int32), pinned here to ``own_epoch`` at the self cells, so the
+    leaver's DEAD notice goes out at its own epoch."""
+    wf, eb = params.wire_format, params.epoch_bits
     leaving_now = (world.leave_at == round_idx)[:, None] & is_self
     hot = ((status != records.ABSENT) & (round_idx < state.spread_until)) \
         | leaving_now
-    record_keys = delivery.pack_record(status, inc, fmt=wf)
+    own = None
+    if eb:
+        own = own_epoch[:, None]
+        epoch = torch.where(is_self, own, epoch)
+    record_keys = delivery.pack_record(status, inc, fmt=wf, epoch=epoch,
+                                       epoch_bits=eb)
     leave_key = delivery.pack_record(records.DEAD, state.self_inc[:, None] + 1,
-                                     fmt=wf)
+                                     fmt=wf, epoch=own, epoch_bits=eb)
     record_keys = torch.where(leaving_now, leave_key, record_keys)
     syncable = status != records.DEAD
     return record_keys, hot, syncable
@@ -1047,8 +1228,12 @@ def _fd_phase(eng, views, ctx: dict, shifts, round_idx: int,
                                    device=status.device)[None, :]
                       == torch.clamp(slot, min=0)[:, None])
     wf = params.wire_format
-    fd_suspect_key = delivery.pack_record(records.SUSPECT, entry_t_inc,
-                                          fmt=wf)
+    # The verdict is about the record the observer holds: its
+    # incarnation and its epoch.
+    fd_suspect_key = delivery.pack_record(
+        records.SUSPECT, entry_t_inc, fmt=wf,
+        epoch=_held_epoch(ctx["epoch"], torch.clamp(slot, min=0), params),
+        epoch_bits=params.epoch_bits)
     return dict(
         active=active,
         push_refute=active & ack_ok & (entry_t_status == records.SUSPECT),
@@ -1196,7 +1381,8 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
     no_msg = delivery.no_message(wf)
 
     record_keys, hot, syncable = _send_components(
-        state, status, inc, round_idx, params, world, ctx["is_self"])
+        state, status, inc, round_idx, params, world, ctx["is_self"],
+        ctx["epoch"], ctx["own_epoch"])
     h_keys = eng.prep(record_keys)
     # Both transmit masks ride one int8 buffer (bit 0 hot, bit 1 syncable).
     h_tx = eng.prep(hot.to(torch.int8) | (syncable.to(torch.int8) << 1))
@@ -1404,12 +1590,13 @@ def _ae_gate(eng, views, sft: int, drop_u, ctx: dict, kn: Knobs,
 # --------------------------------------------------------------------------
 
 
-def _send_payloads(state: SwimState, status, inc, round_idx: int,
-                   params: SwimParams, world: SwimWorld, is_self):
+def _send_payloads(state: SwimState, ctx: dict, round_idx: int,
+                   params: SwimParams, world: SwimWorld):
     """(gossip_keys, sync_keys): the masked payload rows each scatter
     sender ships (hot records; everything but tombstones)."""
     record_keys, hot, syncable = _send_components(
-        state, status, inc, round_idx, params, world, is_self)
+        state, ctx["status"], ctx["inc"], round_idx, params, world,
+        ctx["is_self"], ctx["epoch"], ctx["own_epoch"])
     no_msg = delivery.no_message(params.wire_format)
     return (torch.where(hot, record_keys, no_msg),
             torch.where(syncable, record_keys, no_msg))
@@ -1484,8 +1671,10 @@ def _scatter_fd_phase(ctx: dict, round_idx: int, params: SwimParams,
                       == slot_sf[:, None])
     verdict_suspect = probe_active & ~ack_ok
     wf = params.wire_format
-    fd_suspect_key = delivery.pack_record(records.SUSPECT,
-                                          _entry_at_slot(inc, slot_sf), fmt=wf)
+    fd_suspect_key = delivery.pack_record(
+        records.SUSPECT, _entry_at_slot(inc, slot_sf), fmt=wf,
+        epoch=_held_epoch(ctx["epoch"], slot_sf, params),
+        epoch_bits=params.epoch_bits)
     return dict(
         t=t, probe_active=probe_active, probes_sent=probes_sent,
         ping_req_launches=probes_sent & ~direct_ok,
@@ -1511,10 +1700,10 @@ def _scatter_send_phase(state: SwimState, ctx: dict, fd: dict,
     anti-entropy round the SYNC payload also goes to the two exchange
     partners (``ae_targets`` [N, 2], ``ae_drop``, and the link
     counters' ``ae_attempt`` / ``ae_lost``)."""
-    status, inc = ctx["status"], ctx["inc"]
+    status = ctx["status"]
     alive, part, node_ids = ctx["alive"], ctx["part"], ctx["node_ids"]
-    gossip_keys, sync_keys = _send_payloads(
-        state, status, inc, round_idx, params, world, ctx["is_self"])
+    gossip_keys, sync_keys = _send_payloads(state, ctx, round_idx, params,
+                                            world)
     gate = ctx["is_seed"] is not None
 
     def contact_ok(targets):
@@ -1870,6 +2059,7 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
     fd_shift, sync_shift = shifts[0], shifts[-1]
     gossip_shifts = shifts[1 + r_proxies:1 + r_proxies + f]
     compact, wf = params.compact_carry, params.wire_format
+    eb = params.epoch_bits
     no_msg = delivery.no_message(wf)
     device = node_ids.device
 
@@ -1893,7 +2083,10 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
             active & ack_ok & (entry_t_status == records.SUSPECT), params,
             kn)
         ping_req_launches = active & ~direct_ok
-        fd_key = delivery.pack_record(records.SUSPECT, entry_t_inc, fmt=wf)
+        fd_key = delivery.pack_record(
+            records.SUSPECT, entry_t_inc, fmt=wf,
+            epoch=_held_epoch(state.epoch, t, params),
+            epoch_bits=params.epoch_bits)
 
     with record_function("swim.delivery"):
         # The channels' receiver-indexed gates, as in _delivery_phase.
@@ -1951,7 +2144,8 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
         self_inc=state.self_inc, inbox_ring=state.inbox_ring,
         flag_ring=state.flag_ring, g_infected=state.g_infected,
         g_spread_until=state.g_spread_until, g_ring=state.g_ring,
-        lhm=state.lhm)
+        lhm=state.lhm,
+        epoch=torch.empty_like(state.epoch) if eb else state.epoch)
     plane_args = _merge_plane_args(ctx, params, kn)
     hists = {name: torch.zeros((k,), dtype=torch.int32, device=device)
              for name in ("hist_alive", "hist_suspect", "hist_dead",
@@ -1966,6 +2160,13 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
                       state.suspect_deadline[:, blk])
             if compact:
                 timers = carry.carry_decode(*timers, round_idx)
+            # The block's raw epoch lane (compact: the codec's plain
+            # int16 -> int32 cast).
+            epoch_b = None
+            if eb:
+                epoch_b = state.epoch[:, blk]
+                if compact:
+                    epoch_b = epoch_b.to(torch.int32)
         with record_function("swim.delivery"):
             inc_b, spread_b, deadline_b = timers
             cols = torch.arange(c0, c0 + kb, dtype=torch.int32,
@@ -1976,7 +2177,8 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
             inc_b = torch.where(is_self_b, state.self_inc[:, None], inc_b)
             record_keys, hot, syncable = _send_components(
                 dataclasses.replace(state, spread_until=spread_b), status_b,
-                inc_b, round_idx, params, world, is_self_b)
+                inc_b, round_idx, params, world, is_self_b, epoch_b,
+                ctx["own_epoch"])
             hot_any |= hot.any(dim=1)
             h_keys = eng.prep(record_keys)
             h_tx = eng.prep(hot.to(torch.int8)
@@ -2002,12 +2204,17 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
             else:
                 timers_out = (new.inc[:, blk], new.spread_until[:, blk],
                               new.suspect_deadline[:, blk])
+            if eb:
+                timers_out += ((torch.empty((n, kb), dtype=torch.int32,
+                                            device=device) if compact
+                                else new.epoch[:, blk]),)
             merged = merge_kernel.merge_and_timers(
                 status_b, inc_b, spread_b, deadline_b, inbox, inbox_alive,
                 state.self_inc, alive_here, world.slot_of_node, round_idx,
                 kn.suspicion_rounds, params.periods_to_spread,
                 _wire_inc_sat(params), fmt=wf, col0=c0,
-                out=(new.status[:, blk], *timers_out), **plane_args)
+                out=(new.status[:, blk], *timers_out), **plane_args,
+                **_epoch_args(epoch_b, ctx))
             self_inc = torch.maximum(self_inc, merged[4])
             refuted |= merged[5]
         if compact:
@@ -2016,6 +2223,8 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
                     *merged[1:4], round_idx, _wire_inc_sat(params),
                     out=(new.inc[:, blk], new.spread_until[:, blk],
                          new.suspect_deadline[:, blk]))
+                if eb:
+                    new.epoch[:, blk] = merged[6]
         with record_function("swim.metrics"):
             for name, value in _column_hists(merged[0], status_b,
                                              alive_here).items():
@@ -2053,8 +2262,11 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
 def _wire_inc_sat(params: SwimParams) -> int:
     """Largest incarnation the wire format and the carry layout both hold
     exactly: the self-refutation bump and the carry encode clamp here.
-    8191 on the int16 wire; 32767 (the int16 carry) under wire24."""
-    sat = params.wire_format.inc_sat()
+    8191 on the int16 wire; 32767 (the int16 carry) under wire24.  The
+    epoch field is carved out of the incarnation field, so with the
+    epoch guard on: 8,388,607 wide, 2,047 on the int16 wire, 32,767
+    under wire24."""
+    sat = params.wire_format.inc_sat(params.epoch_bits)
     if params.compact_carry:
         sat = min(sat, _CARRY16_INC_SAT)
     return sat
@@ -2072,21 +2284,31 @@ def _wide_timer_fields(state: SwimState, params: SwimParams, cursor: int):
 
 
 def _carry_decode(state: SwimState, round_idx: int) -> SwimState:
-    """compact -> wide at the round's cursor (one kernel launch)."""
+    """compact -> wide at the round's cursor (one kernel launch; the
+    epoch lane, an absolute counter, is a plain int16 -> int32 cast)."""
     inc, spread_until, deadline = carry.carry_decode(
         state.inc, state.spread_until, state.suspect_deadline, round_idx)
     return dataclasses.replace(state, inc=inc, spread_until=spread_until,
-                               suspect_deadline=deadline)
+                               suspect_deadline=deadline,
+                               epoch=_cast_epoch(state.epoch, torch.int32))
 
 
 def _carry_encode(state: SwimState, round_idx: int,
                   inc_sat: int) -> SwimState:
-    """wide -> compact relative to the next round (one kernel launch)."""
+    """wide -> compact relative to the next round (one kernel launch; the
+    epoch lane narrows by a plain cast)."""
     inc, spread_until, deadline = carry.carry_encode(
         state.inc, state.spread_until, state.suspect_deadline, round_idx,
         inc_sat)
     return dataclasses.replace(state, inc=inc, spread_until=spread_until,
-                               suspect_deadline=deadline)
+                               suspect_deadline=deadline,
+                               epoch=_cast_epoch(state.epoch, torch.int16))
+
+
+def _cast_epoch(epoch: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The epoch lane in ``dtype``; the zero-size lane of the plane off
+    stays int32."""
+    return epoch if epoch.shape[1] == 0 else epoch.to(dtype)
 
 
 def _gossip_lanes(ctx: dict, g_delivered, round_idx: int,
@@ -2125,6 +2347,14 @@ def _merge_plane_args(ctx: dict, params: SwimParams, kn: Knobs):
     return dict(armed_rounds=armed, dead_suppress_rounds=window)
 
 
+def _epoch_args(epoch, ctx: dict) -> dict:
+    """The merge kernel's epoch-form arguments (the raw int32 lane and
+    each row's own epoch), empty with the epoch guard off."""
+    if ctx["own_epoch"] is None:
+        return {}
+    return dict(epoch=epoch, own_epoch=ctx["own_epoch"])
+
+
 def _lhm_update(ctx: dict, lhm_signals, refuted, params: SwimParams,
                 kn: Knobs):
     """The ``lhm`` lane after the round (``lifeguard.update`` with the FD
@@ -2143,20 +2373,22 @@ def _merge_and_timers(state: SwimState, ctx: dict, inbox, inbox_alive,
                       kn: Knobs, world: SwimWorld, lhm_signals):
     """Inbox merge, self-refutation, suspicion timers (per-row armed
     rounds with Lifeguard on, the suppression window with
-    ``dead_suppress_rounds``) and the crash/leave freeze in one kernel
-    launch (``kernels/merge.py``), then the user-gossip lanes (newly held
+    ``dead_suppress_rounds``, the epoch gate and the epoch lane with the
+    epoch guard on) and the crash/leave freeze in one kernel launch
+    (``kernels/merge.py``), then the user-gossip lanes (newly held
     gossips open a spread window, rows of crashed members stay frozen)
     and the ``lhm`` lane (``lhm_signals``: the FD phase's ``(probe_fail,
     probe_clean)`` [N] masks).  The rings pass through (delivery updated
     them in place).  Returns ``(new_state, refuted [N] bool)``."""
     alive_here = ctx["alive"]
-    (new_status, new_inc, spread_until, deadline, self_inc,
-     refuted) = merge_kernel.merge_and_timers(
+    (new_status, new_inc, spread_until, deadline, self_inc, refuted,
+     *epoch) = merge_kernel.merge_and_timers(
         ctx["status"], ctx["inc"], state.spread_until,
         state.suspect_deadline, inbox, inbox_alive, state.self_inc,
         alive_here, world.slot_of_node, round_idx, kn.suspicion_rounds,
         params.periods_to_spread, _wire_inc_sat(params),
-        fmt=params.wire_format, **_merge_plane_args(ctx, params, kn))
+        fmt=params.wire_format, **_merge_plane_args(ctx, params, kn),
+        **_epoch_args(state.epoch, ctx))
     g_infected, g_spread_until = _gossip_lanes(ctx, g_delivered, round_idx,
                                                params)
     return SwimState(status=new_status, inc=new_inc, spread_until=spread_until,
@@ -2165,7 +2397,8 @@ def _merge_and_timers(state: SwimState, ctx: dict, inbox, inbox_alive,
                      g_infected=g_infected, g_spread_until=g_spread_until,
                      g_ring=state.g_ring,
                      lhm=_lhm_update(ctx, lhm_signals, refuted, params,
-                                     kn)), refuted
+                                     kn),
+                     epoch=epoch[0] if epoch else state.epoch), refuted
 
 
 def _column_hists(new_status, status, alive) -> dict:
@@ -2270,12 +2503,17 @@ def _encoded(state: SwimState, round_idx: int,
 
 
 def _wide_tick(state: SwimState, round_idx: int, params: SwimParams,
-               world: SwimWorld, draws: prng.RoundDraws, kn: Knobs
+               world: SwimWorld, draws: prng.RoundDraws, kn: Knobs,
+               join_rows: Optional[torch.Tensor] = None
                ) -> Tuple[SwimState, Dict[str, torch.Tensor]]:
     """One round on the wide carry (under ``k_block``, on the stored
     carry block by block); the input planes are free once this returns
-    (the compact carry is encoded only after that)."""
+    (the compact carry is encoded only after that).  ``join_rows``: the
+    rows whose join fires this round (``SwimWorld.join_rows``), reset
+    first under the open-world plane; None on a round without one."""
     with record_function("swim.context"):
+        if params.open_world and join_rows is not None:
+            state = _apply_joins(state, join_rows, round_idx, params, world)
         ctx = _round_context(state, round_idx, params, world, kn)
     if params.k_block:
         tick = _tick_shift_blocked
@@ -2306,9 +2544,10 @@ def swim_tick(state: SwimState, round_idx: int, params: SwimParams,
     ``state`` is not modified."""
     check_lanes(state, params)
     kn = knobs if knobs is not None else Knobs.from_params(params)
+    joins = world.join_rows() if params.open_world else {}
     new_state, metrics = _wide_tick(
         _decoded(_own_rings(state), round_idx, params), round_idx, params,
-        world, draws, kn)
+        world, draws, kn, joins.get(round_idx))
     return _encoded(new_state, round_idx, params), metrics
 
 
@@ -2335,6 +2574,8 @@ def run(seed: int, params: SwimParams, world: SwimWorld, n_rounds: int,
     if draws is None:
         draws = prng.TorchDraws(seed, device, params, world)
     kn = Knobs.from_params(params)
+    # The join schedule, read to the host once.
+    joins = world.join_rows() if params.open_world else {}
     rows = []
     for round_idx in range(start_round, start_round + n_rounds):
         # swim_tick's steps, with each carry released as soon as the next
@@ -2342,7 +2583,7 @@ def run(seed: int, params: SwimParams, world: SwimWorld, n_rounds: int,
         # through the round, nor the decoded planes through the encode.
         state = _decoded(state, round_idx, params)
         state, m = _wide_tick(state, round_idx, params, world,
-                              draws(round_idx), kn)
+                              draws(round_idx), kn, joins.get(round_idx))
         state = _encoded(state, round_idx, params)
         rows.append(m)
     metrics = {name: torch.stack([m[name] for m in rows])
@@ -2355,7 +2596,8 @@ def node_snapshot(state: SwimState, params: SwimParams, world: SwimWorld,
     """Host-side digest of one observer row (the reference's
     ``node_snapshot``, after MembershipProtocolImpl's JMX monitor):
     incarnation, the members held ALIVE, SUSPECT, DEAD and ABSENT, the
-    pending suspicion timers and the held incarnations.
+    pending suspicion timers and the held incarnations, and with the
+    epoch guard on the held identity epochs (``record_epochs``).
 
     ``round_idx`` is the round cursor the state is encoded against (the
     number of rounds run so far); it is required for a ``compact_carry``
@@ -2379,7 +2621,7 @@ def node_snapshot(state: SwimState, params: SwimParams, world: SwimWorld,
         return [s for s, st in zip(subjects, status)
                 if st == code and s != node_id]
 
-    return {
+    snapshot = {
         "node_id": int(node_id),
         "incarnation": int(state.self_inc[node_id]),
         "alive_members": ids_with(records.ALIVE),
@@ -2392,3 +2634,9 @@ def node_snapshot(state: SwimState, params: SwimParams, world: SwimWorld,
             s: i for s, i, st in zip(subjects, inc, status)
             if st != records.ABSENT},
     }
+    if params.epoch_bits:
+        epochs = state.epoch[node_id].cpu().tolist()
+        snapshot["record_epochs"] = {
+            s: e for s, e, st in zip(subjects, epochs, status)
+            if st != records.ABSENT}
+    return snapshot

@@ -13,10 +13,17 @@ three rungs: ``WIDE`` (int32, dead bit 30), ``WIRE24`` (int32, dead bit
 23, the compact carry's headroom rung) and ``WIRE16`` (int16, dead bit
 14, ``records.merge_key16``).  Every function takes the rung as ``fmt``
 (default wide) and keeps keys in its dtype: under ``WIRE16`` every key
-tensor is ``torch.int16``.  The open-world epoch field is not ported:
-a non-zero ``epoch_bits`` raises.  ALIVE is a key with the dead and
-suspect bits clear, so a delivered key carries its own merge-gate flag
+tensor is ``torch.int16``.  ALIVE is a key with the dead and suspect
+bits clear, so a delivered key carries its own merge-gate flag
 (:func:`is_alive_key`).
+
+The open-world plane (``epoch_bits > 0``) carves an identity-epoch field
+out of the top of the incarnation field, directly under the dead bit:
+``[dead] [epoch] [incarnation] [suspect]``, so the max-fold still lets
+DEAD absorb, and within a liveness class a higher epoch outranks any
+incarnation of an older occupant.  :func:`merge_inbox` then resolves
+identities: a lower-epoch winner drops, a higher-epoch one is admitted
+only if it is ALIVE.
 """
 
 from __future__ import annotations
@@ -52,6 +59,9 @@ class WireFormat:
         """Largest incarnation the key field carries exactly."""
         return (1 << self.inc_bits(epoch_bits)) - 1
 
+    def epoch_cap(self) -> int:
+        return (1 << self.epoch_bits) - 1
+
 
 WIDE = WireFormat("wide", dead_bit=30, epoch_bits=6, wide_word=True)
 WIRE24 = WireFormat("wire24", dead_bit=23, epoch_bits=4, wide_word=True)
@@ -60,14 +70,8 @@ WIRE16 = WireFormat("wire16", dead_bit=14, epoch_bits=2, wide_word=False)
 WIRE_FORMATS = {f.name: f for f in (WIDE, WIRE24, WIRE16)}
 
 
-def resolve_format(fmt: WireFormat = None,
-                   epoch_bits: int = 0) -> WireFormat:
-    """The active :class:`WireFormat` (``None`` = wide).  The epoch field
-    is not ported: a non-zero ``epoch_bits`` raises."""
-    if epoch_bits:
-        raise NotImplementedError(
-            f"epoch_bits={epoch_bits}: the identity-epoch wire field "
-            f"(open_world) is not ported")
+def resolve_format(fmt: WireFormat = None) -> WireFormat:
+    """The active :class:`WireFormat` (``None`` = wide)."""
     return WIDE if fmt is None else fmt
 
 
@@ -79,18 +83,31 @@ def no_message(fmt: WireFormat = None) -> int:
     return NO_MESSAGE
 
 
-def pack_record(status, inc, fmt: WireFormat = None, epoch_bits: int = 0):
-    """(status, incarnation) -> merge key of the wire format, in its
-    dtype; ABSENT packs to -1 == :func:`no_message`."""
-    f = resolve_format(fmt, epoch_bits)
-    return records.pack_key(status, inc, f.dead_bit, f.inc_sat(), f.dtype)
+def pack_record(status, inc, fmt: WireFormat = None, epoch=None,
+                epoch_bits: int = 0):
+    """(status, incarnation[, epoch]) -> merge key of the wire format, in
+    its dtype; ABSENT packs to -1 == :func:`no_message`.  With
+    ``epoch_bits > 0`` the epoch (clipped to the field) sits under the
+    dead bit and the incarnation saturates at ``inc_sat(epoch_bits)``."""
+    f = resolve_format(fmt)
+    if epoch_bits == 0:
+        return records.pack_key(status, inc, f.dead_bit, f.inc_sat(),
+                                f.dtype)
+    inc_bits = f.inc_bits(epoch_bits)
+    key = records.pack_key(status, inc, f.dead_bit, f.inc_sat(epoch_bits))
+    ep = torch.clamp(torch.as_tensor(0 if epoch is None else epoch,
+                                     device=key.device).to(torch.int32),
+                     0, (1 << epoch_bits) - 1)
+    key = torch.where(key < 0, key, key | (ep << (inc_bits + 1)))
+    return key.to(f.dtype)
 
 
 def unpack_record(key, fmt: WireFormat = None, epoch_bits: int = 0):
     """Invert :func:`pack_record`: key -> (status int8, inc int32); keys
-    < 0 unpack to (ABSENT, 0)."""
-    f = resolve_format(fmt, epoch_bits)
-    inc_mask = (1 << f.inc_bits()) - 1
+    < 0 unpack to (ABSENT, 0).  The epoch field is read by
+    :func:`unpack_epoch`."""
+    f = resolve_format(fmt)
+    inc_mask = (1 << f.inc_bits(epoch_bits)) - 1
     key = torch.as_tensor(key).to(torch.int32)
     is_dead = (key >> f.dead_bit) & 1
     is_suspect = key & 1
@@ -101,6 +118,17 @@ def unpack_record(key, fmt: WireFormat = None, epoch_bits: int = 0):
     return status, inc
 
 
+def unpack_epoch(key, fmt: WireFormat = None, epoch_bits: int = 0):
+    """The identity-epoch field of an epoch-extended key (int32; keys < 0
+    unpack to epoch 0, as does every key at ``epoch_bits == 0``)."""
+    key = torch.as_tensor(key).to(torch.int32)
+    if epoch_bits == 0:
+        return torch.zeros_like(key)
+    f = resolve_format(fmt)
+    ep = (key >> (f.inc_bits(epoch_bits) + 1)) & ((1 << epoch_bits) - 1)
+    return torch.where(key < 0, 0, ep)
+
+
 def is_alive_key(key, fmt: WireFormat = None):
     """True where ``key`` packs an ALIVE record (dead/suspect bits clear)."""
     f = resolve_format(fmt)
@@ -108,7 +136,8 @@ def is_alive_key(key, fmt: WireFormat = None):
 
 
 def merge_inbox(entry_status, entry_inc, inbox_key, inbox_any_alive,
-                fmt: WireFormat = None, epoch_bits: int = 0, suppress=None):
+                fmt: WireFormat = None, suppress=None, entry_epoch=None,
+                epoch_bits: int = 0, epoch_guard: bool = True):
     """Merge one round's max-folded inbox into the table entries.
 
     One valid arrival-order serialization of the reference's
@@ -123,23 +152,63 @@ def merge_inbox(entry_status, entry_inc, inbox_key, inbox_any_alive,
     ``inbox_key`` is in the format's dtype; the entry's key is packed in
     the same format, so the gate compares like with like.
 
-    Returns (status int8, inc int32, changed bool).
+    With ``epoch_bits > 0`` (the open-world plane) ``entry_epoch`` [N, K]
+    is each entry's identity epoch.  Guarded (``epoch_guard``): the
+    same-epoch gate compares the epoch-stripped keys in the wide layout,
+    a lower-epoch winner drops, and a higher-epoch winner is admitted
+    only if it is ALIVE, over a suppressed tombstone too.  Unguarded
+    (the naive-reuse control, reachable only by a direct call): the gate
+    compares the full keys, epoch included.
+
+    Returns (status int8, inc int32, changed bool), or with
+    ``epoch_bits > 0`` (status, inc, epoch int32, changed).
     """
-    f = resolve_format(fmt, epoch_bits)
-    win_status, win_inc = unpack_record(inbox_key, fmt=f)
+    f = resolve_format(fmt)
+    win_status, win_inc = unpack_record(inbox_key, fmt=f,
+                                        epoch_bits=epoch_bits)
     gate_status = torch.where(entry_status == records.DEAD, records.ABSENT,
                               entry_status)
-    entry_key = pack_record(gate_status, entry_inc, fmt=f)
     absent = gate_status == records.ABSENT
-    accepts = torch.where(absent, inbox_any_alive & (inbox_key >= 0),
-                          inbox_key > entry_key)
-    if suppress is not None:
-        true_key = pack_record(entry_status, entry_inc, fmt=f)
-        accepts = torch.where(suppress, inbox_key > true_key, accepts)
+    opens = inbox_any_alive & (inbox_key >= 0)
+    new_epoch = None
+    if epoch_bits == 0:
+        entry_key = pack_record(gate_status, entry_inc, fmt=f)
+        accepts = torch.where(absent, opens, inbox_key > entry_key)
+        if suppress is not None:
+            true_key = pack_record(entry_status, entry_inc, fmt=f)
+            accepts = torch.where(suppress, inbox_key > true_key, accepts)
+    else:
+        entry_ep = torch.as_tensor(entry_epoch).to(torch.int32)
+        win_ep = unpack_epoch(inbox_key, fmt=f, epoch_bits=epoch_bits)
+        if epoch_guard:
+            win_key0 = pack_record(win_status, win_inc)
+            accepts = torch.where(absent, opens,
+                                  win_key0 > pack_record(gate_status,
+                                                         entry_inc))
+            if suppress is not None:
+                accepts = torch.where(
+                    suppress, win_key0 > pack_record(entry_status,
+                                                     entry_inc), accepts)
+            accepts = torch.where(
+                win_ep > entry_ep, win_status == records.ALIVE,
+                accepts & ~(win_ep < entry_ep))
+        else:
+            entry_key = pack_record(gate_status, entry_inc, fmt=f,
+                                    epoch=entry_ep, epoch_bits=epoch_bits)
+            accepts = torch.where(absent, opens, inbox_key > entry_key)
+            if suppress is not None:
+                true_key = pack_record(entry_status, entry_inc, fmt=f,
+                                       epoch=entry_ep, epoch_bits=epoch_bits)
+                accepts = torch.where(suppress, inbox_key > true_key,
+                                      accepts)
+        new_epoch = torch.where(accepts, win_ep, entry_ep)
     new_status = torch.where(accepts, win_status, entry_status).to(torch.int8)
     new_inc = torch.where(accepts, win_inc, entry_inc).to(torch.int32)
     changed = accepts & ((new_status != entry_status) | (new_inc != entry_inc))
-    return new_status, new_inc, changed
+    if new_epoch is None:
+        return new_status, new_inc, changed
+    changed = changed | (accepts & (new_epoch != entry_ep))
+    return new_status, new_inc, new_epoch, changed
 
 
 def scatter_max_into(inbox: torch.Tensor, values: torch.Tensor,

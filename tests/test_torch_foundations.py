@@ -135,11 +135,18 @@ def test_wire_format_table_matches_reference():
         for eb in (0, fmt.epoch_bits):
             assert fmt.inc_sat(eb) == ref.inc_sat(eb)
         assert str(fmt.dtype).split(".")[-1] == np.dtype(ref.dtype).name
-        # The epoch field (open_world) is not ported.
-        with pytest.raises(NotImplementedError, match="epoch"):
-            delivery.pack_record(torch.zeros(2, dtype=torch.int8),
-                                 torch.zeros(2, dtype=torch.int32), fmt=fmt,
-                                 epoch_bits=fmt.epoch_bits)
+        assert fmt.epoch_cap() == ref.epoch_cap()
+        # The epoch-extended key (open_world) packs as the reference's.
+        status = np.array([0, 1, 2, 3], np.int8)
+        inc, epoch = np.array([0, 5, 9, 1]), np.array([1, 0, 1, 1])
+        np.testing.assert_array_equal(
+            delivery.pack_record(torch.from_numpy(status),
+                                 torch.from_numpy(inc), fmt=fmt,
+                                 epoch=torch.from_numpy(epoch),
+                                 epoch_bits=fmt.epoch_bits).numpy(),
+            np.asarray(jdelivery.pack_record(status, inc, fmt=ref,
+                                             epoch=epoch,
+                                             epoch_bits=fmt.epoch_bits)))
 
 
 def _keys(rng, size):

@@ -148,9 +148,9 @@ def test_state_and_world_import_reject_unported_lanes():
     arrays = checkpoint.state_to_arrays(jswim.initial_state(jparams, jworld))
     state = interop.state_from_arrays(arrays, device="cpu")
     assert state.status.shape == (32, 4) and state.status.dtype == torch.int8
-    epoch = dict(arrays, **{"state/epoch": np.zeros((32, 4), np.int32)})
-    with pytest.raises(NotImplementedError, match="epoch"):
-        interop.state_from_arrays(epoch, device="cpu")
+    md = dict(arrays, **{"state/md": np.zeros((32, 4, 2), np.int32)})
+    with pytest.raises(NotImplementedError, match="md"):
+        interop.state_from_arrays(md, device="cpu")
     # A compact lane in a state whose params name the wide carry.
     compact = dict(arrays, **{"state/inc": np.zeros((32, 4), np.int16)})
     with pytest.raises(ValueError, match="compact_carry"):

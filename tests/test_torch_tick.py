@@ -125,7 +125,7 @@ def test_torch_draws_shapes_and_ranges():
     assert prng.TorchDraws(4, "cpu", params)(11).shifts != d.shifts
 
 
-UNPORTED = [("open_world", True), ("metadata_keys", 2), ("provenance", True)]
+UNPORTED = [("metadata_keys", 2), ("provenance", True)]
 PLANES = [("sync_interval", 8), ("lhm_max", 4), ("dead_suppress_rounds", 8)]
 
 
@@ -137,17 +137,38 @@ def test_unported_knob_raises_naming_it(knob, value):
                                     **overrides)
 
 
+# The tick bodies and layouts every ported plane constructs in, with the
+# open-world plane's epoch field width in each.
+SETTINGS = ((dict(delivery="shift"), 6), (dict(delivery="scatter"), 6),
+            (dict(delivery="shift", k_block=16), 6),
+            (dict(delivery="shift", int16_wire=True), 2),
+            (dict(delivery="shift", compact_carry=True), 2),
+            (dict(delivery="shift", compact_carry=True, wire24=True), 4))
+
+
+@pytest.mark.parametrize("guard", [True, False])
+def test_open_world_constructs_in_every_setting(guard):
+    """``open_world`` constructs in the six tick/layout settings, with
+    the format's epoch field (6 wide, 2 on the int16 wire, 4 under
+    wire24) and none under ``epoch_guard=False``, as in the
+    reference."""
+    for overrides, bits in SETTINGS:
+        params = swim.SwimParams.from_config(fast_config(), n_members=64,
+                                             open_world=True,
+                                             epoch_guard=guard, **overrides)
+        want = jswim.SwimParams.from_config(fast_config(), n_members=64,
+                                            open_world=True,
+                                            epoch_guard=guard, **overrides)
+        assert params.open_world
+        assert params.epoch_bits == want.epoch_bits == (bits if guard else 0)
+
+
 @pytest.mark.parametrize("knob,value", PLANES, ids=[k for k, _ in PLANES])
 def test_plane_knob_constructs_and_rejects_a_negative_value(knob, value):
     """The three ported planes' knobs construct in every tick body and
     layout, and a negative value raises ``ValueError`` naming the knob,
     as in the reference."""
-    for overrides in (dict(delivery="shift"), dict(delivery="scatter"),
-                      dict(delivery="shift", k_block=16),
-                      dict(delivery="shift", int16_wire=True),
-                      dict(delivery="shift", compact_carry=True),
-                      dict(delivery="shift", compact_carry=True,
-                           wire24=True)):
+    for overrides, _ in SETTINGS:
         params = swim.SwimParams.from_config(fast_config(), n_members=64,
                                              **overrides, **{knob: value})
         assert getattr(params, knob) == value
