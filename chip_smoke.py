@@ -80,7 +80,13 @@ and prints no result):
    size, shift guard and naive arms, scatter guard, ``int16_wire`` and
    compact + ``wire24``, the network configuration with node 3 rejoining
    at round 60, and ``k_block=128`` compact at 512 x 512 with node 3
-   rejoining at round 40 and the three planes on;
+   rejoining at round 40 and the three planes on; the metadata plane
+   (``md_canaries``: full view 512 x 512, two keys, the exchange every 8
+   rounds, three pushes, one inside a partition of rounds 0-63): shift in
+   the four layouts, scatter on both wires, the open world with node 3
+   rejoining at round 40 and pushing again, the network configuration
+   (md same-round only) and Lifeguard with a 64-round suppression
+   window;
 6. the main path and the layout identity: LAN defaults, N = 1,000,000
    members x K = 16 subjects, loss 0.02, node 3 crashed at round 10, the
    port's own device draws, 600 rounds through ``models.swim.run`` in the
@@ -151,6 +157,24 @@ and prints no result):
    reference monitor's TIMER_BOUND contract (no timer past round +
    ``suspicion_rounds * 8``), node 3 suspected within 50 rounds; prints
    its numbers beside phase 7's wide run;
+8c. the staged config rollout at full view N = K = 16,384, the metadata
+    plane's path (``rollout_path``): ``bench.py --rollout``'s scenario
+    (``rollout_world``: the chaos campaign's config, shift,
+    ``sync_every=0``, one key, the exchange every 8 rounds, seed 11; a
+    revive storm of 4 nodes, a half/half split over rounds [256, 512),
+    3 stages of 4 owners pushing at rounds 384, 512 and 640; horizon
+    832), the port's own draws.  The gated arm runs in segments of 2
+    rounds, reading the open pushes' owner columns on the device after
+    each: every push must converge inside ``max(push, heal) + 118`` and
+    the divergence probe read 0 at the horizon; a profiled 20-round
+    window from round 384.  The gossip-only control (``sync_interval=0``)
+    must still diverge at round 832.  Prints the p99, the control's
+    count, each arm's ms/round, member-rounds/s, peak bytes and bytes
+    per cell, and the window's device time per phase range
+    (``swim.metadata`` among them).  Then ``bench_rollout_path``: the
+    same rollout at the bench's N = 48, both arms, on the card and on
+    the CPU with the same CPU-made draws (card == CPU), its p99 and
+    control count beside the reference's committed ones;
 9. the seeded cold start at full view N = K = 4,096 (LAN defaults, loss
    0, seeds 0, 1, 2) for 12 x periods_to_spread rounds: every cell must
    be ALIVE at the end; prints the round membership became full;
@@ -192,6 +216,7 @@ import ctypes
 import dataclasses
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -207,7 +232,7 @@ from scalecube_cluster_tpu_torch.chaos import monitor
 from scalecube_cluster_tpu_torch.config import ClusterConfig
 from scalecube_cluster_tpu_torch.kernels import LAUNCHES, _build
 from scalecube_cluster_tpu_torch.kernels import carry, merge, probes
-from scalecube_cluster_tpu_torch.models import lifeguard, swim
+from scalecube_cluster_tpu_torch.models import lifeguard, metadata, swim
 from scalecube_cluster_tpu_torch.models import sync as sync_plane
 from scalecube_cluster_tpu_torch.ops import delivery, prng
 
@@ -296,6 +321,32 @@ STORM_HORIZON_QUANTUM = 64
 # The network configuration's canary with a join: node 3 (crashed at
 # round 10) rejoins at this round.
 NETWORK_JOIN_AT = 60
+# The metadata canaries (full view 512 x 512): two keys, the exchange
+# every 8 rounds; pushes (node, key, value, round): node 3 before its
+# crash at round 10, node 300 inside the partition of rounds 0-63, node 7
+# after the heal; under the open world node 3 rejoins at round 40 and
+# pushes again as the new identity.
+MD_CANARY = dict(metadata_keys=2, sync_interval=8)
+MD_PUSHES = ((3, 0, 641, 5), (300, 1, 77, 20), (7, 0, 9, 70))
+MD_JOIN_AT, MD_JOIN_PUSH = 40, (3, 1, 1023, 50)
+# The staged config rollout (bench.py --rollout, bench.py:1753-2040): the
+# chaos campaign's config, full view, shift, sync_every=0, one key, the
+# exchange every 8 rounds, seed 11; 3 stages of 4 owners pushing 641; a
+# revive churn storm of 4 nodes (waves of 2 from round 8, every 24
+# rounds, each down quiesce_bound rounds); a half/half split over
+# [phase, 2 phase).  At N = 16,384 (computed on the CPU with the
+# reference): quiesce_bound 245, phase 256, metadata_convergence_bound
+# 118, stage_every 128, stages at rounds 384, 512 and 640, horizon 832;
+# at the bench's own N = 48: 137, 144, 64, 64, rounds 216, 280 and 344,
+# horizon 448.  The pushes are polled every 2 rounds.
+ROLLOUT_N, ROLLOUT_BENCH_N, ROLLOUT_SEED = 16_384, 48, 11
+ROLLOUT_SYNC_INTERVAL, ROLLOUT_STAGES, ROLLOUT_STAGE_SIZE = 8, 3, 4
+ROLLOUT_VALUE, ROLLOUT_PROBE_STEP = 641, 2
+ROLLOUT_STORM, ROLLOUT_WAVE, ROLLOUT_STORM_START, ROLLOUT_WAVE_EVERY = (
+    4, 2, 8, 24)
+# The reference's committed rollout at N = 48 (README, "Metadata KV &
+# config rollout"): p99 and the control's divergent cells.
+ROLLOUT_REFERENCE_P99, ROLLOUT_REFERENCE_CONTROL = 4, 96
 
 
 def log(msg):
@@ -1062,11 +1113,15 @@ def canary(device, label, layout, params, make_world, warm=True, seed=5):
         raise AssertionError(f"canary {label} {n}x{k}: launches cpu="
                              f"{cpu_launches} card={gpu_launches}, want "
                              f"none and {want}")
+    md = (f", md cells set {int((cs.md != 0).sum())}, metadata_divergent "
+          f"max {int(cm['metadata_divergent'].max())} final "
+          f"{int(cm['metadata_divergent'][-1])}"
+          if params.metadata_keys else "")
     log(f"[canary] {label} {n}x{k}, {CANARY_ROUNDS} rounds: card == CPU "
         f"bit for bit, every state lane and metric ({gs.inc.dtype} inc), "
         f"launches {gpu_launches}; ring cells held at the end "
         f"{int((cs.inbox_ring >= 0).sum())}, final absent "
-        f"{int(cm['absent'][-1].sum())}")
+        f"{int(cm['absent'][-1].sum())}{md}")
 
 
 def canaries(device):
@@ -1147,6 +1202,48 @@ def canaries(device):
                                       open_world=True, **CANARY_PLANES),
            lambda params, dev: split_world(crash_world)(params, dev)
            .with_join(CRASHED, CANARY_SPLIT - 24))
+
+
+def md_canaries(device):
+    """Phase 5, the metadata plane's canaries at full view 512 x 512 (two
+    keys, the exchange every 8 rounds, node 3 crashed at round 10, three
+    pushes, one inside the partition of rounds 0-63): shift in the four
+    layouts, scatter on both wires, the open world with node 3 rejoining
+    at round 40 (its md row reset) and pushing as the new identity, the
+    network configuration (delays, rules, the ring: md same-round only),
+    and Lifeguard with the suppression window."""
+    def pushed(make_world, pushes=MD_PUSHES):
+        def make(params, dev):
+            world = make_world(params, dev)
+            for node, key, value, at in pushes:
+                world = world.with_metadata_push(node, key, value, at)
+            return world
+        return make
+
+    split = pushed(split_world(crash_world))
+    for layout in LAYOUTS:
+        canary(device, f"metadata {layout}", layout,
+               profile_round.bench_params(layout, 512, 512, **MD_CANARY),
+               split)
+    for label, overrides in (("", {}),
+                             (" two-buffer wire", dict(fused_wire=False))):
+        canary(device, f"scatter metadata wide{label}", "wide",
+               profile_round.bench_params("wide", 512, 512, "scatter",
+                                          **MD_CANARY, **overrides), split)
+    canary(device, "metadata open world join", "wide",
+           profile_round.bench_params("wide", 512, 512, open_world=True,
+                                      **MD_CANARY),
+           pushed(lambda params, dev: split_world(crash_world)(params, dev)
+                  .with_join(CRASHED, MD_JOIN_AT),
+                  MD_PUSHES + (MD_JOIN_PUSH,)))
+    canary(device, "network metadata wide", "wide",
+           profile_round.network_params("wide", 512, 512, **MD_CANARY),
+           pushed(functools.partial(profile_round.network_world,
+                                    rounds=CANARY_ROUNDS)))
+    canary(device, "metadata lifeguard suppression", "wide",
+           profile_round.bench_params("wide", 512, 512, lhm_max=8,
+                                      dead_suppress_rounds=64,
+                                      **MD_CANARY), split)
 
 
 def split_world(make_world, split=CANARY_SPLIT):
@@ -2133,6 +2230,327 @@ def bench_churn_path(device):
     return launches
 
 
+def quiesce_bound(params, n):
+    """The reference's ``chaos/scenarios.quiesce_bound``: rounds a fault's
+    effects need to go cold (detection and verdict spread, timers,
+    tombstone gossip)."""
+    log2n = math.ceil(math.log2(n + 1))
+    return (24 * max(1, params.ping_every) + params.suspicion_rounds
+            + params.periods_to_spread + 1 + 4 * log2n + 16)
+
+
+def metadata_convergence_bound(params, n):
+    """The reference's ``chaos/scenarios.metadata_convergence_bound``:
+    rounds within which a pushed word must reach every live table."""
+    log2n = math.ceil(math.log2(n + 1))
+    return (params.sync_interval + 4 * log2n + params.periods_to_spread
+            + 2 * max(1, params.ping_every) + 16)
+
+
+def rollout_params(n, sync_interval=ROLLOUT_SYNC_INTERVAL):
+    """The rollout's params: the chaos campaign's config, full view,
+    shift, no per-round SYNC, one metadata key, the exchange every
+    ``sync_interval`` rounds (0: the gossip-only control)."""
+    return swim.SwimParams.from_config(
+        campaign_config(), n_members=n, delivery="shift", sync_every=0,
+        sync_interval=sync_interval, metadata_keys=1)
+
+
+def rollout_world(n, device, seed=ROLLOUT_SEED, n_stages=ROLLOUT_STAGES,
+                  stage_size=ROLLOUT_STAGE_SIZE):
+    """The staged rollout's world, ``bench.py --rollout``'s scenario
+    (``bench.py:1834-1870``) built without the reference: the revive
+    storm's crash windows, the split over [phase, 2 phase), and the
+    stages' pushes, owners and storm nodes from the reference's seeded
+    permutation.  The reference pads its scenarios with match-nothing
+    link rules (a traced shape); they change no outcome at loss 0 and
+    are left out.  Returns ``(world, geometry)``: the horizon, the split,
+    the convergence bound, the storm nodes and the pushes (owner, key,
+    value, round, clock start, deadline).  ``n_stages`` x ``stage_size``
+    owners (the bench's ``--smoke`` takes 2 x 2)."""
+    p0 = rollout_params(n)
+    quiesce = quiesce_bound(p0, n)
+    phase = -(-quiesce // 16) * 16
+    bound = metadata_convergence_bound(p0, n)
+    stage_every = -(-bound // 16) * 16
+    split_at, heal_at = phase, 2 * phase
+    start = phase + phase // 2
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 0x19C0]))
+    perm = [int(x) for x in rng.permutation(n)]
+    storm = perm[:ROLLOUT_STORM]
+    owners = perm[ROLLOUT_STORM:ROLLOUT_STORM + n_stages * stage_size]
+    last_stage = start + (n_stages - 1) * stage_every
+    horizon = -(-(max(last_stage, heal_at) + bound + 32) // 64) * 64
+    world = swim.SwimWorld.healthy(p0, device=device)
+    for w in range(ROLLOUT_STORM // ROLLOUT_WAVE):
+        at = ROLLOUT_STORM_START + w * ROLLOUT_WAVE_EVERY
+        world = world.with_crash(
+            storm[w * ROLLOUT_WAVE:(w + 1) * ROLLOUT_WAVE], at, at + quiesce)
+    phases = [[0] * n, [1 if i < n // 2 else 0 for i in range(n)], [0] * n]
+    while len(phases) * phase <= horizon:
+        phases.append([0] * n)
+    world = world.with_partition_schedule(np.asarray(phases, np.int8), phase)
+    pushes = []
+    for s in range(n_stages):
+        at = start + s * stage_every
+        for owner in owners[s * stage_size:(s + 1) * stage_size]:
+            world = world.with_metadata_push(owner, 0, ROLLOUT_VALUE, at)
+            clock = heal_at if split_at <= at < heal_at else at
+            pushes.append(dict(owner=owner, key=0, value=ROLLOUT_VALUE,
+                               push_round=at, clock_from=clock,
+                               deadline=clock + bound))
+    return world, dict(horizon=horizon, split_at=split_at, heal_at=heal_at,
+                       bound=bound, storm=storm, pushes=pushes)
+
+
+def rollout_gated(params, world, geo, device, draws=None, aside=None,
+                  keep_metrics=False):
+    """The gated arm of ``bench.py --rollout`` (``bench.py:1889-1961``):
+    the run in segments of ``ROLLOUT_PROBE_STEP`` rounds; after each, the
+    open pushes' owner columns ``md[:, owner, key]`` are read on the
+    device, and a push has converged when every observer alive at the
+    segment's last round holds its value.  A push past its deadline
+    unconverged raises (the rollback is not ported).  Once all have
+    converged the rest runs in one call.  ``aside``: ``(round, fn)``, with
+    ``fn(state, round)`` called at that round off the arm's clock, launch
+    counts and peak memory (the profiled windows).  Returns ``(state,
+    summary)``: converged rounds, p99 from the clock starts, the final
+    divergence probe, host seconds, launches, peak bytes, what ``fn``
+    returned and (``keep_metrics``) the per-round metrics."""
+    horizon = geo["horizon"]
+    pushes = [dict(p, converged_at=None) for p in geo["pushes"]]
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    state, r, rows, window, peak, seconds = None, 0, [], None, 0, 0.0
+    t0 = time.perf_counter()
+    while r < horizon:
+        if aside is not None and r == aside[0]:
+            torch.cuda.synchronize()
+            seconds += time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            launches = dict(LAUNCHES)
+            window = aside[1](state, r)
+            LAUNCHES.clear()
+            LAUNCHES.update(launches)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+        open_pushes = [p for p in pushes if p["converged_at"] is None]
+        step = (min(ROLLOUT_PROBE_STEP, horizon - r) if open_pushes
+                else horizon - r)
+        if aside is not None and r < aside[0]:
+            step = min(step, aside[0] - r)
+        state, metrics = swim.run(ROLLOUT_SEED, params, world, step,
+                                  state=state, start_round=r, draws=draws,
+                                  device=device)
+        if keep_metrics:
+            rows.append(metrics)
+        r += step
+        due = [p for p in open_pushes if p["push_round"] < r]
+        if due:
+            alive = world.alive_at(r - 1)
+            owners = torch.tensor([p["owner"] for p in due],
+                                  device=state.md.device)
+            held = metadata.word_value(state.md[:, owners, 0])
+            want = torch.tensor([p["value"] for p in due],
+                                device=state.md.device)
+            done = ((held == want) | ~alive[:, None]).all(dim=0).tolist()
+            for p, ok in zip(due, done):
+                if ok:
+                    p["converged_at"] = r
+        late = [p for p in pushes
+                if p["converged_at"] is None and r >= p["deadline"]]
+        if late:
+            raise AssertionError(f"rollout {params.n_members}: push(es) "
+                                 f"{late} past their deadline unconverged")
+    if any(p["converged_at"] is None for p in pushes):
+        raise AssertionError(f"rollout {params.n_members}: push(es) "
+                             f"unconverged at the horizon")
+    final_div = int(metadata.divergence_probe(state, params, world,
+                                              horizon))
+    if on_card:
+        torch.cuda.synchronize()
+        peak = max(peak, torch.cuda.max_memory_allocated())
+    seconds += time.perf_counter() - t0
+    lats = [p["converged_at"] - p["clock_from"] for p in pushes]
+    summary = dict(
+        converged_at=[p["converged_at"] for p in pushes],
+        p99=float(np.percentile(lats, 99)), final_div=final_div,
+        seconds=seconds, launches=dict(LAUNCHES), peak=peak, window=window)
+    if keep_metrics:
+        summary["metrics"] = {name: torch.cat([m[name] for m in rows])
+                              for name in rows[0]}
+    return state, summary
+
+
+def rollout_path(device):
+    """The staged config rollout at full view N = K = 16,384 (its
+    geometry, ``rollout_world``): the gated arm, every push converging
+    inside its deadline and the divergence probe 0 at the horizon, with a
+    profiled window from round 384 (the first stage's push round, inside
+    the split); then the gossip-only control (``sync_interval=0``), still
+    divergent at the horizon.  Each arm launches the merge kernel once a
+    round.  At round 384 the same window is also profiled with the plane
+    off (the state without its md lanes, ``metadata_keys=0``): the
+    difference in ``swim.delivery`` is the md channels' device time.
+    Prints the p99, the control's divergent cells, each arm's ms/round,
+    member-rounds/s, peak bytes and bytes per cell (the windows off the
+    gated arm's peak), the windows' device time per phase range, and
+    the plane's share of device busy time."""
+    n = ROLLOUT_N
+    params = rollout_params(n)
+    world, geo = rollout_world(n, device)
+    horizon = geo["horizon"]
+    start = geo["pushes"][0]["push_round"]
+    plane_off = dataclasses.replace(params, metadata_keys=0)
+
+    def windows(state, r):
+        """The window with the plane on, then off (md lanes dropped)."""
+        on = profile_round.profile_window(params, world, state, r,
+                                          PROFILE_ROUNDS)
+        bare = dataclasses.replace(
+            state, **metadata.initial_lanes(plane_off, device))
+        return on, profile_round.profile_window(plane_off, world, bare, r,
+                                                PROFILE_ROUNDS)
+
+    state, gated = rollout_gated(params, world, geo, device,
+                                 aside=(start, windows))
+    del state
+    check_launches("rollout gated", params, gated["launches"], horizon,
+                   "wide")
+    if gated["final_div"]:
+        raise AssertionError(f"rollout: {gated['final_div']} divergent "
+                             f"cells at the horizon")
+    control = rollout_params(n, sync_interval=0)
+    c_state, _, c_seconds, c_launches, c_peak = timed_run(
+        control, world, horizon, device, seed=ROLLOUT_SEED)
+    check_launches("rollout control", control, c_launches, horizon, "wide")
+    c_div = int(metadata.divergence_probe(c_state, control, world, horizon))
+    del c_state
+    if c_div == 0:
+        raise AssertionError("rollout: the gossip-only control converged")
+    window, off = gated["window"]
+    cells = n * n
+    log(f"[rollout] {n}x{n} shift wide, split [{geo['split_at']}, "
+        f"{geo['heal_at']}), storm {geo['storm']}, pushes at rounds "
+        f"{sorted({p['push_round'] for p in geo['pushes']})}, bound "
+        f"{geo['bound']}, horizon {horizon}: all "
+        f"{len(geo['pushes'])} pushes converged at rounds "
+        f"{gated['converged_at']} (deadlines "
+        f"{[p['deadline'] for p in geo['pushes']]}), "
+        f"metadata_convergence_p99 {gated['p99']} rounds from the clock "
+        f"start, final divergent cells {gated['final_div']}")
+    for label, seconds, peak in (
+            (f"gated (probe every {ROLLOUT_PROBE_STEP})", gated["seconds"],
+             gated["peak"]), ("control", c_seconds, c_peak)):
+        log(f"[rollout] {label}: {horizon} rounds in {seconds:.3f} s, "
+            f"{seconds / horizon * 1e3:.4f} ms/round, "
+            f"{n * horizon / seconds:.6g} member-rounds/s, peak {peak} B, "
+            f"{peak / cells:.4f} B/cell")
+    log(f"[rollout] gossip-only control: divergent cells at round "
+        f"{horizon}: {c_div}")
+    log(f"[rollout] profiled {PROFILE_ROUNDS} rounds from round "
+        f"{window['start_round']}: device busy "
+        f"{window['device_busy_ms_per_round']:.4f} ms/round, wall "
+        f"{window['wall_ms_per_round']:.4f} ms/round, idle share "
+        f"{window['device_idle_share']:.4f}, "
+        f"{window['kernel_launches_per_round']:.2f} kernel launches/round, "
+        f"phases {json.dumps(window['phase_device_ms_per_round'])}, "
+        f"launches {json.dumps(window['phase_launches_per_round'])}, top "
+        f"kernels {json.dumps(window['top_kernels'][:8])}")
+    phases, phases_off = (w["phase_device_ms_per_round"]
+                          for w in (window, off))
+    md_channels = phases["swim.delivery"] - phases_off["swim.delivery"]
+    md_ms = phases.get("swim.metadata", 0.0) + md_channels
+    busy, busy_off = (w["device_busy_ms_per_round"] for w in (window, off))
+    log(f"[rollout] the same window with the plane off (metadata_keys=0, "
+        f"md lanes dropped): device busy "
+        f"{off['device_busy_ms_per_round']:.4f} ms/round, wall "
+        f"{off['wall_ms_per_round']:.4f}, "
+        f"{off['kernel_launches_per_round']:.2f} launches/round, phases "
+        f"{json.dumps(phases_off)}; the md channels "
+        f"{md_channels:.4f} ms of swim.delivery, swim.metadata "
+        f"{phases.get('swim.metadata', 0.0):.4f} ms: the plane "
+        f"{md_ms:.4f} ms, {md_ms / busy:.4f} of device busy (plane on "
+        f"minus off {busy - busy_off:.4f} ms)")
+    launches = dict(gated["launches"])
+    for name, count in c_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    return launches
+
+
+def bench_rollout_path(device):
+    """The rollout at ``bench.py --rollout``'s own size (N = 48, its
+    geometry) on the card and on the CPU with the same CPU-made draws,
+    both arms.  Gates: card == CPU (every state lane, every per-round
+    metric, the converged rounds, the probes), every push inside its
+    deadline, the gated arm's probe 0 and the control's above 0.  Prints
+    the p99 and the control's count beside the reference's committed
+    ones (its own draws differ, so they are compared, not gated)."""
+    n = ROLLOUT_BENCH_N
+    launches, results = {}, {}
+    for arm, sync_interval in (("gated", ROLLOUT_SYNC_INTERVAL),
+                               ("control", 0)):
+        params = rollout_params(n, sync_interval)
+        world_cpu, geo = rollout_world(n, "cpu")
+        draws = prng.TorchDraws(ROLLOUT_SEED, "cpu", params, world_cpu)
+        runs = []
+        for dev in ("cpu", device):
+            world = rollout_world(n, dev)[0]
+            dev_draws = (draws if dev == "cpu"
+                         else lambda q: draws(q).to(device))
+            if arm == "gated":
+                state, summary = rollout_gated(params, world, geo, dev,
+                                               draws=dev_draws,
+                                               keep_metrics=True)
+            else:
+                LAUNCHES.clear()
+                state, metrics = swim.run(ROLLOUT_SEED, params, world,
+                                          geo["horizon"], draws=dev_draws,
+                                          device=dev)
+                summary = dict(metrics=metrics, launches=dict(LAUNCHES),
+                               final_div=int(metadata.divergence_probe(
+                                   state, params, world, geo["horizon"])))
+            runs.append((state, summary))
+        (cs, c_sum), (gs, g_sum) = runs
+        label = f"bench rollout {arm} {n}x{n}"
+        for field in dataclasses.fields(swim.SwimState):
+            if not torch.equal(getattr(cs, field.name),
+                               getattr(gs, field.name).cpu()):
+                raise AssertionError(f"{label}: state.{field.name} differs "
+                                     f"between card and CPU")
+        for name, value in c_sum["metrics"].items():
+            if not torch.equal(value, g_sum["metrics"][name].cpu()):
+                raise AssertionError(f"{label}: metric {name} differs "
+                                     f"between card and CPU")
+        for key in ("converged_at", "final_div"):
+            if c_sum.get(key) != g_sum.get(key):
+                raise AssertionError(f"{label}: {key} {g_sum.get(key)} on "
+                                     f"the card, {c_sum.get(key)} on the CPU")
+        check_launches(label, params, g_sum["launches"], geo["horizon"],
+                       "wide")
+        for name, count in g_sum["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+        results[arm] = g_sum
+    if results["gated"]["final_div"] or results["control"]["final_div"] == 0:
+        raise AssertionError(
+            f"bench rollout: final divergent cells "
+            f"{results['gated']['final_div']} gated, "
+            f"{results['control']['final_div']} control")
+    log(f"[bench rollout] {n}x{n}, horizon {geo['horizon']}, card == CPU "
+        f"(every state lane, per-round metric, converged round): pushes "
+        f"converged at rounds {results['gated']['converged_at']}, "
+        f"metadata_convergence_p99 {results['gated']['p99']} rounds "
+        f"(reference's committed run {ROLLOUT_REFERENCE_P99}), final "
+        f"divergent cells 0; gossip-only control "
+        f"{results['control']['final_div']} divergent cells (reference "
+        f"{ROLLOUT_REFERENCE_CONTROL})")
+    return launches
+
+
 def storm_state(state, params, cursor):
     """The storm's final state as absolute int32 planes (``decoded``'s
     rule at ``cursor``) with the epoch lane."""
@@ -2247,6 +2665,7 @@ def main():
     probe_launches, probe_rows = probe_path(device)
     stage("probes", t_start)
     canaries(device)
+    md_canaries(device)
     stage("canaries", t_start)
     paths = {}
     paths["main"], shift_summary = main_path(device)
@@ -2260,6 +2679,9 @@ def main():
     paths["lifeguard_network"] = lifeguard_network_path(device,
                                                         network_summary)
     stage("planes at full width", t_start)
+    paths["rollout"] = rollout_path(device)
+    paths["bench_rollout"] = bench_rollout_path(device)
+    stage("metadata rollout", t_start)
     paths["cold_start"] = cold_start_path(device)
     paths["scatter_main"], scatter_summary = main_path(
         device, "scatter", narrow=("int16_wire",))

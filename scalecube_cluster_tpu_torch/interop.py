@@ -7,11 +7,10 @@ numpy arrays under the reference's field names (a world's ``faults`` as
 a dict of the ``LinkFaults`` arrays), and checkpoints as the ``.npz``
 that ``scalecube_cluster_tpu.utils.checkpoint.save`` writes
 (``state/<field>`` arrays, ``next_round``, optional ``key_data``,
-``meta_json``).  A world's fault rules, seeds, user-gossip schedule and
-join schedule and a state's delay rings, user-gossip lanes, Lifeguard
-``lhm`` lane and open-world ``epoch`` lane carry over; lanes and
-schedules of planes the port does not carry must be empty, and anything
-else raises ``NotImplementedError`` naming it.
+``meta_json``).  A world's fault rules, seeds, user-gossip, join and
+config-push schedules and a state's delay rings, user-gossip lanes,
+Lifeguard ``lhm`` lane, open-world ``epoch`` lane and metadata ``md`` /
+``md_spread`` lanes carry over.
 :func:`state_to_arrays` carries a port state back, under the names the
 reference's ``checkpoint.state_from_arrays`` reads.  A state's carry layout
 (wide, or the ``compact_carry`` int16/int8 lanes) must be the one its
@@ -32,10 +31,7 @@ from scalecube_cluster_tpu_torch.models import swim
 _STATE_FIELDS = ("status", "inc", "spread_until", "suspect_deadline",
                  "self_inc")
 _LANE_FIELDS = ("inbox_ring", "flag_ring", "g_infected", "g_spread_until",
-                "g_ring", "lhm", "epoch")
-# Reference state lanes of planes the port does not carry, and the axis
-# that is zero when the plane is off.
-_PLANE_LANES = {"md": 1, "md_spread": 1}
+                "g_ring", "lhm", "epoch", "md", "md_spread")
 
 
 def params_from_fields(fields: Mapping) -> swim.SwimParams:
@@ -46,11 +42,8 @@ def params_from_fields(fields: Mapping) -> swim.SwimParams:
 def world_from_arrays(arrays: Mapping, device="cuda") -> swim.SwimWorld:
     """``SwimWorld`` from the reference world's fields as numpy arrays
     (``faults`` as a mapping of the ``LinkFaults`` arrays; absent faults,
-    seeds, gossip or join schedule mean none).  A world with metadata
-    pushes raises."""
+    seeds, gossip, join or push schedule mean none)."""
     device = swim.resolve_device(device)
-    if "md_push_at" in arrays and np.asarray(arrays["md_push_at"]).size > 0:
-        raise NotImplementedError("world field md_push_at is not ported")
 
     def t(values, dtype):
         return torch.tensor(np.asarray(values), dtype=dtype, device=device)
@@ -77,6 +70,7 @@ def world_from_arrays(arrays: Mapping, device="cuda") -> swim.SwimWorld:
         gossip_spread_at=schedule("gossip_spread_at"),
         join_at=(t(arrays["join_at"], torch.int32) if "join_at" in arrays
                  else None),
+        **{name: schedule(name) for name in swim.SwimWorld.PUSH_FIELDS},
     )
     k = world.subject_ids.shape[0]
     expected = torch.full_like(world.slot_of_node, -1)
@@ -100,19 +94,14 @@ def state_from_arrays(arrays: Mapping, device="cuda",
     (keys with or without the ``state/`` prefix).  The carry must be the
     layout ``params`` names: the compact one under
     ``params.compact_carry``, else (and when ``params`` is None) the wide
-    one.  The ring, user-gossip, ``lhm`` and ``epoch`` lanes are taken as
-    given (absent: fresh lanes of the shapes ``params`` gives, zero-size
-    without params, so a checkpoint from before the epoch lane loads with
-    zero epochs under open-world params); ``run`` checks them against its
-    params.  Lanes of other planes must be zero-size or absent."""
+    one.  The ring, user-gossip, ``lhm``, ``epoch`` and metadata lanes are
+    taken as given (absent: fresh lanes of the shapes ``params`` gives,
+    zero-size without params, so a checkpoint from before the epoch lane
+    loads with zero epochs under open-world params); ``run`` checks them
+    against its params."""
     device = swim.resolve_device(device)
     fields = {name[len("state/"):] if name.startswith("state/") else name:
               np.asarray(value) for name, value in arrays.items()}
-    for lane, axis in _PLANE_LANES.items():
-        if lane in fields and fields[lane].ndim > axis \
-                and fields[lane].shape[axis] != 0:
-            raise NotImplementedError(
-                f"state lane {lane} holds a plane the port does not carry")
     missing = [f for f in _STATE_FIELDS if f not in fields]
     if missing:
         raise KeyError(f"state arrays lack {missing}")
@@ -136,8 +125,7 @@ def state_from_arrays(arrays: Mapping, device="cuda",
 def state_to_arrays(state: swim.SwimState) -> dict:
     """A port state as ``{"state/<field>": numpy array}``, every lane in
     its own dtype (the reference's ``checkpoint.state_to_arrays`` naming;
-    its ``state_from_arrays`` reads them after the prefix is taken off,
-    the planes the port does not carry as off)."""
+    its ``state_from_arrays`` reads them after the prefix is taken off)."""
     return {f"state/{f.name}": getattr(state, f.name).cpu().numpy()
             for f in dataclasses.fields(state)}
 

@@ -59,7 +59,8 @@ runs steps 0 and 3-6 column block by column block):
 
 Each phase runs under a ``torch.profiler.record_function`` range
 (``swim.carry``, ``swim.context``, ``swim.fd``, ``swim.delivery``,
-``swim.merge``, ``swim.metrics``), which ``profile_round.py`` reads.
+``swim.merge``, ``swim.metrics``, and ``swim.metadata`` under the
+metadata plane), which ``profile_round.py`` reads.
 
 Randomness comes from a ``RoundDraws`` (shift) or ``ScatterDraws``
 (scatter) per round (``ops/prng.py``): ``run(..., draws=None)`` uses the
@@ -104,8 +105,20 @@ and the merge kernel drops a dead identity's records.  With
 ``epoch_guard=False`` (the naive-reuse control) the joins run on the
 epoch-free wire.
 
-Settings outside the port raise ``NotImplementedError`` naming the
-knob: ``metadata_keys`` and ``provenance``.
+The metadata KV plane (``metadata_keys``, ``models/metadata.py``, full
+view only, not under ``k_block``) runs in the shift and scatter tick
+bodies and every layout: the world's config pushes
+(``SwimWorld.with_metadata_push``) are written at the start of their
+round, after the joins (``_inject_pushes``; the schedule is read to the
+host once per ``run``, ``SwimWorld.push_rows``); hot rows of the ``md``
+lane ride the gossip channels, the refute push and the SYNC channel,
+the full table the anti-entropy pair, same-round only, max-folded into
+one buffer in ``swim.delivery``; the LWW merge against the merge
+kernel's post-merge epoch lane and the ``metadata_divergent`` metric run
+under their own range, ``swim.metadata``.
+
+A setting outside the port raises ``NotImplementedError`` naming the
+knob: ``provenance``.
 ``rounds_per_step`` is accepted and ignored: the reference's outputs are
 bit-identical for any value.
 """
@@ -122,6 +135,7 @@ from scalecube_cluster_tpu_torch import records
 from scalecube_cluster_tpu_torch.kernels import carry
 from scalecube_cluster_tpu_torch.kernels import merge as merge_kernel
 from scalecube_cluster_tpu_torch.models import lifeguard
+from scalecube_cluster_tpu_torch.models import metadata
 from scalecube_cluster_tpu_torch.models import sync as sync_plane
 from scalecube_cluster_tpu_torch.ops import delivery
 from scalecube_cluster_tpu_torch.ops import prng
@@ -155,7 +169,6 @@ def resolve_device(device) -> torch.device:
 
 # Knobs whose non-default values select code the port does not carry.
 _UNPORTED = (
-    ("metadata_keys", lambda p: p.metadata_keys != 0),
     ("provenance", lambda p: p.provenance),
 )
 
@@ -218,6 +231,19 @@ class SwimParams:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported (the port "
                     f"carries the plane-off round)")
+        if self.metadata_keys > 0:
+            if not self.full_view:
+                raise ValueError(
+                    f"the metadata plane requires full view (n_subjects == "
+                    f"n_members): column j is node j, which is what makes "
+                    f"the owner's own row the table authority "
+                    f"(got n_subjects={self.n_subjects}, "
+                    f"n_members={self.n_members})")
+            if self.k_block:
+                raise ValueError(
+                    "metadata_keys > 0 excludes k_block: the blocked "
+                    "capacity path targets table sizes where an [N, N, M] "
+                    "metadata lane is itself infeasible")
         if self.delivery == "shift" and self.ping_known_only != self.full_view:
             raise ValueError(
                 f"shift delivery requires ping_known_only == full_view "
@@ -528,6 +554,12 @@ class SwimWorld:
     slot i admits a new member (a fresh identity, epoch 1) in round
     ``join_at[i]`` (INT32_MAX = never; ``with_join``, carried out under
     ``SwimParams.open_world``); None at construction means no join.
+    ``md_push_at``/``md_push_node``/``md_push_key``/``md_push_value`` [P]
+    int32: the config-push schedule (``with_metadata_push`` appends; run
+    under ``SwimParams.metadata_keys``): at round ``md_push_at[p]`` node
+    ``md_push_node[p]`` writes ``md_push_value[p]`` into its own metadata
+    cell ``md_push_key[p]`` at the next version; None at construction
+    means no push.
     """
 
     down_from: torch.Tensor
@@ -542,11 +574,21 @@ class SwimWorld:
     gossip_origin: torch.Tensor
     gossip_spread_at: torch.Tensor
     join_at: Optional[torch.Tensor] = None
+    md_push_at: Optional[torch.Tensor] = None
+    md_push_node: Optional[torch.Tensor] = None
+    md_push_key: Optional[torch.Tensor] = None
+    md_push_value: Optional[torch.Tensor] = None
+
+    PUSH_FIELDS = ("md_push_at", "md_push_node", "md_push_key",
+                   "md_push_value")
 
     def __post_init__(self):
         n = self.down_from.shape[0]
         if self.join_at is None:
             self.join_at = torch.full_like(self.down_from, INT32_MAX)
+        for name in self.PUSH_FIELDS:
+            if getattr(self, name) is None:
+                setattr(self, name, self.down_from.new_zeros((0,)))
         ids = self.subject_ids.to("cpu", torch.int64)
         if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= n):
             raise ValueError(f"subject_ids out of range for n_members={n}")
@@ -707,6 +749,45 @@ class SwimWorld:
         return dataclasses.replace(self, down_until=down_until,
                                    join_at=join_at)
 
+    def with_metadata_push(self, node, key: int, value: int,
+                           at_round: int) -> "SwimWorld":
+        """Append a config push: ``node`` writes ``value`` into its own
+        metadata cell ``key`` at ``at_round`` (the reference's
+        ``Cluster.updateMetadata``; ``SwimParams.metadata_keys`` must
+        cover ``key`` for the push to write).  Raises, as the reference
+        does, for more than one node, a negative key or round, and a value
+        outside the 10-bit payload field."""
+        ids = self._node_ids(node, "with_metadata_push")
+        if ids.numel() != 1:
+            raise ValueError(
+                "with_metadata_push schedules ONE push per call (a push "
+                "is one owner-local write; compose calls for fleets)")
+        key, value, at_round = int(key), int(value), int(at_round)
+        if key < 0:
+            raise ValueError(f"with_metadata_push: key {key} must be >= 0")
+        if not 0 <= value <= metadata.MD_VALUE_MAX:
+            raise ValueError(
+                f"with_metadata_push: value {value} outside the "
+                f"{metadata.MD_VALUE_BITS}-bit payload field "
+                f"[0, {metadata.MD_VALUE_MAX}]")
+        if at_round < 0:
+            raise ValueError(
+                f"with_metadata_push: at_round {at_round} must be >= 0")
+        row = (at_round, int(ids[0]), key, value)
+        return dataclasses.replace(self, **{
+            name: torch.cat([getattr(self, name),
+                             getattr(self, name).new_tensor([v])])
+            for name, v in zip(self.PUSH_FIELDS, row)})
+
+    def push_rows(self) -> Dict[int, Tuple[Tuple[int, int, int], ...]]:
+        """The push schedule read to the host once: each round with a
+        push, mapped to its ``(node, key, value)`` in schedule order."""
+        out = {}
+        for at, node, key, value in zip(
+                *(getattr(self, name).tolist() for name in self.PUSH_FIELDS)):
+            out.setdefault(at, []).append((node, key, value))
+        return {r: tuple(pushes) for r, pushes in out.items()}
+
     def epoch_at(self, round_idx: int) -> torch.Tensor:
         """[N] int32 ground-truth identity epoch per slot at a round: 0
         the original occupant, 1 the joined identity."""
@@ -767,8 +848,11 @@ class SwimState:
     open-world plane with its epoch guard (``epoch_bits > 0``):
     ``epoch`` [N, K] each observer's belief of each subject's identity
     epoch (0 = the original occupant), int32 in the wide carry and int16
-    in the compact one; [N, 0] int32 when off.  Lanes of a feature that
-    is off are zero-size.
+    in the compact one; [N, 0] int32 when off.  The metadata plane
+    (M = ``metadata_keys``): ``md`` [N, K, M] int32 packed words
+    (``models/metadata.py``) and ``md_spread`` [N, K] int32 absolute
+    gossip windows, in both carry layouts.  Lanes of a feature that is
+    off are zero-size.
     """
 
     status: torch.Tensor
@@ -783,6 +867,8 @@ class SwimState:
     g_ring: torch.Tensor
     lhm: torch.Tensor
     epoch: torch.Tensor
+    md: torch.Tensor
+    md_spread: torch.Tensor
 
 
 def ring_slots(params: SwimParams) -> int:
@@ -794,11 +880,13 @@ def empty_lanes(n: int, k: int, device, d: int = 0, g: int = 0,
                 wire_dtype: torch.dtype = torch.int32) -> dict:
     """Empty delay-ring and user-gossip lanes: a ``d``-slot ring of [n, k]
     keys in ``wire_dtype`` and flags, and ``g`` user gossips held by no
-    one (zero-size where ``d`` or ``g`` is 0), and zero-size ``lhm`` and
-    ``epoch`` lanes."""
+    one (zero-size where ``d`` or ``g`` is 0), and zero-size ``lhm``,
+    ``epoch`` and metadata lanes."""
     return dict(
         lhm=torch.zeros((0,), dtype=torch.int32, device=device),
         epoch=torch.zeros((n, 0), dtype=torch.int32, device=device),
+        md=torch.zeros((n, 0, 0), dtype=torch.int32, device=device),
+        md_spread=torch.zeros((n, 0), dtype=torch.int32, device=device),
         inbox_ring=torch.full((d, n, k), delivery.NO_MESSAGE,
                               dtype=wire_dtype, device=device),
         flag_ring=torch.zeros((d, n, k), dtype=torch.int8, device=device),
@@ -821,18 +909,19 @@ def initial_epoch(params: SwimParams, device) -> torch.Tensor:
 
 
 def initial_lanes(params: SwimParams, device) -> dict:
-    """The ring, user-gossip, ``lhm`` and ``epoch`` lanes of a fresh
-    state under ``params``."""
+    """The ring, user-gossip, ``lhm``, ``epoch`` and metadata lanes of a
+    fresh state under ``params``."""
     return dict(empty_lanes(params.n_members, params.n_subjects, device,
                             d=ring_slots(params), g=params.n_user_gossips,
                             wire_dtype=params.wire_format.dtype),
                 lhm=lifeguard.initial_lhm(params, device),
-                epoch=initial_epoch(params, device))
+                epoch=initial_epoch(params, device),
+                **metadata.initial_lanes(params, device))
 
 
 def check_lanes(state: SwimState, params: SwimParams) -> None:
-    """Raise unless the ring, gossip, ``lhm`` and ``epoch`` lanes have the
-    shapes and dtypes ``params`` gives them."""
+    """Raise unless the ring, gossip, ``lhm``, ``epoch`` and metadata
+    lanes have the shapes and dtypes ``params`` gives them."""
     for name, want in initial_lanes(params, "meta").items():
         got = getattr(state, name)
         if got.shape != want.shape or got.dtype != want.dtype:
@@ -841,7 +930,8 @@ def check_lanes(state: SwimState, params: SwimParams) -> None:
                 f"need {want.dtype}{tuple(want.shape)} (max_delay_rounds="
                 f"{params.max_delay_rounds}, n_user_gossips="
                 f"{params.n_user_gossips}, lhm_max={params.lhm_max}, "
-                f"epoch_bits={params.epoch_bits})")
+                f"epoch_bits={params.epoch_bits}, metadata_keys="
+                f"{params.metadata_keys})")
 
 
 def initial_state(params: SwimParams, world: SwimWorld, warm: bool = True,
@@ -905,12 +995,12 @@ def _apply_joins(state: SwimState, rows: torch.Tensor, round_idx: int,
     layout (the reference's ``_apply_joins``): ABSENT except self and
     the configured seeds, which are ALIVE; incarnation 0; a hot
     self-announcement; no timer; ``self_inc`` 0, ``lhm`` 1, epoch beliefs
-    0; the rows of the delay rings (in place: the round owns them) and
-    of the user-gossip lanes cleared.  The planes are copied, so the
-    input state is not modified.  Under ``k_block`` with the compact
-    carry the stored form is the relative one: spread ``periods_to_spread
-    + 1`` and the int16 no-timer sentinel; otherwise the carry is wide
-    here (decoded first)."""
+    0; the rows of the delay rings (in place: the round owns them), of
+    the user-gossip lanes and of the metadata lanes cleared.  The planes
+    are copied, so the input state is not modified.  Under ``k_block``
+    with the compact carry the stored form is the relative one: spread
+    ``periods_to_spread + 1`` and the int16 no-timer sentinel; otherwise
+    the carry is wide here (decoded first)."""
     compact_layout = params.compact_carry and bool(params.k_block)
     k = state.status.shape[1]
     device = state.status.device
@@ -951,7 +1041,26 @@ def _apply_joins(state: SwimState, rows: torch.Tensor, round_idx: int,
         new["g_spread_until"] = reset_rows(state.g_spread_until, 0)
         if state.g_ring.shape[0] > 0:
             state.g_ring[:, rows] = False
+    if params.metadata_keys > 0:
+        # A reborn slot starts with an empty table; stale words about it
+        # die at the receivers through the merge's epoch gate.
+        new["md"] = reset_rows(state.md, 0)
+        new["md_spread"] = reset_rows(state.md_spread, 0)
     return dataclasses.replace(state, **new)
+
+
+def _inject_pushes(state: SwimState, pushes, round_idx: int,
+                   params: SwimParams, world: SwimWorld) -> SwimState:
+    """The round's config pushes (``pushes``: its ``(node, key, value)``
+    host tuples, ``SwimWorld.push_rows``) written into copies of the
+    metadata lanes (``metadata.inject_pushes``): each live owner's own
+    cell at the next version, stamped with its ground-truth epoch under
+    the open-world plane."""
+    own_epoch = world.epoch_at(round_idx) if params.open_world else None
+    md, md_spread = metadata.inject_pushes(
+        state.md, state.md_spread, round_idx, params, pushes, own_epoch,
+        world.alive_at(round_idx))
+    return dataclasses.replace(state, md=md, md_spread=md_spread)
 
 
 def _round_context(state: SwimState, round_idx: int, params: SwimParams,
@@ -1365,12 +1474,18 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
     into the ring), the anti-entropy exchange on its rounds, and the
     joiner <-> seed exchange, max-folded with the FD verdicts into one
     inbox of the wire format's dtype.  Sender-side gates evaluate at the
-    receiver through shifted views.  Returns ``(inbox, inbox_alive,
-    g_delivered, messages_gossip, link, messages_anti_entropy)``;
-    ``g_delivered`` [N, G] is None without user gossips; ``link`` is
-    None, or under ``link_counters`` the channels' ``(sent, lost)`` [N]
-    int32 wire counters at the senders (the exchanges' included);
-    ``messages_anti_entropy`` is None with the plane off."""
+    receiver through shifted views.  Under the metadata plane the hot
+    md rows ride the gossip channels, the refute push and the SYNC
+    channel and the full table the anti-entropy pair, with each
+    channel's gates, arriving now only (never through the ring).
+    Returns ``(inbox, inbox_alive, g_delivered, messages_gossip, link,
+    messages_anti_entropy, md_delivered)``; ``g_delivered`` [N, G] is
+    None without user gossips; ``link`` is None, or under
+    ``link_counters`` the channels' ``(sent, lost)`` [N] int32 wire
+    counters at the senders (the exchanges' included);
+    ``messages_anti_entropy`` is None with the plane off;
+    ``md_delivered`` [N, K*M] int32 the max-folded md words (0: none),
+    None with the metadata plane off."""
     d_ids, d_alive, d_part = views
     n, k = params.n_members, params.n_subjects
     r_proxies, f = params.ping_req_members, params.fanout
@@ -1399,6 +1514,19 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
                                   dtype=torch.bool, device=status.device)
     h_hot_any = eng.prep(hot_any)
     h_status = eng.prep(status) if ctx["is_seed"] is not None else None
+    h_md_hot = md_delivered = None
+    if params.metadata_keys > 0:
+        h_md_hot = eng.prep(metadata.hot_payload(state.md, state.md_spread,
+                                                 round_idx))
+        md_delivered = torch.zeros((n, k * params.metadata_keys),
+                                   dtype=torch.int32, device=status.device)
+
+    def fold_md(h_md, s, ok_now):
+        """Max-fold the md payload of shift ``s`` where it arrives now."""
+        if h_md is not None:
+            torch.maximum(md_delivered,
+                          torch.where(ok_now[:, None], eng.deliver(h_md, s),
+                                      0), out=md_delivered)
 
     def deliver_channel(s, tx_bit):
         keys = eng.deliver(h_keys, s)
@@ -1472,6 +1600,7 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
         inbox_alive |= delivered_flags & ok_now[:, None]
         if g_bits is not None:
             g_delivered |= g_bits & ok_now[:, None]
+        fold_md(h_md_hot, s, ok_now)
         n_gossip_sent += (ok_c & eng.deliver(h_hot_any, s)).sum(
             dtype=torch.int32)
 
@@ -1499,6 +1628,7 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
     inbox = torch.maximum(inbox, torch.where(ok_r[:, None], delivered_r,
                                              no_msg))
     inbox_alive |= flags_r & ok_r[:, None]
+    fold_md(h_md_hot, fd_shift, ok_r)
     sender_refuting = eng.deliver(h_pushers, sync_shift)
 
     # SYNC channel: the periodic anti-entropy push.
@@ -1521,6 +1651,7 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
     ok_s = arriving(ok_s, delivered, delivered_flags, delay_sy, draws.e_sync)
     inbox = torch.maximum(inbox, torch.where(ok_s[:, None], delivered, no_msg))
     inbox_alive |= delivered_flags & ok_s[:, None]
+    fold_md(h_md_hot, sync_shift, ok_s)
 
     # The anti-entropy exchange: two syncable-payload channels at the
     # shared offset +s and N - s, so receiver j hears partners j - s and
@@ -1530,6 +1661,9 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
     if params.sync_interval > 0:
         ae_sent = sync_plane.sent_count(ctx["ae_due"], alive_here)
     if ctx["ae_due"]:
+        h_md_full = None
+        if params.metadata_keys > 0:
+            h_md_full = eng.prep(metadata.full_payload(state.md))
         for d_i, sft in enumerate(_ae_shifts(draws, n)):
             ok_ae, attempt_ae, dropped_ae = _ae_gate(
                 eng, views, sft, draws.ae_drop_u[d_i], ctx, kn, params, world,
@@ -1544,6 +1678,7 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
             inbox = torch.maximum(inbox, torch.where(ok_ae[:, None],
                                                      delivered, no_msg))
             inbox_alive |= delivered_flags & ok_ae[:, None]
+            fold_md(h_md_full, sft, ok_ae)
 
     # The joiner <-> seed exchange: its pushers are gated on the SYNC
     # round, so other rounds skip it; delivered the same round.
@@ -1554,7 +1689,8 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
         if link is not None:
             link[0].add_(ss_sent)
             link[1].add_(ss_lost)
-    return inbox, inbox_alive, g_delivered, n_gossip_sent, link, ae_sent
+    return (inbox, inbox_alive, g_delivered, n_gossip_sent, link, ae_sent,
+            md_delivered)
 
 
 def _buddy_push(push_refute, params: SwimParams, kn: Knobs):
@@ -1699,7 +1835,9 @@ def _scatter_send_phase(state: SwimState, ctx: dict, fd: dict,
     ALIVE verdict met a SUSPECT entry (the refute push); on an
     anti-entropy round the SYNC payload also goes to the two exchange
     partners (``ae_targets`` [N, 2], ``ae_drop``, and the link
-    counters' ``ae_attempt`` / ``ae_lost``)."""
+    counters' ``ae_attempt`` / ``ae_lost``).  Under the metadata plane
+    also the md payloads: ``md_hot`` [N, K*M] (hot rows, for the gossip
+    and SYNC targets) and ``md_full`` (the table, for the exchange)."""
     status = ctx["status"]
     alive, part, node_ids = ctx["alive"], ctx["part"], ctx["node_ids"]
     gossip_keys, sync_keys = _send_payloads(state, ctx, round_idx, params,
@@ -1777,8 +1915,13 @@ def _scatter_send_phase(state: SwimState, ctx: dict, fd: dict,
                             & ~wire_drop_ae),
                   ae_attempt=attempt_ae,
                   ae_lost=attempt_ae & (wire_drop_ae | ~part_ok_ae))
+    md = {}
+    if params.metadata_keys > 0:
+        md = dict(md_hot=metadata.hot_payload(state.md, state.md_spread,
+                                              round_idx),
+                  md_full=metadata.full_payload(state.md))
     return dict(
-        ae,
+        ae, **md,
         gossip_keys=gossip_keys, sync_keys=sync_keys,
         gossip_targets=gossip_targets, gossip_drop=gossip_drop,
         sync_target=sync_target, sync_drop=~(do_sync & sync_ok)[:, None],
@@ -1792,26 +1935,33 @@ def _scatter_send_phase(state: SwimState, ctx: dict, fd: dict,
 
 def _scatter_channel_bufs(s: dict, params: SwimParams, inbox, inbox_alive,
                           gossip_extra_drop=None, sync_extra_drop=None,
-                          with_ae: bool = True) -> None:
+                          with_ae: bool = True, md_buf=None) -> None:
     """Fold one delay bin of the round's gossip and SYNC scatters into
     ``inbox`` (wire keys) and, on the two-buffer wire
     (``fused_wire=False``), ``inbox_alive`` (ALIVE flags), in place.
     The ``*_extra_drop`` masks keep the messages of other bins out.
     ``with_ae``: also the anti-entropy exchange's two scatters, where the
-    round has them (bin 0 only: the exchange is same-round)."""
+    round has them (bin 0 only: the exchange is same-round).  ``md_buf``
+    [N, K*M] (bin 0 under the metadata plane): also the md payloads'
+    scatters on the same targets and drops (hot rows on the gossip and
+    SYNC channels, the table on the exchange's)."""
     g_drop, s_drop = s["gossip_drop"], s["sync_drop"]
     if gossip_extra_drop is not None:
         g_drop = g_drop | gossip_extra_drop
         s_drop = s_drop | sync_extra_drop
-    channels = [("gossip_keys", "alive_flags", "gossip_targets", g_drop),
-                ("sync_keys", "sync_alive_flags", "sync_target", s_drop)]
+    channels = [("gossip_keys", "alive_flags", "md_hot", "gossip_targets",
+                 g_drop),
+                ("sync_keys", "sync_alive_flags", "md_hot", "sync_target",
+                 s_drop)]
     if with_ae and "ae_targets" in s:
-        channels.append(("sync_keys", "sync_alive_flags", "ae_targets",
-                         s["ae_drop"]))
-    for keys, flags, targets, drop in channels:
+        channels.append(("sync_keys", "sync_alive_flags", "md_full",
+                         "ae_targets", s["ae_drop"]))
+    for keys, flags, md, targets, drop in channels:
         delivery.scatter_max_into(inbox, s[keys], s[targets], drop)
         if not params.fused_wire:
             delivery.scatter_or_into(inbox_alive, s[flags], s[targets], drop)
+        if md_buf is not None:
+            delivery.scatter_max_into(md_buf, s[md], s[targets], drop)
 
 
 def _scatter_deliver(state: SwimState, ctx: dict, fd: dict, s: dict,
@@ -1823,8 +1973,10 @@ def _scatter_deliver(state: SwimState, ctx: dict, fd: dict, s: dict,
     exchange, and the user-gossip bits on the gossip channels' targets
     and drops.  Under the fused wire the ALIVE flags are those of the
     folded winners.  Returns ``(inbox, inbox_alive, g_delivered,
-    seed_counters)``, the last the seed exchange's ``(sent, lost)`` [N]
-    or None where it did not run."""
+    seed_counters, md_delivered)``: ``seed_counters`` the seed exchange's
+    ``(sent, lost)`` [N] or None where it did not run, ``md_delivered``
+    [N, K*M] the bin-0 md scatters (-1: none; same-round only), None with
+    the metadata plane off."""
     n, k = params.n_members, params.n_subjects
     wf = params.wire_format
     inbox = fd["fd_inbox"]
@@ -1849,8 +2001,12 @@ def _scatter_deliver(state: SwimState, ctx: dict, fd: dict, s: dict,
     def late(q, j):
         return None if q is None else q != j
 
+    md_delivered = None
+    if params.metadata_keys > 0:
+        md_delivered = torch.full(s["md_hot"].shape, delivery.NO_MESSAGE,
+                                  dtype=torch.int32, device=inbox.device)
     _scatter_channel_bufs(s, params, inbox, inbox_alive, late(q_g, 0),
-                          late(q_s, 0))
+                          late(q_s, 0), md_buf=md_delivered)
     if q_g is not None:
         for j in range(1, ring.d):
             slot = ring.slot(j)
@@ -1881,7 +2037,7 @@ def _scatter_deliver(state: SwimState, ctx: dict, fd: dict, s: dict,
                 delivery.scatter_or_into(ring.g[ring.slot(j)], s["hot_g"],
                                          s["gossip_targets"],
                                          g_drop | (q_g != j))
-    return inbox, inbox_alive, g_delivered, seed_counters
+    return inbox, inbox_alive, g_delivered, seed_counters, md_delivered
 
 
 def _scatter_send_aux(fd: dict, s: dict, params: SwimParams, alive,
@@ -1938,8 +2094,9 @@ def _tick_scatter(state: SwimState, ctx: dict, round_idx: int,
     with record_function("swim.delivery"):
         s = _scatter_send_phase(state, ctx, fd, round_idx, params, kn, world,
                                 draws)
-        inbox, inbox_alive, g_delivered, seed_counters = _scatter_deliver(
-            state, ctx, fd, s, round_idx, params, kn, world, draws)
+        (inbox, inbox_alive, g_delivered, seed_counters,
+         md_delivered) = _scatter_deliver(state, ctx, fd, s, round_idx,
+                                          params, kn, world, draws)
     with record_function("swim.merge"):
         new_state, refuted = _merge_and_timers(
             state, ctx, inbox, inbox_alive, g_delivered, round_idx, params,
@@ -1947,7 +2104,8 @@ def _tick_scatter(state: SwimState, ctx: dict, round_idx: int,
                                     fd["lhm_clean"]))
     aux = dict(_scatter_send_aux(fd, s, params, ctx["alive"], seed_counters),
                refutations=(refuted & ctx["alive"]).sum(dtype=torch.int32))
-    return new_state, aux
+    return _metadata_phase(new_state, md_delivered, ctx, round_idx, params,
+                           aux)
 
 
 def _check_draws(draws, facts: prng.DrawFacts) -> None:
@@ -1996,9 +2154,9 @@ def _tick_shift(state: SwimState, ctx: dict, round_idx: int,
         fd = _fd_phase(eng, views, ctx, shifts, round_idx, params, kn, world,
                        draws)
     with record_function("swim.delivery"):
-        inbox, inbox_alive, g_delivered, n_gossip_sent, link, ae_sent = \
-            _delivery_phase(state, eng, views, ctx, fd, shifts, round_idx,
-                            params, kn, world, draws)
+        (inbox, inbox_alive, g_delivered, n_gossip_sent, link, ae_sent,
+         md_delivered) = _delivery_phase(state, eng, views, ctx, fd, shifts,
+                                         round_idx, params, kn, world, draws)
     with record_function("swim.merge"):
         new_state, refuted = _merge_and_timers(
             state, ctx, inbox, inbox_alive, g_delivered, round_idx, params,
@@ -2019,7 +2177,30 @@ def _tick_shift(state: SwimState, ctx: dict, round_idx: int,
                                + fd["ping_req_launches"].to(torch.int32)
                                * params.ping_req_members)
         aux["lost_by_node"] = link[1]
-    return new_state, aux
+    return _metadata_phase(new_state, md_delivered, ctx, round_idx, params,
+                           aux)
+
+
+def _metadata_phase(new_state: SwimState, md_delivered, ctx: dict,
+                    round_idx: int, params: SwimParams, aux: dict):
+    """The metadata plane's merge and metric, under ``swim.metadata``:
+    ``metadata.merge`` of the round's delivered words against the merge
+    kernel's post-merge epoch lane (with the epoch guard on), with the
+    kernel's self cells and frozen rows, then ``metadata_divergent`` of
+    the merged table into ``aux``.  ``new_state`` holds the round's
+    input md lanes; nothing runs with the plane off.  Returns
+    ``(new_state, aux)``."""
+    if params.metadata_keys == 0:
+        return new_state, aux
+    alive = ctx["alive"]
+    with record_function("swim.metadata"):
+        md, md_spread = metadata.merge(
+            new_state.md, new_state.md_spread, md_delivered, round_idx,
+            params, ctx["is_self"],
+            new_state.epoch if params.epoch_bits else None, ~alive)
+        aux = dict(aux, metadata_divergent=metadata.divergent_count(
+            md, alive, alive))
+    return dataclasses.replace(new_state, md=md, md_spread=md_spread), aux
 
 
 def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
@@ -2145,7 +2326,8 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
         flag_ring=state.flag_ring, g_infected=state.g_infected,
         g_spread_until=state.g_spread_until, g_ring=state.g_ring,
         lhm=state.lhm,
-        epoch=torch.empty_like(state.epoch) if eb else state.epoch)
+        epoch=torch.empty_like(state.epoch) if eb else state.epoch,
+        md=state.md, md_spread=state.md_spread)
     plane_args = _merge_plane_args(ctx, params, kn)
     hists = {name: torch.zeros((k,), dtype=torch.int32, device=device)
              for name in ("hist_alive", "hist_suspect", "hist_dead",
@@ -2379,7 +2561,8 @@ def _merge_and_timers(state: SwimState, ctx: dict, inbox, inbox_alive,
     gossips open a spread window, rows of crashed members stay frozen)
     and the ``lhm`` lane (``lhm_signals``: the FD phase's ``(probe_fail,
     probe_clean)`` [N] masks).  The rings pass through (delivery updated
-    them in place).  Returns ``(new_state, refuted [N] bool)``."""
+    them in place), and so do the metadata lanes (``_metadata_phase``
+    merges them).  Returns ``(new_state, refuted [N] bool)``."""
     alive_here = ctx["alive"]
     (new_status, new_inc, spread_until, deadline, self_inc, refuted,
      *epoch) = merge_kernel.merge_and_timers(
@@ -2398,7 +2581,8 @@ def _merge_and_timers(state: SwimState, ctx: dict, inbox, inbox_alive,
                      g_ring=state.g_ring,
                      lhm=_lhm_update(ctx, lhm_signals, refuted, params,
                                      kn),
-                     epoch=epoch[0] if epoch else state.epoch), refuted
+                     epoch=epoch[0] if epoch else state.epoch,
+                     md=state.md, md_spread=state.md_spread), refuted
 
 
 def _column_hists(new_status, status, alive) -> dict:
@@ -2479,6 +2663,8 @@ def _round_metrics(new_state: SwimState, status, aux: dict,
         # Per gossip, the members holding it.
         metrics["user_gossip_infected"] = new_state.g_infected.sum(
             dim=0, dtype=torch.int32)
+    if params.metadata_keys > 0:
+        metrics["metadata_divergent"] = aux["metadata_divergent"]
     return metrics
 
 
@@ -2504,16 +2690,22 @@ def _encoded(state: SwimState, round_idx: int,
 
 def _wide_tick(state: SwimState, round_idx: int, params: SwimParams,
                world: SwimWorld, draws: prng.RoundDraws, kn: Knobs,
-               join_rows: Optional[torch.Tensor] = None
+               join_rows: Optional[torch.Tensor] = None, pushes=()
                ) -> Tuple[SwimState, Dict[str, torch.Tensor]]:
     """One round on the wide carry (under ``k_block``, on the stored
     carry block by block); the input planes are free once this returns
     (the compact carry is encoded only after that).  ``join_rows``: the
     rows whose join fires this round (``SwimWorld.join_rows``), reset
-    first under the open-world plane; None on a round without one."""
+    first under the open-world plane; None on a round without one.
+    ``pushes``: the round's config pushes (``SwimWorld.push_rows``),
+    written next under the metadata plane."""
     with record_function("swim.context"):
         if params.open_world and join_rows is not None:
             state = _apply_joins(state, join_rows, round_idx, params, world)
+    if params.metadata_keys > 0 and pushes:
+        with record_function("swim.metadata"):
+            state = _inject_pushes(state, pushes, round_idx, params, world)
+    with record_function("swim.context"):
         ctx = _round_context(state, round_idx, params, world, kn)
     if params.k_block:
         tick = _tick_shift_blocked
@@ -2536,6 +2728,13 @@ def _own_rings(state: SwimState) -> SwimState:
                                g_ring=state.g_ring.clone())
 
 
+def _schedules(params: SwimParams, world: SwimWorld):
+    """``(joins, pushes)``: the join and config-push schedules read to the
+    host once (empty where their plane is off)."""
+    return (world.join_rows() if params.open_world else {},
+            world.push_rows() if params.metadata_keys > 0 else {})
+
+
 def swim_tick(state: SwimState, round_idx: int, params: SwimParams,
               world: SwimWorld, draws: prng.RoundDraws,
               knobs: Optional[Knobs] = None
@@ -2544,10 +2743,10 @@ def swim_tick(state: SwimState, round_idx: int, params: SwimParams,
     ``state`` is not modified."""
     check_lanes(state, params)
     kn = knobs if knobs is not None else Knobs.from_params(params)
-    joins = world.join_rows() if params.open_world else {}
+    joins, pushes = _schedules(params, world)
     new_state, metrics = _wide_tick(
         _decoded(_own_rings(state), round_idx, params), round_idx, params,
-        world, draws, kn, joins.get(round_idx))
+        world, draws, kn, joins.get(round_idx), pushes.get(round_idx, ()))
     return _encoded(new_state, round_idx, params), metrics
 
 
@@ -2574,8 +2773,7 @@ def run(seed: int, params: SwimParams, world: SwimWorld, n_rounds: int,
     if draws is None:
         draws = prng.TorchDraws(seed, device, params, world)
     kn = Knobs.from_params(params)
-    # The join schedule, read to the host once.
-    joins = world.join_rows() if params.open_world else {}
+    joins, pushes = _schedules(params, world)
     rows = []
     for round_idx in range(start_round, start_round + n_rounds):
         # swim_tick's steps, with each carry released as soon as the next
@@ -2583,7 +2781,8 @@ def run(seed: int, params: SwimParams, world: SwimWorld, n_rounds: int,
         # through the round, nor the decoded planes through the encode.
         state = _decoded(state, round_idx, params)
         state, m = _wide_tick(state, round_idx, params, world,
-                              draws(round_idx), kn, joins.get(round_idx))
+                              draws(round_idx), kn, joins.get(round_idx),
+                              pushes.get(round_idx, ()))
         state = _encoded(state, round_idx, params)
         rows.append(m)
     metrics = {name: torch.stack([m[name] for m in rows])

@@ -15,8 +15,8 @@ host clock (ending in a device sync), then the same window again under
 ``torch.profiler``.  Reports, per round: wall time, device busy time and
 idle share, kernel launches, device time and kernel launches inside
 each phase range of ``models/swim.py`` (``swim.carry``/``context``/
-``fd``/``delivery``/``merge``/``metrics``), the top kernels by device
-time, and the delay ring's bytes.
+``fd``/``delivery``/``merge``/``metrics``/``metadata``), the top kernels
+by device time, and the delay ring's bytes.
 
 Run on a card: ``python -m scalecube_cluster_tpu_torch.profile_round
 [--n 1000000] [--layout wide [compact ...]] [--delivery scatter]
@@ -41,7 +41,7 @@ from scalecube_cluster_tpu_torch.config import ClusterConfig
 from scalecube_cluster_tpu_torch.models import swim
 
 PHASES = ("swim.carry", "swim.context", "swim.fd", "swim.delivery",
-          "swim.merge", "swim.metrics")
+          "swim.merge", "swim.metrics", "swim.metadata")
 # Knob settings of each carry/wire layout.
 LAYOUTS = {"wide": {}, "int16_wire": dict(int16_wire=True),
            "compact": dict(compact_carry=True),

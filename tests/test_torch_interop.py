@@ -83,9 +83,9 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
 
 def test_port_runs_with_jax_blocked():
     """Every module and ``chip_smoke.py`` import, and short CPU runs (the
-    plain round, and one with a block, delays and a user gossip)
-    complete, in a process where importing jax or the JAX package
-    fails."""
+    plain round, one with a block, delays and a user gossip, and one
+    with a config push) complete, in a process where importing jax or
+    the JAX package fails."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(
             ".__init__", "")
@@ -111,6 +111,13 @@ def test_port_runs_with_jax_blocked():
         "s, m = swim.run(0, q, v, 12, device='cpu')",
         "assert s.inbox_ring.shape == (3, 64, 8)",
         "assert m['user_gossip_infected'].shape == (12, 1)",
+        "r = swim.SwimParams.from_config(ClusterConfig.default(), 16,"
+        " delivery='shift', metadata_keys=1, sync_interval=4)",
+        "u = swim.SwimWorld.healthy(r, device='cpu')"
+        ".with_metadata_push(3, 0, 641, 1)",
+        "s, m = swim.run(0, r, u, 12, device='cpu')",
+        "assert s.md.shape == (16, 16, 1) and m['metadata_divergent'].shape"
+        " == (12,)",
         "importlib.import_module('chip_smoke')",
         "assert not any(k.startswith(('jax', 'scalecube_cluster_tpu.'))"
         " for k in sys.modules if sys.modules[k] is not None)",
@@ -148,9 +155,12 @@ def test_state_and_world_import_reject_unported_lanes():
     arrays = checkpoint.state_to_arrays(jswim.initial_state(jparams, jworld))
     state = interop.state_from_arrays(arrays, device="cpu")
     assert state.status.shape == (32, 4) and state.status.dtype == torch.int8
+    # md lanes come across as given; a lane the params do not size (the
+    # metadata plane needs full view) is refused when the run checks it.
     md = dict(arrays, **{"state/md": np.zeros((32, 4, 2), np.int32)})
-    with pytest.raises(NotImplementedError, match="md"):
-        interop.state_from_arrays(md, device="cpu")
+    with pytest.raises(ValueError, match="metadata_keys"):
+        swim.check_lanes(interop.state_from_arrays(md, device="cpu"),
+                         port_params(jparams))
     # A compact lane in a state whose params name the wide carry.
     compact = dict(arrays, **{"state/inc": np.zeros((32, 4), np.int16)})
     with pytest.raises(ValueError, match="compact_carry"):
@@ -162,9 +172,13 @@ def test_state_and_world_import_reject_unported_lanes():
     assert world.faults.n_rules == 1 and world.seed_ids.tolist() == [0, 3]
     assert world.faults.dst_hi.tolist() == [9]
     assert world.faults.delay_ms.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="md_push_at"):
-        interop.world_from_arrays(
-            {"md_push_at": np.zeros(1, np.int32)}, device="cpu")
+    # A world with an inconsistent slot map is refused.
+    arrays_w = {f.name: np.asarray(getattr(jworld, f.name))
+                for f in dataclasses.fields(jworld)
+                if f.name != "faults" and getattr(jworld, f.name) is not None}
+    arrays_w["slot_of_node"] = np.roll(arrays_w["slot_of_node"], 1)
+    with pytest.raises(ValueError, match="slot_of_node"):
+        interop.world_from_arrays(arrays_w, device="cpu")
     # A scatter params (the reference's default) carries over field for
     # field.
     jscatter = jswim.SwimParams.from_config(fast_config(), n_members=32,
@@ -203,3 +217,48 @@ def test_lhm_lane_converts_both_ways(compact):
         got = np.asarray(getattr(back, field.name))
         assert got.dtype == want.dtype and got.shape == want.shape, field.name
         np.testing.assert_array_equal(got, want, err_msg=field.name)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_metadata_lanes_and_pushes_convert_both_ways(compact):
+    """A reference world's config-push schedule and a reference state's
+    ``md`` / ``md_spread`` lanes (set) come across, and the port's state
+    goes back through ``interop.state_to_arrays`` to the reference's
+    ``checkpoint.state_from_arrays`` field for field; a JAX checkpoint
+    with the lanes loads and resumes in the port as the reference's
+    unbroken run continues."""
+    jparams = jswim.SwimParams.from_config(
+        fast_config(), n_members=16, delivery="shift", sync_every=0,
+        sync_interval=4, metadata_keys=2, compact_carry=compact)
+    jworld = (jswim.SwimWorld.healthy(jparams)
+              .with_metadata_push(3, 0, 641, 2).with_metadata_push(5, 1, 9, 2)
+              .with_metadata_push(3, 0, 7, 12))
+    world = port_world(jworld)
+    for name in swim.SwimWorld.PUSH_FIELDS:
+        np.testing.assert_array_equal(getattr(world, name).numpy(),
+                                      np.asarray(getattr(jworld, name)))
+    params = port_params(jparams)
+    key = jax.random.key(3)
+    jmid, _ = jswim.run(key, jparams, jworld, 10)
+    assert np.asarray(jmid.md).any() and np.asarray(jmid.md_spread).any()
+    state = interop.state_from_arrays(checkpoint.state_to_arrays(jmid),
+                                      device="cpu", params=params)
+    swim.check_lanes(state, params)
+    assert_state_equal(jmid, state)
+    back = checkpoint.state_from_arrays(
+        {name[len("state/"):]: value
+         for name, value in interop.state_to_arrays(state).items()},
+        params=jparams)
+    for field in dataclasses.fields(jmid):
+        want = np.asarray(getattr(jmid, field.name))
+        got = np.asarray(getattr(back, field.name))
+        assert got.dtype == want.dtype and got.shape == want.shape, field.name
+        np.testing.assert_array_equal(got, want, err_msg=field.name)
+    jend, jmetrics = jswim.run(key, jparams, jworld, 10, state=jmid,
+                               start_round=10)
+    end, metrics = swim.run(0, params, world, 10, state=state,
+                            start_round=10,
+                            draws=jax_draws(key, jparams, jworld),
+                            device="cpu")
+    assert_state_equal(jend, end)
+    assert_metrics_equal(jmetrics, metrics)

@@ -125,7 +125,7 @@ def test_torch_draws_shapes_and_ranges():
     assert prng.TorchDraws(4, "cpu", params)(11).shifts != d.shifts
 
 
-UNPORTED = [("metadata_keys", 2), ("provenance", True)]
+UNPORTED = [("provenance", True)]
 PLANES = [("sync_interval", 8), ("lhm_max", 4), ("dead_suppress_rounds", 8)]
 
 
@@ -161,6 +161,39 @@ def test_open_world_constructs_in_every_setting(guard):
                                             epoch_guard=guard, **overrides)
         assert params.open_world
         assert params.epoch_bits == want.epoch_bits == (bits if guard else 0)
+
+
+# The settings the metadata plane runs beside, each on its own.
+METADATA_BESIDE = {"alone": {}, "open_world": dict(open_world=True),
+                   "sync_interval": dict(sync_interval=8),
+                   "lhm_max": dict(lhm_max=4),
+                   "dead_suppress_rounds": dict(dead_suppress_rounds=8),
+                   "delays": dict(mean_delay_ms=50.0, max_delay_rounds=2)}
+
+
+@pytest.mark.parametrize("beside", list(METADATA_BESIDE))
+def test_metadata_keys_constructs_in_every_setting(beside):
+    """``metadata_keys`` constructs in shift and scatter in the four
+    layouts beside each plane, as the reference's does, and ``k_block``
+    and focal shapes raise the reference's ``ValueError``."""
+    extra = METADATA_BESIDE[beside]
+    for overrides, _ in SETTINGS:
+        kwargs = dict(overrides, metadata_keys=2, **extra)
+        if "k_block" in overrides:
+            for params_cls in (swim.SwimParams, jswim.SwimParams):
+                with pytest.raises(ValueError, match="k_block"):
+                    params_cls.from_config(fast_config(), n_members=64,
+                                           **kwargs)
+            continue
+        params = swim.SwimParams.from_config(fast_config(), n_members=64,
+                                             **kwargs)
+        want = jswim.SwimParams.from_config(fast_config(), n_members=64,
+                                            **kwargs)
+        assert params.metadata_keys == 2
+        assert dataclasses.asdict(params) == dataclasses.asdict(want)
+    with pytest.raises(ValueError, match="full view"):
+        swim.SwimParams.from_config(fast_config(), n_members=64,
+                                    n_subjects=8, metadata_keys=2, **extra)
 
 
 @pytest.mark.parametrize("knob,value", PLANES, ids=[k for k, _ in PLANES])

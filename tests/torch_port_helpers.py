@@ -24,7 +24,7 @@ from scalecube_cluster_tpu_torch.ops.prng import (DrawFacts, RoundDraws,
 
 STATE_FIELDS = ("status", "inc", "spread_until", "suspect_deadline",
                 "self_inc", "inbox_ring", "flag_ring", "g_infected",
-                "g_spread_until", "g_ring", "lhm", "epoch")
+                "g_spread_until", "g_ring", "lhm", "epoch", "md", "md_spread")
 
 
 @pytest.fixture(autouse=True, scope="module")
