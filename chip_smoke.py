@@ -36,6 +36,15 @@ and prints no result):
    events too (``events_ms``, ``planes_events_ms``), which at this shape
    also time the wrapper's host-side checks; the codec's two kernels on
    both clocks (``device_ms``);
+3b. the event record (``kernels/trace.trace_record``, ``csrc/
+   trace_record.cu``) against its plain version at 1M x 16 on seeded
+   code planes: a dense round (every event fits), a sparse round, a
+   round overflowing the 65,536-row capacity partway, a start count one
+   below the capacity and at it; lanes, count and dropped exact, each
+   case checked to reach its edge; the sparse round (16,000 events)
+   timed on the device clock and on CUDA events into a buffer it never
+   fills, the dense one on the device clock (the count reset before
+   each call);
 4. the probe path: ``python -m scalecube_cluster_tpu_torch.mosaic_probe``
    at [512, 128] and at [1,000,000, 16] (each probe once, checked against
    its plain version), then each probe timed at both shapes on the
@@ -87,6 +96,15 @@ and prints no result):
    rejoining at round 40 and pushing again, the network configuration
    (md same-round only) and Lifeguard with a 64-round suppression
    window;
+5b. the traced canaries (``traced_canaries``): ``run_traced`` at 4,096 x
+    16, 100 rounds, node 3 crashed at round 10 and node 5 leaving at
+    round 30, card against CPU with the same CPU-made draws: shift wide,
+    ``int16_wire``, compact, compact + ``wire24``, scatter wide, wide
+    into a 256-row buffer (it overflows), and the open world with node 3
+    rejoining at round 60 (JOINED and LEAVING recorded); the trace
+    (lanes, count, dropped, first_suspect, first_removed) card == CPU,
+    the card's state and metrics equal to its untraced run's, the
+    layout's kernels once a round plus one ``trace_record``;
 6. the main path and the layout identity: LAN defaults, N = 1,000,000
    members x K = 16 subjects, loss 0.02, node 3 crashed at round 10, the
    port's own device draws, 600 rounds through ``models.swim.run`` in the
@@ -98,7 +116,22 @@ and prints no result):
    exactly.  Each layout prints ms/round, member-rounds/s, kernel
    launches per round (a profiled 20-round window) and peak memory (and
    the bytes already allocated when its run began);
-6b. the churn storm at full width, the open-world plane's path: the
+6a. ``bench.py``'s traced window at full width (``traced_window_path``):
+    the main path's workload (wide, shift) for 256 rounds through
+    ``telemetry/sink.stream_traced_run`` in 4 segments of 64 at 65,536
+    rows a segment, ``decode=False``, against the untraced ``run`` of the
+    same rounds and draws, each timed twice in turns: final state (every
+    lane) and metrics equal;
+    each segment's count + dropped equal to the nonzero codes the plain
+    derivation gives over its rounds; both ms/round and
+    ``traced_overhead_ratio`` (traced ms over untraced), peak bytes, and
+    profiled windows from round 256, traced and untraced;
+6b. ``bench.py``'s telemetry scenario (``telemetry_path``): 4,096 x 16,
+    the sped-up timing, node 3 crashed at round 10,
+    ``suspicion_rounds + 80`` rounds in segments of a third: no drop, and
+    for node 3 the histogram identity (bucketed + undetected + suspected
+    before the crash = N - 1) for detection and removal; the buckets;
+6c. the churn storm at full width, the open-world plane's path: the
     reference's ``chaos.churn_growth_scenario`` geometry (``bench.py
     --churn``'s workload) at N = 1,000,000 x K = 16 focal subjects at
     ``arange(16) * 62,500``, the chaos campaign's config, shift, wide,
@@ -202,8 +235,8 @@ and prints no result):
     s), peak bytes and bytes per cell, and a profiled 5-round window;
 14. one ``{"kernels": [...]}`` line (the block-form times and bounds as
     ``block_*`` fields of their kernels' rows, the plane-on ones as
-    ``planes_*`` / ``block_planes_*``), then ``{"ok": true, "device":
-    ...}``.
+    ``planes_*`` / ``block_planes_*``, the record's dense round as
+    ``dense_*``), then ``{"ok": true, "device": ...}``.
 
 No phase catches its own failure, and nothing falls back to the CPU or
 to a plain version.  Run from the repository root: ``python3
@@ -212,6 +245,7 @@ plane-off merge timed in turns against an earlier ``merge_timers.cu``.
 """
 
 import argparse
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -232,9 +266,12 @@ from scalecube_cluster_tpu_torch.chaos import monitor
 from scalecube_cluster_tpu_torch.config import ClusterConfig
 from scalecube_cluster_tpu_torch.kernels import LAUNCHES, _build
 from scalecube_cluster_tpu_torch.kernels import carry, merge, probes
+from scalecube_cluster_tpu_torch.kernels import trace as trace_kernel
 from scalecube_cluster_tpu_torch.models import lifeguard, metadata, swim
 from scalecube_cluster_tpu_torch.models import sync as sync_plane
 from scalecube_cluster_tpu_torch.ops import delivery, prng
+from scalecube_cluster_tpu_torch.telemetry import sink
+from scalecube_cluster_tpu_torch.telemetry import trace as ttrace
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the float32
 # non-tensor rate, an upper limit on 32-bit integer issue (so the
@@ -245,7 +282,7 @@ OPS_PER_S = 67e12
 # stores, and the function's own integer work), read off the sources.
 OPS_PER_CELL = {"merge": 60, "carry_decode": 10, "carry_encode": 20,
                 "probe_load16": 6, "probe_store16": 6, "probe_cmp16": 7,
-                "probe_load8": 6, "probe_merge_core": 25}
+                "probe_load8": 6, "probe_merge_core": 25, "trace_record": 8}
 
 MAIN_N, MAIN_K, MAIN_ROUNDS, CRASHED, CRASH_AT = 1_000_000, 16, 600, 3, 10
 # The full-view capacity configuration (experiments/fullview_ceiling.py:
@@ -347,6 +384,25 @@ ROLLOUT_STORM, ROLLOUT_WAVE, ROLLOUT_STORM_START, ROLLOUT_WAVE_EVERY = (
 # The reference's committed rollout at N = 48 (README, "Metadata KV &
 # config rollout"): p99 and the control's divergent cells.
 ROLLOUT_REFERENCE_P99, ROLLOUT_REFERENCE_CONTROL = 4, 96
+# The event record's kernel cases at 1M x 16 (label, event density, rows
+# already recorded, capacity; None = one row a cell), the densities it is
+# timed at, and the round its rows carry.
+TRACE_CAPACITY = 65_536
+TRACE_RECORD_CASES = (("dense", 0.9, 0, None),
+                      ("sparse", 1e-3, 0, TRACE_CAPACITY),
+                      ("overflow", 1e-2, 1_000, TRACE_CAPACITY),
+                      ("one below capacity", 1e-3, TRACE_CAPACITY - 1,
+                       TRACE_CAPACITY),
+                      ("at capacity", 1e-3, TRACE_CAPACITY, TRACE_CAPACITY))
+TRACE_SPARSE_DENSITY, TRACE_DENSE_DENSITY = 1e-3, 0.9
+TRACE_RECORD_ROUND = 37
+# The traced canaries: node 5 leaves at round 30; the overflowing one's
+# capacity.  bench.py's traced window (bench.py:475-540): 256 rounds in 4
+# segments at traced_window_policy's capacity (65,536 at 1M); its
+# telemetry scenario (bench.py:327-328, :666-720).
+TRACE_LEAVER, TRACE_LEAVE_AT, TRACE_CANARY_SMALL_CAPACITY = 5, 30, 256
+TRACE_ROUNDS, TRACE_SEGMENTS = 256, 4
+TELEMETRY_N, TELEMETRY_CRASH_AT = 4_096, 10
 
 
 def log(msg):
@@ -2630,6 +2686,454 @@ def merge_ab(device, baseline):
             + ", ".join(f"{label} {ms:.4f} ms" for label, ms in turns))
 
 
+# --------------------------------------------------------------------------
+# The membership event trace (telemetry/trace, kernels/trace)
+# --------------------------------------------------------------------------
+
+
+def trace_planes(density, seed, device):
+    """Seeded [1M, 16] code planes (event types 1-6 at ``density``) and
+    event incarnations on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (MAIN_N, MAIN_K)
+    kinds = torch.randint(1, 7, shape, generator=g, device=device,
+                          dtype=torch.int32)
+    codes = torch.where(torch.rand(shape, generator=g, device=device)
+                        < density, kinds, 0).to(torch.int8)
+    incs = torch.randint(0, 1 << 20, shape, generator=g, device=device,
+                         dtype=torch.int32)
+    return codes, incs
+
+
+def record_inputs(density, start, capacity, seed, device):
+    """One record case: ``(codes, incs, prefix, subject_ids, lanes, count,
+    dropped)`` with ``start`` rows already recorded (seeded) and 5 drops
+    counted."""
+    codes, incs = trace_planes(density, seed, device)
+    lanes = torch.full((capacity, trace_kernel.N_LANES), -1,
+                       dtype=torch.int32, device=device)
+    lanes[:start] = torch.randint(0, 1 << 20, (start, trace_kernel.N_LANES),
+                                  device=device, dtype=torch.int32)
+    return (codes, incs, trace_kernel.event_prefix(codes),
+            torch.arange(MAIN_K, dtype=torch.int32, device=device)
+            * (MAIN_N // MAIN_K),
+            lanes, torch.tensor(start, dtype=torch.int32, device=device),
+            torch.tensor(5, dtype=torch.int32, device=device))
+
+
+def record_bytes(codes, recorded, events):
+    """The bytes a record must move: the codes in full, the prefix and
+    the incarnation at each event cell, 20 B per recorded row and the
+    two counters read and written."""
+    return (codes.numel() + events * 8 + recorded * 4 * trace_kernel.N_LANES
+            + 16)
+
+
+def record_call(args, round_idx=TRACE_RECORD_ROUND):
+    codes, incs, prefix, sids, lanes, count, dropped = args
+    return lambda: trace_kernel.trace_record(
+        lanes, count, dropped, codes, incs, prefix, sids, round_idx)
+
+
+def record_plain(args, round_idx=TRACE_RECORD_ROUND):
+    codes, incs, prefix, sids, lanes, count, dropped = args
+    return lambda: trace_kernel.trace_record_reference(
+        lanes, count, dropped, codes, incs, prefix, sids, round_idx, 0)
+
+
+def check_trace_record(device):
+    """Phase 3b: the event record against its plain version at 1M x 16 on
+    seeded code planes: a dense round (every event fits), a sparse
+    round, a round that overflows the capacity partway, a start count
+    one below the capacity and at it; lanes, count and dropped exact and
+    each case checked to reach its edge.  Then the sparse round (a
+    traced round's shape) timed into a buffer it never fills, on the
+    device clock and on CUDA events, and the dense one on the device
+    clock with the count reset before each call."""
+    for label, density, start, capacity in TRACE_RECORD_CASES:
+        cap = MAIN_N * MAIN_K if capacity is None else capacity
+        got = record_inputs(density, start, cap, 9, device)
+        want = tuple(t.clone() for t in got)
+        record_call(got)()
+        record_plain(want)()
+        torch.cuda.synchronize()
+        err = max_abs_err(f"trace_record {label}", got[4:], want[4:])
+        total = int(got[2][-1])
+        count, dropped = int(got[5]), int(got[6])
+        if count != min(start + total, cap) or \
+                dropped != 5 + start + total - count:
+            raise AssertionError(f"trace_record {label}: count {count}, "
+                                 f"dropped {dropped} for {total} events "
+                                 f"from {start} of {cap}")
+        reaches = {"dense": count == start + total
+                   and total > got[0].numel() // 2,
+                   "sparse": 0 < total < cap - start,
+                   "overflow": start < cap and start + total > cap,
+                   "one below capacity": count == cap and total > 1,
+                   "at capacity": start == cap and dropped == 5 + total}
+        if not reaches[label]:
+            raise AssertionError(f"trace_record {label}: the case does not "
+                                 f"reach its edge ({total} events)")
+        log(f"[kernel] trace_record {label} {MAIN_N}x{MAIN_K}: exact match "
+            f"(lanes, count, dropped), {total} events, {start} -> {count} "
+            f"of {cap} rows, dropped {dropped}")
+
+    def timed(density, seed, reset):
+        args = record_inputs(density, 0, MAIN_N * MAIN_K, seed, device)
+        events = int(args[2][-1])
+        kernel, plain = record_call(args), record_plain(args)
+        if reset:
+            count = args[5]
+            kernel_fn, plain_fn = kernel, plain
+
+            def kernel():
+                count.zero_()
+                kernel_fn()
+
+            def plain():
+                count.zero_()
+                plain_fn()
+        n_bytes = record_bytes(args[0], events, events)
+        return dict(events=events, ms=device_ms(kernel),
+                    events_ms=None if reset else time_ms(kernel),
+                    plain_ms=device_ms(plain),
+                    plain_events_ms=None if reset else time_ms(plain,
+                                                               inner=2),
+                    bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                    full_read_bound_ms=(9 * args[0].numel() + 20 * events)
+                    / HBM_BYTES_PER_S * 1e3,
+                    ops_ms=args[0].numel() * OPS_PER_CELL["trace_record"]
+                    / OPS_PER_S * 1e3)
+
+    sparse = timed(TRACE_SPARSE_DENSITY, 10, reset=False)
+    dense = timed(TRACE_DENSE_DENSITY, 11, reset=True)
+    for label, row in (("sparse", sparse), ("dense", dense)):
+        events = ("" if row["events_ms"] is None else
+                  f", CUDA events {row['events_ms']:.4f} ms (plain "
+                  f"{row['plain_events_ms']:.4f})")
+        log(f"[kernel] trace_record {label} {MAIN_N}x{MAIN_K} "
+            f"({row['events']} events): device clock {row['ms']:.4f} ms "
+            f"(plain {row['plain_ms']:.4f}){events}, bound "
+            f"{row['bound_ms']:.4f} ms (bytes; reading every cell's "
+            f"prefix and incarnation {row['full_read_bound_ms']:.4f}; "
+            f"operations {row['ops_ms']:.4f})")
+    return dict(max_abs_err=0, ms=sparse["ms"], plain_ms=sparse["plain_ms"],
+                bound_ms=max(sparse["bound_ms"], sparse["ops_ms"]),
+                bound_by=("bytes" if sparse["bound_ms"] >= sparse["ops_ms"]
+                          else "operations"),
+                library_ms=None, events_ms=sparse["events_ms"],
+                events_per_call=sparse["events"],
+                full_read_bound_ms=sparse["full_read_bound_ms"],
+                dense_events_per_call=dense["events"], dense_ms=dense["ms"],
+                dense_plain_ms=dense["plain_ms"],
+                dense_bound_ms=max(dense["bound_ms"], dense["ops_ms"]))
+
+
+def traced_world(params, device):
+    """The traced canaries' world: node 3 crashed at round 10, node 5
+    leaving at round 30."""
+    return crash_world(params, device).with_leave(TRACE_LEAVER,
+                                                  TRACE_LEAVE_AT)
+
+
+def traced_join_world(params, device):
+    """``traced_world`` with node 3 rejoining at round 60."""
+    return traced_world(params, device).with_join(CRASHED, NETWORK_JOIN_AT)
+
+
+def telemetry_equal(label, a, b):
+    """Raise unless two ``TelemetryState``s hold the same lanes, counters
+    and first-round matrices."""
+    for name, x, y in (("lanes", a.trace.lanes, b.trace.lanes),
+                       ("count", a.trace.count, b.trace.count),
+                       ("dropped", a.trace.dropped, b.trace.dropped),
+                       ("first_suspect", a.first_suspect, b.first_suspect),
+                       ("first_removed", a.first_removed, b.first_removed)):
+        if not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"{label}: trace {name} differs")
+
+
+def traced_canary(device, label, layout, params, make_world,
+                  capacity=ttrace.DEFAULT_CAPACITY, seed=5, want_types=()):
+    """Phase 5b: ``run_traced`` on the card and on the CPU with the same
+    CPU-made draws: the trace (lanes, count, dropped, first_suspect,
+    first_removed) card == CPU, and the card's state and metrics equal
+    its untraced run's; one ``trace_record`` a round on top of the
+    layout's kernels.  Returns the card's launches."""
+    draws = prng.TorchDraws(seed, "cpu", params, make_world(params, "cpu"))
+    runs = []
+    for dev in ("cpu", device):
+        world = make_world(params, dev)
+        LAUNCHES.clear()
+        runs.append(swim.run_traced(
+            seed, params, world, CANARY_ROUNDS, trace_capacity=capacity,
+            draws=lambda r: draws(r).to(dev), device=dev)
+            + (dict(LAUNCHES),))
+    (_, cpu_tel, _, cpu_launches), (gs, gtel, gm, launches) = runs
+    plain_state, plain_metrics = swim.run(
+        seed, params, make_world(params, device), CANARY_ROUNDS,
+        draws=lambda r: draws(r).to(device), device=device)
+    n, k = params.n_members, params.n_subjects
+    tag = f"traced canary {label} {n}x{k}"
+    telemetry_equal(tag, cpu_tel, gtel)
+    for field in dataclasses.fields(swim.SwimState):
+        if not torch.equal(getattr(gs, field.name),
+                           getattr(plain_state, field.name)):
+            raise AssertionError(f"{tag}: state.{field.name} differs from "
+                                 f"the untraced run")
+    for name, value in plain_metrics.items():
+        if not torch.equal(value, gm[name]):
+            raise AssertionError(f"{tag}: metric {name} differs from the "
+                                 f"untraced run")
+    want = {name: CANARY_ROUNDS * blocks_of(params)
+            for name in ROUND_KERNELS[layout]}
+    want[trace_kernel.NAME] = CANARY_ROUNDS
+    if cpu_launches or launches != want:
+        raise AssertionError(f"{tag}: launches cpu={cpu_launches} card="
+                             f"{launches}, want none and {want}")
+    types = {e.event_type.name for e in ttrace.decode_events(gtel)}
+    missing = set(want_types) - types
+    if missing:
+        raise AssertionError(f"{tag}: no {sorted(missing)} event recorded "
+                             f"(types {sorted(types)})")
+    count, dropped = int(gtel.trace.count), int(gtel.trace.dropped)
+    if capacity < ttrace.DEFAULT_CAPACITY and dropped == 0:
+        raise AssertionError(f"{tag}: capacity {capacity} did not overflow")
+    log(f"[canary] {tag}, {CANARY_ROUNDS} rounds: trace card == CPU ("
+        f"{count} recorded, {dropped} dropped, capacity {capacity}, types "
+        f"{sorted(types)}), state and metrics equal the untraced run's, "
+        f"launches {launches}")
+    return launches
+
+
+def traced_canaries(device):
+    """Phase 5b: the traced canaries at 4,096 x 16 (shift in four layouts,
+    scatter wide, an overflowing capacity, the open world with a join)."""
+    launches = {}
+    cases = [(f"{layout}", layout, profile_round.bench_params(
+        layout, 4096, 16), traced_world, ttrace.DEFAULT_CAPACITY,
+        ("SUSPECTED", "REMOVED", "LEAVING")) for layout in LAYOUTS]
+    cases += [("scatter wide", "wide", profile_round.bench_params(
+        "wide", 4096, 16, "scatter"), traced_world,
+        ttrace.DEFAULT_CAPACITY, ("SUSPECTED", "LEAVING")),
+        ("wide overflow", "wide", profile_round.bench_params(
+            "wide", 4096, 16), traced_world, TRACE_CANARY_SMALL_CAPACITY,
+         ("SUSPECTED",)),
+        ("open world join", "wide", profile_round.bench_params(
+            "wide", 4096, 16, open_world=True), traced_join_world,
+         ttrace.DEFAULT_CAPACITY, ("SUSPECTED", "LEAVING", "JOINED"))]
+    for label, layout, params, make_world, capacity, want_types in cases:
+        for name, count in traced_canary(
+                device, label, layout, params, make_world, capacity,
+                want_types=want_types).items():
+            launches[name] = launches.get(name, 0) + count
+    return launches
+
+
+def segment_event_counts(params, world, rounds, segment, device):
+    """Events each segment of the traced window must account for: an
+    untraced run round by round from the initial state, with the plain
+    derivation (``trace.round_transition_codes``) counting each round's
+    nonzero codes on the device.  Returns the counts and the final
+    state."""
+    state = swim.initial_state(params, world, device=device)
+    draws = prng.TorchDraws(0, device, params, world)
+    counts = []
+    for lo in range(0, rounds, segment):
+        total = torch.zeros((), dtype=torch.int64, device=device)
+        for r in range(lo, min(lo + segment, rounds)):
+            new, _ = swim.run(0, params, world, 1, state=state,
+                              start_round=r, draws=draws, device=device)
+            codes, _ = ttrace.round_transition_codes(r, state.status,
+                                                     state.inc, new, world)
+            total += (codes != 0).sum()
+            state = new
+        counts.append(total)
+    return [int(c) for c in counts], state
+
+
+def traced_window_path(device):
+    """Phase 6a: bench.py's traced window at full width
+    (``bench_workload``, bench.py:388-412, through ``timed_traced_run``'s
+    runner, bench.py:475-540): LAN defaults, N = 1M x K = 16, loss 0.02,
+    node 3 crashed at round 10, shift, wide; ``stream_traced_run`` over
+    256 rounds in 4 segments at ``traced_window_policy``'s capacity of
+    65,536 a segment, ``decode=False``, and the untraced ``run`` of the
+    same rounds and draws, each timed twice, in turns.  The final states
+    must be equal lane for lane and the metrics equal; each segment's
+    count + dropped (from the same runner, one segment at a time)
+    must equal the plain derivation's nonzero codes over its rounds.
+    Prints both ms/round (means of the two windows), their ratio
+    (``traced_overhead_ratio``: untraced member-rounds/s over traced,
+    i.e. traced ms over untraced), peak bytes, and profiled 20-round
+    windows from round 256, traced and untraced."""
+    params = profile_round.bench_params("wide", MAIN_N, MAIN_K)
+    world = crash_world(params, device)
+    segment = TRACE_ROUNDS // TRACE_SEGMENTS
+    # First calls (allocator, cumsum, pinned memory) outside the timing.
+    sink.stream_traced_run(0, params, world, 2, segment_rounds=1,
+                           trace_capacity=TRACE_CAPACITY, decode=False,
+                           device=device)
+    swim.run(0, params, world, 2, device=device)
+
+    def timed(traced):
+        """One window, traced or not: seconds, outputs, launches, and the
+        peak allocation above what was allocated when it began."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        if traced:
+            out = sink.stream_traced_run(
+                0, params, world, TRACE_ROUNDS, segment_rounds=segment,
+                trace_capacity=TRACE_CAPACITY, decode=False, device=device)
+        else:
+            out = swim.run(0, params, world, TRACE_ROUNDS, device=device)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, out, dict(LAUNCHES),
+                torch.cuda.max_memory_allocated() - resident)
+
+    # In turns (traced, untraced, untraced, traced): the host clock of a
+    # launch-bound round drifts between windows.
+    turns = [(traced, timed(traced)) for traced in (True, False, False,
+                                                    True)]
+    traced_runs = [t for traced, t in turns if traced]
+    plain_runs = [t for traced, t in turns if not traced]
+    _, (traced_state, res), launches, traced_peak = traced_runs[0]
+    _, (plain_state, plain_metrics), _, plain_peak = plain_runs[0]
+    traced_s = statistics.mean(t[0] for t in traced_runs)
+    plain_s = statistics.mean(t[0] for t in plain_runs)
+    want = {name: TRACE_ROUNDS for name in ROUND_KERNELS["wide"]}
+    want[trace_kernel.NAME] = TRACE_ROUNDS
+    if launches != want:
+        raise AssertionError(f"traced window: launches {launches}, want "
+                             f"{want}")
+    for field in dataclasses.fields(swim.SwimState):
+        if not torch.equal(getattr(traced_state, field.name),
+                           getattr(plain_state, field.name)):
+            raise AssertionError(f"traced window: final state.{field.name} "
+                                 f"differs from the untraced run")
+    for name, value in plain_metrics.items():
+        if not np.array_equal(res.metrics[name], value.cpu().numpy()):
+            raise AssertionError(f"traced window: metric {name} differs "
+                                 f"from the untraced run")
+    if res.n_segments != TRACE_SEGMENTS:
+        raise AssertionError(f"traced window: {res.n_segments} segments")
+
+    counts, check_state = segment_event_counts(params, world, TRACE_ROUNDS,
+                                               segment, device)
+    if not torch.equal(check_state.status, plain_state.status):
+        raise AssertionError("traced window: the round-by-round run ends "
+                             "elsewhere")
+    state, per_segment = None, []
+    for i in range(TRACE_SEGMENTS):
+        state, one = sink.stream_traced_run(
+            0, params, world, segment, state=state,
+            start_round=i * segment, segment_rounds=segment,
+            trace_capacity=TRACE_CAPACITY, decode=False, device=device)
+        per_segment.append((one.recorded, one.dropped))
+    if [r + d for r, d in per_segment] != counts:
+        raise AssertionError(f"traced window: per-segment recorded + "
+                             f"dropped {per_segment} against the plain "
+                             f"counts {counts}")
+    if (res.recorded, res.dropped) != (sum(r for r, _ in per_segment),
+                                       sum(d for _, d in per_segment)):
+        raise AssertionError("traced window: totals differ from the "
+                             "segment-by-segment run")
+
+    traced_ms = traced_s / TRACE_ROUNDS * 1e3
+    plain_ms = plain_s / TRACE_ROUNDS * 1e3
+    windows = {}
+    for label, cap in (("traced", TRACE_CAPACITY), ("untraced", 0)):
+        windows[label] = profile_round.profile_window(
+            params, world, plain_state, TRACE_ROUNDS, PROFILE_ROUNDS,
+            trace_capacity=cap)
+    log(f"[traced window] wide {MAIN_N}x{MAIN_K}, {TRACE_ROUNDS} rounds in "
+        f"{TRACE_SEGMENTS} segments of {segment}, capacity {TRACE_CAPACITY}:"
+        f" traced {traced_ms:.4f} ms/round "
+        f"({MAIN_N * TRACE_ROUNDS / traced_s:.6g} member-rounds/s), "
+        f"untraced {plain_ms:.4f} ms/round "
+        f"({MAIN_N * TRACE_ROUNDS / plain_s:.6g} member-rounds/s), "
+        f"traced_overhead_ratio {traced_ms / plain_ms:.4f} (means of two "
+        f"windows each, timed in turns traced, untraced, untraced, traced: "
+        f"{[round(t[0] / TRACE_ROUNDS * 1e3, 4) for _, t in turns]} "
+        f"ms/round); "
+        f"{res.recorded} events recorded, {res.dropped} dropped, per "
+        f"segment (recorded, dropped) {per_segment} == plain counts "
+        f"{counts}; final state and metrics equal the untraced run's; "
+        f"launches {launches}; peak above the resident bytes "
+        f"{traced_peak} B traced, {plain_peak} B untraced")
+    for label, window in windows.items():
+        log(f"[traced window] {label} window from round {TRACE_ROUNDS}: "
+            f"wall {window['wall_ms_per_round']:.4f} ms/round, device busy "
+            f"{window['device_busy_ms_per_round']:.4f}, idle share "
+            f"{window['device_idle_share']:.4f}, "
+            f"{window['kernel_launches_per_round']:.2f} launches/round, "
+            f"phases {json.dumps(window['phase_device_ms_per_round'])}, "
+            f"launches {json.dumps(window['phase_launches_per_round'])}")
+    return launches
+
+
+def telemetry_path(device):
+    """Phase 6b: bench.py's telemetry scenario (bench.py:666-720):
+    ``TELEMETRY_N`` = 4,096 members x 16 subjects, the sped-up protocol
+    timing, shift, node 3 crashed at round 10, ``suspicion_rounds + 80``
+    rounds through ``stream_traced_run`` in segments of a third of them
+    (the bench's ``max(1, rounds // 3)``) at the default capacity, seed
+    7.  No event may be dropped; for node 3 the detection
+    histogram's total, the undetected observers and the observers whose
+    first suspicion came before the crash must sum to N - 1, and the same
+    for removal.  Prints the buckets."""
+    cfg = ClusterConfig.default().replace(
+        gossip_interval=100, ping_interval=200, ping_timeout=100,
+        sync_interval=1_000, suspicion_mult=3)
+    params = swim.SwimParams.from_config(cfg, n_members=TELEMETRY_N,
+                                         n_subjects=16, delivery="shift")
+    world = swim.SwimWorld.healthy(params, device=device).with_crash(
+        CRASHED, at_round=TELEMETRY_CRASH_AT)
+    rounds = params.suspicion_rounds + 80
+    segment = max(1, rounds // 3)
+    LAUNCHES.clear()
+    _, res = sink.stream_traced_run(7, params, world, rounds,
+                                    segment_rounds=segment, device=device)
+    launches = dict(LAUNCHES)
+    if res.dropped != 0 or res.n_segments != -(-rounds // segment):
+        raise AssertionError(f"telemetry: {res.dropped} events dropped, "
+                             f"{res.n_segments} segments")
+    if launches.get(trace_kernel.NAME) != rounds:
+        raise AssertionError(f"telemetry: launches {launches}")
+    hists = ttrace.latency_histograms(res.telemetry, world)
+    slot = CRASHED
+    observers = torch.arange(TELEMETRY_N, device=device) != CRASHED
+    out = {}
+    for name, first in (("detection", res.telemetry.first_suspect),
+                        ("removal", res.telemetry.first_removed)):
+        col = first[:, slot]
+        early = int(((col != INT32_MAX) & (col < TELEMETRY_CRASH_AT)
+                     & observers).sum())
+        total = int(hists[name][slot].sum())
+        undetected = int(hists[name + "_undetected"][slot])
+        if total + undetected + early != TELEMETRY_N - 1:
+            raise AssertionError(f"telemetry: {name} {total} + undetected "
+                                 f"{undetected} + early {early} != "
+                                 f"{TELEMETRY_N - 1}")
+        out[name] = (total, undetected, early,
+                     hists[name][slot].cpu().tolist())
+    kinds = collections.Counter(e.event_type.name for e in res.events)
+    log(f"[telemetry] {TELEMETRY_N}x16, crash of node {CRASHED} at round "
+        f"{TELEMETRY_CRASH_AT}, {rounds} rounds in {res.n_segments} "
+        f"segments: {res.recorded} events recorded, {res.dropped} dropped "
+        f"(capacity {res.capacity}), {dict(kinds)}; edges "
+        f"{hists['edges'].cpu().tolist()}")
+    for name, (total, undetected, early, buckets) in out.items():
+        log(f"[telemetry] {name} of node {CRASHED}: {total} observers "
+            f"bucketed + {undetected} undetected + {early} before the crash "
+            f"= {TELEMETRY_N - 1}; buckets {buckets}")
+    return launches
+
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2646,7 +3150,7 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    sources = [merge.SOURCE, carry.SOURCE, probes.SOURCE]
+    sources = [merge.SOURCE, carry.SOURCE, probes.SOURCE, trace_kernel.SOURCE]
     logs = _build.build(sources)
     log(f"[build] {', '.join(s + '.cu' for s in sources)} in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -2661,15 +3165,19 @@ def main():
     codec_rows = check_codec(device)
     for name, row in check_block_codec(device).items():
         codec_rows[name].update(row)
+    trace_row = check_trace_record(device)
     stage("kernels", t_start)
     probe_launches, probe_rows = probe_path(device)
     stage("probes", t_start)
     canaries(device)
     md_canaries(device)
+    paths = {"traced_canaries": traced_canaries(device)}
     stage("canaries", t_start)
-    paths = {}
     paths["main"], shift_summary = main_path(device)
     stage("main path", t_start)
+    paths["traced_window"] = traced_window_path(device)
+    paths["telemetry"] = telemetry_path(device)
+    stage("traced window and telemetry", t_start)
     paths["storm"] = storm_path(device, shift_summary)
     paths["bench_churn"] = bench_churn_path(device)
     stage("churn storm", t_start)
@@ -2720,6 +3228,13 @@ def main():
             launches_by_path={path: counts.get(name, 0)
                               for path, counts in paths.items()},
             **codec_rows[name]))
+    kernels.append(dict(
+        name=trace_kernel.NAME, route="cuda", source=CSRC + "trace_record.cu",
+        replaces="scalecube_cluster_tpu/telemetry/trace.py:254",
+        launches=launches.get(trace_kernel.NAME, 0),
+        launches_by_path={path: counts.get(trace_kernel.NAME, 0)
+                          for path, counts in paths.items()},
+        **trace_row))
     for name in probes.NAMES:
         small = probe_rows[name]["512x128"]
         kernels.append(dict(

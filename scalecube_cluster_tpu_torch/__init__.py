@@ -19,7 +19,11 @@ Slice covered: the focal and full-view round in both delivery modes
 delays and the delay ring, seeded cold starts, user gossips), in the
 wide, ``int16_wire``, ``compact_carry`` and ``compact_carry`` +
 ``wire24`` layouts; the K-tiled full-view capacity round (``k_block``);
-per-sender wire counters (``link_counters``); ``node_snapshot``
-(``models/swim.py`` docstring lists what raises
-``NotImplementedError``).
+per-sender wire counters (``link_counters``); ``node_snapshot``; the
+tick-level planes (SYNC anti-entropy, Lifeguard, dead suppression, the
+open world, metadata); the composed plane runner (``models/compose.py``)
+with the membership event trace (``telemetry/``: ``run_traced``,
+``stream_traced_run``, the record kernel ``kernels/trace.py``,
+``csrc/trace_record.cu``); ``models/fd.run`` (``models/swim.py``
+docstring lists what raises ``NotImplementedError``).
 """

@@ -12,7 +12,12 @@ config-push schedules and a state's delay rings, user-gossip lanes,
 Lifeguard ``lhm`` lane, open-world ``epoch`` lane and metadata ``md`` /
 ``md_spread`` lanes carry over.
 :func:`state_to_arrays` carries a port state back, under the names the
-reference's ``checkpoint.state_from_arrays`` reads.  A state's carry layout
+reference's ``checkpoint.state_from_arrays`` reads.  A membership trace
+(the reference's ``telemetry.trace.TelemetryState``) crosses as the dict
+of numpy arrays ``lanes``, ``count``, ``dropped``, ``first_suspect`` and
+``first_removed`` (:func:`telemetry_from_arrays`,
+:func:`telemetry_to_arrays`), so a port run can resume a reference
+trace.  A state's carry layout
 (wide, or the ``compact_carry`` int16/int8 lanes) must be the one its
 params name.
 """
@@ -147,3 +152,41 @@ def load_jax_checkpoint(path: str, device="cuda",
         key_data = np.array(z["key_data"]) if "key_data" in z.files else None
         meta = json.loads(bytes(z["meta_json"].tobytes()).decode() or "{}")
     return state, next_round, key_data, meta
+
+
+_TELEMETRY_FIELDS = ("lanes", "count", "dropped", "first_suspect",
+                     "first_removed")
+
+
+def telemetry_from_arrays(arrays: Mapping, device="cuda"):
+    """A port ``telemetry.trace.TelemetryState`` from the reference's, as
+    the numpy arrays ``lanes`` [capacity, 5], ``count``, ``dropped`` and
+    ``first_suspect`` / ``first_removed`` [N, K] (all int32)."""
+    from scalecube_cluster_tpu_torch.telemetry import trace as ttrace
+
+    device = swim.resolve_device(device)
+    missing = [f for f in _TELEMETRY_FIELDS if f not in arrays]
+    if missing:
+        raise KeyError(f"telemetry arrays lack {missing}")
+
+    def t(name):
+        value = np.asarray(arrays[name])
+        if value.dtype != np.int32:
+            raise ValueError(f"telemetry field {name} is {value.dtype}, "
+                             f"expected int32")
+        return torch.tensor(value, device=device)
+
+    return ttrace.TelemetryState(
+        trace=ttrace.EventTrace(lanes=t("lanes"), count=t("count"),
+                                dropped=t("dropped")),
+        first_suspect=t("first_suspect"), first_removed=t("first_removed"))
+
+
+def telemetry_to_arrays(tel) -> dict:
+    """A port ``TelemetryState`` as the numpy arrays
+    :func:`telemetry_from_arrays` reads (the reference's field names)."""
+    return dict(lanes=tel.trace.lanes.cpu().numpy(),
+                count=tel.trace.count.cpu().numpy(),
+                dropped=tel.trace.dropped.cpu().numpy(),
+                first_suspect=tel.first_suspect.cpu().numpy(),
+                first_removed=tel.first_removed.cpu().numpy())

@@ -32,6 +32,14 @@ import torch
 from scalecube_cluster_tpu_torch import swim_math
 from scalecube_cluster_tpu_torch.models import fd
 
+# This plane's row of models/compose.plane_registry.
+PLANE = dict(
+    name="lifeguard", kind="in-tick",
+    knobs=("lhm_max", "dead_suppress_rounds"), lanes=("lhm",),
+    doc="Local Health Multiplier lane driving LHA Probe/Suspicion and "
+        "the buddy refute path (+ the dead-member suppression window)",
+)
+
 
 def initial_lhm(params, device) -> torch.Tensor:
     """The lane of a fresh state: [N] ones when the plane is on, a
@@ -46,15 +54,17 @@ def probe_gate(u: torch.Tensor, lhm: torch.Tensor) -> torch.Tensor:
     return u * lhm.to(torch.float32) < 1.0
 
 
-def lha_probe_setup(params, lhm: torch.Tensor, gate_u, ping_timeout_ms):
+def lha_probe_setup(params, lhm: torch.Tensor, gate_u, ping_timeout_ms,
+                    ping_req_ms=None):
     """``(ping_budget_ms, ping_req_budget_ms, gate)`` of one round's FD
     phase, the [N] health-scaled chain budgets and the probe gate, or
     ``(None, None, None)`` when the plane is off.  ``ping_timeout_ms``
-    is the round's clipped base timeout (``swim.knob_ping_timeout``)."""
+    and ``ping_req_ms`` are the round's base budgets
+    (``swim.knob_probe_budgets``)."""
     if params.lhm_max == 0:
         return None, None, None
     ping_budget, ping_req_budget = fd.effective_probe_budgets(
-        params, lhm, ping_timeout_ms=ping_timeout_ms)
+        params, lhm, ping_timeout_ms=ping_timeout_ms, ping_req_ms=ping_req_ms)
     return ping_budget, ping_req_budget, probe_gate(gate_u, lhm)
 
 

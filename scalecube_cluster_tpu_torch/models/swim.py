@@ -117,6 +117,13 @@ one buffer in ``swim.delivery``; the LWW merge against the merge
 kernel's post-merge epoch lane and the ``metadata_divergent`` metric run
 under their own range, ``swim.metadata``.
 
+``run`` is the composed plane runner with no planes
+(``models/compose.composed_scan``); ``run_traced`` adds the membership
+event trace (``telemetry/trace.TracePlane``).  Both take ``knobs``, the
+schedule values the reference lets vary as data (``Knobs.from_params``
+by default; ``Knobs.for_params`` checks overrides against their
+ceilings); ``models/fd.run`` is ``run`` with gossip and SYNC silenced.
+
 A setting outside the port raises ``NotImplementedError`` naming the
 knob: ``provenance``.
 ``rounds_per_step`` is accepted and ignored: the reference's outputs are
@@ -128,6 +135,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -355,47 +363,127 @@ class SwimParams:
 
 @dataclasses.dataclass(frozen=True)
 class Knobs:
-    """The schedule values the reference lets vary as data, here plain
-    host values taken from the params (``from_params``)."""
+    """The schedule values the reference lets vary as data (its traced
+    sweep axes), here plain host numbers: the float knobs as float32
+    values, the others as int32 values, as the reference stores them.
+
+    The three newer knobs default to ``None``, meaning "the params
+    value", so a five-field ``Knobs(...)`` builds and runs as the
+    reference's does.  :meth:`from_params` takes every value from the
+    params; :meth:`for_params` checks overrides against their ceilings
+    first.  Each knob with a ceiling is also clipped where it is used
+    (``knob_dead_suppress``, ``knob_lhm_cap``, ``knob_probe_budgets``)."""
 
     loss_probability: float
     suspicion_rounds: int
     ping_every: int
     sync_every: int
     fanout: int
-    dead_suppress_rounds: int
-    lhm_max: int
-    ping_timeout_ms: float
+    dead_suppress_rounds: Optional[int] = None
+    lhm_max: Optional[int] = None
+    ping_timeout_ms: Optional[float] = None
 
     @staticmethod
     def from_params(params: SwimParams) -> "Knobs":
-        return Knobs(
-            loss_probability=float(params.loss_probability),
-            suspicion_rounds=int(params.suspicion_rounds),
-            ping_every=int(params.ping_every),
-            sync_every=int(params.sync_every),
-            fanout=int(params.fanout),
-            dead_suppress_rounds=int(params.dead_suppress_rounds),
-            lhm_max=int(params.lhm_max),
-            ping_timeout_ms=float(params.ping_timeout_ms),
-        )
+        return Knobs(**{name: _coerce_knob(name, getattr(params, name))
+                        for name in _KNOB_FIELDS})
+
+    @staticmethod
+    def for_params(params: SwimParams, **overrides) -> "Knobs":
+        """:meth:`from_params` plus checked overrides (the reference's
+        ``Knobs.for_params``): an unknown name, or a value outside its
+        knob's ceiling, raises ``ValueError`` with the reference's
+        message.  ``suspicion_rounds`` has no ceiling: the weakened
+        coverage arm sweeps it above the params value (under
+        ``compact_carry`` a deadline more than 32,765 rounds out is
+        stored as no timer, as in the reference)."""
+        unknown = sorted(set(overrides) - set(_KNOB_FIELDS))
+        if unknown:
+            raise ValueError(f"unknown Knobs field(s) {unknown}; "
+                             f"sweepable knobs are {sorted(_KNOB_FIELDS)}")
+        ceilings = {
+            "fanout": (0, params.fanout,
+                       "the static channel count params.fanout"),
+            "ping_every": (0, None, "probe cadence must be >= 0"),
+            "sync_every": (0, None, "SYNC cadence must be >= 0"),
+            "loss_probability": (0.0, 1.0, "a probability"),
+            "dead_suppress_rounds": (
+                0, params.dead_suppress_rounds,
+                "the params window (the int16 deadline-lane ceiling "
+                "was validated against the params value; size the "
+                "params field as the grid maximum and sweep below)"),
+            "lhm_max": (
+                1, params.lhm_max,
+                "the static LHM cap (lane shape + TIMER_BOUND ceiling)"),
+            "ping_timeout_ms": (
+                0.0, params.ping_interval_ms,
+                "params.ping_interval_ms (the indirect probe budget "
+                "is the complement and must stay >= 0)"),
+        }
+        for name, val in overrides.items():
+            if name not in ceilings:
+                continue
+            lo, hi, why = ceilings[name]
+            # The value as the reference sees it: a Python float becomes
+            # float32, an int int32.
+            v = float(np.asarray(
+                val, np.float32 if isinstance(val, float) else None))
+            if (lo is not None and v < lo) or (hi is not None and v > hi):
+                raise ValueError(
+                    f"Knobs.{name}={v:g} outside [{lo}, {hi}] — "
+                    f"ceiling: {why}")
+        return dataclasses.replace(
+            Knobs.from_params(params),
+            **{name: _coerce_knob(name, val)
+               for name, val in overrides.items()})
+
+
+_KNOB_FIELDS = ("loss_probability", "suspicion_rounds", "ping_every",
+                "sync_every", "fanout", "dead_suppress_rounds", "lhm_max",
+                "ping_timeout_ms")
+_FLOAT_KNOBS = ("loss_probability", "ping_timeout_ms")
+
+
+def _coerce_knob(name: str, value):
+    """A knob value in the reference's dtype: float32 for the two float
+    knobs, int32 for the others (a float given for an int knob is cut
+    toward zero, as ``jnp.asarray(v, jnp.int32)`` does)."""
+    if name in _FLOAT_KNOBS:
+        return float(np.float32(value))
+    return int(np.asarray(value).astype(np.int32))
 
 
 def knob_dead_suppress(kn: Knobs, params: SwimParams) -> int:
     """The suppression window: the knob, capped at the params' window
-    (the int16 deadline lane was checked against that)."""
+    (the int16 deadline lane was checked against that); the params
+    value when the knob is None."""
+    if kn.dead_suppress_rounds is None:
+        return params.dead_suppress_rounds
     return min(kn.dead_suppress_rounds, params.dead_suppress_rounds)
 
 
 def knob_lhm_cap(kn: Knobs, params: SwimParams) -> int:
-    """The LHM clamp cap: the knob clipped into [1, params.lhm_max]."""
+    """The LHM clamp cap: the knob clipped into [1, params.lhm_max]; the
+    params value when the knob is None."""
+    if kn.lhm_max is None:
+        return params.lhm_max
     return min(max(kn.lhm_max, 1), params.lhm_max)
 
 
-def knob_ping_timeout(kn: Knobs, params: SwimParams) -> float:
-    """Direct-ping budget (ms) clipped into [0, ping_interval_ms], so the
-    indirect budget (interval - timeout) is never negative."""
-    return min(max(kn.ping_timeout_ms, 0.0), params.ping_interval_ms)
+def knob_probe_budgets(kn: Knobs, params: SwimParams) -> Tuple[float, float]:
+    """``(direct, indirect)`` ms budgets of the FD probe: the direct-ping
+    timeout clipped into [0, ping_interval_ms] and the rest of the
+    interval, as the reference computes them.  The knob path clips and
+    subtracts in float32; with the knob None the params' Python floats
+    are subtracted in float64 and rounded to float32 where they are
+    compared, as the reference's weakly typed scalars are.  Both values
+    are exact in float32 on the knob path."""
+    if kn.ping_timeout_ms is None:
+        pt = params.ping_timeout_ms
+        return pt, params.ping_interval_ms - pt
+    interval = np.float32(params.ping_interval_ms)
+    pt = min(max(np.float32(kn.ping_timeout_ms), np.float32(0.0)), interval)
+    return float(pt), float(np.float32(interval - pt))
 
 
 @dataclasses.dataclass
@@ -1215,8 +1303,7 @@ def _shift_fd_chains(eng, d_ids, d_alive, d_part, fd_shift: int,
     Returns ``(t, alive_t, part_t, direct_ok, ack_ok)`` with ``t`` each
     prober's target and ``ack_ok`` including proxy rescues."""
     if ping_budget is None:
-        ping_budget = knob_ping_timeout(kn, params)
-        ping_req_budget = params.ping_interval_ms - ping_budget
+        ping_budget, ping_req_budget = knob_probe_budgets(kn, params)
     t = eng.look(d_ids, fd_shift)
     alive_t = eng.look(d_alive, fd_shift)
     part_t = eng.look(d_part, fd_shift)
@@ -1305,7 +1392,8 @@ def _fd_phase(eng, views, ctx: dict, shifts, round_idx: int,
     alive_here, part_here = ctx["alive"], ctx["part"]
     fd_shift = shifts[0]
     ping_budget, ping_req_budget, gate = lifeguard.lha_probe_setup(
-        params, ctx["lhm"], draws.lhm_gate_u, knob_ping_timeout(kn, params))
+        params, ctx["lhm"], draws.lhm_gate_u,
+        *knob_probe_budgets(kn, params))
     t, _, _, direct_ok, ack_ok = _shift_fd_chains(
         eng, d_ids, d_alive, d_part, fd_shift,
         shifts[1:1 + params.ping_req_members], draws, params, kn, world,
@@ -1763,10 +1851,10 @@ def _scatter_fd_phase(ctx: dict, round_idx: int, params: SwimParams,
         has_target = (slot >= 0) & ((entry == records.ALIVE)
                                     | (entry == records.SUSPECT))
     ping_budget, ping_req_budget, gate = lifeguard.lha_probe_setup(
-        params, ctx["lhm"], draws.lhm_gate_u, knob_ping_timeout(kn, params))
+        params, ctx["lhm"], draws.lhm_gate_u,
+        *knob_probe_budgets(kn, params))
     if gate is None:
-        ping_budget = knob_ping_timeout(kn, params)
-        proxy_budget = params.ping_interval_ms - ping_budget
+        ping_budget, proxy_budget = knob_probe_budgets(kn, params)
     else:
         proxy_budget = ping_req_budget[:, None]
 
@@ -2247,7 +2335,7 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
     with record_function("swim.fd"):
         ping_budget, ping_req_budget, gate = lifeguard.lha_probe_setup(
             params, ctx["lhm"], draws.lhm_gate_u,
-            knob_ping_timeout(kn, params))
+            *knob_probe_budgets(kn, params))
         t, _, _, direct_ok, ack_ok = _shift_fd_chains(
             eng, d_ids, d_alive, d_part, fd_shift,
             shifts[1:1 + r_proxies], draws, params, kn, world, round_idx,
@@ -2668,6 +2756,29 @@ def _round_metrics(new_state: SwimState, status, aux: dict,
     return metrics
 
 
+def metric_shapes(params: SwimParams) -> Dict[str, Tuple[int, ...]]:
+    """Each metric ``_round_metrics`` gives a round, in its order, with
+    its shape (every metric is int32): what a zero-round run returns
+    with a leading 0, made from the params alone."""
+    per = (params.n_subjects,) if params.per_subject_metrics else ()
+    shapes = {name: per for name in (
+        "alive", "suspect", "dead", "absent", "false_positives",
+        "false_suspicion_onsets", "false_suspect_rounds",
+        "stale_view_rounds")}
+    shapes.update((name, ()) for name in (
+        "messages_gossip", "messages_ping", "messages_ping_sent",
+        "messages_ping_req_sent", "refutations"))
+    if params.sync_interval > 0:
+        shapes["messages_anti_entropy"] = ()
+    if params.link_counters:
+        shapes["sent_by_node"] = shapes["lost_by_node"] = (params.n_members,)
+    if params.n_user_gossips > 0:
+        shapes["user_gossip_infected"] = (params.n_user_gossips,)
+    if params.metadata_keys > 0:
+        shapes["metadata_divergent"] = ()
+    return shapes
+
+
 def _decoded(state: SwimState, round_idx: int,
              params: SwimParams) -> SwimState:
     """The round's input carry in the wide layout (decoded if compact;
@@ -2753,41 +2864,60 @@ def swim_tick(state: SwimState, round_idx: int, params: SwimParams,
 def run(seed: int, params: SwimParams, world: SwimWorld, n_rounds: int,
         state: Optional[SwimState] = None, start_round: int = 0,
         draws: Optional[Callable[[int], prng.RoundDraws]] = None,
+        knobs: Optional[Knobs] = None,
         device="cuda") -> Tuple[SwimState, Dict[str, torch.Tensor]]:
     """Run ``n_rounds`` rounds from ``start_round``.
 
     Returns ``(final_state, metrics)`` with every metric stacked on the
-    device as ``[n_rounds, ...]``; nothing syncs with the host per round.
-    ``draws`` (default ``TorchDraws(seed, device, params, world)``) is any
-    callable ``round_idx -> RoundDraws``.  ``state``/``start_round``
-    resume a run; ``state`` is not modified (its rings are copied once,
-    then updated in place round after round).
-    """
-    device = resolve_device(device)
-    _check_world_device(world, device)
-    if state is None:
-        state = initial_state(params, world, device=device)
-    else:
-        check_lanes(state, params)
-        state = _own_rings(state)
-    if draws is None:
-        draws = prng.TorchDraws(seed, device, params, world)
-    kn = Knobs.from_params(params)
-    joins, pushes = _schedules(params, world)
-    rows = []
-    for round_idx in range(start_round, start_round + n_rounds):
-        # swim_tick's steps, with each carry released as soon as the next
-        # exists: under the compact carry the narrow input is not held
-        # through the round, nor the decoded planes through the encode.
-        state = _decoded(state, round_idx, params)
-        state, m = _wide_tick(state, round_idx, params, world,
-                              draws(round_idx), kn, joins.get(round_idx),
-                              pushes.get(round_idx, ()))
-        state = _encoded(state, round_idx, params)
-        rows.append(m)
-    metrics = {name: torch.stack([m[name] for m in rows])
-               for name in (rows[0] if rows else {})}
-    return state, metrics
+    device as ``[n_rounds, ...]`` (a zero-round run gives every metric
+    with a leading 0); nothing syncs with the host per round.
+    ``draws`` (default ``TorchDraws(seed, device, params, world)``) is
+    any callable ``round_idx -> RoundDraws``.  ``knobs`` (default
+    ``Knobs.from_params(params)``) are the schedule values the round
+    reads.  ``state``/``start_round`` resume a run; ``state`` is not
+    modified (its rings are copied once, then updated in place round
+    after round), and each carry is released as soon as the next one
+    exists.  The composed plane runner with no planes
+    (``models/compose.composed_scan``)."""
+    from scalecube_cluster_tpu_torch.models import compose
+
+    final_state, _, metrics = compose.composed_scan(
+        seed, params, world, n_rounds, planes=(), state=state,
+        start_round=start_round, draws=draws, knobs=knobs, device=device)
+    return final_state, metrics
+
+
+def run_traced(seed: int, params: SwimParams, world: SwimWorld,
+               n_rounds: int, trace_capacity: Optional[int] = None,
+               state: Optional[SwimState] = None, start_round: int = 0,
+               draws: Optional[Callable[[int], prng.RoundDraws]] = None,
+               knobs: Optional[Knobs] = None, telemetry=None,
+               device="cuda"):
+    """``run`` with the membership event trace riding the rounds
+    (``telemetry/trace.TracePlane``): each round's net cell transitions
+    are coded, recorded into the fixed-capacity event buffer (overflow
+    counted, never silent) and folded into the first-suspect and
+    first-removed round matrices.
+
+    Returns ``(final_state, telemetry_state, metrics)``.  ``telemetry``
+    resumes an earlier trace (a previous chunk's result, or
+    ``TelemetryState.resume``); its tensors are cloned once and not
+    modified.  ``trace_capacity`` (default
+    ``telemetry.trace.DEFAULT_CAPACITY``) sizes a fresh buffer.  For
+    long runs, ``telemetry/sink.stream_traced_run`` drives this in
+    segments with each segment's offload overlapped against the next
+    one's rounds."""
+    from scalecube_cluster_tpu_torch.models import compose
+    from scalecube_cluster_tpu_torch.telemetry import trace as ttrace
+
+    plane = ttrace.TracePlane(
+        capacity=(ttrace.DEFAULT_CAPACITY if trace_capacity is None
+                  else trace_capacity),
+        telemetry=telemetry)
+    final_state, results, metrics = compose.composed_scan(
+        seed, params, world, n_rounds, planes=(plane,), state=state,
+        start_round=start_round, draws=draws, knobs=knobs, device=device)
+    return final_state, results["trace"], metrics
 
 
 def node_snapshot(state: SwimState, params: SwimParams, world: SwimWorld,

@@ -29,6 +29,15 @@ from scalecube_cluster_tpu_torch import records
 
 INT32_MIN = -2**31
 
+# This plane's row of models/compose.plane_registry.
+PLANE = dict(
+    name="sync", kind="in-tick", knobs=("sync_interval", "sync_every"),
+    lanes=(),
+    doc="anti-entropy full-table exchange for partition heal "
+        "(sync_interval > 0 arms it; sync_every is the reference's "
+        "per-round push channel)",
+)
+
 
 def due(round_idx: int, sync_interval: int) -> bool:
     """Is ``round_idx`` an exchange round?  Fires at round 0 too (on a

@@ -15,8 +15,10 @@ host clock (ending in a device sync), then the same window again under
 ``torch.profiler``.  Reports, per round: wall time, device busy time and
 idle share, kernel launches, device time and kernel launches inside
 each phase range of ``models/swim.py`` (``swim.carry``/``context``/
-``fd``/``delivery``/``merge``/``metrics``/``metadata``), the top kernels
-by device time, and the delay ring's bytes.
+``fd``/``delivery``/``merge``/``metrics``/``metadata``, and in a traced
+window, ``profile_window(..., trace_capacity=C)``, the trace's
+``trace.derive``/``trace.record``), the top kernels by device time, and
+the delay ring's bytes.
 
 Run on a card: ``python -m scalecube_cluster_tpu_torch.profile_round
 [--n 1000000] [--layout wide [compact ...]] [--delivery scatter]
@@ -41,7 +43,8 @@ from scalecube_cluster_tpu_torch.config import ClusterConfig
 from scalecube_cluster_tpu_torch.models import swim
 
 PHASES = ("swim.carry", "swim.context", "swim.fd", "swim.delivery",
-          "swim.merge", "swim.metrics", "swim.metadata")
+          "swim.merge", "swim.metrics", "swim.metadata", "trace.derive",
+          "trace.record")
 # Knob settings of each carry/wire layout.
 LAYOUTS = {"wide": {}, "int16_wire": dict(int16_wire=True),
            "compact": dict(compact_carry=True),
@@ -51,7 +54,8 @@ LAYOUTS = {"wide": {}, "int16_wire": dict(int16_wire=True),
 # own kernels join their phase by name.
 _OWN_KERNELS = {"merge_and_timers_kernel": "swim.merge",
                 "carry_decode_kernel": "swim.carry",
-                "carry_encode_kernel": "swim.carry"}
+                "carry_encode_kernel": "swim.carry",
+                "trace_record_kernel": "trace.record"}
 INT32_MAX = 2**31 - 1
 # The network configuration's schedule for a 600-round run (rounds scale
 # with the run's length): a brownout of the links from the first tenth
@@ -155,18 +159,25 @@ def _card() -> str:
 
 
 def profile_window(params, world, state, start_round: int, rounds: int,
-                   top: int = 12) -> dict:
+                   top: int = 12, trace_capacity: int = 0) -> dict:
     """Run ``rounds`` rounds from ``state`` at ``start_round`` twice: on
     the host clock (ending in a device sync), then under
     ``torch.profiler``.  Returns per-round wall ms, device busy ms, idle
     share, kernel launches, device ms per phase range, the top kernels
     the window's peak device memory, the kernel launches issued inside
-    each phase range and the delay ring's bytes."""
+    each phase range and the delay ring's bytes.  ``trace_capacity`` > 0
+    runs the window traced (``swim.run_traced`` into a fresh buffer of
+    that many events)."""
     device = world.device
 
     def window():
-        swim.run(0, params, world, rounds, state=state,
-                 start_round=start_round, device=device)
+        if trace_capacity:
+            swim.run_traced(0, params, world, rounds,
+                            trace_capacity=trace_capacity, state=state,
+                            start_round=start_round, device=device)
+        else:
+            swim.run(0, params, world, rounds, state=state,
+                     start_round=start_round, device=device)
         torch.cuda.synchronize()
 
     torch.cuda.synchronize()

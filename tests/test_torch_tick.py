@@ -137,6 +137,75 @@ def test_unported_knob_raises_naming_it(knob, value):
                                     **overrides)
 
 
+UNPORTED_PLANES = [("metrics", dict(with_monitor=False)),
+                   ("monitor", dict(with_metrics=False)),
+                   ("provenance", dict(with_metrics=False, with_monitor=False,
+                                       with_provenance=True))]
+
+
+@pytest.mark.parametrize("plane,flags", UNPORTED_PLANES,
+                         ids=[p for p, _ in UNPORTED_PLANES])
+def test_unported_observer_plane_raises_naming_it(plane, flags):
+    """``compose.run_composed`` raises ``NotImplementedError`` naming an
+    observer plane the port does not carry, before any round runs."""
+    from scalecube_cluster_tpu_torch.models import compose
+
+    params = swim.SwimParams.from_config(fast_config(), n_members=16,
+                                         delivery="shift")
+    world = swim.SwimWorld.healthy(params, device="cpu")
+    with pytest.raises(NotImplementedError, match=plane):
+        compose.run_composed(0, params, world, 1, device="cpu", **flags)
+
+
+# run(..., 0)'s metric families: the default set, then each optional one.
+ZERO_ROUND_PARAMS = {
+    "default": {}, "aggregate": dict(per_subject_metrics=False),
+    "link_counters": dict(link_counters=True),
+    "user_gossips": dict(n_user_gossips=2),
+    "metadata": dict(metadata_keys=1, sync_interval=4),
+}
+
+
+@pytest.mark.parametrize("traced", [False, True], ids=["run", "run_traced"])
+@pytest.mark.parametrize("case", list(ZERO_ROUND_PARAMS))
+def test_zero_round_run_returns_every_metric(case, traced):
+    """A zero-round ``run`` (and ``run_traced``) gives the reference's
+    metric keys, each with a leading 0 and the reference's trailing shape
+    and dtype (``ClusterConfig.default_local()`` at N = 8), and the state
+    it was given; the trace comes back empty."""
+    from scalecube_cluster_tpu.telemetry import trace as jtrace
+
+    jparams = jswim.SwimParams.from_config(
+        ClusterConfig.default_local(), n_members=8,
+        **ZERO_ROUND_PARAMS[case])
+    jworld = jswim.SwimWorld.healthy(jparams)
+    key = jax.random.key(0)
+    if traced:
+        _, jtel, want = jax.eval_shape(
+            lambda: jswim.run_traced(key, jparams, jworld, 0,
+                                     trace_capacity=16))
+    else:
+        _, want = jax.eval_shape(lambda: jswim.run(key, jparams, jworld, 0))
+    params, world = port_params(jparams), port_world(jworld)
+    state = swim.initial_state(params, world, device="cpu")
+    if traced:
+        final, tel, got = swim.run_traced(0, params, world, 0,
+                                          trace_capacity=16, state=state,
+                                          device="cpu")
+        assert (int(tel.trace.count), int(tel.trace.dropped)) == (0, 0)
+        assert tuple(tel.trace.lanes.shape) == tuple(jtel.trace.lanes.shape)
+        assert bool((tel.first_suspect == jtrace.INT32_MAX).all())
+    else:
+        final, got = swim.run(0, params, world, 0, state=state,
+                              device="cpu")
+    assert list(got) == list(swim.metric_shapes(params))
+    assert set(got) == set(want)
+    for name, spec in want.items():
+        assert tuple(got[name].shape) == tuple(spec.shape), name
+        assert got[name].dtype == getattr(torch, str(spec.dtype)), name
+    assert torch.equal(final.status, state.status)
+
+
 # The tick bodies and layouts every ported plane constructs in, with the
 # open-world plane's epoch field width in each.
 SETTINGS = ((dict(delivery="shift"), 6), (dict(delivery="scatter"), 6),
