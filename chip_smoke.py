@@ -36,15 +36,22 @@ and prints no result):
    events too (``events_ms``, ``planes_events_ms``), which at this shape
    also time the wrapper's host-side checks; the codec's two kernels on
    both clocks (``device_ms``);
-3b. the event record (``kernels/trace.trace_record``, ``csrc/
-   trace_record.cu``) against its plain version at 1M x 16 on seeded
-   code planes: a dense round (every event fits), a sparse round, a
-   round overflowing the 65,536-row capacity partway, a start count one
-   below the capacity and at it; lanes, count and dropped exact, each
-   case checked to reach its edge; the sparse round (16,000 events)
-   timed on the device clock and on CUDA events into a buffer it never
-   fills, the dense one on the device clock (the count reset before
-   each call);
+3b. the event trace's two kernels (``csrc/trace_record.cu``) against
+   their plain versions at 1M x 16: the codes-in record
+   (``kernels/trace.trace_record``) on seeded code planes, a dense round
+   (every event fits), a sparse round, a round overflowing the
+   65,536-row capacity partway, a start count one below the capacity and
+   at it, lanes, count and dropped exact; the traced round's fused
+   observe (``kernels/trace.trace_observe``) on seeded prev/new carries
+   (``observe_inputs``): the wide carry, an int32 epoch lane, the
+   compact carry's int16 incarnations with an int16 epoch lane, leave
+   rows under an observer offset, then dense, sparse, overflowing, one
+   below capacity and at capacity, lanes, count, dropped, first_suspect
+   and first_removed exact; each case checked to reach its edge; each
+   kernel's sparse round (11,000-16,000 events) timed on the device
+   clock and on CUDA events into a buffer it never fills, its dense one
+   on the device clock (the count reset before each call), each beside
+   its byte bound;
 4. the probe path: ``python -m scalecube_cluster_tpu_torch.mosaic_probe``
    at [512, 128] and at [1,000,000, 16] (each probe once, checked against
    its plain version), then each probe timed at both shapes on the
@@ -104,7 +111,8 @@ and prints no result):
     rejoining at round 60 (JOINED and LEAVING recorded); the trace
     (lanes, count, dropped, first_suspect, first_removed) card == CPU,
     the card's state and metrics equal to its untraced run's, the
-    layout's kernels once a round plus one ``trace_record``;
+    layout's kernels once a round plus one ``trace_observe`` (and no
+    ``trace_record``);
 6. the main path and the layout identity: LAN defaults, N = 1,000,000
    members x K = 16 subjects, loss 0.02, node 3 crashed at round 10, the
    port's own device draws, 600 rounds through ``models.swim.run`` in the
@@ -121,9 +129,12 @@ and prints no result):
     ``telemetry/sink.stream_traced_run`` in 4 segments of 64 at 65,536
     rows a segment, ``decode=False``, against the untraced ``run`` of the
     same rounds and draws, each timed twice in turns: final state (every
-    lane) and metrics equal;
-    each segment's count + dropped equal to the nonzero codes the plain
-    derivation gives over its rounds; both ms/round and
+    lane) and metrics equal; one ``trace_observe`` a round and no
+    ``trace_record``; each segment's count + dropped equal to the nonzero
+    codes the plain derivation gives over its rounds, and its events and
+    the first-round matrices equal to what the reference's codes-in API
+    (``trace.record_events``, one ``trace_record`` a round, and
+    ``trace.update_first_rounds``) makes of those codes; both ms/round and
     ``traced_overhead_ratio`` (traced ms over untraced), peak bytes, and
     profiled windows from round 256, traced and untraced;
 6b. ``bench.py``'s telemetry scenario (``telemetry_path``): 4,096 x 16,
@@ -235,7 +246,7 @@ and prints no result):
     s), peak bytes and bytes per cell, and a profiled 5-round window;
 14. one ``{"kernels": [...]}`` line (the block-form times and bounds as
     ``block_*`` fields of their kernels' rows, the plane-on ones as
-    ``planes_*`` / ``block_planes_*``, the record's dense round as
+    ``planes_*`` / ``block_planes_*``, each trace kernel's dense round as
     ``dense_*``), then ``{"ok": true, "device": ...}``.
 
 No phase catches its own failure, and nothing falls back to the CPU or
@@ -272,6 +283,7 @@ from scalecube_cluster_tpu_torch.models import sync as sync_plane
 from scalecube_cluster_tpu_torch.ops import delivery, prng
 from scalecube_cluster_tpu_torch.telemetry import sink
 from scalecube_cluster_tpu_torch.telemetry import trace as ttrace
+from scalecube_cluster_tpu_torch.telemetry.events import TraceEventType
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the float32
 # non-tensor rate, an upper limit on 32-bit integer issue (so the
@@ -282,7 +294,8 @@ OPS_PER_S = 67e12
 # stores, and the function's own integer work), read off the sources.
 OPS_PER_CELL = {"merge": 60, "carry_decode": 10, "carry_encode": 20,
                 "probe_load16": 6, "probe_store16": 6, "probe_cmp16": 7,
-                "probe_load8": 6, "probe_merge_core": 25, "trace_record": 8}
+                "probe_load8": 6, "probe_merge_core": 25, "trace_record": 8,
+                "trace_observe": 12}
 
 MAIN_N, MAIN_K, MAIN_ROUNDS, CRASHED, CRASH_AT = 1_000_000, 16, 600, 3, 10
 # The full-view capacity configuration (experiments/fullview_ceiling.py:
@@ -326,6 +339,7 @@ SEEDS = [0, 1, 2]
 COLD_N = 4096
 PROFILE_ROUNDS = 20
 INT32_MAX = 2**31 - 1
+INT32_MIN = -2**31
 # The brownout's floor: each live subject held SUSPECT, on average over
 # the window's rounds, by at least this share of the browned-out
 # senders' count (rounds 100-260 at 1M x 16: 0.1 x 100,000 x 160 rounds
@@ -396,6 +410,23 @@ TRACE_RECORD_CASES = (("dense", 0.9, 0, None),
                       ("at capacity", 1e-3, TRACE_CAPACITY, TRACE_CAPACITY))
 TRACE_SPARSE_DENSITY, TRACE_DENSE_DENSITY = 1e-3, 0.9
 TRACE_RECORD_ROUND = 37
+# The fused observe's cases at 1M x 16 (label, density of changed cells,
+# rows already recorded, capacity, incarnation dtype, epoch dtype or
+# None, observer offset).
+TRACE_OBSERVE_OFFSET = 123_457
+TRACE_OBSERVE_CASES = (
+    ("wide", 1e-2, 0, None, torch.int32, None, 0),
+    ("int32 epoch", 1e-2, 0, None, torch.int32, torch.int32, 0),
+    ("compact int16 epoch", 1e-2, 0, None, torch.int16, torch.int16, 0),
+    ("leave rows, offset", 1e-2, 0, None, torch.int32, None,
+     TRACE_OBSERVE_OFFSET),
+    ("dense", 0.9, 0, None, torch.int32, None, 0),
+    ("sparse", 1e-3, 0, TRACE_CAPACITY, torch.int32, None, 0),
+    ("overflow", 1e-2, 1_000, TRACE_CAPACITY, torch.int32, None, 0),
+    ("one below capacity", 1e-3, TRACE_CAPACITY - 1, TRACE_CAPACITY,
+     torch.int32, None, 0),
+    ("at capacity", 1e-3, TRACE_CAPACITY, TRACE_CAPACITY, torch.int32, None,
+     0))
 # The traced canaries: node 5 leaves at round 30; the overflowing one's
 # capacity.  bench.py's traced window (bench.py:475-540): 256 rounds in 4
 # segments at traced_window_policy's capacity (65,536 at 1M); its
@@ -2705,51 +2736,82 @@ def trace_planes(density, seed, device):
     return codes, incs
 
 
-def record_inputs(density, start, capacity, seed, device):
-    """One record case: ``(codes, incs, prefix, subject_ids, lanes, count,
-    dropped)`` with ``start`` rows already recorded (seeded) and 5 drops
-    counted."""
-    codes, incs = trace_planes(density, seed, device)
+def trace_buffer(start, capacity, device):
+    """A [capacity, 5] buffer with ``start`` seeded rows already recorded
+    and 5 drops counted: ``(lanes, count, dropped)``."""
     lanes = torch.full((capacity, trace_kernel.N_LANES), -1,
                        dtype=torch.int32, device=device)
     lanes[:start] = torch.randint(0, 1 << 20, (start, trace_kernel.N_LANES),
                                   device=device, dtype=torch.int32)
-    return (codes, incs, trace_kernel.event_prefix(codes),
-            torch.arange(MAIN_K, dtype=torch.int32, device=device)
-            * (MAIN_N // MAIN_K),
-            lanes, torch.tensor(start, dtype=torch.int32, device=device),
+    return (lanes, torch.tensor(start, dtype=torch.int32, device=device),
             torch.tensor(5, dtype=torch.int32, device=device))
 
 
+def trace_subjects(device, offset=0):
+    """The 16 subjects at ``arange(16) * (N // 16) + offset``: observer
+    row ``c * N // 16`` holds subject c's self cell."""
+    return (torch.arange(MAIN_K, dtype=torch.int32, device=device)
+            * (MAIN_N // MAIN_K) + offset)
+
+
+def record_inputs(density, start, capacity, seed, device):
+    """One record case: ``(codes, incs, subject_ids, lanes, count,
+    dropped)``."""
+    codes, incs = trace_planes(density, seed, device)
+    return (codes, incs, trace_subjects(device))  \
+        + trace_buffer(start, capacity, device)
+
+
 def record_bytes(codes, recorded, events):
-    """The bytes a record must move: the codes in full, the prefix and
-    the incarnation at each event cell, 20 B per recorded row and the
-    two counters read and written."""
-    return (codes.numel() + events * 8 + recorded * 4 * trace_kernel.N_LANES
+    """The bytes a codes-in record must move: the codes in full, the
+    incarnation at each event cell, 20 B per recorded row and the two
+    counters read and written."""
+    return (codes.numel() + events * 4 + recorded * 4 * trace_kernel.N_LANES
             + 16)
 
 
 def record_call(args, round_idx=TRACE_RECORD_ROUND):
-    codes, incs, prefix, sids, lanes, count, dropped = args
+    codes, incs, sids, lanes, count, dropped = args
     return lambda: trace_kernel.trace_record(
-        lanes, count, dropped, codes, incs, prefix, sids, round_idx)
+        lanes, count, dropped, codes, incs, sids, round_idx)
 
 
 def record_plain(args, round_idx=TRACE_RECORD_ROUND):
-    codes, incs, prefix, sids, lanes, count, dropped = args
+    codes, incs, sids, lanes, count, dropped = args
     return lambda: trace_kernel.trace_record_reference(
-        lanes, count, dropped, codes, incs, prefix, sids, round_idx, 0)
+        lanes, count, dropped, codes, incs, sids, round_idx, 0)
+
+
+def check_counters(name, label, start, cap, total, count, dropped):
+    """Raise unless ``count``/``dropped`` moved as a record of ``total``
+    events from ``start`` of ``cap`` rows (5 drops before) must."""
+    if count != min(start + total, cap) or \
+            dropped != 5 + start + total - count:
+        raise AssertionError(f"{name} {label}: count {count}, dropped "
+                             f"{dropped} for {total} events from {start} "
+                             f"of {cap}")
+
+
+def reaches_edge(label, start, cap, total, count, dropped, cells):
+    """Whether a record case reached the edge its label names."""
+    return {"dense": count == start + total and total > cells // 2,
+            "sparse": 0 < total < cap - start,
+            "overflow": start < cap and start + total > cap,
+            "one below capacity": count == cap and total > 1,
+            "at capacity": start == cap and dropped == 5 + total}.get(
+                label, count == start + total and total > 0)
 
 
 def check_trace_record(device):
-    """Phase 3b: the event record against its plain version at 1M x 16 on
-    seeded code planes: a dense round (every event fits), a sparse
-    round, a round that overflows the capacity partway, a start count
-    one below the capacity and at it; lanes, count and dropped exact and
-    each case checked to reach its edge.  Then the sparse round (a
-    traced round's shape) timed into a buffer it never fills, on the
-    device clock and on CUDA events, and the dense one on the device
-    clock with the count reset before each call."""
+    """Phase 3b, the codes-in record (``record_events``' kernel) against
+    its plain version at 1M x 16 on seeded code planes: a dense round
+    (every event fits), a sparse round, a round that overflows the
+    capacity partway, a start count one below the capacity and at it;
+    lanes, count and dropped exact and each case checked to reach its
+    edge.  Then the sparse round (a traced round's shape) timed into a
+    buffer it never fills, on the device clock and on CUDA events, and
+    the dense one on the device clock with the count reset before each
+    call."""
     for label, density, start, capacity in TRACE_RECORD_CASES:
         cap = MAIN_N * MAIN_K if capacity is None else capacity
         got = record_inputs(density, start, cap, 9, device)
@@ -2757,21 +2819,13 @@ def check_trace_record(device):
         record_call(got)()
         record_plain(want)()
         torch.cuda.synchronize()
-        err = max_abs_err(f"trace_record {label}", got[4:], want[4:])
-        total = int(got[2][-1])
-        count, dropped = int(got[5]), int(got[6])
-        if count != min(start + total, cap) or \
-                dropped != 5 + start + total - count:
-            raise AssertionError(f"trace_record {label}: count {count}, "
-                                 f"dropped {dropped} for {total} events "
-                                 f"from {start} of {cap}")
-        reaches = {"dense": count == start + total
-                   and total > got[0].numel() // 2,
-                   "sparse": 0 < total < cap - start,
-                   "overflow": start < cap and start + total > cap,
-                   "one below capacity": count == cap and total > 1,
-                   "at capacity": start == cap and dropped == 5 + total}
-        if not reaches[label]:
+        max_abs_err(f"trace_record {label}", got[3:], want[3:])
+        total = int((got[0] > 0).sum())
+        count, dropped = int(got[4]), int(got[5])
+        check_counters("trace_record", label, start, cap, total, count,
+                       dropped)
+        if not reaches_edge(label, start, cap, total, count, dropped,
+                            got[0].numel()):
             raise AssertionError(f"trace_record {label}: the case does not "
                                  f"reach its edge ({total} events)")
         log(f"[kernel] trace_record {label} {MAIN_N}x{MAIN_K}: exact match "
@@ -2780,53 +2834,223 @@ def check_trace_record(device):
 
     def timed(density, seed, reset):
         args = record_inputs(density, 0, MAIN_N * MAIN_K, seed, device)
-        events = int(args[2][-1])
-        kernel, plain = record_call(args), record_plain(args)
-        if reset:
-            count = args[5]
-            kernel_fn, plain_fn = kernel, plain
+        events = int((args[0] > 0).sum())
+        return timed_trace(record_call(args), record_plain(args), args[4],
+                           reset, events,
+                           record_bytes(args[0], events, events),
+                           OPS_PER_CELL["trace_record"])
 
-            def kernel():
-                count.zero_()
-                kernel_fn()
+    return trace_row("trace_record", timed)
 
-            def plain():
-                count.zero_()
-                plain_fn()
-        n_bytes = record_bytes(args[0], events, events)
-        return dict(events=events, ms=device_ms(kernel),
-                    events_ms=None if reset else time_ms(kernel),
-                    plain_ms=device_ms(plain),
-                    plain_events_ms=None if reset else time_ms(plain,
-                                                               inner=2),
-                    bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
-                    full_read_bound_ms=(9 * args[0].numel() + 20 * events)
-                    / HBM_BYTES_PER_S * 1e3,
-                    ops_ms=args[0].numel() * OPS_PER_CELL["trace_record"]
-                    / OPS_PER_S * 1e3)
 
-    sparse = timed(TRACE_SPARSE_DENSITY, 10, reset=False)
-    dense = timed(TRACE_DENSE_DENSITY, 11, reset=True)
+def timed_trace(kernel, plain, count, reset, events, n_bytes, ops_per_cell):
+    """A trace kernel's times on one seeded round: the device clock (and,
+    unless ``reset``, CUDA events) for the kernel and its plain version;
+    with ``reset`` the count is zeroed before each call (a dense round
+    into a buffer it would fill), a fill kernel inside the device time.
+    The byte bound is ``n_bytes``, the operation bound
+    ``ops_per_cell`` at 1M x 16."""
+    if reset:
+        kernel_fn, plain_fn = kernel, plain
+
+        def kernel():
+            count.zero_()
+            kernel_fn()
+
+        def plain():
+            count.zero_()
+            plain_fn()
+    return dict(events=events, ms=device_ms(kernel),
+                events_ms=None if reset else time_ms(kernel),
+                plain_ms=device_ms(plain),
+                plain_events_ms=None if reset else time_ms(plain, inner=2),
+                bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                ops_ms=MAIN_N * MAIN_K * ops_per_cell / OPS_PER_S * 1e3)
+
+
+def trace_row(name, timed):
+    """Time a trace kernel's sparse and dense rounds (``timed(density,
+    seed, reset)``), log them and return its kernels-line fields: the
+    sparse round's as the row's own, the dense round's as ``dense_*``."""
+    sparse = timed(TRACE_SPARSE_DENSITY, 10, False)
+    dense = timed(TRACE_DENSE_DENSITY, 11, True)
     for label, row in (("sparse", sparse), ("dense", dense)):
         events = ("" if row["events_ms"] is None else
                   f", CUDA events {row['events_ms']:.4f} ms (plain "
                   f"{row['plain_events_ms']:.4f})")
-        log(f"[kernel] trace_record {label} {MAIN_N}x{MAIN_K} "
+        log(f"[kernel] {name} {label} {MAIN_N}x{MAIN_K} "
             f"({row['events']} events): device clock {row['ms']:.4f} ms "
             f"(plain {row['plain_ms']:.4f}){events}, bound "
-            f"{row['bound_ms']:.4f} ms (bytes; reading every cell's "
-            f"prefix and incarnation {row['full_read_bound_ms']:.4f}; "
-            f"operations {row['ops_ms']:.4f})")
+            f"{row['bound_ms']:.4f} ms (bytes; operations "
+            f"{row['ops_ms']:.4f}), {row['bound_ms'] / row['ms']:.3f} of "
+            f"the byte bound")
     return dict(max_abs_err=0, ms=sparse["ms"], plain_ms=sparse["plain_ms"],
                 bound_ms=max(sparse["bound_ms"], sparse["ops_ms"]),
                 bound_by=("bytes" if sparse["bound_ms"] >= sparse["ops_ms"]
                           else "operations"),
                 library_ms=None, events_ms=sparse["events_ms"],
                 events_per_call=sparse["events"],
-                full_read_bound_ms=sparse["full_read_bound_ms"],
                 dense_events_per_call=dense["events"], dense_ms=dense["ms"],
                 dense_plain_ms=dense["plain_ms"],
                 dense_bound_ms=max(dense["bound_ms"], dense["ops_ms"]))
+
+
+def observe_inputs(density, start, capacity, seed, device, inc_dtype,
+                   epoch_dtype=None, offset=0):
+    """One observe case at 1M x 16 on the card: ``(kwargs of
+    trace_observe, its in-place outputs)``.  The prev carry holds random
+    statuses on 30 % of its cells (ALIVE elsewhere); the new carry
+    changes a ``density`` share of cells to another status, and each
+    subject's self cell from ALIVE to SUSPECT (which must code nothing);
+    with an epoch lane, ``density / 2`` of the cells advance their
+    epoch.  Half the subjects' self rows leave this round, one of them
+    at ``self_inc`` INT32_MAX (the incarnation wraps), as do 64 rows that
+    hold no self cell.  The first-round matrices hold INT32_MAX on half
+    their cells and earlier rounds elsewhere."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (MAIN_N, MAIN_K)
+
+    def rand():
+        return torch.rand(shape, generator=g, device=device)
+
+    def randint(lo, hi, size=shape, dtype=torch.int32):
+        return torch.randint(lo, hi, size, generator=g, device=device,
+                             dtype=dtype)
+
+    prev = torch.where(rand() < 0.3, randint(0, 4), records.ALIVE)
+    new = torch.where(rand() < density, (prev + randint(1, 4)) % 4, prev)
+    sids = trace_subjects(device, offset)
+    self_rows = (sids - offset).long()
+    cols = torch.arange(MAIN_K, device=device)
+    prev[self_rows, cols] = records.ALIVE
+    new[self_rows, cols] = records.SUSPECT
+    hi = 1 << (15 if inc_dtype == torch.int16 else 30)
+    kw = dict(prev_status=prev.to(torch.int8), new_status=new.to(torch.int8),
+              new_inc=randint(-hi, hi, dtype=inc_dtype),
+              self_inc=randint(0, 1 << 30, (MAIN_N,)),
+              leave_at=torch.full((MAIN_N,), INT32_MAX, dtype=torch.int32,
+                                  device=device),
+              subject_ids=sids, round_idx=TRACE_RECORD_ROUND,
+              observer_offset=offset)
+    kw["leave_at"][self_rows[::2]] = TRACE_RECORD_ROUND
+    kw["leave_at"][randint(0, MAIN_N, (64,)).long()] = TRACE_RECORD_ROUND
+    kw["self_inc"][self_rows[0]] = INT32_MAX
+    if epoch_dtype is not None:
+        prev_epoch = randint(0, 1000, dtype=epoch_dtype)
+        kw["prev_epoch"] = prev_epoch
+        kw["new_epoch"] = (prev_epoch + (rand() < density / 2)).to(
+            epoch_dtype)
+    lanes, count, dropped = trace_buffer(start, capacity, device)
+    outs = dict(lanes=lanes, count=count, dropped=dropped,
+                first_suspect=torch.where(rand() < 0.5, INT32_MAX,
+                                          randint(0, 30)),
+                first_removed=torch.where(rand() < 0.5, INT32_MAX,
+                                          randint(0, 30)))
+    return kw, outs
+
+
+def observe_call(kw, outs):
+    return lambda: trace_kernel.trace_observe(**outs, **kw)
+
+
+def observe_plain(kw, outs):
+    return lambda: trace_kernel.trace_observe_reference(**outs, **kw)
+
+
+def observe_codes(kw):
+    """The plain derivation's codes of an observe case."""
+    sids, offset = kw["subject_ids"], kw["observer_offset"]
+    is_self = trace_kernel.self_mask(sids, MAIN_N, offset)
+    leaving = (kw["leave_at"] == kw["round_idx"])[:, None] & is_self
+    codes, _ = trace_kernel.derive_event_codes(
+        kw["prev_status"], None, kw["new_status"], kw["new_inc"], is_self,
+        leaving, kw["self_inc"], kw.get("prev_epoch"), kw.get("new_epoch"))
+    return codes
+
+
+def observe_bytes(kw, codes, recorded):
+    """The bytes an observe must move: both status planes, the epoch
+    planes when on, the subjects and ``leave_at`` at their self rows; per
+    event its incarnation, 20 B per recorded row, a first-round read and
+    write at each SUSPECTED or REMOVED cell; the two counters."""
+    cells = codes.numel()
+    events = int((codes > 0).sum())
+    stamps = int(((codes == 2) | (codes == 4)).sum())
+    epoch = kw.get("prev_epoch")
+    return (2 * cells + (0 if epoch is None else 2 * epoch.element_size()
+                         * cells)
+            + 8 * MAIN_K + events * kw["new_inc"].element_size()
+            + recorded * 4 * trace_kernel.N_LANES + stamps * 8 + 16)
+
+
+def check_trace_observe(device):
+    """Phase 3b, the traced round's fused observe (``trace_observe``)
+    against its plain version (the eager derivation, the first-round
+    stamps, the record) at 1M x 16 on seeded prev/new carries
+    (``observe_inputs``): the wide carry, an int32 epoch lane, the
+    compact carry's int16 incarnations with an int16 epoch lane, leave
+    rows under an observer offset, then dense, sparse, overflowing, one
+    below capacity and at capacity; lanes, count, dropped, first_suspect
+    and first_removed exact, each case checked to reach its edge (JOINED
+    rows with an epoch lane, LEAVING rows at the leavers' self cells with
+    their wrapped incarnation, no row at any other self cell).  Then the
+    sparse and dense rounds timed as the codes-in record's are."""
+    for label, density, start, capacity, inc, epoch, offset in \
+            TRACE_OBSERVE_CASES:
+        cap = MAIN_N * MAIN_K if capacity is None else capacity
+        kw, got = observe_inputs(density, start, cap, 9, device, inc, epoch,
+                                 offset)
+        want = {k: v.clone() for k, v in got.items()}
+        before = got["first_suspect"].clone()
+        observe_call(kw, got)()
+        observe_plain(kw, want)()
+        torch.cuda.synchronize()
+        names = ("lanes", "count", "dropped", "first_suspect",
+                 "first_removed")
+        max_abs_err(f"trace_observe {label}", [got[n] for n in names],
+                    [want[n] for n in names])
+        codes = observe_codes(kw)
+        total = int((codes > 0).sum())
+        count, dropped = int(got["count"]), int(got["dropped"])
+        check_counters("trace_observe", label, start, cap, total, count,
+                       dropped)
+        rows = got["lanes"][start:count].cpu()
+        types = collections.Counter(rows[:, 3].tolist())
+        leaving = rows[rows[:, 3] == int(TraceEventType.LEAVING)]
+        on_self = int((rows[:, 1] == rows[:, 2]).sum())
+        stamped = int((got["first_suspect"] != before).sum())
+        edge = reaches_edge(label, start, cap, total, count, dropped,
+                            codes.numel()) and stamped > 0
+        if label in ("wide", "leave rows, offset"):
+            edge = edge and len(leaving) == MAIN_K // 2 \
+                and on_self == len(leaving) \
+                and INT32_MIN in leaving[:, 4].tolist()
+        if epoch is not None:
+            edge = edge and types[int(TraceEventType.JOINED)] > 0
+        if not edge:
+            raise AssertionError(
+                f"trace_observe {label}: the case does not reach its edge "
+                f"({total} events, types {dict(types)}, {len(leaving)} "
+                f"LEAVING, {on_self} rows on self cells, {stamped} "
+                f"first-suspect stamps)")
+        log(f"[kernel] trace_observe {label} {MAIN_N}x{MAIN_K} (inc "
+            f"{inc}, epoch {epoch}, offset {offset}): exact match (lanes, "
+            f"count, dropped, first_suspect, first_removed), {total} "
+            f"events, {start} -> {count} of {cap} rows, dropped {dropped}, "
+            f"recorded types {dict(sorted(types.items()))}, "
+            f"{stamped} first-suspect stamps")
+
+    def timed(density, seed, reset):
+        kw, outs = observe_inputs(density, 0, MAIN_N * MAIN_K, seed, device,
+                                  torch.int32)
+        codes = observe_codes(kw)
+        events = int((codes > 0).sum())
+        return timed_trace(observe_call(kw, outs), observe_plain(kw, outs),
+                           outs["count"], reset, events,
+                           observe_bytes(kw, codes, events),
+                           OPS_PER_CELL["trace_observe"])
+
+    return trace_row("trace_observe", timed)
 
 
 def traced_world(params, device):
@@ -2858,8 +3082,9 @@ def traced_canary(device, label, layout, params, make_world,
     """Phase 5b: ``run_traced`` on the card and on the CPU with the same
     CPU-made draws: the trace (lanes, count, dropped, first_suspect,
     first_removed) card == CPU, and the card's state and metrics equal
-    its untraced run's; one ``trace_record`` a round on top of the
-    layout's kernels.  Returns the card's launches."""
+    its untraced run's; one ``trace_observe`` a round on top of the
+    layout's kernels and no ``trace_record``.  Returns the card's
+    launches."""
     draws = prng.TorchDraws(seed, "cpu", params, make_world(params, "cpu"))
     runs = []
     for dev in ("cpu", device):
@@ -2887,7 +3112,7 @@ def traced_canary(device, label, layout, params, make_world,
                                  f"untraced run")
     want = {name: CANARY_ROUNDS * blocks_of(params)
             for name in ROUND_KERNELS[layout]}
-    want[trace_kernel.NAME] = CANARY_ROUNDS
+    want[trace_kernel.OBSERVE] = CANARY_ROUNDS
     if cpu_launches or launches != want:
         raise AssertionError(f"{tag}: launches cpu={cpu_launches} card="
                              f"{launches}, want none and {want}")
@@ -2934,22 +3159,33 @@ def segment_event_counts(params, world, rounds, segment, device):
     """Events each segment of the traced window must account for: an
     untraced run round by round from the initial state, with the plain
     derivation (``trace.round_transition_codes``) counting each round's
-    nonzero codes on the device.  Returns the counts and the final
-    state."""
+    nonzero codes on the device, and the reference's codes-in API on
+    those codes: ``trace.record_events`` (one ``trace_record`` a round)
+    into a fresh ``TRACE_CAPACITY`` buffer a segment and
+    ``trace.update_first_rounds``.  Returns the counts, the final state,
+    each segment's ``EventTrace`` and the ``TelemetryState`` holding the
+    first-round matrices."""
     state = swim.initial_state(params, world, device=device)
     draws = prng.TorchDraws(0, device, params, world)
-    counts = []
+    tel = ttrace.TelemetryState.init(params.n_members, params.n_subjects,
+                                     capacity=1, device=device)
+    counts, traces = [], []
     for lo in range(0, rounds, segment):
         total = torch.zeros((), dtype=torch.int64, device=device)
+        seg = ttrace.EventTrace.empty(TRACE_CAPACITY, device)
         for r in range(lo, min(lo + segment, rounds)):
             new, _ = swim.run(0, params, world, 1, state=state,
                               start_round=r, draws=draws, device=device)
-            codes, _ = ttrace.round_transition_codes(r, state.status,
-                                                     state.inc, new, world)
+            codes, ev_inc = ttrace.round_transition_codes(r, state.status,
+                                                          state.inc, new,
+                                                          world)
             total += (codes != 0).sum()
+            ttrace.record_events(seg, r, codes, ev_inc, world.subject_ids)
+            ttrace.update_first_rounds(tel, codes, r)
             state = new
         counts.append(total)
-    return [int(c) for c in counts], state
+        traces.append(seg)
+    return [int(c) for c in counts], state, traces, tel
 
 
 def traced_window_path(device):
@@ -3005,10 +3241,11 @@ def traced_window_path(device):
     traced_s = statistics.mean(t[0] for t in traced_runs)
     plain_s = statistics.mean(t[0] for t in plain_runs)
     want = {name: TRACE_ROUNDS for name in ROUND_KERNELS["wide"]}
-    want[trace_kernel.NAME] = TRACE_ROUNDS
+    want[trace_kernel.OBSERVE] = TRACE_ROUNDS
     if launches != want:
         raise AssertionError(f"traced window: launches {launches}, want "
-                             f"{want}")
+                             f"{want} (one trace_observe a round, no "
+                             f"trace_record)")
     for field in dataclasses.fields(swim.SwimState):
         if not torch.equal(getattr(traced_state, field.name),
                            getattr(plain_state, field.name)):
@@ -3021,18 +3258,39 @@ def traced_window_path(device):
     if res.n_segments != TRACE_SEGMENTS:
         raise AssertionError(f"traced window: {res.n_segments} segments")
 
-    counts, check_state = segment_event_counts(params, world, TRACE_ROUNDS,
-                                               segment, device)
+    LAUNCHES.clear()
+    counts, check_state, record_traces, record_tel = segment_event_counts(
+        params, world, TRACE_ROUNDS, segment, device)
+    record_launches = dict(LAUNCHES)
+    want = {name: TRACE_ROUNDS for name in ROUND_KERNELS["wide"]}
+    want[trace_kernel.NAME] = TRACE_ROUNDS
+    if record_launches != want:
+        raise AssertionError(f"traced window: the codes-in record's "
+                             f"launches {record_launches}, want {want}")
     if not torch.equal(check_state.status, plain_state.status):
         raise AssertionError("traced window: the round-by-round run ends "
                              "elsewhere")
+    for name, x, y in (
+            ("first_suspect", res.telemetry.first_suspect,
+             record_tel.first_suspect),
+            ("first_removed", res.telemetry.first_removed,
+             record_tel.first_removed)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"traced window: {name} differs from the "
+                                 f"codes-in record's")
     state, per_segment = None, []
     for i in range(TRACE_SEGMENTS):
         state, one = sink.stream_traced_run(
             0, params, world, segment, state=state,
             start_round=i * segment, segment_rounds=segment,
-            trace_capacity=TRACE_CAPACITY, decode=False, device=device)
+            trace_capacity=TRACE_CAPACITY, device=device)
         per_segment.append((one.recorded, one.dropped))
+        record = record_traces[i]
+        if (one.recorded, one.dropped) != (int(record.count),
+                                           int(record.dropped)) \
+                or one.events != ttrace.decode_events(record):
+            raise AssertionError(f"traced window: segment {i}'s trace "
+                                 f"differs from the codes-in record's")
     if [r + d for r, d in per_segment] != counts:
         raise AssertionError(f"traced window: per-segment recorded + "
                              f"dropped {per_segment} against the plain "
@@ -3061,7 +3319,9 @@ def traced_window_path(device):
         f"ms/round); "
         f"{res.recorded} events recorded, {res.dropped} dropped, per "
         f"segment (recorded, dropped) {per_segment} == plain counts "
-        f"{counts}; final state and metrics equal the untraced run's; "
+        f"{counts}; each segment's events and the first-round matrices "
+        f"equal the codes-in record's ({record_launches}); final state "
+        f"and metrics equal the untraced run's; "
         f"launches {launches}; peak above the resident bytes "
         f"{traced_peak} B traced, {plain_peak} B untraced")
     for label, window in windows.items():
@@ -3072,7 +3332,7 @@ def traced_window_path(device):
             f"{window['kernel_launches_per_round']:.2f} launches/round, "
             f"phases {json.dumps(window['phase_device_ms_per_round'])}, "
             f"launches {json.dumps(window['phase_launches_per_round'])}")
-    return launches
+    return launches, record_launches
 
 
 def telemetry_path(device):
@@ -3101,7 +3361,8 @@ def telemetry_path(device):
     if res.dropped != 0 or res.n_segments != -(-rounds // segment):
         raise AssertionError(f"telemetry: {res.dropped} events dropped, "
                              f"{res.n_segments} segments")
-    if launches.get(trace_kernel.NAME) != rounds:
+    if launches.get(trace_kernel.OBSERVE) != rounds \
+            or trace_kernel.NAME in launches:
         raise AssertionError(f"telemetry: launches {launches}")
     hists = ttrace.latency_histograms(res.telemetry, world)
     slot = CRASHED
@@ -3165,7 +3426,8 @@ def main():
     codec_rows = check_codec(device)
     for name, row in check_block_codec(device).items():
         codec_rows[name].update(row)
-    trace_row = check_trace_record(device)
+    trace_rows = {trace_kernel.NAME: check_trace_record(device),
+                  trace_kernel.OBSERVE: check_trace_observe(device)}
     stage("kernels", t_start)
     probe_launches, probe_rows = probe_path(device)
     stage("probes", t_start)
@@ -3175,7 +3437,7 @@ def main():
     stage("canaries", t_start)
     paths["main"], shift_summary = main_path(device)
     stage("main path", t_start)
-    paths["traced_window"] = traced_window_path(device)
+    paths["traced_window"], paths["record_api"] = traced_window_path(device)
     paths["telemetry"] = telemetry_path(device)
     stage("traced window and telemetry", t_start)
     paths["storm"] = storm_path(device, shift_summary)
@@ -3228,13 +3490,15 @@ def main():
             launches_by_path={path: counts.get(name, 0)
                               for path, counts in paths.items()},
             **codec_rows[name]))
-    kernels.append(dict(
-        name=trace_kernel.NAME, route="cuda", source=CSRC + "trace_record.cu",
-        replaces="scalecube_cluster_tpu/telemetry/trace.py:254",
-        launches=launches.get(trace_kernel.NAME, 0),
-        launches_by_path={path: counts.get(trace_kernel.NAME, 0)
-                          for path, counts in paths.items()},
-        **trace_row))
+    for name, line in ((trace_kernel.NAME, 254),
+                       (trace_kernel.OBSERVE, 166)):
+        kernels.append(dict(
+            name=name, route="cuda", source=CSRC + "trace_record.cu",
+            replaces=f"scalecube_cluster_tpu/telemetry/trace.py:{line}",
+            launches=launches.get(name, 0),
+            launches_by_path={path: counts.get(name, 0)
+                              for path, counts in paths.items()},
+            **trace_rows[name]))
     for name in probes.NAMES:
         small = probe_rows[name]["512x128"]
         kernels.append(dict(

@@ -17,8 +17,8 @@ idle share, kernel launches, device time and kernel launches inside
 each phase range of ``models/swim.py`` (``swim.carry``/``context``/
 ``fd``/``delivery``/``merge``/``metrics``/``metadata``, and in a traced
 window, ``profile_window(..., trace_capacity=C)``, the trace's
-``trace.derive``/``trace.record``), the top kernels by device time, and
-the delay ring's bytes.
+``trace.record``: one ``trace_observe`` launch a round), the top kernels
+by device time, and the delay ring's bytes.
 
 Run on a card: ``python -m scalecube_cluster_tpu_torch.profile_round
 [--n 1000000] [--layout wide [compact ...]] [--delivery scatter]
@@ -43,8 +43,7 @@ from scalecube_cluster_tpu_torch.config import ClusterConfig
 from scalecube_cluster_tpu_torch.models import swim
 
 PHASES = ("swim.carry", "swim.context", "swim.fd", "swim.delivery",
-          "swim.merge", "swim.metrics", "swim.metadata", "trace.derive",
-          "trace.record")
+          "swim.merge", "swim.metrics", "swim.metadata", "trace.record")
 # Knob settings of each carry/wire layout.
 LAYOUTS = {"wide": {}, "int16_wire": dict(int16_wire=True),
            "compact": dict(compact_carry=True),
@@ -55,6 +54,7 @@ LAYOUTS = {"wide": {}, "int16_wire": dict(int16_wire=True),
 _OWN_KERNELS = {"merge_and_timers_kernel": "swim.merge",
                 "carry_decode_kernel": "swim.carry",
                 "carry_encode_kernel": "swim.carry",
+                "trace_observe_kernel": "trace.record",
                 "trace_record_kernel": "trace.record"}
 INT32_MAX = 2**31 - 1
 # The network configuration's schedule for a 600-round run (rounds scale

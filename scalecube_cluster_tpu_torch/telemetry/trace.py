@@ -14,13 +14,18 @@ buffer on the device:
     ``first_suspect`` / ``first_removed`` round matrices, the inputs of
     :func:`latency_histograms`.
 
-Events are transitions: :func:`derive_event_codes` compares the carry's
-(status, incarnation) before and after one round and codes the net
-transition of each cell (``events.TraceEventType`` + 1, 0 for none).
-:func:`record_events` compacts the coded cells into the buffer in cell
-order with one launch of ``kernels/trace.trace_record`` (its plain
-version on CPU tensors) after one ``cumsum`` for the slots; the counters
-stay on the device, so a traced round reads nothing back to the host.
+Events are transitions: each round's net change of a cell's (status,
+incarnation, epoch) codes one event (``events.TraceEventType`` + 1, 0
+for none).  On the card :func:`observe_round` is one launch of
+``kernels/trace.trace_observe``: the codes derived in registers, the
+first-round matrices stamped at their event cells, and the events
+compacted into the buffer in cell order, with no code plane, prefix or
+first-round pass in device memory; the counters stay on the device, so
+a traced round reads nothing back to the host.  On CPU tensors the same
+call runs the plain composition (:func:`derive_event_codes`,
+:func:`update_first_rounds`, :func:`record_events`).
+:func:`record_events` is the reference's codes-in record, one launch of
+``kernels/trace.trace_record``.
 
 The reference skips the derivation and the record in rounds without an
 event (``lax.cond``); its silent branch is the identity on the buffer and
@@ -40,7 +45,6 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from scalecube_cluster_tpu_torch import records
 from scalecube_cluster_tpu_torch.kernels import trace as trace_kernel
 from scalecube_cluster_tpu_torch.telemetry.events import (
     MembershipTraceEvent,
@@ -154,70 +158,20 @@ class TelemetryState:
 # --------------------------------------------------------------------------
 
 
-def derive_event_codes(prev_status, prev_inc, new_status, new_inc,
-                       is_self, leaving_now, self_inc,
-                       prev_epoch=None, new_epoch=None):
-    """``(codes, incarnations)`` of this round's net cell transitions.
-
-    ``codes`` [N, K] int8: 0 = no event, else ``TraceEventType`` + 1.  The
-    (prev, new) status pair gives at most one transition per cell:
-
-      ABSENT/DEAD -> ALIVE   ADDED
-      !SUSPECT    -> SUSPECT SUSPECTED
-      SUSPECT     -> ALIVE   ALIVE_REFUTED
-      !DEAD       -> DEAD    REMOVED
-
-    Self cells never transition; the one self event is LEAVING, from the
-    world's leave schedule (``leaving_now``), with incarnation
-    ``self_inc + 1``.  With ``prev_epoch``/``new_epoch`` (the open-world
-    epoch lane; None when off), a cell whose stored epoch advanced to a
-    live record codes JOINED, which wins over every status code.  The
-    masks are disjoint, so the codes are one weighted sum.  ``prev_inc``
-    is unused (the reference's signature)."""
-    prev, new = prev_status, new_status
-    added = (((prev == records.ABSENT) | (prev == records.DEAD))
-             & (new == records.ALIVE))
-    suspected = (new == records.SUSPECT) & (prev != records.SUSPECT)
-    refuted = (prev == records.SUSPECT) & (new == records.ALIVE)
-    removed = (new == records.DEAD) & (prev != records.DEAD)
-
-    joined = None
-    if prev_epoch is not None and prev_epoch.numel():
-        joined = ((new_epoch.to(torch.int32) > prev_epoch.to(torch.int32))
-                  & ((new == records.ALIVE) | (new == records.SUSPECT)))
-        not_joined = ~joined
-        added &= not_joined
-        suspected &= not_joined
-        refuted &= not_joined
-        removed &= not_joined
-
-    def weighted(mask, event):
-        return mask.to(torch.int8) * (int(event) + 1)
-
-    code = (weighted(added, TraceEventType.ADDED)
-            + weighted(suspected, TraceEventType.SUSPECTED)
-            + weighted(refuted, TraceEventType.ALIVE_REFUTED)
-            + weighted(removed, TraceEventType.REMOVED))
-    if joined is not None:
-        code = code + weighted(joined, TraceEventType.JOINED)
-    code = code.masked_fill(is_self, 0)
-    code = code.masked_fill(leaving_now, int(TraceEventType.LEAVING) + 1)
-
-    inc = new_inc.to(torch.int32)
-    inc = torch.where(leaving_now, self_inc.to(torch.int32)[:, None] + 1,
-                      inc)
-    return code.to(torch.int8), inc
+# The plain derivation lives beside the kernel it is the plain version of.
+derive_event_codes = trace_kernel.derive_event_codes
 
 
 def record_events(trace: EventTrace, round_idx: int, codes, incarnations,
                   subject_ids, observer_offset: int = 0) -> EventTrace:
     """Compact this round's coded cells into ``trace`` (in place; returned
-    for the reference's call shape): one ``cumsum`` for the slots, then
-    one ``kernels/trace.trace_record`` launch."""
+    for the reference's call shape): one ``kernels/trace.trace_record``
+    launch."""
+    if incarnations.dtype not in (torch.int32, torch.int16):
+        incarnations = incarnations.to(torch.int32)
     trace_kernel.trace_record(
-        trace.lanes, trace.count, trace.dropped, codes,
-        incarnations.to(torch.int32).contiguous(),
-        trace_kernel.event_prefix(codes), subject_ids.to(torch.int32),
+        trace.lanes, trace.count, trace.dropped, codes.contiguous(),
+        incarnations.contiguous(), subject_ids.to(torch.int32),
         round_idx, observer_offset)
     return trace
 
@@ -235,12 +189,6 @@ def record_events_batch(trace: EventTrace, round_ids, codes, incarnations,
     return trace
 
 
-def _self_mask(world, n: int, observer_offset: int) -> torch.Tensor:
-    node_ids = torch.arange(n, dtype=torch.int32,
-                            device=world.device) + observer_offset
-    return world.subject_ids[None, :] == node_ids[:, None]
-
-
 def round_transition_codes(round_idx: int, prev_status, prev_inc,
                            new_state, world, observer_offset: int = 0,
                            prev_epoch=None, is_self=None):
@@ -250,7 +198,8 @@ def round_transition_codes(round_idx: int, prev_status, prev_inc,
     the [N, K] self mask (it depends on the world alone)."""
     n = prev_status.shape[0]
     if is_self is None:
-        is_self = _self_mask(world, n, observer_offset)
+        is_self = trace_kernel.self_mask(world.subject_ids, n,
+                                         observer_offset)
     leave_at = world.leave_at[observer_offset:observer_offset + n]
     leaving_now = (leave_at == round_idx)[:, None] & is_self
     return derive_event_codes(
@@ -263,10 +212,9 @@ def update_first_rounds(tel: TelemetryState, codes,
                         round_idx: int) -> TelemetryState:
     """Advance the first-suspect/first-removed matrices for one round's
     codes, in place (the trace buffer untouched)."""
-    for first, event in ((tel.first_suspect, TraceEventType.SUSPECTED),
-                         (tel.first_removed, TraceEventType.REMOVED)):
-        first.masked_fill_((codes == int(event) + 1) & (first == INT32_MAX),
-                           round_idx)
+    trace_kernel.update_first_round_matrices(tel.first_suspect,
+                                             tel.first_removed, codes,
+                                             round_idx)
     return tel
 
 
@@ -290,18 +238,25 @@ def observe_round(tel: TelemetryState, round_idx: int, prev_status,
                   prev_epoch=None, any_status_change=None,
                   is_self=None) -> TelemetryState:
     """One round's telemetry update, in place: derive the transitions,
-    record them, advance the first-round matrices.  ``prev_status`` /
-    ``prev_inc`` are the carry's before the round and ``new_state`` the
-    carry after it, both in their stored layout.  Runs under the
-    profiler ranges ``trace.derive`` and ``trace.record``."""
-    with record_function("trace.derive"):
-        tel, codes, ev_inc = observe_round_codes(
-            tel, round_idx, prev_status, prev_inc, new_state, world,
-            observer_offset, prev_epoch=prev_epoch,
-            any_status_change=any_status_change, is_self=is_self)
+    advance the first-round matrices, record the events, as one
+    ``kernels/trace.trace_observe`` call under the profiler range
+    ``trace.record``.  ``prev_status`` / ``prev_inc`` are the carry's
+    before the round and ``new_state`` the carry after it, both in their
+    stored layout; ``prev_epoch`` the epoch lane before the round (None:
+    no JOINED).  ``is_self`` (the [N, K] self mask) serves the plain
+    version on CPU tensors; ``prev_inc`` and ``any_status_change`` are
+    the reference's arguments, unused."""
+    n = prev_status.shape[0]
     with record_function("trace.record"):
-        record_events(tel.trace, round_idx, codes, ev_inc,
-                      world.subject_ids, observer_offset)
+        trace_kernel.trace_observe(
+            tel.trace.lanes, tel.trace.count, tel.trace.dropped,
+            tel.first_suspect, tel.first_removed, prev_status,
+            new_state.status, new_state.inc, new_state.self_inc,
+            world.leave_at[observer_offset:observer_offset + n],
+            world.subject_ids, round_idx, observer_offset,
+            prev_epoch=prev_epoch,
+            new_epoch=None if prev_epoch is None else new_state.epoch,
+            is_self=is_self)
     return tel
 
 
@@ -329,7 +284,11 @@ class TracePlane:
 
     def init(self, params, world):
         n, k = params.n_members, params.n_subjects
-        self._is_self = _self_mask(world, n, self.observer_offset)
+        # Only the plain version reads the [N, K] self mask; the kernel
+        # tests subject_ids[col] == row + offset itself.
+        self._is_self = (trace_kernel.self_mask(world.subject_ids, n,
+                                                self.observer_offset)
+                         if world.device.type == "cpu" else None)
         if self.telemetry is None:
             return TelemetryState.init(n, k, self.capacity, world.device)
         tel = self.telemetry

@@ -25,8 +25,10 @@ JAX package.
   run with Lifeguard, a ``suspicion_rounds`` past the compact carry's
   horizon;
 - ``fd.run`` on ``tests/test_fd_model.py``'s scenarios, shortened;
-- ``derive_event_codes`` and the record kernel's plain version against
-  the reference's on seeded planes.
+- ``derive_event_codes``, the record kernel's plain version and the
+  fused observe's (``trace_observe_reference``: the derivation, the
+  first-round stamps and the record of a round) against the reference's
+  on seeded planes.
 
 Cost: five reference programs, lowered one after another and compiled
 in the background with the draw programs, at XLA's backend optimizations
@@ -36,6 +38,7 @@ fusion).
 
 import dataclasses
 import functools
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -674,6 +677,164 @@ def test_record_plain_version_matches_reference_batch(case):
         trace_kernel.trace_record(
             got.lanes, got.count, got.dropped,
             torch.from_numpy(codes[0]).to(torch.int32),
-            torch.from_numpy(incs[0]),
-            trace_kernel.event_prefix(torch.from_numpy(codes[0])),
-            torch.from_numpy(subjects), 0)
+            torch.from_numpy(incs[0]), torch.from_numpy(subjects), 0)
+
+
+# The observe cases: (inc dtype, epoch dtype or None, observer offset,
+# density of changed cells, rows already recorded).
+OBS_N, OBS_K, OBS_CAP, OBS_ROUNDS = 30, 7, 128, (7, 8, 11)
+OBS_MAX_OFFSET = 100
+OBSERVE_CASES = {
+    "wide": (np.int32, None, 0, 0.1, 0),
+    "wide_int32_epoch": (np.int32, np.int32, 0, 0.1, 0),
+    "compact_int16_inc_int16_epoch": (np.int16, np.int16, 0, 0.1, 0),
+    "leave_rows_observer_offset": (np.int32, None, OBS_MAX_OFFSET, 0.1, 0),
+    "overflow_partway": (np.int32, None, 0, 0.5, 100),
+    "at_capacity": (np.int32, np.int32, 0, 0.1, OBS_CAP),
+    "silent": (np.int32, None, 0, 0.0, 5),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _observe_program(inc_dtype, epoch_dtype):
+    """The reference's traced round, three rounds of it: per round
+    ``round_transition_codes`` then ``update_first_rounds``, then one
+    ``record_events_batch`` of the three, as one program a dtype pair
+    (compiled once at XLA's reduced optimizations, shared by the cases)."""
+    epochs = epoch_dtype is not None
+
+    def run(lanes, count, dropped, first_suspect, first_removed, status,
+            inc, epoch, self_inc, leave_at, subject_ids, offset):
+        tel = jtrace.TelemetryState(
+            trace=jtrace.EventTrace(lanes=lanes, count=count,
+                                    dropped=dropped),
+            first_suspect=first_suspect, first_removed=first_removed)
+        world = types.SimpleNamespace(leave_at=leave_at,
+                                      subject_ids=subject_ids)
+        codes, incs = [], []
+        for r, round_idx in enumerate(OBS_ROUNDS):
+            new = types.SimpleNamespace(
+                status=status[r + 1], inc=inc[r], self_inc=self_inc[r],
+                epoch=epoch[r + 1] if epochs else None)
+            c, i = jtrace.round_transition_codes(
+                round_idx, status[r], None, new, world, offset,
+                prev_epoch=epoch[r] if epochs else None)
+            tel = jtrace.update_first_rounds(tel, c, round_idx)
+            codes.append(c)
+            incs.append(i)
+        trace_out = jtrace.record_events_batch(
+            tel.trace, jnp.asarray(OBS_ROUNDS, jnp.int32), jnp.stack(codes),
+            jnp.stack(incs), subject_ids, offset)
+        return (trace_out.lanes, trace_out.count, trace_out.dropped,
+                tel.first_suspect, tel.first_removed)
+
+    sample = _observe_inputs("wide", inc_dtype, epoch_dtype, 0)
+    return jax.jit(run).lower(*sample, jnp.int32(0)).compile(
+        compiler_options=QUICK)
+
+
+def _observe_inputs(case, inc_dtype, epoch_dtype, offset):
+    """Seeded planes of three traced rounds at N = 30, K = 7: statuses
+    [4, N, K] int8 (each round changes a ``density`` share of cells, self
+    cells included), new incarnations [3, N, K], epochs [4, N, K] (each
+    round advances one in twenty), self incarnations [3, N] (one at
+    INT32_MAX, which wraps), leave_at over the world's first 100 + N
+    rows (two subjects' self rows leave in rounds 8 and 11, one other
+    row in round 7), subjects at distinct rows of the observer range,
+    and a buffer with ``start`` rows recorded and 2 drops."""
+    _, _, _, density, start = OBSERVE_CASES[case]
+    rng = np.random.default_rng(sorted(OBSERVE_CASES).index(case))
+    n, k, r = OBS_N, OBS_K, len(OBS_ROUNDS)
+    status = [rng.integers(0, 4, (n, k))]
+    for _ in range(r):
+        change = rng.random((n, k)) < density
+        status.append(np.where(change, rng.integers(0, 4, (n, k)),
+                               status[-1]))
+    status = np.stack(status).astype(np.int8)
+    hi = 2**15 if inc_dtype == np.int16 else 2**30
+    inc = rng.integers(-hi, hi, (r, n, k)).astype(inc_dtype)
+    epoch = [rng.integers(0, 50, (n, k))]
+    for _ in range(r):
+        epoch.append(epoch[-1] + (rng.random((n, k)) < 0.05))
+    epoch = np.stack(epoch).astype(epoch_dtype or np.int32)
+    self_inc = rng.integers(0, 1000, (r, n)).astype(np.int32)
+    rows = rng.permutation(n)[:k]
+    self_inc[:, rows[0]] = 2**31 - 1
+    subject_ids = (rows + offset).astype(np.int32)
+    leave_at = np.full(OBS_MAX_OFFSET + n, 2**31 - 1, np.int32)
+    if density:
+        leave_at[offset + rows[0]] = OBS_ROUNDS[1]
+        leave_at[offset + rows[1]] = OBS_ROUNDS[2]
+        leave_at[offset + np.setdiff1d(np.arange(n), rows)[0]] = OBS_ROUNDS[0]
+    lanes = np.full((OBS_CAP, 5), -1, np.int32)
+    lanes[:start] = rng.integers(0, 50, (start, 5))
+    first = [np.where(rng.random((n, k)) < 0.5, 2**31 - 1,
+                      rng.integers(0, 7, (n, k))).astype(np.int32)
+             for _ in range(2)]
+    return (lanes, np.int32(start), np.int32(2), first[0], first[1], status,
+            inc, epoch, self_inc, leave_at, subject_ids)
+
+
+@pytest.mark.parametrize("case", sorted(OBSERVE_CASES))
+def test_observe_plain_version_matches_reference(case):
+    """``kernels/trace.trace_observe_reference`` round by round (the
+    fused observe's plain version: the derivation, the first-round
+    stamps, the record) against the reference's
+    ``round_transition_codes`` -> ``update_first_rounds`` ->
+    ``record_events_batch`` over three rounds: lanes, count, dropped and
+    both first-round matrices exact, each case reaching its edge."""
+    inc_dtype, epoch_dtype, offset, density, start = OBSERVE_CASES[case]
+    args = _observe_inputs(case, inc_dtype, epoch_dtype, offset)
+    want = _observe_program(inc_dtype, epoch_dtype)(
+        *map(jnp.asarray, args), jnp.int32(offset))
+    (lanes, count, dropped, fs, fr, status, inc, epoch, self_inc, leave_at,
+     subject_ids) = (torch.from_numpy(np.array(a)) for a in args)
+    got = dict(lanes=lanes, count=count, dropped=dropped, first_suspect=fs,
+               first_removed=fr)
+    for r, round_idx in enumerate(OBS_ROUNDS):
+        trace_kernel.trace_observe_reference(
+            **got, prev_status=status[r], new_status=status[r + 1],
+            new_inc=inc[r], self_inc=self_inc[r],
+            leave_at=leave_at[offset:offset + OBS_N], subject_ids=subject_ids,
+            round_idx=round_idx, observer_offset=offset,
+            prev_epoch=epoch[r] if epoch_dtype else None,
+            new_epoch=epoch[r + 1] if epoch_dtype else None)
+    for name, w in zip(("lanes", "count", "dropped", "first_suspect",
+                        "first_removed"), want):
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(w),
+                                      err_msg=name)
+    rows = got["lanes"][start:int(got["count"])].numpy()
+    kinds = set(rows[:, 3].tolist())
+    E = events.TraceEventType
+    recorded = int(got["count"]) + int(got["dropped"]) - start - 2
+    if case == "silent":
+        assert recorded == 0
+        np.testing.assert_array_equal(got["first_suspect"].numpy(), args[3])
+    elif case == "at_capacity":
+        assert int(got["count"]) == OBS_CAP and recorded > 0
+    elif case == "overflow_partway":
+        assert int(got["count"]) == OBS_CAP and start + recorded > OBS_CAP
+    else:
+        assert int(got["dropped"]) == 2 and {E.SUSPECTED, E.LEAVING} <= kinds
+        leaving = rows[rows[:, 3] == E.LEAVING]
+        assert (leaving[:, 1] == leaving[:, 2]).all()
+        assert -2**31 in leaving[:, 4].tolist()
+        assert (rows[:, 1] != rows[:, 2]).sum() == len(rows) - len(leaving)
+        if epoch_dtype is not None:
+            assert E.JOINED in kinds
+    if case == "wide":
+        # The wrapper takes the plain version on CPU tensors.
+        _, _, _, fs0, fr0, *_ = args
+        via = dict(lanes=torch.from_numpy(args[0].copy()),
+                   count=torch.tensor(start, dtype=torch.int32),
+                   dropped=torch.tensor(2, dtype=torch.int32),
+                   first_suspect=torch.from_numpy(fs0.copy()),
+                   first_removed=torch.from_numpy(fr0.copy()))
+        for r, round_idx in enumerate(OBS_ROUNDS):
+            trace_kernel.trace_observe(
+                **via, prev_status=status[r], new_status=status[r + 1],
+                new_inc=inc[r], self_inc=self_inc[r],
+                leave_at=leave_at[:OBS_N], subject_ids=subject_ids,
+                round_idx=round_idx)
+        for name, value in via.items():
+            assert torch.equal(value, got[name]), name
