@@ -52,6 +52,17 @@ and prints no result):
    clock and on CUDA events into a buffer it never fills, its dense one
    on the device clock (the count reset before each call), each beside
    its byte bound;
+3c. the invariant monitor's evidence record (``check_monitor_record``:
+   ``chaos/monitor.record_round``, one codes-in ``trace_record`` launch a
+   checked code and one a self lane, the self lanes' subject the
+   observer) against the same pass on the plain version at 1M x 16 into
+   the monitor's 4,096 rows: every code tripped, the self lanes alone,
+   codes no longer fresh (nothing recorded), an overflow partway through
+   the codes, a start one row below the capacity and at it; lanes, count
+   and dropped exact, each case checked to reach its edge; the passive
+   monitor's record pass of a green round, one launch on an empty plane
+   and the every-code round timed on the device clock beside their byte
+   bounds (``monitor_*`` fields of the ``trace_record`` row);
 4. the probe path: ``python -m scalecube_cluster_tpu_torch.mosaic_probe``
    at [512, 128] and at [1,000,000, 16] (each probe once, checked against
    its plain version), then each probe timed at both shapes on the
@@ -71,14 +82,14 @@ and prints no result):
    [3, 5]: the scalar tail runs) and must refuse a 16-byte-misaligned
    input with ``ValueError``.  After each stage the seconds since the
    start and the card's clocks, temperature and power draw are printed;
-5. parity canaries, card against CPU with the same CPU-made draws, 100
+5. parity canaries, card against CPU with the same CPU-made draws, 80
    rounds, state (every lane) and metrics bit-identical, and the card's
    kernel launches one a round for each kernel of the layout.  Shift:
    wide at 4,096 x 16 and full view 512 x 512, compact carry at both,
    int16 wire at 4,096 x 16; the network configuration
    (``profile_round.network_*``: eight link-fault rules, a 50 ms mean
    delay, a 4-slot delay ring, four user gossips; its schedule scaled to
-   100 rounds) at 4,096 x 16 in the wide, int16-wire and compact +
+   80 rounds) at 4,096 x 16 in the wide, int16-wire and compact +
    wire24 layouts; a seeded cold start (seeds 0, 1, 2, node 5 blocked)
    at full view 512 x 512.  Scatter: wide at 4,096 x 16, wide and
    compact carry at full view 512 x 512 (the known-only probe's Gumbel
@@ -104,7 +115,7 @@ and prints no result):
    (md same-round only) and Lifeguard with a 64-round suppression
    window;
 5b. the traced canaries (``traced_canaries``): ``run_traced`` at 4,096 x
-    16, 100 rounds, node 3 crashed at round 10 and node 5 leaving at
+    16, 80 rounds, node 3 crashed at round 10 and node 5 leaving at
     round 30, card against CPU with the same CPU-made draws: shift wide,
     ``int16_wire``, compact, compact + ``wire24``, scatter wide, wide
     into a 256-row buffer (it overflows), and the open world with node 3
@@ -113,6 +124,17 @@ and prints no result):
     the card's state and metrics equal to its untraced run's, the
     layout's kernels once a round plus one ``trace_observe`` (and no
     ``trace_record``);
+5c. the monitor canaries (``monitor_canaries``): ``run_monitored_metered``
+    at 512 x 16, the telemetry scenario's sped-up timing, node 3 crashed
+    at round 10, 100 rounds, the loss knob at 0.25 and the suspicion
+    timeout knob at 10x, a spec promising a pristine network and node
+    3's removal by round 10 + ``suspicion_rounds`` + 24: shift wide,
+    shift compact + ``wire24`` and scatter wide, card against CPU with the
+    same CPU-made draws: state, metrics, the whole monitor and the
+    registry equal; FALSE_SUSPICION and COMPLETENESS tripped,
+    ``chaos_violations`` the monitor's total; the layout's kernels (two
+    more ``carry_decode`` a round under the compact carry, the checks'
+    wide decodes) and seven ``trace_record`` a round;
 6. the main path and the layout identity: LAN defaults, N = 1,000,000
    members x K = 16 subjects, loss 0.02, node 3 crashed at round 10, the
    port's own device draws, 600 rounds through ``models.swim.run`` in the
@@ -122,7 +144,7 @@ and prints no result):
    (its suspicion timeout is 500 rounds at this size); each narrow run
    must give the wide run's per-round metrics and decoded final state
    exactly.  Each layout prints ms/round, member-rounds/s, kernel
-   launches per round (a profiled 20-round window) and peak memory (and
+   launches per round (a profiled 10-round window) and peak memory (and
    the bytes already allocated when its run began);
 6a. ``bench.py``'s traced window at full width (``traced_window_path``):
     the main path's workload (wide, shift) for 256 rounds through
@@ -142,6 +164,21 @@ and prints no result):
     ``suspicion_rounds + 80`` rounds in segments of a third: no drop, and
     for node 3 the histogram identity (bucketed + undetected + suspected
     before the crash = N - 1) for detection and removal; the buckets;
+6d. (after 6b) ``bench.py --compose``'s full instrumented stack at full
+    width (``instrumented_stack_path``): the main path's workload (wide,
+    shift) through ``models/compose.run_composed`` (trace at 65,536
+    rows, passive monitor, default registry) for 256 rounds: its final
+    status, trace lanes and count, monitor and registry (but
+    ``chaos_violations``) equal to ``run_traced``'s, ``run_monitored``'s
+    and ``run_metered``'s; the monitor green; one merge, one
+    ``trace_observe`` and five ``trace_record`` a round; bare ``run``, the
+    stack and ``run_metered`` timed in turns, ``full_stack_overhead_ratio``
+    and ``metrics_overhead_ratio``; profiled windows from round 256
+    (bare, the stack, the monitor alone, the metrics alone: device busy
+    ms, launches, the ``metrics.observe``, ``monitor.check`` and
+    ``monitor.record`` phases); ``metrics.stream_metered_run`` through a
+    ``TelemetrySink`` in four windows, read back with
+    ``sink.read_records``, summing to the single metered run;
 6c. the churn storm at full width, the open-world plane's path: the
     reference's ``chaos.churn_growth_scenario`` geometry (``bench.py
     --churn``'s workload) at N = 1,000,000 x K = 16 focal subjects at
@@ -151,9 +188,9 @@ and prints no result):
     before its crash, 3 new identities a wave 10 rounds after its
     crashes, into 3 pre-dead arrival slots first; a horizon of the last
     join + ``completeness_bound`` (284) + 24, rounded up to 64; the
-    port's own draws, the monitor's join codes
-    (``chaos/monitor.join_codes``) after the first join's round, every
-    16 rounds on and after the last.  The guard arm, then under
+    port's own draws, through ``chaos/monitor.run_monitored`` with the
+    join codes checked every round (``storm_spec``), as ``bench.py
+    --churn`` runs it.  The guard arm, then under
     ``int16_wire`` and compact + ``wire24`` (each equal to the wide run's
     per-round metrics, decoded final state and codes), the naive arm
     (``epoch_guard=False``) on the same world and draws, and the guard
@@ -165,8 +202,9 @@ and prints no result):
     rows' incarnations, refutations, ms/round, peak bytes, and a
     profiled window after the storm and of the last join round.  Then
     ``bench.py --churn``'s own A/B at its size (N = 48, full view,
-    seeds 3-5), the codes after every round, on the card and on the CPU
-    (card == CPU): guard 0, naive ``NO_RESURRECTION`` above 0;
+    seeds 3-5) through ``run_monitored``, on the card and on the CPU
+    (card == CPU, the whole monitor): guard 0, naive ``NO_RESURRECTION``
+    above 0;
 7. the network path at full width: the network configuration at N =
    1,000,000 x K = 16 for 600 rounds (node 3 crashed at round 10, a
    brownout from ids [0, 100,000) to the rest over rounds 100-260 at up
@@ -183,7 +221,7 @@ and prints no result):
    metrics and decoded state (rings unpacked) exactly; a run to round
    160 (the brownout's peak) must hold delayed messages in its ring.
    Each prints ms/round, member-rounds/s, peak memory, and launches per
-   round from 20 rounds profiled from round 160 (device busy time and
+   round from 10 rounds profiled from round 160 (device busy time and
    idle share, device time and launches per phase range, the ring's
    bytes);
 8. the planes at full width: (a) the partition heal of ``bench.py
@@ -194,13 +232,14 @@ and prints no result):
    the split must leave divergent columns, the tables must agree inside
    the window, and the gossip-only control (``sync_interval=0``, 524
    rounds) must not; prints ``sync_rounds_to_converge``, ms/round,
-   member-rounds/s, a profiled 20-round window and peak bytes; (b) the
+   member-rounds/s, a profiled 10-round window and peak bytes; (b) the
    network configuration at 1M x 16, wide, 600 rounds, with
    ``lhm_max=8`` and ``dead_suppress_rounds = periods_to_spread + 2``:
-   at every segment's end each live row's multiplier in [1, 8] and the
-   reference monitor's TIMER_BOUND contract (no timer past round +
-   ``suspicion_rounds * 8``), node 3 suspected within 50 rounds; prints
-   its numbers beside phase 7's wide run;
+   through ``run_monitored`` (passive spec), at every segment's end each
+   live row's multiplier in [1, 8] and the monitor's TIMER_BOUND count 0
+   (no timer past round + ``suspicion_rounds * 8``, checked every round),
+   node 3 suspected within 50 rounds; prints its numbers (ms/round with
+   the monitor) beside phase 7's wide run;
 8c. the staged config rollout at full view N = K = 16,384, the metadata
     plane's path (``rollout_path``): ``bench.py --rollout``'s scenario
     (``rollout_world``: the chaos campaign's config, shift,
@@ -210,7 +249,7 @@ and prints no result):
     832), the port's own draws.  The gated arm runs in segments of 2
     rounds, reading the open pushes' owner columns on the device after
     each: every push must converge inside ``max(push, heal) + 118`` and
-    the divergence probe read 0 at the horizon; a profiled 20-round
+    the divergence probe read 0 at the horizon; a profiled 10-round
     window from round 384.  The gossip-only control (``sync_interval=0``)
     must still diverge at round 832.  Prints the p99, the control's
     count, each arm's ms/round, member-rounds/s, peak bytes and bytes
@@ -265,6 +304,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -278,10 +318,11 @@ from scalecube_cluster_tpu_torch.config import ClusterConfig
 from scalecube_cluster_tpu_torch.kernels import LAUNCHES, _build
 from scalecube_cluster_tpu_torch.kernels import carry, merge, probes
 from scalecube_cluster_tpu_torch.kernels import trace as trace_kernel
-from scalecube_cluster_tpu_torch.models import lifeguard, metadata, swim
+from scalecube_cluster_tpu_torch.models import compose, lifeguard, metadata
+from scalecube_cluster_tpu_torch.models import swim
 from scalecube_cluster_tpu_torch.models import sync as sync_plane
 from scalecube_cluster_tpu_torch.ops import delivery, prng
-from scalecube_cluster_tpu_torch.telemetry import sink
+from scalecube_cluster_tpu_torch.telemetry import metrics, sink
 from scalecube_cluster_tpu_torch.telemetry import trace as ttrace
 from scalecube_cluster_tpu_torch.telemetry.events import TraceEventType
 
@@ -315,7 +356,7 @@ PROFILE_FULL_ROUNDS = 5
 BLOCK_CARRY_K = 4_096
 BLOCK_COLS = (0, 1_024, 3_072)
 TIMED_COL0 = 1_024
-CANARY_ROUNDS = 100
+CANARY_ROUNDS = 80
 # The planes' canaries: the anti-entropy exchange every 8 rounds,
 # multipliers up to 8, a 64-round suppression window, across a partition
 # of rounds 0-63.
@@ -337,7 +378,7 @@ HEAL_WINDOW = HEAL_HORIZON - 2 * HEAL_SPLIT
 LIFEGUARD_SEGMENTS = (0, 50, 100, 160, 200, 260, 300, 400, 500, 600)
 SEEDS = [0, 1, 2]
 COLD_N = 4096
-PROFILE_ROUNDS = 20
+PROFILE_ROUNDS = 10
 INT32_MAX = 2**31 - 1
 INT32_MIN = -2**31
 # The brownout's floor: each live subject held SUSPECT, on average over
@@ -367,8 +408,13 @@ PLANE_DEADLINES = (None, None, -1, 0, 1, -3, 4, -37)
 # its crashes, into 3 pre-dead arrival slots first; the monitor's join
 # codes every 16 rounds from the first join and after the last round.
 STORM_SEED, STORM_WAVES, STORM_WAVE_SIZE, STORM_JOINS = 3, 3, 2, 3
-STORM_JOIN_LAG, STORM_SCARE, STORM_CHECK_EVERY = 10, 6, 16
+STORM_JOIN_LAG, STORM_SCARE = 10, 6
 STORM_HORIZON_QUANTUM = 64
+# The monitor's trace_record launches a storm round: INC_REGRESSION,
+# TIMER_BOUND, WIRE_SATURATION, the two join codes and the two self lanes.
+STORM_RECORDS = 7
+JOIN_CODES = (monitor.InvariantCode.NO_RESURRECTION,
+              monitor.InvariantCode.JOIN_COMPLETENESS)
 # The network configuration's canary with a join: node 3 (crashed at
 # round 10) rejoins at this round.
 NETWORK_JOIN_AT = 60
@@ -433,10 +479,32 @@ TRACE_OBSERVE_CASES = (
 # telemetry scenario (bench.py:327-328, :666-720).
 TRACE_LEAVER, TRACE_LEAVE_AT, TRACE_CANARY_SMALL_CAPACITY = 5, 30, 256
 TRACE_ROUNDS, TRACE_SEGMENTS = 256, 4
+# The monitor's record cases at 1M x 16 (label, density of violating cells
+# a code, density of each self lane, rows already recorded, codes no
+# longer fresh), into the monitor's default 4,096 rows.
+MONITOR_CAPACITY = monitor.DEFAULT_CAPACITY
+MONITOR_RECORD_CASES = (
+    ("every code", 2e-5, 2e-4, 0, ()),
+    ("self lanes", 0.0, 1e-3, 0, ()),
+    ("not fresh", 2e-5, 2e-4, 0, (1, 2, 3)),
+    ("overflow", 1e-4, 2e-4, 0, ()),
+    ("one below capacity", 2e-5, 2e-4, MONITOR_CAPACITY - 1, ()),
+    ("at capacity", 2e-5, 2e-4, MONITOR_CAPACITY, ()))
+MONITOR_CANARY_N, MONITOR_CANARY_ROUNDS = 512, 100
+# The instrumented stack's timed window (bench.py --metrics windows at a
+# quarter of its rounds; 256 keeps every int32 counter far from wrapping).
+STACK_ROUNDS, STACK_PROFILE_ROUNDS = 256, 20
 TELEMETRY_N, TELEMETRY_CRASH_AT = 4_096, 10
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
+    """Print ``msg``; a tagged line (``[...]``) ends with the seconds
+    since the script started."""
+    if msg.startswith("["):
+        msg = f"{msg} (at {time.perf_counter() - _T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -464,7 +532,7 @@ def clock_line():
             + out.stdout.strip().splitlines()[0])
 
 
-def time_ms(fn, samples=20, inner=10, warmup=3):
+def time_ms(fn, samples=10, inner=10, warmup=3):
     """Median over ``samples`` of the mean milliseconds per call of
     ``inner`` back-to-back calls of ``fn()`` between two CUDA events (the
     batch hides the host's launch latency behind the queued work)."""
@@ -483,7 +551,7 @@ def time_ms(fn, samples=20, inner=10, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, calls=50, warmup=3, traces=3):
+def device_ms(fn, calls=20, warmup=3, traces=3):
     """Mean device milliseconds per call of ``fn()``: the summed time of
     the CUDA kernels (and copies) it runs, from a ``torch.profiler``
     trace of ``calls`` calls, without the host's time between them.  A
@@ -1693,34 +1761,17 @@ def heal_path(device):
     return launches
 
 
-def timer_bound(state, params, alive, cursor):
-    """The reference monitor's TIMER_BOUND contract over live observers
-    after round ``cursor - 1`` (Lifeguard and the suppression window on):
-    a SUSPECT entry holds a timer still ahead and at most
-    ``suspicion_rounds * lhm_max`` out, a DEAD entry's lane holds no
-    timer or an expiry at most the window out, any other entry none.
-    Returns the count of cells breaking it."""
-    r = cursor - 1
-    dl, _ = swim._wide_timer_fields(state, params, cursor)
-    live = alive[:, None]
-    suspect = state.status == records.SUSPECT
-    dead_hold = (state.status == records.DEAD) & (dl != INT32_MAX)
-    has_timer = dl != INT32_MAX
-    bad = ((has_timer & ~suspect & ~dead_hold) | (suspect & ~has_timer)
-           | (suspect & has_timer & (dl <= r))
-           | (suspect & (dl > r + params.suspicion_rounds * params.lhm_max))
-           | (dead_hold & (dl > r + params.dead_suppress_rounds)))
-    return int((bad & live).sum())
-
-
 def lifeguard_network_path(device, plane_off):
     """Phase 8 (b), the planes at full width: the network configuration
     at 1M x 16 (wide, 600 rounds) with Lifeguard (multipliers up to 8)
     and a suppression window of periods_to_spread + 2 rounds, run in
-    segments.
-    Gates at every segment's end: every live row's multiplier in [1, 8],
-    the TIMER_BOUND contract (:func:`timer_bound`); and node 3 suspected
-    within 50 rounds of its crash.  Prints its numbers beside the
+    segments through ``chaos.monitor.run_monitored`` (the passive spec).
+    Gates at every segment's end: every live row's multiplier in [1, 8]
+    and the monitor's TIMER_BOUND count 0 (checked every round: no timer
+    past round + ``suspicion_rounds * 8``, none on a non-SUSPECT entry
+    but a DEAD one inside its suppression window); and node 3 suspected
+    within 50 rounds of its crash.  The run's ms/round includes the
+    monitor.  Prints its numbers beside the
     plane-off network run's (``plane_off``, phase 7's wide summary), the
     SUSPECT entries about live subjects in the brownout window and the
     share of live observers holding node 3 DEAD at the end."""
@@ -1728,14 +1779,17 @@ def lifeguard_network_path(device, plane_off):
         profile_round.network_params("wide", MAIN_N, MAIN_K),
         sync_interval=0)
     world = profile_round.network_world(params, device)
+    spec = monitor.MonitorSpec.passive(params, device=device)
+    timer_code = monitor.InvariantCode.TIMER_BOUND
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
-    state, rows, seconds, mid = None, [], 0.0, None
+    state, mon, rows, seconds, mid = None, None, [], 0.0, None
     for lo, hi in zip(LIFEGUARD_SEGMENTS, LIFEGUARD_SEGMENTS[1:]):
         t0 = time.perf_counter()
-        state, metrics = swim.run(0, params, world, hi - lo, state=state,
-                                  start_round=lo, device=device)
+        state, mon, metrics = monitor.run_monitored(
+            0, params, world, spec, hi - lo, state=state, start_round=lo,
+            monitor=mon, device=device)
         torch.cuda.synchronize()
         seconds += time.perf_counter() - t0
         rows.append({name: value.cpu() for name, value in metrics.items()})
@@ -1743,15 +1797,16 @@ def lifeguard_network_path(device, plane_off):
         if int(lhm.min()) < 1 or int(lhm.max()) > params.lhm_max:
             raise AssertionError(f"lifeguard: lhm outside [1, "
                                  f"{params.lhm_max}] at round {hi}")
-        bad = timer_bound(state, params, world.alive_at(hi - 1), hi)
-        if bad:
-            raise AssertionError(f"lifeguard: {bad} cells break the timer "
-                                 f"contract at round {hi}")
+        timer = int(mon.code_counts[timer_code])
+        if timer:
+            raise AssertionError(f"lifeguard: the monitor counts {timer} "
+                                 f"TIMER_BOUND cells by round {hi}")
         if hi == profile_round.NETWORK_PEAK:
             mid = state
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    check_launches("lifeguard", params, launches, MAIN_ROUNDS, "wide")
+    check_monitor_launches("lifeguard", params, launches, MAIN_ROUNDS,
+                           "wide", 5)
     metrics = {name: torch.cat([row[name] for row in rows])
                for name in rows[0]}
     suspect, dead = metrics["suspect"], metrics["dead"]
@@ -1784,8 +1839,11 @@ def lifeguard_network_path(device, plane_off):
         f"{window['device_idle_share']:.4f}, phases "
         f"{json.dumps(window['phase_device_ms_per_round'])}, launches "
         f"{json.dumps(window['phase_launches_per_round'])}")
-    log(f"[lifeguard] lhm in [1, {params.lhm_max}] and the timer contract "
-        f"held at rounds {list(LIFEGUARD_SEGMENTS[1:])}; node {CRASHED}: "
+    log(f"[lifeguard] lhm in [1, {params.lhm_max}] at rounds "
+        f"{list(LIFEGUARD_SEGMENTS[1:])} and the monitor's TIMER_BOUND 0 "
+        f"every round (monitor codes "
+        f"{codes_of(mon)}"
+        f"); node {CRASHED}: "
         f"first SUSPECT at round {first_suspect} (off "
         f"{plane_off['first_suspect']}), {dead_share:.6f} of live observers "
         f"hold it DEAD at the end (off {plane_off['dead_share']:.6f}); "
@@ -2073,54 +2131,93 @@ def joined_unknown(state, world, joins, round_idx):
     return missing
 
 
+def storm_spec(params, known_by, device):
+    """The churn storm's monitor spec: the join codes checked against
+    ``known_by`` (``monitor.join_deadlines``), no completeness deadline,
+    no pristine-network promise."""
+    return monitor.MonitorSpec(
+        complete_by=torch.full((params.n_subjects,), INT32_MAX,
+                               dtype=torch.int32, device=device),
+        check_joins=True, join_known_by=known_by)
+
+
+def codes_of(mon):
+    """Every code's violation total of a monitor, by name."""
+    return {code: d["violations"]
+            for code, d in monitor.verdict(mon)["codes"].items()}
+
+
+def join_code_counts(mon):
+    """The two join codes' totals of a monitor, by name."""
+    counts = mon.code_counts.cpu()
+    return {code.name: int(counts[code]) for code in JOIN_CODES}
+
+
+def monitor_launches(params, rounds, layout, records):
+    """The launches of a monitored run: the layout's round kernels, two
+    more ``carry_decode`` a round under the compact carry (the wide
+    decodes of the round's input and output carries the checks read) and
+    ``records`` ``trace_record`` a round (its checked codes and two self
+    lanes)."""
+    want = {name: rounds * blocks_of(params)
+            for name in ROUND_KERNELS[layout]}
+    if params.compact_carry:
+        want[carry.DECODE] += 2 * rounds
+    want[trace_kernel.NAME] = records * rounds
+    return want
+
+
+def check_monitor_launches(label, params, launches, rounds, layout,
+                           records):
+    want = monitor_launches(params, rounds, layout, records)
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches} in "
+                             f"{rounds} rounds, want {want}")
+
+
 def storm_run(device, layout="wide", delivery="shift", guard=True,
               profile=False, join_round=False):
-    """One arm of the 1M x 16 churn storm, run in segments through
-    ``models.swim.run`` (the port's own draws on the card), with the
-    monitor's join codes after the first join's round, every 16 rounds
-    on, and after the last round.  ``profile``: also a profiled window
-    after the storm; ``join_round``: and of the last join round.  Returns
-    the params, world, final state, metrics, launches and a summary."""
+    """One arm of the 1M x 16 churn storm through
+    ``chaos.monitor.run_monitored`` (the port's own draws on the card),
+    as ``bench.py --churn`` runs it: the monitor checks every round, the
+    join codes against the reference's deadlines (``storm_spec``).
+    ``profile``: also a profiled window after the storm; ``join_round``:
+    and of the last join round.  Returns the params, world, final state,
+    metrics, launches and a summary."""
     params = storm_params(MAIN_N, MAIN_K, layout, delivery, guard)
     world, horizon, disruption_end, joins = storm_world(params, device)
     known_by, check = monitor.join_deadlines(params, world, disruption_end)
     if not check:
         raise AssertionError("storm: no join is checkable")
-    first_join = min(at for _, at in joins)
+    spec = storm_spec(params, known_by, device)
     last_join = max(at for _, at in joins)
-    checks = sorted(set(range(first_join, horizon, STORM_CHECK_EVERY))
-                    | {horizon - 1})
-    stops = sorted({r + 1 for r in checks} | {last_join})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
-    state, rows, cursor, codes, at_last_join = None, [], 0, {}, None
+    state, mon, rows, cursor, at_last_join = None, None, [], 0, None
     t0 = time.perf_counter()
-    for stop in stops:
-        state, metrics = swim.run(0, params, world, stop - cursor,
-                                  state=state, start_round=cursor,
-                                  device=device)
+    for stop in sorted({last_join, horizon}):
+        state, mon, metrics = monitor.run_monitored(
+            0, params, world, spec, stop - cursor, state=state,
+            start_round=cursor, monitor=mon, device=device)
         rows.append(metrics)
         cursor = stop
-        if cursor - 1 in checks:
-            for code, count in monitor.join_codes(state, params, world,
-                                                  known_by,
-                                                  cursor - 1).items():
-                codes[code] = codes.get(code, 0) + int(count)
         if cursor == last_join and join_round:
             at_last_join = state
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    check_launches(f"storm {layout}", params, launches, horizon, layout)
+    check_monitor_launches(f"storm {layout}", params, launches, horizon,
+                           layout, STORM_RECORDS)
     metrics = {name: torch.cat([row[name] for row in rows]).cpu()
                for name in rows[0]}
     joined = [slot for slot, _ in joins]
     summary = dict(
-        horizon=horizon, codes=codes, seconds=seconds,
-        ms_round=seconds / horizon * 1e3, peak=peak, joins=joins,
-        joined_self_inc=state.self_inc[joined].tolist(),
+        horizon=horizon, codes=join_code_counts(mon), monitor=mon,
+        all_codes=codes_of(mon),
+        seconds=seconds, ms_round=seconds / horizon * 1e3, peak=peak,
+        joins=joins, joined_self_inc=state.self_inc[joined].tolist(),
         refutations=int(metrics["refutations"].sum()),
         unknown=joined_unknown(state, world, joins, horizon - 1)
         if params.epoch_bits else None)
@@ -2135,8 +2232,8 @@ def storm_run(device, layout="wide", delivery="shift", guard=True,
     log(f"[storm] {delivery} {layout} {arm} {MAIN_N}x{MAIN_K}, joins "
         f"{joins}, horizon {horizon} (deadlines {known_by.unique().tolist()}"
         f"), {horizon} rounds in {seconds:.3f} s: "
-        f"{summary['ms_round']:.4f} ms/round, peak {peak} B; codes "
-        f"{codes} at rounds {checks}; joined rows' self_inc "
+        f"{summary['ms_round']:.4f} ms/round, peak {peak} B; monitor codes "
+        f"every round {summary['all_codes']}; joined rows' self_inc "
         f"{summary['joined_self_inc']}, refutations "
         f"{summary['refutations']}; eligible cells not holding a joined "
         f"slot ALIVE at epoch 1 at the end: {summary['unknown']}")
@@ -2187,7 +2284,7 @@ def storm_path(device, shift_main):
             if not torch.equal(value.cpu(), want[name]):
                 raise AssertionError(f"storm {layout}: decoded final {name} "
                                      f"differs from the wide run")
-        if summary["codes"] != wide["codes"]:
+        if summary["all_codes"] != wide["all_codes"]:
             raise AssertionError(f"storm {layout}: codes differ")
         log(f"[identity] storm {layout}: per-round metrics, decoded final "
             f"state (epoch lane included) and codes equal the wide run's")
@@ -2217,10 +2314,10 @@ def storm_path(device, shift_main):
     window, join_round = wide["window"], wide["join_round"]
     main_window, naive_window = shift_main["window"], naive["window"]
     log(f"[storm] guard / naive: NO_RESURRECTION "
-        f"{wide['codes'][monitor.NO_RESURRECTION]} / "
-        f"{naive['codes'][monitor.NO_RESURRECTION]}, JOIN_COMPLETENESS "
-        f"{wide['codes'][monitor.JOIN_COMPLETENESS]} / "
-        f"{naive['codes'][monitor.JOIN_COMPLETENESS]}; joined rows' self_inc "
+        f"{wide['codes']['NO_RESURRECTION']} / "
+        f"{naive['codes']['NO_RESURRECTION']}, JOIN_COMPLETENESS "
+        f"{wide['codes']['JOIN_COMPLETENESS']} / "
+        f"{naive['codes']['JOIN_COMPLETENESS']}; joined rows' self_inc "
         f"{wide['joined_self_inc']} / {naive['joined_self_inc']}; "
         f"refutations {wide['refutations']} / {naive['refutations']}; "
         f"scatter guard {scatter['codes']}, {scatter['ms_round']:.4f} "
@@ -2252,13 +2349,13 @@ def bench_churn_path(device):
     """``bench.py --churn``'s own A/B on the card (``bench.py:2911-3090``:
     N = 48, full view, shift, ``churn_growth_scenario(seed, n=48)`` for
     seeds 3, 4 and 5, each run with its seed; ``storm_world`` at full
-    view draws its pools from every member, as the reference does), the
-    monitor's join codes after every round, both arms, on the card and
-    on the CPU with the same CPU-made draws.  Gates: card == CPU (every
-    state lane, the codes); the guard arm's codes 0 and every joined
-    slot known at epoch 1 at the end of each scenario; the naive arm's
-    ``NO_RESURRECTION`` summed over the scenarios above 0, the hazard
-    the guard kills (the bench's gate)."""
+    view draws its pools from every member, as the reference does)
+    through ``chaos.monitor.run_monitored`` (``storm_spec``), both arms,
+    on the card and on the CPU with the same CPU-made draws.  Gates: card
+    == CPU (every state lane, the whole monitor); the guard arm's join
+    codes 0 and every joined slot known at epoch 1 at the end of each
+    scenario; the naive arm's ``NO_RESURRECTION`` summed over the
+    scenarios above 0, the hazard the guard kills (the bench's gate)."""
     n = 48
     launches, totals = {}, {}
     for seed in (STORM_SEED, STORM_SEED + 1, STORM_SEED + 2):
@@ -2273,27 +2370,21 @@ def bench_churn_path(device):
                 known_by, _ = monitor.join_deadlines(params, world,
                                                      disruption_end)
                 LAUNCHES.clear()
-                state, codes = None, {}
-                for r in range(horizon):
-                    state, _ = swim.run(seed, params, world, 1, state=state,
-                                        start_round=r,
-                                        draws=lambda q: draws(q).to(dev),
-                                        device=dev)
-                    for code, count in monitor.join_codes(
-                            state, params, world, known_by, r).items():
-                        codes[code] = codes.get(code, 0) + int(count)
-                runs.append((state, codes, dict(LAUNCHES), world))
-            (cs, c_codes, _, _), (gs, codes, g_launches, world) = runs
+                state, mon, _ = monitor.run_monitored(
+                    seed, params, world, storm_spec(params, known_by, dev),
+                    horizon, draws=lambda q: draws(q).to(dev), device=dev)
+                runs.append((state, mon, dict(LAUNCHES), world))
+            (cs, cmon, _, _), (gs, gmon, g_launches, world) = runs
             label = f"bench churn seed {seed} {'guard' if guard else 'naive'}"
             for field in dataclasses.fields(swim.SwimState):
                 if not torch.equal(getattr(cs, field.name),
                                    getattr(gs, field.name).cpu()):
                     raise AssertionError(f"{label}: state.{field.name} "
                                          f"differs between card and CPU")
-            if c_codes != codes:
-                raise AssertionError(f"{label}: codes {codes} on the card, "
-                                     f"{c_codes} on the CPU")
-            check_launches(label, params, g_launches, horizon, "wide")
+            monitor_equal(f"{label} card vs CPU", cmon, gmon)
+            codes = join_code_counts(gmon)
+            check_monitor_launches(label, params, g_launches, horizon,
+                                   "wide", STORM_RECORDS)
             for name, count in g_launches.items():
                 launches[name] = launches.get(name, 0) + count
             arm = totals.setdefault(guard, {})
@@ -2306,10 +2397,12 @@ def bench_churn_path(device):
                                      f"eligible cells do not hold a joined "
                                      f"slot at epoch 1")
             log(f"[bench churn] {label}, {n}x{n} shift, joins {joins}, "
-                f"{horizon} rounds: codes after every round {codes} (card "
-                f"== CPU, every state lane); joined rows' self_inc "
+                f"{horizon} rounds: monitor codes every round "
+                f"{codes_of(gmon)}"
+                f" (card == CPU, every state lane and the monitor); joined "
+                f"rows' self_inc "
                 f"{gs.self_inc[[slot for slot, _ in joins]].tolist()}")
-    if totals[False][monitor.NO_RESURRECTION] == 0:
+    if totals[False]["NO_RESURRECTION"] == 0:
         raise AssertionError("bench churn naive: no resurrection counted; "
                              "the epoch-blind arm shows no hazard")
     log(f"[bench churn] summed over seeds 3-5: guard {totals[True]}, naive "
@@ -3201,7 +3294,7 @@ def traced_window_path(device):
     must equal the plain derivation's nonzero codes over its rounds.
     Prints both ms/round (means of the two windows), their ratio
     (``traced_overhead_ratio``: untraced member-rounds/s over traced,
-    i.e. traced ms over untraced), peak bytes, and profiled 20-round
+    i.e. traced ms over untraced), peak bytes, and profiled 10-round
     windows from round 256, traced and untraced."""
     params = profile_round.bench_params("wide", MAIN_N, MAIN_K)
     world = crash_world(params, device)
@@ -3394,6 +3487,460 @@ def telemetry_path(device):
     return launches
 
 
+# --------------------------------------------------------------------------
+# The health-metrics and invariant-monitor planes
+# --------------------------------------------------------------------------
+
+
+def monitor_cells(density, seed, device, codes=tuple(monitor.InvariantCode)):
+    """Seeded monitor evidence at 1M x 16 on the card: ``(cells,
+    self_lanes, self_inc)`` as ``monitor.check_cells`` gives them, every
+    code in ``codes`` with violating cells at ``density`` and a seeded
+    detail plane, both self lanes at ``density * 16``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (MAIN_N, MAIN_K)
+    cells = []
+    for code in codes:
+        vio = torch.rand(shape, generator=g, device=device) < density
+        detail = torch.randint(-1, 1 << 20, shape, generator=g,
+                               device=device, dtype=torch.int32)
+        cells.append((code, vio, lambda d=detail: d))
+    self_lanes = tuple(
+        (code, torch.rand((MAIN_N,), generator=g, device=device)
+         < density * MAIN_K)
+        for code in (monitor.InvariantCode.INC_REGRESSION,
+                     monitor.InvariantCode.WIRE_SATURATION))
+    self_inc = torch.randint(0, 1 << 20, (MAIN_N,), generator=g,
+                             device=device, dtype=torch.int32)
+    return cells, self_lanes, self_inc
+
+
+def monitor_buffer(start, device):
+    """A monitor of ``MONITOR_CAPACITY`` rows with ``start`` seeded rows
+    recorded and 5 drops counted."""
+    mon = monitor.MonitorState.init(MONITOR_CAPACITY, device)
+    lanes, count, dropped = trace_buffer(start, MONITOR_CAPACITY, device)
+    return dataclasses.replace(mon, lanes=lanes, count=count,
+                               dropped=dropped)
+
+
+def plain_record(lanes, count, dropped, codes, incs, subject_ids, round_idx,
+                 observer_offset):
+    trace_kernel.trace_record_reference(lanes, count, dropped, codes, incs,
+                                        subject_ids, round_idx,
+                                        observer_offset)
+
+
+def monitor_record_call(mon, evidence, fresh, record=None):
+    cells, self_lanes, self_inc = evidence
+    subjects = trace_subjects(mon.lanes.device)
+    return lambda: monitor.record_round(mon, TRACE_RECORD_ROUND, cells,
+                                        self_lanes, self_inc, subjects, fresh,
+                                        record=record)
+
+
+def monitor_record_total(evidence, fresh):
+    cells, self_lanes, _ = evidence
+    return (sum(int((vio & fresh[int(c)]).sum()) for c, vio, _ in cells)
+            + sum(int((v & fresh[int(c)]).sum()) for c, v in self_lanes))
+
+
+def check_monitor_record(device):
+    """Phase 3c, the monitor's evidence record (``chaos/monitor.
+    record_round``: one codes-in ``trace_record`` launch a code and one a
+    self lane, the self lanes with the observer as subject) against the
+    same pass on the plain version at 1M x 16, on seeded violation planes
+    (``MONITOR_RECORD_CASES``): every code tripped, the self lanes alone,
+    codes no longer fresh (recording nothing), an overflow partway through
+    the codes, a start one row below the capacity and at it; lanes, count
+    and dropped exact, each case checked to reach its edge.  Then timed on
+    the device clock: the passive monitor's record pass of a green round
+    (three empty code planes and two empty self lanes, the pass a bench
+    round runs), one launch on an empty plane, and the every-code round,
+    each beside its byte bound and the plain pass.  Returns the
+    trace_record row's ``monitor_*`` fields."""
+    cases = []
+    for label, density, self_density, start, stale in MONITOR_RECORD_CASES:
+        codes = () if density == 0 else tuple(monitor.InvariantCode)
+        cells, self_lanes, self_inc = monitor_cells(density, 21, device,
+                                                    codes)
+        g = torch.Generator(device=device).manual_seed(23)
+        self_lanes = tuple(
+            (c, torch.rand((MAIN_N,), generator=g, device=device)
+             < self_density) for c, _ in self_lanes)
+        evidence = (cells, self_lanes, self_inc)
+        fresh = torch.ones((monitor.N_CODES,), dtype=torch.bool,
+                           device=device)
+        fresh[list(stale)] = False
+        got = monitor_buffer(start, device)
+        want = got.clone()
+        monitor_record_call(got, evidence, fresh)()
+        monitor_record_call(want, evidence, fresh, plain_record)()
+        torch.cuda.synchronize()
+        max_abs_err(f"monitor record {label}",
+                    (got.lanes, got.count, got.dropped),
+                    (want.lanes, want.count, want.dropped))
+        total = monitor_record_total(evidence, fresh)
+        count, dropped = int(got.count), int(got.dropped)
+        check_counters("monitor record", label, start, MONITOR_CAPACITY,
+                       total, count, dropped)
+        recorded = set(got.lanes[start:count, 3].unique().tolist())
+        reached = {
+            "every code": recorded == set(range(monitor.N_CODES))
+            and count == start + total,
+            "self lanes": recorded == {1, 3} and count == start + total,
+            "not fresh": not recorded & set(stale) and total > 0
+            and count == start + total,
+        }.get(label, reaches_edge(label, start, MONITOR_CAPACITY, total,
+                                  count, dropped, 0))
+        if not reached:
+            raise AssertionError(f"monitor record {label}: the case does "
+                                 f"not reach its edge ({total} rows, codes "
+                                 f"{sorted(recorded)})")
+        cases.append(dict(case=label, rows=total, start=start, count=count,
+                          dropped=dropped))
+        log(f"[kernel] trace_record monitor {label} {MAIN_N}x{MAIN_K}: "
+            f"exact match (lanes, count, dropped), {total} rows from "
+            f"{start} -> {count} of {MONITOR_CAPACITY}, dropped {dropped}, "
+            f"codes {sorted(recorded)}")
+
+    fresh = torch.ones((monitor.N_CODES,), dtype=torch.bool, device=device)
+    passive = (monitor.InvariantCode.INC_REGRESSION,
+               monitor.InvariantCode.TIMER_BOUND,
+               monitor.InvariantCode.WIRE_SATURATION)
+    green = monitor_cells(0.0, 22, device, passive)
+    busy = monitor_cells(2e-5, 21, device)
+    mon = monitor_buffer(0, device)
+    plane = torch.zeros((MAIN_N, MAIN_K), dtype=torch.int8, device=device)
+    incs = torch.zeros((MAIN_N, MAIN_K), dtype=torch.int32, device=device)
+    subjects = trace_subjects(device)
+
+    def reset(fn):
+        def call():
+            mon.count.zero_()
+            fn()
+        return call
+
+    n_cells = MAIN_N * MAIN_K
+    # Bytes: each bool plane read once (and the self lanes), the detail
+    # and the 20-B row of each recorded cell, the two counters.
+    green_bytes = len(passive) * n_cells + 2 * MAIN_N + 16
+    busy_rows = monitor_record_total(busy, fresh)
+    busy_bytes = (monitor.N_CODES * n_cells + 2 * MAIN_N
+                  + busy_rows * (4 + 4 * trace_kernel.N_LANES) + 16)
+    out = dict(
+        monitor_cases=cases,
+        monitor_green_pass_ms=device_ms(monitor_record_call(mon, green,
+                                                            fresh)),
+        monitor_green_pass_plain_ms=device_ms(monitor_record_call(
+            mon, green, fresh, plain_record)),
+        monitor_green_pass_bound_ms=green_bytes / HBM_BYTES_PER_S * 1e3,
+        monitor_empty_launch_ms=device_ms(lambda: trace_kernel.trace_record(
+            mon.lanes, mon.count, mon.dropped, plane, incs, subjects,
+            TRACE_RECORD_ROUND)),
+        monitor_empty_launch_bound_ms=(n_cells + 16) / HBM_BYTES_PER_S
+        * 1e3,
+        monitor_every_code_rows=busy_rows,
+        monitor_every_code_ms=device_ms(reset(monitor_record_call(
+            mon, busy, fresh))),
+        monitor_every_code_plain_ms=device_ms(reset(monitor_record_call(
+            mon, busy, fresh, plain_record))),
+        monitor_every_code_bound_ms=busy_bytes / HBM_BYTES_PER_S * 1e3)
+    log(f"[kernel] trace_record monitor pass {MAIN_N}x{MAIN_K}: green round "
+        f"(3 code planes, 2 self lanes, 5 launches) device clock "
+        f"{out['monitor_green_pass_ms']:.4f} ms (plain "
+        f"{out['monitor_green_pass_plain_ms']:.4f}), bound "
+        f"{out['monitor_green_pass_bound_ms']:.4f} ms (bytes); one launch "
+        f"on an empty plane {out['monitor_empty_launch_ms']:.4f} ms, bound "
+        f"{out['monitor_empty_launch_bound_ms']:.4f}; every code "
+        f"({busy_rows} rows, 10 launches, count reset) "
+        f"{out['monitor_every_code_ms']:.4f} ms (plain "
+        f"{out['monitor_every_code_plain_ms']:.4f}), bound "
+        f"{out['monitor_every_code_bound_ms']:.4f}")
+    return out
+
+
+def monitor_equal(label, a, b):
+    """Raise unless two ``MonitorState``s are equal field for field."""
+    for field in dataclasses.fields(monitor.MonitorState):
+        if not torch.equal(getattr(a, field.name).cpu(),
+                           getattr(b, field.name).cpu()):
+            raise AssertionError(f"{label}: monitor {field.name} differs")
+
+
+def registry_equal(label, a, b, skip=()):
+    """Raise unless two ``MetricsState``s hold the same counters (but
+    those in ``skip``), gauges and histograms."""
+    keep = torch.tensor([name not in skip
+                         for name in metrics.DEFAULT_COUNTERS])
+    if not torch.equal(a.counters.cpu()[keep], b.counters.cpu()[keep]):
+        raise AssertionError(f"{label}: registry counters differ")
+    if not torch.equal(a.gauges.cpu(), b.gauges.cpu()):
+        raise AssertionError(f"{label}: registry gauges differ")
+    for name, value in a.hists.items():
+        if not torch.equal(value.cpu(), b.hists[name].cpu()):
+            raise AssertionError(f"{label}: histogram {name} differs")
+
+
+def canary_monitor_spec(params, world, device):
+    """The monitor canaries' spec: a pristine network promised, node 3's
+    removal promised by ``CRASH_AT + suspicion_rounds + 24`` (what a run
+    at the params' own timeout meets)."""
+    complete_by = torch.full((params.n_subjects,), INT32_MAX,
+                             dtype=torch.int32, device=device)
+    complete_by[int(world.slot_of_node[CRASHED])] = (
+        CRASH_AT + params.suspicion_rounds + 24)
+    return monitor.MonitorSpec(complete_by=complete_by,
+                               check_false_suspicion=True)
+
+
+def monitor_canary(device, label, layout, delivery):
+    """Phase 5c: ``run_monitored_metered`` at ``MONITOR_CANARY_N`` x 16
+    (the telemetry scenario's sped-up timing, node 3 crashed at round 10)
+    for 100 rounds with the loss knob at 0.25 and the suspicion timeout
+    knob at 10x the params', under ``canary_monitor_spec``: on the card
+    and on the CPU with the same CPU-made draws.  Card == CPU: every state
+    lane and metric, the monitor (lanes, count, dropped, counts, first
+    rounds) and the registry; FALSE_SUSPICION and COMPLETENESS must trip
+    and ``chaos_violations`` equal the monitor's total; the card launches
+    the layout's kernels and seven ``trace_record`` a round (five codes,
+    two self lanes)."""
+    cfg = ClusterConfig.default().replace(
+        gossip_interval=100, ping_interval=200, ping_timeout=100,
+        sync_interval=1_000, suspicion_mult=3)
+    params = swim.SwimParams.from_config(
+        cfg, n_members=MONITOR_CANARY_N, n_subjects=16, delivery=delivery,
+        **LAYOUTS[layout])
+    kn = swim.Knobs.for_params(params, loss_probability=0.25,
+                               suspicion_rounds=10 * params.suspicion_rounds)
+    draws = prng.TorchDraws(5, "cpu", params, crash_world(params, "cpu"))
+    runs = []
+    for dev in ("cpu", device):
+        world = crash_world(params, dev)
+        LAUNCHES.clear()
+        runs.append(monitor.run_monitored_metered(
+            5, params, world, canary_monitor_spec(params, world, dev),
+            MONITOR_CANARY_ROUNDS, draws=lambda r: draws(r).to(dev),
+            knobs=kn,
+            device=dev) + (dict(LAUNCHES),))
+    (cs, cmon, cms, cm, cpu_launches), (gs, gmon, gms, gm, launches) = runs
+    tag = f"monitor canary {label} {MONITOR_CANARY_N}x16"
+    for field in dataclasses.fields(swim.SwimState):
+        if not torch.equal(getattr(cs, field.name),
+                           getattr(gs, field.name).cpu()):
+            raise AssertionError(f"{tag}: state.{field.name} differs")
+    for name, value in cm.items():
+        if not torch.equal(value, gm[name].cpu()):
+            raise AssertionError(f"{tag}: metric {name} differs")
+    monitor_equal(tag, cmon, gmon)
+    registry_equal(tag, cms, gms)
+    v = monitor.verdict(gmon)
+    codes = {c: (d["violations"], d["first_round"])
+             for c, d in v["codes"].items() if d["violations"]}
+    if not {"FALSE_SUSPICION", "COMPLETENESS"} <= set(codes):
+        raise AssertionError(f"{tag}: codes tripped {codes}")
+    chaos = int(gms.counters[metrics.DEFAULT_COUNTERS.index(
+        "chaos_violations")])
+    if chaos != v["total_violations"]:
+        raise AssertionError(f"{tag}: chaos_violations {chaos}, monitor "
+                             f"total {v['total_violations']}")
+    want = monitor_launches(params, MONITOR_CANARY_ROUNDS, layout, 7)
+    if cpu_launches or launches != want:
+        raise AssertionError(f"{tag}: launches cpu={cpu_launches} card="
+                             f"{launches}, want none and {want}")
+    log(f"[canary] {tag}, {MONITOR_CANARY_ROUNDS} rounds: state, metrics, "
+        f"monitor "
+        f"and registry card == CPU; codes (violations, first round) "
+        f"{codes}, {v['evidence_recorded']} recorded, "
+        f"{v['evidence_dropped']} dropped, chaos_violations {chaos}; "
+        f"launches {launches}")
+    return launches
+
+
+def monitor_canaries(device):
+    """Phase 5c: the monitor canaries (wide and compact + wire24 under
+    shift, wide under scatter)."""
+    launches = {}
+    for label, layout, delivery in (("wide", "wide", "shift"),
+                                    ("compact_wire24", "compact_wire24",
+                                     "shift"),
+                                    ("scatter wide", "wide", "scatter")):
+        for name, count in monitor_canary(device, label, layout,
+                                          delivery).items():
+            launches[name] = launches.get(name, 0) + count
+    return launches
+
+
+def instrumented_stack_path(device):
+    """Phase 6d: ``bench.py --compose``'s full instrumented stack at full
+    width (``bench_workload``: LAN defaults, N = 1M x K = 16, loss 0.02,
+    node 3 crashed at round 10, shift, wide): the trace (capacity 65,536,
+    ``traced_window_policy``'s), the passive monitor and the default
+    registry in one ``run_composed``.
+
+    Parity (bench.py:3387): the composed window's final status, trace
+    lanes and count, monitor code counts (and lanes, count, dropped,
+    first rounds) and every registry counter but ``chaos_violations``
+    (and the gauges and histograms) equal ``run_traced``'s,
+    ``run_monitored``'s and ``run_metered``'s on the same rounds; the
+    monitor green; the launches one merge, one ``trace_observe`` and five
+    ``trace_record`` (three codes, two self lanes) a round.  Timing:
+    ``STACK_ROUNDS`` rounds from the initial state, bare ``run``, the
+    composed stack and ``run_metered`` in turns (bare, stack, metered,
+    metered, stack, bare); ``full_stack_overhead_ratio`` (stack s / bare
+    s) and ``metrics_overhead_ratio`` (metered s / bare s, bench.py's
+    unmetered rate over metered) from the means.  Profiled 20-round
+    windows from round 256: bare, the stack, the monitor alone, the
+    metrics alone (device busy ms and launches a round, the
+    ``metrics.observe``, ``monitor.check`` and ``monitor.record``
+    phases).  Then ``stream_metered_run`` through a ``TelemetrySink``
+    into a temporary directory, ``STACK_ROUNDS`` rounds in four windows,
+    read back with ``sink.read_records``: the windows' counters and
+    histograms summed, and the last window's gauges, equal the single
+    metered run's."""
+    params = profile_round.bench_params("wide", MAIN_N, MAIN_K)
+    world = crash_world(params, device)
+    spec = monitor.MonitorSpec.passive(params, device=device)
+    mspec = metrics.MetricsSpec.default()
+
+    def bare(rounds, state=None, start=0):
+        return swim.run(0, params, world, rounds, state=state,
+                        start_round=start, device=device)
+
+    def stack(rounds, state=None, start=0):
+        return compose.run_composed(
+            0, params, world, rounds, monitor_spec=spec,
+            trace_capacity=TRACE_CAPACITY, metrics_spec=mspec, state=state,
+            start_round=start, device=device)
+
+    def metered(rounds, state=None, start=0):
+        return swim.run_metered(0, params, world, rounds, spec=mspec,
+                                state=state, start_round=start,
+                                device=device)
+
+    def monitored(rounds, state=None, start=0):
+        return monitor.run_monitored(0, params, world, spec, rounds,
+                                     state=state, start_round=start,
+                                     device=device)
+
+    for fn in (bare, stack, metered):       # allocator and first calls
+        fn(2)
+    arms = {"bare": bare, "stack": stack, "metered": metered}
+    order = ("bare", "stack", "metered", "metered", "stack", "bare")
+    turns, outputs, launches = [], {}, {}
+    for name in order:
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = arms[name](STACK_ROUNDS)
+        torch.cuda.synchronize()
+        turns.append((name, time.perf_counter() - t0))
+        outputs.setdefault(name, out)
+        launches.setdefault(name, dict(LAUNCHES))
+    want = {merge.NAMES["wide"]: STACK_ROUNDS,
+            trace_kernel.OBSERVE: STACK_ROUNDS,
+            trace_kernel.NAME: 5 * STACK_ROUNDS}
+    if launches["stack"] != want:
+        raise AssertionError(f"instrumented stack: launches "
+                             f"{launches['stack']}, want {want}")
+    c_state, c_res, _ = outputs["stack"]
+    m_state, m_reg, _ = outputs["metered"]
+    t_state, tel, _ = swim.run_traced(0, params, world, STACK_ROUNDS,
+                                      trace_capacity=TRACE_CAPACITY,
+                                      device=device)
+    o_state, mon, _ = monitored(STACK_ROUNDS)
+    for label, other in (("run_traced", t_state), ("run_metered", m_state),
+                         ("run_monitored", o_state),
+                         ("run", outputs["bare"][0])):
+        if not torch.equal(other.status, c_state.status):
+            raise AssertionError(f"instrumented stack: final status "
+                                 f"differs from {label}'s")
+    telemetry_equal("instrumented stack vs run_traced", tel, c_res["trace"])
+    monitor_equal("instrumented stack vs run_monitored", mon,
+                  c_res["monitor"])
+    registry_equal("instrumented stack vs run_metered", m_reg,
+                   c_res["metrics"], skip=("chaos_violations",))
+    verdict = monitor.verdict(c_res["monitor"])
+    if not verdict["green"]:
+        raise AssertionError(f"instrumented stack: monitor not green "
+                             f"{verdict['codes']}")
+    mean_s = {name: statistics.mean(s for n, s in turns if n == name)
+              for name in arms}
+
+    def runner(fn):
+        return lambda state, start, rounds: fn(rounds, state, start)
+
+    windows = {label: profile_round.profile_window(
+        params, world, outputs["bare"][0], STACK_ROUNDS, STACK_PROFILE_ROUNDS,
+        runner=None if fn is None else runner(fn))
+        for label, fn in (("bare", None), ("stack", stack),
+                          ("monitor", monitored), ("metrics", metered))}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/metered.jsonl"
+        with sink.TelemetrySink(path=path) as journal:
+            journal.write_manifest(params, label="instrumented stack")
+            _, rows = metrics.stream_metered_run(
+                0, params, world, STACK_ROUNDS, sink=journal,
+                window_rounds=STACK_ROUNDS // 4, spec=mspec, device=device)
+        read = sink.read_records(path, "metrics_window")
+    single = metrics.to_json(m_reg, mspec)
+    summed = {name: sum(r["counters"][name] for r in read)
+              for name in mspec.counters}
+    hist = [sum(r["histograms"]["suspicion_lifetime_rounds"]["counts"][i]
+                for r in read)
+            for i in range(len(metrics.DEFAULT_SUSPICION_EDGES))]
+    if (len(read) != 4 or [r["round_end"] for r in read]
+            != [STACK_ROUNDS // 4 * (i + 1) for i in range(4)]
+            or summed != single["counters"]
+            or hist != single["histograms"]["suspicion_lifetime_rounds"][
+                "counts"]
+            or read[-1]["gauges"] != single["gauges"]
+            or [{k: v for k, v in r.items() if k not in ("kind", "run_id")}
+                for r in read] != rows):
+        raise AssertionError(f"instrumented stack: the metered stream's "
+                             f"windows {read} do not sum to the single "
+                             f"run's {single}")
+
+    base = windows["bare"]
+    summary = dict(
+        card=card_line(), rounds=STACK_ROUNDS,
+        ms_per_round={name: s / STACK_ROUNDS * 1e3
+                      for name, s in mean_s.items()},
+        full_stack_overhead_ratio=mean_s["stack"] / mean_s["bare"],
+        metrics_overhead_ratio=mean_s["metered"] / mean_s["bare"],
+        turns_ms_per_round=[(name, s / STACK_ROUNDS * 1e3)
+                            for name, s in turns],
+        extra_over_bare={label: dict(
+            busy_ms=windows[label]["device_busy_ms_per_round"]
+            - base["device_busy_ms_per_round"],
+            launches=windows[label]["kernel_launches_per_round"]
+            - base["kernel_launches_per_round"])
+            for label in ("stack", "monitor", "metrics")},
+        windows={label: dict(
+            busy_ms=w["device_busy_ms_per_round"],
+            launches=w["kernel_launches_per_round"],
+            wall_ms=w["wall_ms_per_round"], idle=w["device_idle_share"],
+            phases=w["phase_device_ms_per_round"],
+            phase_launches=w["phase_launches_per_round"],
+            top_kernels=w["top_kernels"][:6])
+            for label, w in windows.items()},
+        trace_recorded=int(c_res["trace"].trace.count),
+        trace_dropped=int(c_res["trace"].trace.dropped),
+        registry=single)
+    log(f"[instrumented stack] {json.dumps(summary)}")
+    log(f"[instrumented stack] wide {MAIN_N}x{MAIN_K}, {STACK_ROUNDS} "
+        f"rounds: composed == run_traced / run_monitored / run_metered "
+        f"(final status, trace lanes and count, monitor, counters but "
+        f"chaos_violations), monitor green; ms/round "
+        f"{json.dumps(summary['ms_per_round'])}: full_stack_overhead_ratio "
+        f"{summary['full_stack_overhead_ratio']:.4f}, "
+        f"metrics_overhead_ratio {summary['metrics_overhead_ratio']:.4f} "
+        f"({summary['card']}); extra over bare a round "
+        f"{json.dumps(summary['extra_over_bare'])}; the metered stream's "
+        f"four windows sum to the single run")
+    return launches["stack"]
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3428,18 +3975,22 @@ def main():
         codec_rows[name].update(row)
     trace_rows = {trace_kernel.NAME: check_trace_record(device),
                   trace_kernel.OBSERVE: check_trace_observe(device)}
+    trace_rows[trace_kernel.NAME].update(check_monitor_record(device))
     stage("kernels", t_start)
     probe_launches, probe_rows = probe_path(device)
     stage("probes", t_start)
     canaries(device)
     md_canaries(device)
-    paths = {"traced_canaries": traced_canaries(device)}
+    paths = {"traced_canaries": traced_canaries(device),
+             "monitor_canaries": monitor_canaries(device)}
     stage("canaries", t_start)
     paths["main"], shift_summary = main_path(device)
     stage("main path", t_start)
     paths["traced_window"], paths["record_api"] = traced_window_path(device)
     paths["telemetry"] = telemetry_path(device)
     stage("traced window and telemetry", t_start)
+    paths["instrumented_stack"] = instrumented_stack_path(device)
+    stage("instrumented stack", t_start)
     paths["storm"] = storm_path(device, shift_summary)
     paths["bench_churn"] = bench_churn_path(device)
     stage("churn storm", t_start)

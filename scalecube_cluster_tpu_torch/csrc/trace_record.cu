@@ -23,9 +23,11 @@
 // At a SUSPECTED or REMOVED cell first_suspect or first_removed [N, K]
 // int32 becomes the round where it holds INT32_MAX.
 //
-// trace_record (the codes-in API, record_events[_batch]) takes codes
-// [N, K] int8 (0 or negative = no event, else event type + 1) and incs
-// [N, K] (int32 or int16).
+// trace_record (the codes-in API, record_events[_batch], and the
+// invariant monitor's evidence record) takes codes [N, K] int8 (0 or
+// negative = no event, else event type + 1) and incs [N, K] (int32 or
+// int16).  With subject_ids null the row's subject is its observer
+// (row + offset): the monitor's self lanes, an [N, 1] plane.
 //
 // Both update in place lanes [capacity, 5] int32, count and dropped: the
 // cell holding the round's e-th event (cell order, observer-major)
@@ -158,6 +160,7 @@ struct Args {
   int32_t round_idx;
   uint32_t observer_offset;
   bool aligned;               // the int8 planes 16-byte aligned
+  bool self_subject;          // trace_record: subject = row + offset
   bool epoch_aligned;         // the epoch lanes 16-byte aligned
 };
 
@@ -416,7 +419,9 @@ __device__ __forceinline__ void build_row(const Args& a, int32_t* out,
   }
   out[0] = a.round_idx;
   out[1] = static_cast<int32_t>(row + a.observer_offset);
-  out[2] = subjects[col];
+  out[2] = kFront == kRecord && a.self_subject
+               ? static_cast<int32_t>(row + a.observer_offset)
+               : subjects[col];
   out[3] = static_cast<int32_t>(code) - 1;
   out[4] = inc;
 }
@@ -769,7 +774,7 @@ __device__ __forceinline__ void trace_blocks(const Args& a) {
   if (tid == 0) {
     keep_next(a, draw(a), sm.next);
   }
-  if (a.cols <= kSubjectSlots) {
+  if (!a.self_subject && a.cols <= kSubjectSlots) {
     for (uint32_t i = tid; i < a.cols; i += kThreads) {
       sm.subjects[i] = __ldg(a.subject_ids + i);
     }
@@ -890,9 +895,10 @@ extern "C" int trace_tile_cells() { return kTile; }
 
 // Each entry launches its instance on `stream` and returns the launch's
 // cudaError_t (0 = success).  scratch_tiles must be at least the launch's
-// tiles (n_cells / 8,192, rounded up).  inc_bytes is 4 or 2; epoch_bytes 0 (no
-// epoch lane: prev_epoch and new_epoch are not read), 4 or 2.  n_cells
-// must be below 2^31 (the wrapper checks).
+// tiles (n_cells / 8,192, rounded up).  trace_record's subject_ids may be
+// null: each row's subject is then its observer.  inc_bytes is 4 or 2;
+// epoch_bytes 0 (no epoch lane: prev_epoch and new_epoch are not read), 4
+// or 2.  n_cells must be below 2^31 (the wrapper checks).
 extern "C" int trace_observe_launch(
     const void* prev_status, const void* new_status, const void* new_inc,
     const void* prev_epoch, const void* new_epoch, const void* self_inc,
@@ -964,6 +970,7 @@ extern "C" int trace_record_launch(const void* codes, const void* incs,
   a.round_idx = static_cast<int32_t>(round_idx);
   a.observer_offset = static_cast<uint32_t>(observer_offset);
   a.aligned = aligned16(codes);
+  a.self_subject = subject_ids == nullptr;
   const auto s = static_cast<cudaStream_t>(stream);
   return inc_bytes == 4 ? launch_record<int32_t>(a, s)
                         : launch_record<int16_t>(a, s);

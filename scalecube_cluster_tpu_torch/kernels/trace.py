@@ -11,7 +11,10 @@ single-pass compaction (the reference's XLA trace,
     rounds stamped (``update_first_rounds``, :326-341), and the events
     recorded (``record_events_batch``, :254-301), with no code plane, no
     prefix and no first-round pass in device memory;
-  - :func:`trace_record`, the codes-in record behind ``record_events``.
+  - :func:`trace_record`, the codes-in record behind ``record_events``
+    and the invariant monitor's evidence (``chaos/monitor.record_round``:
+    one plane a code, and with ``subject_ids=None`` the self lanes, each
+    row's subject its observer).
 
 Both compact their events into the trace's lanes in cell order and
 advance its ``count`` and ``dropped`` in place, all on the device.  On
@@ -136,10 +139,12 @@ def trace_record_reference(lanes, count, dropped, codes, incs, subject_ids,
     slot = count.to(torch.int64) + prefix[cells].to(torch.int64) - 1
     keep = slot < cap
     cells, slot = cells[keep], slot[keep]
+    observer = cells // k + observer_offset
     rows = torch.stack([
         torch.full_like(cells, i32(round_idx)),
-        cells // k + observer_offset,
-        subject_ids[cells % k].to(torch.int64),
+        observer,
+        observer if subject_ids is None
+        else subject_ids[cells % k].to(torch.int64),
         flat[cells].to(torch.int64) - 1,
         incs.reshape(-1)[cells].to(torch.int64),
     ], dim=1).to(torch.int32)
@@ -231,8 +236,14 @@ def _check_common(kernel, device, n, k, lanes, count, dropped, subject_ids):
     if n * k > MAX_CELLS:
         raise ValueError(f"{kernel}: {n} x {k} cells exceed int32 "
                          f"indexing")
-    check_args(kernel, device, (k,),
-               dict(subject_ids=(subject_ids, torch.int32)))
+    if subject_ids is None:
+        if k != 1:
+            raise ValueError(f"{kernel}: without subject_ids the codes "
+                             f"must be [N, 1] (the self lanes), got "
+                             f"{n} x {k}")
+    else:
+        check_args(kernel, device, (k,),
+                   dict(subject_ids=(subject_ids, torch.int32)))
     check_args(kernel, device, (lanes.shape[0], N_LANES),
                dict(lanes=(lanes, torch.int32)))
     check_args(kernel, device, (), dict(count=(count, torch.int32),
@@ -256,7 +267,9 @@ def trace_record(lanes, count, dropped, codes, incs, subject_ids,
     ``count`` becomes ``min(count + total, capacity)`` and ``dropped``
     grows by the events that did not fit (``count``/``dropped`` 0-dim
     int32, updated in place).  ``incs`` [N, K] int32 or int16;
-    ``subject_ids`` [K] int32."""
+    ``subject_ids`` [K] int32, or None for the self lanes: ``codes`` and
+    ``incs`` [N, 1] and each row's subject its observer (the invariant
+    monitor's self-incarnation evidence)."""
     device = codes.device
     n, k = codes.shape
     inc_dtype = _inc_dtype(NAME, "incs", incs)
@@ -268,7 +281,9 @@ def trace_record(lanes, count, dropped, codes, incs, subject_ids,
                                subject_ids, round_idx, observer_offset)
         return
     launch(NAME, _library().trace_record_launch, device, codes.data_ptr(),
-           incs.data_ptr(), subject_ids.data_ptr(), lanes.data_ptr(),
+           incs.data_ptr(),
+           None if subject_ids is None else subject_ids.data_ptr(),
+           lanes.data_ptr(),
            count.data_ptr(), dropped.data_ptr(), *_scratch(device, n * k),
            n * k, k, lanes.shape[0], i32(round_idx), i32(observer_offset),
            incs.element_size())

@@ -19,19 +19,24 @@ the status-change matrix and its emptiness predicate, the wide decodes)
 are computed once a round, the first time a plane asks.  Entry points
 on it:
 
-  ``models/swim.run``         -> composed_scan, no planes
-  ``models/swim.run_traced``  -> + ``telemetry/trace.TracePlane``
-  :func:`run_composed`        -> the observer stack :func:`build_stack`
-                                 makes
+  ``models/swim.run``                      -> no planes
+  ``models/swim.run_traced``               -> + ``TracePlane``
+  ``models/swim.run_metered``              -> + ``MetricsPlane``
+  ``chaos/monitor.run_monitored``          -> + ``MonitorPlane``
+  ``chaos/monitor.run_monitored_metered``  -> + both
+  :func:`run_composed`                     -> the stack
+                                              :func:`build_stack` makes
+
+(``TracePlane`` in ``telemetry/trace.py``, ``MetricsPlane`` in
+``telemetry/metrics.py``, ``MonitorPlane`` in ``chaos/monitor.py``.)
 
 The reference's fused steps (``rounds_per_step``) give the same outputs
 as single rounds, and the port runs single rounds whatever
 ``rounds_per_step`` says, so no plane needs the fused hooks.  The
-metrics and monitor planes (``telemetry/metrics.MetricsPlane``,
-``chaos/monitor.MonitorPlane``) and the provenance plane are not ported
-yet: :func:`build_stack` raises ``NotImplementedError`` naming each.
-The batch and row-sharded runners (``composed_batch_scan``,
-``composed_shard_scan``, ``_pipelined_rounds``) are not ported either.
+provenance plane is not ported yet: :func:`build_stack` raises
+``NotImplementedError`` naming it.  The batch and row-sharded runners
+(``composed_batch_scan``, ``composed_shard_scan``,
+``_pipelined_rounds``) are not ported either.
 
 The in-tick planes (SYNC anti-entropy, Lifeguard, the open-world epoch
 lane, metadata, delay rings, user gossip) are compiled into the round by
@@ -286,27 +291,20 @@ def composed_scan(seed: int, params: "swim.SwimParams",
 # The observer stack
 # --------------------------------------------------------------------------
 
-def _unported_plane(name: str, flag: str):
-    return NotImplementedError(
-        f"the {name} plane ({flag}=True) is not ported (the port carries "
-        f"the trace plane only)")
-
-
 def build_stack(with_trace: bool, with_metrics: bool, with_monitor: bool,
                 monitor_spec=None, trace_capacity=None, metrics_spec=None,
                 monitor_capacity=None, telemetry=None, metrics_state=None,
                 monitor=None, with_provenance: bool = False,
                 provenance_capacity=None):
     """The observer-plane stack of :func:`run_composed`, in the
-    reference's order (trace, provenance, monitor, metrics).  The port
-    carries the trace plane; asking for the provenance, monitor or
-    metrics plane raises ``NotImplementedError`` naming it."""
-    for name, flag, wanted in (("provenance", "with_provenance",
-                                with_provenance),
-                               ("monitor", "with_monitor", with_monitor),
-                               ("metrics", "with_metrics", with_metrics)):
-        if wanted:
-            raise _unported_plane(name, flag)
+    reference's order: trace, provenance, monitor, then metrics (whose
+    ``chaos_violations`` counter reads the monitor's per-round count
+    delta when both ride).  The monitor needs ``monitor_spec``
+    (``ValueError`` otherwise); the provenance plane is not ported and
+    raises ``NotImplementedError`` naming it."""
+    if with_provenance:
+        raise NotImplementedError(
+            "the provenance plane (with_provenance=True) is not ported")
     planes = []
     if with_trace:
         from scalecube_cluster_tpu_torch.telemetry import trace as ttrace
@@ -315,6 +313,27 @@ def build_stack(with_trace: bool, with_metrics: bool, with_monitor: bool,
             capacity=(ttrace.DEFAULT_CAPACITY if trace_capacity is None
                       else trace_capacity),
             telemetry=telemetry))
+    if with_monitor:
+        from scalecube_cluster_tpu_torch.chaos import monitor as cmonitor
+
+        if monitor_spec is None:
+            raise ValueError(
+                "run_composed(with_monitor=True) needs monitor_spec (use "
+                "chaos.monitor.MonitorSpec.passive(params) for the "
+                "safety-only checks)")
+        planes.append(cmonitor.MonitorPlane(
+            monitor_spec,
+            capacity=(cmonitor.DEFAULT_CAPACITY if monitor_capacity is None
+                      else monitor_capacity),
+            monitor=monitor))
+    if with_metrics:
+        from scalecube_cluster_tpu_torch.telemetry import metrics as tmetrics
+
+        planes.append(tmetrics.MetricsPlane(
+            (tmetrics.MetricsSpec.default() if metrics_spec is None
+             else metrics_spec),
+            metrics_state=metrics_state,
+            chaos_from="monitor" if with_monitor else None))
     return tuple(planes)
 
 
@@ -331,14 +350,15 @@ def run_composed(seed: int, params: "swim.SwimParams",
                  provenance_capacity: Optional[int] = None,
                  draws: Optional[Callable[[int], object]] = None,
                  device="cuda"):
-    """The instrumented stack in one pass over the rounds, sharing one
-    :class:`RoundCtx` a round.  The reference's arguments and defaults;
+    """The full instrumented stack (event trace, invariant monitor,
+    health-metrics registry) in one pass over the rounds, sharing one
+    :class:`RoundCtx` a round; each plane's output and the state equal
+    the single-plane aliases' (``run_traced``, ``run_monitored``,
+    ``run_metered``).  The reference's arguments and defaults;
     ``with_*`` toggle planes, and resume slices thread through
-    ``telemetry`` (and, once ported, ``metrics_state`` / ``monitor``).
-    The defaults ask for the metrics and monitor planes, which raise
-    ``NotImplementedError`` until they are ported.  Returns
-    ``(final_state, results, metrics)`` with ``results`` mapping each
-    plane's name to its finalized slice."""
+    ``telemetry``, ``metrics_state`` and ``monitor`` (none is
+    modified).  Returns ``(final_state, results, metrics)`` with
+    ``results`` mapping each plane's name to its finalized slice."""
     stack = build_stack(
         with_trace, with_metrics, with_monitor, monitor_spec=monitor_spec,
         trace_capacity=trace_capacity, metrics_spec=metrics_spec,
@@ -381,11 +401,9 @@ _OBSERVER_PLANES = (
          doc="per-belief channel attribution "
              "(models/provenance.ProvenancePlane; not ported)"),
     dict(name="monitor", kind="observer", knobs=(), lanes=(),
-         doc="invariant monitor (chaos/monitor.MonitorPlane; not "
-             "ported)"),
+         doc="invariant monitor (chaos/monitor.MonitorPlane)"),
     dict(name="metrics", kind="observer", knobs=(), lanes=(),
-         doc="health-metrics registry (telemetry/metrics.MetricsPlane; "
-             "not ported)"),
+         doc="health-metrics registry (telemetry/metrics.MetricsPlane)"),
 )
 
 

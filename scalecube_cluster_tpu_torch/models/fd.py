@@ -11,9 +11,8 @@ locally.  :func:`run` is that configuration as one call, with the same
 delivery modes, link faults and world schedules as the full model.
 
 :func:`effective_probe_budgets` is the Lifeguard plane's health-scaled
-probe budgets (``models/lifeguard.py``).  The reference's
-``probe_outcome_updates`` belongs to its metrics plane, which the port
-does not carry yet.
+probe budgets (``models/lifeguard.py``); :func:`probe_outcome_updates`
+names the probe counters the metrics plane reads.
 """
 
 from __future__ import annotations
@@ -76,3 +75,21 @@ def effective_probe_budgets(params, lhm: torch.Tensor,
     return (torch.tensor(pt, dtype=torch.float32, device=lhm.device) * m,
             torch.tensor(float(rest), dtype=torch.float32,
                          device=lhm.device) * m)
+
+
+def probe_outcome_updates(tick_metrics: dict) -> dict:
+    """The FD's probe-outcome counters of the health registry
+    (``telemetry/metrics.py``) from one round's metrics: probe volume
+    (``fd_probes_sent``, the PINGs issued), indirect-probe escalation
+    (``fd_ping_req_sent``, the proxy fan-out that fires when a direct
+    ping failed) and tracked-subject verdicts (``fd_tracked_verdicts``),
+    each an int32 device total.  A renaming of counters the round
+    already computes."""
+    out = {}
+    for reg_name, key in (("fd_probes_sent", "messages_ping_sent"),
+                          ("fd_ping_req_sent", "messages_ping_req_sent"),
+                          ("fd_tracked_verdicts", "messages_ping")):
+        if key in tick_metrics:
+            out[reg_name] = torch.as_tensor(tick_metrics[key]).sum(
+                dtype=torch.int32)
+    return out

@@ -2920,6 +2920,36 @@ def run_traced(seed: int, params: SwimParams, world: SwimWorld,
     return final_state, results["trace"], metrics
 
 
+def run_metered(seed: int, params: SwimParams, world: SwimWorld,
+                n_rounds: int, spec=None, state: Optional[SwimState] = None,
+                start_round: int = 0,
+                draws: Optional[Callable[[int], prng.RoundDraws]] = None,
+                knobs: Optional[Knobs] = None, metrics_state=None,
+                device="cuda"):
+    """``run`` with the health-metrics registry riding the rounds
+    (``telemetry/metrics.MetricsPlane``): each round folds its probe
+    outcomes, gossip and refutation counters, suspicion transitions and
+    the suspicion-lifetime histogram into the registry; the gauges are
+    sampled once from the final carry.  ``spec`` declares the registry
+    (default ``MetricsSpec.default()``).  The state and metrics equal
+    ``run``'s.
+
+    Returns ``(final_state, metrics_state, metrics)``.
+    ``metrics_state`` resumes a registry (not modified);
+    ``telemetry/metrics.stream_metered_run`` drives this in flush
+    windows."""
+    from scalecube_cluster_tpu_torch.models import compose
+    from scalecube_cluster_tpu_torch.telemetry import metrics as tmetrics
+
+    plane = tmetrics.MetricsPlane(
+        tmetrics.MetricsSpec.default() if spec is None else spec,
+        metrics_state=metrics_state)
+    final_state, results, metrics = compose.composed_scan(
+        seed, params, world, n_rounds, planes=(plane,), state=state,
+        start_round=start_round, draws=draws, knobs=knobs, device=device)
+    return final_state, results["metrics"], metrics
+
+
 def node_snapshot(state: SwimState, params: SwimParams, world: SwimWorld,
                   node_id: int, round_idx: Optional[int] = None) -> dict:
     """Host-side digest of one observer row (the reference's

@@ -257,3 +257,16 @@ def scatter_or(flags: torch.Tensor, targets: torch.Tensor,
                         device=flags.device)
     scatter_or_into(inbox, flags, targets, drop)
     return inbox
+
+
+def wire_saturation(messages_sent, live_senders, fanout):
+    """Wire-channel saturation (a gauge of ``telemetry/metrics.py``):
+    gossip messages sent this round over the channel's send-slot
+    capacity, live senders x ``fanout`` (each live member owns ``fanout``
+    gossip sends a round, hot records or not), at least 1.  0 is an idle
+    channel, 1 every live member spreading every round.  float32, as the
+    reference computes it: int32 totals cast, then one division."""
+    live = torch.as_tensor(live_senders).to(torch.float32)
+    cap = torch.clamp(live * torch.tensor(float(fanout), dtype=torch.float32,
+                                          device=live.device), min=1.0)
+    return torch.as_tensor(messages_sent).to(torch.float32) / cap

@@ -15,9 +15,12 @@ host clock (ending in a device sync), then the same window again under
 ``torch.profiler``.  Reports, per round: wall time, device busy time and
 idle share, kernel launches, device time and kernel launches inside
 each phase range of ``models/swim.py`` (``swim.carry``/``context``/
-``fd``/``delivery``/``merge``/``metrics``/``metadata``, and in a traced
+``fd``/``delivery``/``merge``/``metrics``/``metadata``, in a traced
 window, ``profile_window(..., trace_capacity=C)``, the trace's
-``trace.record``: one ``trace_observe`` launch a round), the top kernels
+``trace.record``: one ``trace_observe`` launch a round, and in an
+instrumented one, ``profile_window(..., runner=...)``, the metrics
+plane's ``metrics.observe`` and the monitor's ``monitor.check`` and
+``monitor.record``: its ``trace_record`` launches), the top kernels
 by device time, and the delay ring's bytes.
 
 Run on a card: ``python -m scalecube_cluster_tpu_torch.profile_round
@@ -43,14 +46,16 @@ from scalecube_cluster_tpu_torch.config import ClusterConfig
 from scalecube_cluster_tpu_torch.models import swim
 
 PHASES = ("swim.carry", "swim.context", "swim.fd", "swim.delivery",
-          "swim.merge", "swim.metrics", "swim.metadata", "trace.record")
+          "swim.merge", "swim.metrics", "swim.metadata", "trace.record",
+          "metrics.observe", "monitor.check", "monitor.record")
 # Knob settings of each carry/wire layout.
 LAYOUTS = {"wide": {}, "int16_wire": dict(int16_wire=True),
            "compact": dict(compact_carry=True),
            "compact_wire24": dict(compact_carry=True, wire24=True)}
 # Kernels launched through ctypes are no aten op's children, so the
-# profiler does not attribute them to the enclosing range: the port's
-# own kernels join their phase by name.
+# profiler does not add them to the enclosing range's device time: the
+# port's own kernels join the phase range that holds their launch call
+# (matched by correlation id), else their phase by name.
 _OWN_KERNELS = {"merge_and_timers_kernel": "swim.merge",
                 "carry_decode_kernel": "swim.carry",
                 "carry_encode_kernel": "swim.carry",
@@ -150,6 +155,34 @@ def _range_launches(prof, rounds: int) -> dict:
     return out
 
 
+def _own_kernel_phases(prof) -> dict:
+    """Device microseconds of the port's own kernels by phase: each
+    kernel goes to the innermost phase range whose host span holds the
+    runtime launch call with its correlation id, else to its phase in
+    ``_OWN_KERNELS``."""
+    events = prof.events()
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in events
+                    if e.name in PHASES and e.device_type == DeviceType.CPU)
+    launch_at = {e.id: e.time_range.start for e in events
+                 if e.name.startswith("cudaLaunchKernel")}
+    out = {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        phase = next((p for k, p in _OWN_KERNELS.items() if k in e.name),
+                     None)
+        if phase is None:
+            continue
+        at = launch_at.get(e.id)
+        if at is not None:
+            holding = [r for r in ranges if r[0] <= at <= r[1]]
+            if holding:
+                phase = max(holding, key=lambda r: r[0])[2]
+        out[phase] = out.get(phase, 0.0) + e.time_range.elapsed_us()
+    return out
+
+
 def _card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -159,7 +192,8 @@ def _card() -> str:
 
 
 def profile_window(params, world, state, start_round: int, rounds: int,
-                   top: int = 12, trace_capacity: int = 0) -> dict:
+                   top: int = 12, trace_capacity: int = 0,
+                   runner=None) -> dict:
     """Run ``rounds`` rounds from ``state`` at ``start_round`` twice: on
     the host clock (ending in a device sync), then under
     ``torch.profiler``.  Returns per-round wall ms, device busy ms, idle
@@ -167,11 +201,15 @@ def profile_window(params, world, state, start_round: int, rounds: int,
     the window's peak device memory, the kernel launches issued inside
     each phase range and the delay ring's bytes.  ``trace_capacity`` > 0
     runs the window traced (``swim.run_traced`` into a fresh buffer of
-    that many events)."""
+    that many events); ``runner(state, start_round, rounds)``, if given,
+    runs it instead (an instrumented entry point: ``run_metered``,
+    ``run_monitored``, ``run_composed``)."""
     device = world.device
 
     def window():
-        if trace_capacity:
+        if runner is not None:
+            runner(state, start_round, rounds)
+        elif trace_capacity:
             swim.run_traced(0, params, world, rounds,
                             trace_capacity=trace_capacity, state=state,
                             start_round=start_round, device=device)
@@ -197,11 +235,8 @@ def profile_window(params, world, state, start_round: int, rounds: int,
     busy_ms = sum(e.device_time_total for e in kernels) * per_round
     phases = {e.key: e.device_time_total * per_round for e in rows
               if e.key in PHASES and e.device_type == DeviceType.CPU}
-    for e in kernels:
-        for kernel, phase in _OWN_KERNELS.items():
-            if kernel in e.key:
-                phases[phase] = (phases.get(phase, 0.0)
-                                 + e.device_time_total * per_round)
+    for phase, us in _own_kernel_phases(prof).items():
+        phases[phase] = phases.get(phase, 0.0) + us * per_round
     top_kernels = sorted(kernels, key=lambda e: e.device_time_total,
                          reverse=True)
     ring_bytes = sum(t.numel() * t.element_size()

@@ -1,18 +1,22 @@
-"""The membership event trace and its segmented host-side runner.
+"""Telemetry: the membership event trace, the health-metrics registry and
+their host-side journals.
 
-Counterpart of ``scalecube_cluster_tpu/telemetry/``, its trace slice:
+Counterpart of ``scalecube_cluster_tpu/telemetry/``:
 
-  - ``events``  the typed event schema (``MembershipTraceEvent``), pure
-                Python;
-  - ``trace``   the fixed-capacity event buffer riding the rounds
-                (int32 lanes, overflow counted, never silently cut), the
-                first-suspect and first-removal round matrices, the
-                latency histograms, and ``TracePlane``, the trace as a
-                plane of ``models/compose``;
-  - ``sink``    ``stream_traced_run``, the segmented traced runner with
-                each segment's offload overlapped against the next.
+  - ``events``   the typed event schema (``MembershipTraceEvent``), pure
+                 Python;
+  - ``trace``    the fixed-capacity event buffer riding the rounds (int32
+                 lanes, overflow counted, never silently cut), the
+                 first-suspect and first-removal round matrices, the
+                 latency histograms, and ``TracePlane``;
+  - ``metrics``  the always-on health registry (``MetricsSpec``,
+                 ``MetricsState``, ``observe_tick``, ``sample_gauges``,
+                 ``MetricsPlane``, ``to_json``, ``stream_metered_run``);
+  - ``sink``     JSONL run journals (``TelemetrySink``, ``read_records``,
+                 ``covered_upto``, ``JournalFollower``, ...) in the
+                 reference's record kinds, ``stream_traced_run``, and the
+                 gated TensorBoard export.
 
-The reference's metrics registry, JSONL sink, TensorBoard export and
-query layer are not ported yet.  Importing this package imports none of
-its modules.
+The reference's alarm engine and query layer are not ported yet.
+Importing this package imports none of its modules.
 """

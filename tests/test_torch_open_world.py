@@ -13,9 +13,10 @@ package.
 - whole runs of the reference's ``crash_join_world`` in every tick body
   and layout, both arms, on the reference's own draws, every state lane
   and metric exact, and ``node_snapshot``'s ``record_epochs``;
-- the two join codes of ``chaos/monitor.py``, per round, summed over the
-  reference's churn storm (``churn_growth_scenario(seed=3, n=24)``) in
-  both arms, against the reference monitor's ``code_counts``;
+- ``chaos/monitor.run_monitored`` on the reference's churn storm
+  (``churn_growth_scenario(seed=3, n=24)``) in both arms, every monitor
+  lane and the verdict against the reference monitor's (the join codes),
+  and under deadlines one round after each join (JOIN_COMPLETENESS);
 - interop of the join schedule and the epoch lane, both ways, and a
   checkpoint from before the lane.
 
@@ -50,8 +51,9 @@ from scalecube_cluster_tpu_torch.models import swim  # noqa: E402
 from scalecube_cluster_tpu_torch.ops import delivery  # noqa: E402
 from tests.test_swim_model import fast_config  # noqa: E402
 from tests.torch_port_helpers import (  # noqa: E402,F401
-    STATE_FIELDS, assert_metrics_equal, assert_state_equal, jax_draws,
-    one_torch_thread, port_params, port_world)
+    STATE_FIELDS, assert_metrics_equal, assert_monitor_equal,
+    assert_state_equal, jax_draws, one_torch_thread, port_monitor_spec,
+    port_params, port_world)
 
 pytestmark = pytest.mark.torchport
 
@@ -472,11 +474,11 @@ def test_node_snapshot_record_epochs(name):
 @pytest.mark.parametrize("guard", [True, False])
 def test_join_codes_match_reference_monitor(guard):
     """The churn storm at n = 24 (scares, three crash waves, nine joins
-    mid-suspicion) in both arms: the port's run equals the reference's,
-    the two join codes' per-round counts of ``chaos/monitor.join_codes``
-    sum to the reference monitor's ``code_counts``, and the join
-    deadlines follow the reference's rule.  The guard holds both at zero;
-    the naive arm resurrects."""
+    mid-suspicion) in both arms: the port's ``run_monitored`` equals the
+    reference's (state, metrics, every monitor lane, count, dropped, code
+    counts and first rounds, the verdict), and the join deadlines follow
+    the reference's rule.  The guard holds both join codes at zero; the
+    naive arm resurrects."""
     scen, jparams, jworld, spec = _storm(guard)
     jstate, mon, jmetrics = _reference_programs()[("storm", guard)](
         jax.random.key(0), jworld, spec)
@@ -489,27 +491,44 @@ def test_join_codes_match_reference_monitor(guard):
                                   np.asarray(spec.join_known_by))
     assert check == spec.check_joins
     draws = jax_draws(jax.random.key(0), jparams, jworld)
-    state, totals, rows = None, {}, []
-    for r in range(scen.horizon):
-        state, metrics = swim.run(0, params, world, 1, state=state,
-                                  start_round=r, draws=draws, device="cpu")
-        rows.append(metrics)
-        for code, count in monitor.join_codes(state, params, world, known_by,
-                                              r).items():
-            totals[code] = totals.get(code, 0) + int(count)
+    state, port_mon, metrics = monitor.run_monitored(
+        0, params, world, port_monitor_spec(spec), scen.horizon,
+        draws=draws, device="cpu")
     assert_state_equal(jstate, state)
-    assert_metrics_equal(jmetrics, {m: torch.cat([row[m] for row in rows])
-                                    for m in rows[0]})
-    counts = np.asarray(mon.code_counts)
-    assert totals == {
-        monitor.NO_RESURRECTION:
-            int(counts[jmonitor.InvariantCode.NO_RESURRECTION]),
-        monitor.JOIN_COMPLETENESS:
-            int(counts[jmonitor.InvariantCode.JOIN_COMPLETENESS])}
+    assert_metrics_equal(jmetrics, metrics)
+    assert_monitor_equal(mon, port_mon)
+    codes = monitor.verdict(port_mon)["codes"]
+    totals = {name: codes[name]["violations"]
+              for name in ("NO_RESURRECTION", "JOIN_COMPLETENESS")}
     if guard:
         assert set(totals.values()) == {0}
     else:
-        assert totals[monitor.NO_RESURRECTION] > 0
+        assert totals["NO_RESURRECTION"] > 0
+
+
+def test_join_completeness_trips_before_a_join_is_known():
+    """The guard arm's storm under a spec whose join deadlines fall one
+    round after each join: eligible observers cannot know a joiner yet,
+    so JOIN_COMPLETENESS trips, and the port's ``run_monitored`` (the
+    same reference program, the spec being data) equals the reference's
+    monitor field for field."""
+    scen, jparams, jworld, spec = _storm(True)
+    join_at = np.asarray(jworld.join_at)[np.asarray(jworld.subject_ids)]
+    early = np.where(join_at < INT32_MAX, join_at + 1, INT32_MAX)
+    spec = dataclasses.replace(spec,
+                               join_known_by=jnp.asarray(early, jnp.int32))
+    jstate, mon, jmetrics = _reference_programs()[("storm", True)](
+        jax.random.key(0), jworld, spec)
+    params, world = port_params(jparams), port_world(jworld)
+    state, port_mon, metrics = monitor.run_monitored(
+        0, params, world, port_monitor_spec(spec), scen.horizon,
+        draws=jax_draws(jax.random.key(0), jparams, jworld), device="cpu")
+    assert_state_equal(jstate, state)
+    assert_metrics_equal(jmetrics, metrics)
+    assert_monitor_equal(mon, port_mon)
+    code = monitor.InvariantCode.JOIN_COMPLETENESS
+    assert int(port_mon.code_counts[code]) > 0
+    assert {v.code for v in monitor.decode_violations(port_mon)} >= {code}
 
 
 def test_storm_world_is_the_reference_churn_storm():

@@ -146,15 +146,26 @@ UNPORTED_PLANES = [("metrics", dict(with_monitor=False)),
 @pytest.mark.parametrize("plane,flags", UNPORTED_PLANES,
                          ids=[p for p, _ in UNPORTED_PLANES])
 def test_unported_observer_plane_raises_naming_it(plane, flags):
-    """``compose.run_composed`` raises ``NotImplementedError`` naming an
-    observer plane the port does not carry, before any round runs."""
+    """``compose.run_composed`` raises ``NotImplementedError`` naming the
+    provenance plane, the one observer plane the port does not carry,
+    before any round runs; the metrics and monitor planes (ported) run a
+    round beside the trace and give their slices (the monitor with the
+    reference's passive spec)."""
+    from scalecube_cluster_tpu_torch.chaos import monitor
     from scalecube_cluster_tpu_torch.models import compose
 
     params = swim.SwimParams.from_config(fast_config(), n_members=16,
                                          delivery="shift")
     world = swim.SwimWorld.healthy(params, device="cpu")
-    with pytest.raises(NotImplementedError, match=plane):
-        compose.run_composed(0, params, world, 1, device="cpu", **flags)
+    if plane == "provenance":
+        with pytest.raises(NotImplementedError, match=plane):
+            compose.run_composed(0, params, world, 1, device="cpu", **flags)
+        return
+    spec = monitor.MonitorSpec.passive(params, device="cpu")
+    _, results, _ = compose.run_composed(0, params, world, 1,
+                                         monitor_spec=spec, device="cpu",
+                                         **flags)
+    assert list(results) == ["trace", plane]
 
 
 # run(..., 0)'s metric families: the default set, then each optional one.

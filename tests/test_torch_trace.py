@@ -18,7 +18,7 @@ JAX package.
   (the empty window and the open last bucket too);
 - ``stream_traced_run`` against the monolithic run, and its exact
   per-segment drops;
-- ``run_composed``, the unported planes' ``NotImplementedError``,
+- ``run_composed``, the provenance plane's ``NotImplementedError``,
   ``RoundCtx`` memoisation and ``plane_registry``;
 - ``Knobs.for_params``'s raises and coercion, and ``knobs=`` runs exact
   against the reference's: float32-inexact overrides through a delayed
@@ -413,8 +413,9 @@ def test_stream_traced_run_matches_monolithic(capacity):
 
 def test_run_composed_trace_only_equals_run_traced():
     """``run_composed`` with the trace alone is ``run_traced``; the
-    reference's default stack and every unported plane raise
-    ``NotImplementedError`` naming the plane."""
+    reference's default stack without a monitor spec raises its
+    ``ValueError``, and the unported provenance plane
+    ``NotImplementedError`` naming it."""
     _, (params, world, state, tel) = _traced_both("traced:shift-wide")
     draws = _draws("traced:shift-wide")
     final, results, _ = compose.run_composed(
@@ -423,12 +424,12 @@ def test_run_composed_trace_only_equals_run_traced():
     assert set(results) == {"trace"}
     assert torch.equal(final.status, state.status)
     assert trace.decode_events(results["trace"]) == trace.decode_events(tel)
-    for flags, plane in ((dict(), "monitor"),
-                         (dict(with_monitor=False), "metrics"),
-                         (dict(with_metrics=False, with_monitor=False,
-                               with_provenance=True), "provenance")):
-        with pytest.raises(NotImplementedError, match=plane):
-            compose.run_composed(0, params, world, 2, device="cpu", **flags)
+    with pytest.raises(ValueError, match="monitor_spec"):
+        compose.run_composed(0, params, world, 2, device="cpu")
+    with pytest.raises(NotImplementedError, match="provenance"):
+        compose.run_composed(0, params, world, 2, with_metrics=False,
+                             with_monitor=False, with_provenance=True,
+                             device="cpu")
     none = compose.build_stack(False, False, False)
     assert none == ()
 

@@ -246,3 +246,56 @@ def assert_metrics_equal(jax_metrics, port_metrics, rounds=slice(None)):
         got = port_metrics[name].cpu().numpy()
         assert got.dtype == want.dtype, (name, got.dtype, want.dtype)
         np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+MONITOR_FIELDS = ("lanes", "count", "dropped", "code_counts",
+                  "code_first_round")
+
+
+def port_monitor_spec(jax_spec):
+    """A reference ``chaos.monitor.MonitorSpec`` as the port's, on the
+    CPU."""
+    from scalecube_cluster_tpu_torch.chaos import monitor
+
+    return monitor.MonitorSpec(
+        complete_by=torch.from_numpy(np.array(jax_spec.complete_by)),
+        agree_from=int(jax_spec.agree_from),
+        check_agreement=jax_spec.check_agreement,
+        check_false_suspicion=jax_spec.check_false_suspicion,
+        join_known_by=torch.from_numpy(np.array(jax_spec.join_known_by)),
+        check_joins=jax_spec.check_joins)
+
+
+def assert_monitor_equal(jax_mon, port_mon):
+    """Every field of a port ``MonitorState`` equals the reference's, and
+    so do their ``verdict``s."""
+    from scalecube_cluster_tpu.chaos import monitor as jmonitor
+    from scalecube_cluster_tpu_torch.chaos import monitor
+
+    for name in MONITOR_FIELDS:
+        want = np.asarray(getattr(jax_mon, name))
+        got = getattr(port_mon, name).cpu().numpy()
+        assert got.dtype == want.dtype, (name, got.dtype, want.dtype)
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    assert monitor.verdict(port_mon, 10**6) == jmonitor.verdict(jax_mon,
+                                                                 10**6)
+
+
+def assert_registry_equal(jax_ms, port_ms, skip=()):
+    """A port ``MetricsState`` equals the reference's: every counter (but
+    those named in ``skip``), gauge (float32 bits) and histogram."""
+    from scalecube_cluster_tpu.telemetry import metrics as jmetrics
+
+    spec = jmetrics.MetricsSpec.default()
+    keep = [i for i, name in enumerate(spec.counters) if name not in skip]
+    for name, want, got in (
+            ("counters", np.asarray(jax_ms.counters)[keep],
+             port_ms.counters.cpu().numpy()[keep]),
+            ("gauges", np.asarray(jax_ms.gauges),
+             port_ms.gauges.cpu().numpy())):
+        assert got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    assert set(port_ms.hists) == set(jax_ms.hists)
+    for name, value in jax_ms.hists.items():
+        np.testing.assert_array_equal(port_ms.hists[name].cpu().numpy(),
+                                      np.asarray(value), err_msg=name)
