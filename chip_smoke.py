@@ -63,12 +63,26 @@ and prints no result):
    monitor's record pass of a green round, one launch on an empty plane
    and the every-code round timed on the device clock beside their byte
    bounds (``monitor_*`` fields of the ``trace_record`` row);
+3d. the provenance plane's round (``check_provenance_observe``:
+   ``kernels/provenance.provenance_observe``, the third front end of
+   ``csrc/trace_record.cu``) against its plain version at 1M x 16 on
+   seeded carries and key planes (``provenance_inputs``): wide int32
+   keys with the ping-req split, the int16 wire's keys, an int32 epoch
+   lane and the compact carry's int16 lanes with join-rebirth columns,
+   no ping-req members, self refutations and leavers under an observer
+   offset, then dense, sparse, overflowing, one below capacity and at
+   capacity; lanes, count and dropped exact, each case checked to reach
+   its edge (its channels, JOINED rows, the self refutations at the
+   bumped self rows only, the timer's REMOVED rows); its sparse and dense
+   rounds timed beside their byte bounds;
 4. the probe path: ``python -m scalecube_cluster_tpu_torch.mosaic_probe``
    at [512, 128] and at [1,000,000, 16] (each probe once, checked against
    its plain version), then each probe timed at both shapes on the
    device clock (``torch.profiler``: a probe takes at most about 0.1 ms,
    near the host's time to issue one wrapper call, so CUDA events around
-   back-to-back calls would time the host), with the one PyTorch
+   back-to-back calls would time the host; a timing whose five traces
+   all miss the device falls back to CUDA events, logged as ``[clock]``
+   and counted before the kernels line), with the one PyTorch
    call that computes the same function where there is one
    (``torch.add(x, one)`` for load16 and ``torch.mul(x, two)`` for load8,
    with ``one`` and ``two`` int32 tensors of shape (1,),
@@ -84,9 +98,13 @@ and prints no result):
    start and the card's clocks, temperature and power draw are printed;
 5. parity canaries, card against CPU with the same CPU-made draws, 80
    rounds, state (every lane) and metrics bit-identical, and the card's
-   kernel launches one a round for each kernel of the layout.  Shift:
-   wide at 4,096 x 16 and full view 512 x 512, compact carry at both,
-   int16 wire at 4,096 x 16; the network configuration
+   kernel launches one a round for each kernel of the layout.  The CPU
+   half of every canary (5, 5b, 5c) and of the blame drill (5d) runs in
+   ``CPU_WORKERS`` worker processes started first (``start_cpu_halves``),
+   while the card builds, checks its kernels and runs the probes.  Shift:
+   full view 512 x 512 wide and under the compact carry (wide, compact,
+   ``int16_wire`` and compact + ``wire24`` at 4,096 x 16 are 5b's
+   untraced runs); the network configuration
    (``profile_round.network_*``: eight link-fault rules, a 50 ms mean
    delay, a 4-slot delay ring, four user gossips; its schedule scaled to
    80 rounds) at 4,096 x 16 in the wide, int16-wire and compact +
@@ -94,7 +112,8 @@ and prints no result):
    at full view 512 x 512.  Scatter: wide at 4,096 x 16, wide and
    compact carry at full view 512 x 512 (the known-only probe's Gumbel
    argmax), int16 wire at 4,096 x 16, the network configuration at
-   4,096 x 16 on the fused wire and on the two-buffer wire
+   4,096 x 16 on the fused wire and on the two-buffer wire (scatter wide
+   at 4,096 x 16 is 5b's untraced run)
    (``fused_wire=False``), and the seeded cold start at 512 x 512;
    ``k_block=128`` at full view 512 x 512 in all four layouts (each
    kernel launched four times a round); ``link_counters`` on the network
@@ -121,8 +140,9 @@ and prints no result):
     into a 256-row buffer (it overflows), and the open world with node 3
     rejoining at round 60 (JOINED and LEAVING recorded); the trace
     (lanes, count, dropped, first_suspect, first_removed) card == CPU,
-    the card's state and metrics equal to its untraced run's, the
-    layout's kernels once a round plus one ``trace_observe`` (and no
+    the card's untraced run (the layout's canary: its kernels once a
+    round) equal in state and metrics to the CPU's and to the card's
+    traced run, which adds one ``trace_observe`` a round (and no
     ``trace_record``);
 5c. the monitor canaries (``monitor_canaries``): ``run_monitored_metered``
     at 512 x 16, the telemetry scenario's sped-up timing, node 3 crashed
@@ -135,6 +155,19 @@ and prints no result):
     ``chaos_violations`` the monitor's total; the layout's kernels (two
     more ``carry_decode`` a round under the compact carry, the checks'
     wide decodes) and seven ``trace_record`` a round;
+5d. ``bench.py --blame``'s drill at its own size (``drill_path``: N =
+    48, the chaos campaign's config, scatter, every member probing every
+    round, no ping-req proxies, the SYNC exchange every 8 rounds, seed
+    7, one ``loss=1.0`` link rule from victim 3 to observer 11 over rounds
+    [32, 192), horizon 288; ``run_composed`` with the trace, the default
+    registry and the provenance plane at 2,048 rows), on the card and on
+    the CPU with the same CPU-made draws, and with the knob off: the
+    port's ``telemetry/query.blame_report`` names observer 11 as origin
+    via ``fd_direct``, first-hand; ``channel_mix`` sums to 1.0; no
+    provenance or trace drop; ``explain_belief`` over the rows a journal
+    gives back resolves with ``fd_direct`` at the onset round; the knob
+    off gives the same state and metrics; card == CPU (buffer, trace,
+    state, metrics); one ``provenance_observe`` a round;
 6. the main path and the layout identity: LAN defaults, N = 1,000,000
    members x K = 16 subjects, loss 0.02, node 3 crashed at round 10, the
    port's own device draws, 600 rounds through ``models.swim.run`` in the
@@ -179,6 +212,19 @@ and prints no result):
     ``monitor.record`` phases); ``metrics.stream_metered_run`` through a
     ``TelemetrySink`` in four windows, read back with
     ``sink.read_records``, summing to the single metered run;
+6e. (after 6d) the provenance plane at full width
+    (``provenance_crash_path``): the same workload through
+    ``run_composed`` with the trace, the default registry and the
+    provenance plane, both buffers at 4,194,304 rows, 600 rounds (node
+    3's SUSPECTED and REMOVED waves), and with the knob off: no drop; the
+    channel counts summing to the count, the trace's count plus the self
+    refutations; every row of the earliest round with a SUSPECTED row
+    about node 3 first-hand; most of node 3's rows via gossip or SYNC;
+    the knob off giving the same state, stacked metrics, trace and
+    registry; one ``provenance_observe`` a round; armed and unarmed timed
+    in turns (``provenance_overhead_ratio``, reported only) and profiled
+    20-round windows of both over the SUSPECTED wave (from round 10) and a
+    quiet stretch (from round 200), with the ``provenance.observe`` phase;
 6c. the churn storm at full width, the open-world plane's path: the
     reference's ``chaos.churn_growth_scenario`` geometry (``bench.py
     --churn``'s workload) at N = 1,000,000 x K = 16 focal subjects at
@@ -296,11 +342,14 @@ plane-off merge timed in turns against an earlier ``merge_timers.cu``.
 
 import argparse
 import collections
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
+import io
 import json
 import math
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -317,12 +366,13 @@ from scalecube_cluster_tpu_torch.chaos import monitor
 from scalecube_cluster_tpu_torch.config import ClusterConfig
 from scalecube_cluster_tpu_torch.kernels import LAUNCHES, _build
 from scalecube_cluster_tpu_torch.kernels import carry, merge, probes
+from scalecube_cluster_tpu_torch.kernels import provenance as kprov
 from scalecube_cluster_tpu_torch.kernels import trace as trace_kernel
 from scalecube_cluster_tpu_torch.models import compose, lifeguard, metadata
-from scalecube_cluster_tpu_torch.models import swim
+from scalecube_cluster_tpu_torch.models import provenance, swim
 from scalecube_cluster_tpu_torch.models import sync as sync_plane
 from scalecube_cluster_tpu_torch.ops import delivery, prng
-from scalecube_cluster_tpu_torch.telemetry import metrics, sink
+from scalecube_cluster_tpu_torch.telemetry import metrics, query, sink
 from scalecube_cluster_tpu_torch.telemetry import trace as ttrace
 from scalecube_cluster_tpu_torch.telemetry.events import TraceEventType
 
@@ -336,7 +386,7 @@ OPS_PER_S = 67e12
 OPS_PER_CELL = {"merge": 60, "carry_decode": 10, "carry_encode": 20,
                 "probe_load16": 6, "probe_store16": 6, "probe_cmp16": 7,
                 "probe_load8": 6, "probe_merge_core": 25, "trace_record": 8,
-                "trace_observe": 12}
+                "trace_observe": 12, "provenance_observe": 12}
 
 MAIN_N, MAIN_K, MAIN_ROUNDS, CRASHED, CRASH_AT = 1_000_000, 16, 600, 3, 10
 # The full-view capacity configuration (experiments/fullview_ceiling.py:
@@ -495,6 +545,48 @@ MONITOR_CANARY_N, MONITOR_CANARY_ROUNDS = 512, 100
 # quarter of its rounds; 256 keeps every int32 counter far from wrapping).
 STACK_ROUNDS, STACK_PROFILE_ROUNDS = 256, 20
 TELEMETRY_N, TELEMETRY_CRASH_AT = 4_096, 10
+# The provenance round's kernel cases at 1M x 16 (label, density of
+# changed cells, rows already recorded, capacity, key dtype, epoch dtype
+# or None, observer offset, ping-req split, join-rebirth columns, the
+# channels it must record).
+_EVERY_CHANNEL = ("fd_direct", "pingreq_proxy", "gossip", "sync",
+                  "self_refutation")
+PROVENANCE_OBSERVE_CASES = (
+    ("wide int32 keys", 1e-2, 0, None, torch.int32, None, 0, True, False,
+     _EVERY_CHANNEL),
+    ("int16_wire keys", 1e-2, 0, None, torch.int16, None, 0, True, False,
+     _EVERY_CHANNEL),
+    ("int32 epoch, joins", 1e-2, 0, None, torch.int32, torch.int32, 0, True,
+     True, _EVERY_CHANNEL + ("join_rebirth",)),
+    ("compact int16 epoch, joins", 1e-2, 0, None, torch.int16, torch.int16,
+     0, True, True, _EVERY_CHANNEL + ("join_rebirth",)),
+    ("no ping-req members", 1e-2, 0, None, torch.int32, None, 0, False,
+     False, ("fd_direct", "gossip", "sync", "self_refutation")),
+    ("self refutations, offset", 1e-2, 0, None, torch.int32, None,
+     TRACE_OBSERVE_OFFSET, True, False, _EVERY_CHANNEL),
+    ("dense", 0.9, 0, None, torch.int32, None, 0, True, False,
+     _EVERY_CHANNEL),
+    ("sparse", 1e-3, 0, TRACE_CAPACITY, torch.int32, None, 0, True, False,
+     ("gossip",)),
+    ("overflow", 1e-2, 1_000, TRACE_CAPACITY, torch.int32, None, 0, True,
+     False, ("gossip",)),
+    ("one below capacity", 1e-3, TRACE_CAPACITY - 1, TRACE_CAPACITY,
+     torch.int32, None, 0, True, False, ()),
+    ("at capacity", 1e-3, TRACE_CAPACITY, TRACE_CAPACITY, torch.int32, None,
+     0, True, False, ()))
+# bench.py --blame's drill (bench.py:2486-2540, chaos/scenarios.py:942):
+# N, seed, victim, observer, onset, pulse, horizon (onset + pulse + 96),
+# provenance capacity.
+DRILL_N, DRILL_SEED, DRILL_VICTIM, DRILL_OBSERVER = 48, 7, 3, 11
+DRILL_ONSET, DRILL_PULSE, DRILL_HORIZON, DRILL_CAPACITY = 32, 160, 288, 2048
+# The 1M x 16 attributed crash: both buffers' rows (node 3's SUSPECTED and
+# REMOVED waves, about 2M rows, fit), the window, the quiet stretch's
+# start, the profiled windows' rounds.
+PROV_CRASH_CAPACITY, PROV_CRASH_ROUNDS = 4_194_304, 600
+PROV_QUIET_AT, PROV_PROFILE_ROUNDS = 200, 20
+# The CPU halves of the card-vs-CPU runs run in this many worker
+# processes while the card works.
+CPU_WORKERS = 6
 
 
 _T0 = time.perf_counter()
@@ -551,17 +643,26 @@ def time_ms(fn, samples=10, inner=10, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, calls=20, warmup=3, traces=3):
+# Calls of device_ms whose traces all missed, timed with CUDA events.
+EVENT_CLOCK_FALLBACKS = []
+
+
+def device_ms(fn, calls=20, warmup=3, traces=5, pause_s=0.5):
     """Mean device milliseconds per call of ``fn()``: the summed time of
     the CUDA kernels (and copies) it runs, from a ``torch.profiler``
     trace of ``calls`` calls, without the host's time between them.  A
     trace that recorded no device activity at all (the tracer now and
-    then misses a whole window) is taken again, up to ``traces``
-    times."""
+    then misses a whole window, several in a row while the host's cores
+    are busy) is taken again after ``pause_s``, up to ``traces`` times;
+    if every trace misses, the calls are timed with CUDA events
+    (:func:`time_ms`) instead, logged and listed in
+    ``EVENT_CLOCK_FALLBACKS``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(traces):
+    for attempt in range(traces):
+        if attempt:
+            time.sleep(pause_s)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -571,8 +672,12 @@ def device_ms(fn, calls=20, warmup=3, traces=3):
                  if e.device_type == DeviceType.CUDA)
         if us > 0:
             return us / calls / 1e3
-    raise AssertionError(f"the profiler saw no device time in {traces} "
-                         f"traces")
+    ms = time_ms(fn)
+    name = getattr(fn, "__qualname__", repr(fn))
+    EVENT_CLOCK_FALLBACKS.append(name)
+    log(f"[clock] the profiler saw no device time in {traces} traces of "
+        f"{name}; {ms:.4f} ms on CUDA events instead")
+    return ms
 
 
 @functools.lru_cache(maxsize=None)
@@ -1238,20 +1343,25 @@ def blocks_of(params):
     return params.n_subjects // params.k_block if params.k_block else 1
 
 
-def canary(device, label, layout, params, make_world, warm=True, seed=5):
-    """Phase 5: the same run on the card and on the CPU, same draws."""
+def canary_run(params, make_world, dev, warm=True, seed=5):
+    """One canary run on ``dev`` with the CPU-made draws: ``(state,
+    metrics, launches)``."""
     draws = prng.TorchDraws(seed, "cpu", params, make_world(params, "cpu"))
-    runs = []
-    for dev in ("cpu", device):
-        world = make_world(params, dev)
-        state = swim.initial_state(params, world, warm=warm, device=dev)
-        LAUNCHES.clear()
-        state, metrics = swim.run(seed, params, world, CANARY_ROUNDS,
-                                  state=state,
-                                  draws=lambda r: draws(r).to(dev),
-                                  device=dev)
-        runs.append((state, metrics, dict(LAUNCHES)))
-    (cs, cm, cpu_launches), (gs, gm, gpu_launches) = runs
+    world = make_world(params, dev)
+    state = swim.initial_state(params, world, warm=warm, device=dev)
+    LAUNCHES.clear()
+    state, metrics = swim.run(seed, params, world, CANARY_ROUNDS,
+                              state=state, draws=lambda r: draws(r).to(dev),
+                              device=dev)
+    return state, metrics, dict(LAUNCHES)
+
+
+def canary(device, label, layout, params, make_world, warm=True, seed=5):
+    """Phase 5: the same run on the card and on the CPU, same draws (the
+    CPU's made in a worker process, :func:`cpu_half`)."""
+    cs, cm, cpu_launches = cpu_half("run", label)
+    gs, gm, gpu_launches = canary_run(params, make_world, device, warm,
+                                      seed)
     n, k = params.n_members, params.n_subjects
     for field in dataclasses.fields(swim.SwimState):
         if not torch.equal(getattr(cs, field.name),
@@ -1279,138 +1389,165 @@ def canary(device, label, layout, params, make_world, warm=True, seed=5):
         f"{int(cm['absent'][-1].sum())}{md}")
 
 
-def canaries(device):
-    """Phase 5: every canary."""
-    for layout, n, k in (("wide", 4096, 16), ("wide", 512, 512),
-                         ("compact", 4096, 16), ("compact", 512, 512),
-                         ("int16_wire", 4096, 16)):
-        canary(device, layout, layout,
-               profile_round.bench_params(layout, n, k), crash_world)
-    for layout in ("wide", "int16_wire", "compact_wire24"):
-        canary(device, f"network {layout}", layout,
+class Split:
+    """``make_world`` with its members split half/half over rounds
+    [0, split), then healed (a picklable world factory)."""
+
+    def __init__(self, make_world, split=CANARY_SPLIT):
+        self.make_world, self.split = make_world, split
+
+    def __call__(self, params, device):
+        n = params.n_members
+        part = torch.zeros((4, n), dtype=torch.int8)
+        part[0, :n // 2] = 1
+        return self.make_world(params, device).with_partition_schedule(
+            part, self.split)
+
+
+class Joined:
+    """``make_world`` with ``node`` joined by a new identity at round
+    ``at`` (a picklable world factory)."""
+
+    def __init__(self, make_world, node, at):
+        self.make_world, self.node, self.at = make_world, node, at
+
+    def __call__(self, params, device):
+        return self.make_world(params, device).with_join(self.node, self.at)
+
+
+class Pushed:
+    """``make_world`` with the config pushes ``(node, key, value, at)``
+    (a picklable world factory)."""
+
+    def __init__(self, make_world, pushes=MD_PUSHES):
+        self.make_world, self.pushes = make_world, pushes
+
+    def __call__(self, params, device):
+        world = self.make_world(params, device)
+        for node, key, value, at in self.pushes:
+            world = world.with_metadata_push(node, key, value, at)
+        return world
+
+
+NETWORK_CANARY_WORLD = functools.partial(profile_round.network_world,
+                                         rounds=CANARY_ROUNDS)
+
+
+def canary_cases():
+    """Phase 5's canaries, ``(label, layout, params, make_world, warm)``.
+    The crash canaries at 4,096 x 16 (shift in the four layouts, scatter
+    wide) are the traced canaries' untraced runs (:func:`traced_canary`:
+    the same params and draws, their world with a leave added)."""
+    cases = [(f"{layout}", layout,
+              profile_round.bench_params(layout, 512, 512), crash_world,
+              True) for layout in ("wide", "compact")]
+    cases += [(f"network {layout}", layout,
                profile_round.network_params(layout, 4096, 16),
-               functools.partial(profile_round.network_world,
-                                 rounds=CANARY_ROUNDS))
-    canary(device, "seeded cold start", "wide",
-           profile_round.bench_params("wide", 512, 512), seeded_world,
-           warm=False)
-    for layout, n, k in (("wide", 4096, 16), ("wide", 512, 512),
-                         ("compact", 512, 512), ("int16_wire", 4096, 16)):
-        canary(device, f"scatter {layout}", layout,
+               NETWORK_CANARY_WORLD, True)
+              for layout in ("wide", "int16_wire", "compact_wire24")]
+    cases.append(("seeded cold start", "wide",
+                  profile_round.bench_params("wide", 512, 512),
+                  seeded_world, False))
+    cases += [(f"scatter {layout}", layout,
                profile_round.bench_params(layout, n, k, "scatter"),
-               crash_world)
-    for label, overrides in (("", {}),
-                             (" two-buffer wire", dict(fused_wire=False))):
-        canary(device, f"scatter network wide{label}", "wide",
+               crash_world, True)
+              for layout, n, k in (("wide", 512, 512), ("compact", 512, 512),
+                                   ("int16_wire", 4096, 16))]
+    cases += [(f"scatter network wide{label}", "wide",
                profile_round.network_params("wide", 4096, 16, "scatter",
                                             **overrides),
-               functools.partial(profile_round.network_world,
-                                 rounds=CANARY_ROUNDS))
-    canary(device, "scatter seeded cold start", "wide",
-           profile_round.bench_params("wide", 512, 512, "scatter"),
-           seeded_world, warm=False)
-    for layout in LAYOUTS:
-        canary(device, f"k_block=128 {layout}", layout,
+               NETWORK_CANARY_WORLD, True)
+              for label, overrides in (("", {}), (" two-buffer wire",
+                                                  dict(fused_wire=False)))]
+    cases.append(("scatter seeded cold start", "wide",
+                  profile_round.bench_params("wide", 512, 512, "scatter"),
+                  seeded_world, False))
+    cases += [(f"k_block=128 {layout}", layout,
                profile_round.bench_params(layout, 512, 512, k_block=128),
-               crash_world)
-    for delivery in ("shift", "scatter"):
-        canary(device, f"{delivery} network wide link_counters", "wide",
+               crash_world, True) for layout in LAYOUTS]
+    cases += [(f"{delivery} network wide link_counters", "wide",
                profile_round.network_params("wide", 4096, 16, delivery,
                                             link_counters=True),
-               functools.partial(profile_round.network_world,
-                                 rounds=CANARY_ROUNDS))
+               NETWORK_CANARY_WORLD, True)
+              for delivery in ("shift", "scatter")]
     # The three tick-level planes on, across a partition healed at round
     # 64.
-    for delivery in ("shift", "scatter"):
-        canary(device, f"{delivery} planes", "wide",
+    cases += [(f"{delivery} planes", "wide",
                profile_round.bench_params("wide", 4096, 16, delivery,
                                           **CANARY_PLANES),
-               split_world(crash_world))
-    canary(device, "k_block=128 compact planes", "compact",
-           profile_round.bench_params("compact", 512, 512, k_block=128,
-                                      **CANARY_PLANES),
-           split_world(crash_world))
-    canary(device, "network wide planes", "wide",
-           profile_round.network_params("wide", 4096, 16, **CANARY_PLANES),
-           functools.partial(profile_round.network_world,
-                             rounds=CANARY_ROUNDS))
+               Split(crash_world), True) for delivery in ("shift", "scatter")]
+    cases.append(("k_block=128 compact planes", "compact",
+                  profile_round.bench_params("compact", 512, 512,
+                                             k_block=128, **CANARY_PLANES),
+                  Split(crash_world), True))
+    cases.append(("network wide planes", "wide",
+                  profile_round.network_params("wide", 4096, 16,
+                                               **CANARY_PLANES),
+                  NETWORK_CANARY_WORLD, True))
     # The open-world plane: the churn storm at 4,096 x 16 (its schedule at
     # this size), both arms, scatter and the narrow layouts; the network
     # configuration with node 3 rejoining; k_block compact with a join and
     # the three planes on.
-    for label, layout, delivery, guard in (
-            ("storm", "wide", "shift", True),
-            ("storm naive", "wide", "shift", False),
-            ("scatter storm", "wide", "scatter", True),
-            ("storm int16_wire", "int16_wire", "shift", True),
-            ("storm compact_wire24", "compact_wire24", "shift", True)):
-        canary(device, label, layout,
-               storm_params(4096, 16, layout, delivery, guard),
-               storm_world_of)
-    canary(device, "network wide join", "wide",
-           profile_round.network_params("wide", 4096, 16, open_world=True),
-           lambda params, dev: profile_round.network_world(
-               params, dev, rounds=CANARY_ROUNDS).with_join(
-                   CRASHED, NETWORK_JOIN_AT))
-    canary(device, "k_block=128 compact planes join", "compact",
-           profile_round.bench_params("compact", 512, 512, k_block=128,
-                                      open_world=True, **CANARY_PLANES),
-           lambda params, dev: split_world(crash_world)(params, dev)
-           .with_join(CRASHED, CANARY_SPLIT - 24))
+    cases += [(label, layout, storm_params(4096, 16, layout, delivery,
+                                           guard), storm_world_of, True)
+              for label, layout, delivery, guard in (
+                  ("storm", "wide", "shift", True),
+                  ("storm naive", "wide", "shift", False),
+                  ("scatter storm", "wide", "scatter", True),
+                  ("storm int16_wire", "int16_wire", "shift", True),
+                  ("storm compact_wire24", "compact_wire24", "shift", True))]
+    cases.append(("network wide join", "wide",
+                  profile_round.network_params("wide", 4096, 16,
+                                               open_world=True),
+                  Joined(NETWORK_CANARY_WORLD, CRASHED, NETWORK_JOIN_AT),
+                  True))
+    cases.append(("k_block=128 compact planes join", "compact",
+                  profile_round.bench_params("compact", 512, 512,
+                                             k_block=128, open_world=True,
+                                             **CANARY_PLANES),
+                  Joined(Split(crash_world), CRASHED, CANARY_SPLIT - 24),
+                  True))
+    return cases + md_canary_cases()
 
 
-def md_canaries(device):
-    """Phase 5, the metadata plane's canaries at full view 512 x 512 (two
-    keys, the exchange every 8 rounds, node 3 crashed at round 10, three
+def md_canary_cases():
+    """The metadata plane's canaries at full view 512 x 512 (two keys,
+    the exchange every 8 rounds, node 3 crashed at round 10, three
     pushes, one inside the partition of rounds 0-63): shift in the four
     layouts, scatter on both wires, the open world with node 3 rejoining
     at round 40 (its md row reset) and pushing as the new identity, the
     network configuration (delays, rules, the ring: md same-round only),
     and Lifeguard with the suppression window."""
-    def pushed(make_world, pushes=MD_PUSHES):
-        def make(params, dev):
-            world = make_world(params, dev)
-            for node, key, value, at in pushes:
-                world = world.with_metadata_push(node, key, value, at)
-            return world
-        return make
-
-    split = pushed(split_world(crash_world))
-    for layout in LAYOUTS:
-        canary(device, f"metadata {layout}", layout,
-               profile_round.bench_params(layout, 512, 512, **MD_CANARY),
-               split)
-    for label, overrides in (("", {}),
-                             (" two-buffer wire", dict(fused_wire=False))):
-        canary(device, f"scatter metadata wide{label}", "wide",
+    split = Pushed(Split(crash_world))
+    cases = [(f"metadata {layout}", layout,
+              profile_round.bench_params(layout, 512, 512, **MD_CANARY),
+              split, True) for layout in LAYOUTS]
+    cases += [(f"scatter metadata wide{label}", "wide",
                profile_round.bench_params("wide", 512, 512, "scatter",
-                                          **MD_CANARY, **overrides), split)
-    canary(device, "metadata open world join", "wide",
-           profile_round.bench_params("wide", 512, 512, open_world=True,
-                                      **MD_CANARY),
-           pushed(lambda params, dev: split_world(crash_world)(params, dev)
-                  .with_join(CRASHED, MD_JOIN_AT),
-                  MD_PUSHES + (MD_JOIN_PUSH,)))
-    canary(device, "network metadata wide", "wide",
-           profile_round.network_params("wide", 512, 512, **MD_CANARY),
-           pushed(functools.partial(profile_round.network_world,
-                                    rounds=CANARY_ROUNDS)))
-    canary(device, "metadata lifeguard suppression", "wide",
-           profile_round.bench_params("wide", 512, 512, lhm_max=8,
-                                      dead_suppress_rounds=64,
-                                      **MD_CANARY), split)
+                                          **MD_CANARY, **overrides),
+               split, True)
+              for label, overrides in (("", {}), (" two-buffer wire",
+                                                  dict(fused_wire=False)))]
+    cases.append(("metadata open world join", "wide",
+                  profile_round.bench_params("wide", 512, 512,
+                                             open_world=True, **MD_CANARY),
+                  Pushed(Joined(Split(crash_world), CRASHED, MD_JOIN_AT),
+                         MD_PUSHES + (MD_JOIN_PUSH,)), True))
+    cases.append(("network metadata wide", "wide",
+                  profile_round.network_params("wide", 512, 512,
+                                               **MD_CANARY),
+                  Pushed(NETWORK_CANARY_WORLD), True))
+    cases.append(("metadata lifeguard suppression", "wide",
+                  profile_round.bench_params("wide", 512, 512, lhm_max=8,
+                                             dead_suppress_rounds=64,
+                                             **MD_CANARY), split, True))
+    return cases
 
 
-def split_world(make_world, split=CANARY_SPLIT):
-    """``make_world`` with its members split half/half over rounds
-    [0, split), then healed."""
-    def make(params, device):
-        n = params.n_members
-        part = torch.zeros((4, n), dtype=torch.int8)
-        part[0, :n // 2] = 1
-        return make_world(params, device).with_partition_schedule(part,
-                                                                  split)
-    return make
+def canaries(device):
+    """Phase 5: the canaries of :func:`canary_cases`."""
+    for label, layout, params, make_world, warm in canary_cases():
+        canary(device, label, layout, params, make_world, warm=warm)
 
 
 def run_layout(device, layout, delivery="shift"):
@@ -3170,41 +3307,50 @@ def telemetry_equal(label, a, b):
             raise AssertionError(f"{label}: trace {name} differs")
 
 
+def traced_run(params, make_world, capacity, dev, seed=5):
+    """One traced canary run on ``dev`` with the CPU-made draws:
+    ``(state, telemetry, metrics, launches)``."""
+    draws = prng.TorchDraws(seed, "cpu", params, make_world(params, "cpu"))
+    LAUNCHES.clear()
+    return swim.run_traced(
+        seed, params, make_world(params, dev), CANARY_ROUNDS,
+        trace_capacity=capacity, draws=lambda r: draws(r).to(dev),
+        device=dev) + (dict(LAUNCHES),)
+
+
 def traced_canary(device, label, layout, params, make_world,
                   capacity=ttrace.DEFAULT_CAPACITY, seed=5, want_types=()):
-    """Phase 5b: ``run_traced`` on the card and on the CPU with the same
-    CPU-made draws: the trace (lanes, count, dropped, first_suspect,
-    first_removed) card == CPU, and the card's state and metrics equal
-    its untraced run's; one ``trace_observe`` a round on top of the
-    layout's kernels and no ``trace_record``.  Returns the card's
-    launches."""
-    draws = prng.TorchDraws(seed, "cpu", params, make_world(params, "cpu"))
-    runs = []
-    for dev in ("cpu", device):
-        world = make_world(params, dev)
-        LAUNCHES.clear()
-        runs.append(swim.run_traced(
-            seed, params, world, CANARY_ROUNDS, trace_capacity=capacity,
-            draws=lambda r: draws(r).to(dev), device=dev)
-            + (dict(LAUNCHES),))
-    (_, cpu_tel, _, cpu_launches), (gs, gtel, gm, launches) = runs
-    plain_state, plain_metrics = swim.run(
-        seed, params, make_world(params, device), CANARY_ROUNDS,
-        draws=lambda r: draws(r).to(device), device=device)
+    """Phase 5b: ``run_traced`` on the card and on the CPU (in a worker
+    process, :func:`cpu_half`) with the same CPU-made draws, and the
+    card's untraced run: the trace (lanes, count, dropped, first_suspect,
+    first_removed) card == CPU; the card's untraced run equal to the CPU
+    run's state and metrics (the layout's canary) and to the card's
+    traced run's; one ``trace_observe`` a round on top of the layout's
+    kernels and no ``trace_record``.  Returns the card's launches."""
+    cs, cpu_tel, cm, cpu_launches = cpu_half("traced", label)
+    gs, gtel, gm, launches = traced_run(params, make_world, capacity,
+                                        device, seed)
+    plain_state, plain_metrics, plain_launches = canary_run(
+        params, make_world, device, seed=seed)
     n, k = params.n_members, params.n_subjects
     tag = f"traced canary {label} {n}x{k}"
     telemetry_equal(tag, cpu_tel, gtel)
-    for field in dataclasses.fields(swim.SwimState):
-        if not torch.equal(getattr(gs, field.name),
-                           getattr(plain_state, field.name)):
-            raise AssertionError(f"{tag}: state.{field.name} differs from "
-                                 f"the untraced run")
-    for name, value in plain_metrics.items():
-        if not torch.equal(value, gm[name]):
-            raise AssertionError(f"{tag}: metric {name} differs from the "
-                                 f"untraced run")
+    for other, (state, metrics) in (("the traced run", (gs, gm)),
+                                    ("the CPU's", (cs, cm))):
+        for field in dataclasses.fields(swim.SwimState):
+            if not torch.equal(getattr(state, field.name).cpu(),
+                               getattr(plain_state, field.name).cpu()):
+                raise AssertionError(f"{tag}: the untraced run's state."
+                                     f"{field.name} differs from {other}")
+        for name, value in plain_metrics.items():
+            if not torch.equal(value.cpu(), metrics[name].cpu()):
+                raise AssertionError(f"{tag}: the untraced run's metric "
+                                     f"{name} differs from {other}")
     want = {name: CANARY_ROUNDS * blocks_of(params)
             for name in ROUND_KERNELS[layout]}
+    if plain_launches != want:
+        raise AssertionError(f"{tag}: untraced launches {plain_launches}, "
+                             f"want {want}")
     want[trace_kernel.OBSERVE] = CANARY_ROUNDS
     if cpu_launches or launches != want:
         raise AssertionError(f"{tag}: launches cpu={cpu_launches} card="
@@ -3220,14 +3366,16 @@ def traced_canary(device, label, layout, params, make_world,
     log(f"[canary] {tag}, {CANARY_ROUNDS} rounds: trace card == CPU ("
         f"{count} recorded, {dropped} dropped, capacity {capacity}, types "
         f"{sorted(types)}), state and metrics equal the untraced run's, "
-        f"launches {launches}")
+        f"which equals the CPU's (card == CPU bit for bit), launches "
+        f"{launches}")
     return launches
 
 
-def traced_canaries(device):
-    """Phase 5b: the traced canaries at 4,096 x 16 (shift in four layouts,
-    scatter wide, an overflowing capacity, the open world with a join)."""
-    launches = {}
+def traced_canary_cases():
+    """Phase 5b's cases at 4,096 x 16, ``(label, layout, params,
+    make_world, capacity, event types that must be recorded)``: shift in
+    four layouts, scatter wide, an overflowing capacity, the open world
+    with a join."""
     cases = [(f"{layout}", layout, profile_round.bench_params(
         layout, 4096, 16), traced_world, ttrace.DEFAULT_CAPACITY,
         ("SUSPECTED", "REMOVED", "LEAVING")) for layout in LAYOUTS]
@@ -3240,7 +3388,14 @@ def traced_canaries(device):
         ("open world join", "wide", profile_round.bench_params(
             "wide", 4096, 16, open_world=True), traced_join_world,
          ttrace.DEFAULT_CAPACITY, ("SUSPECTED", "LEAVING", "JOINED"))]
-    for label, layout, params, make_world, capacity, want_types in cases:
+    return cases
+
+
+def traced_canaries(device):
+    """Phase 5b: the traced canaries (:func:`traced_canary_cases`)."""
+    launches = {}
+    for label, layout, params, make_world, capacity, want_types in \
+            traced_canary_cases():
         for name, count in traced_canary(
                 device, label, layout, params, make_world, capacity,
                 want_types=want_types).items():
@@ -3694,6 +3849,37 @@ def canary_monitor_spec(params, world, device):
                                check_false_suspicion=True)
 
 
+def monitor_canary_params(layout, delivery):
+    """The monitor canaries' params: the telemetry scenario's sped-up
+    timing at ``MONITOR_CANARY_N`` x 16."""
+    cfg = ClusterConfig.default().replace(
+        gossip_interval=100, ping_interval=200, ping_timeout=100,
+        sync_interval=1_000, suspicion_mult=3)
+    return swim.SwimParams.from_config(
+        cfg, n_members=MONITOR_CANARY_N, n_subjects=16, delivery=delivery,
+        **LAYOUTS[layout])
+
+
+def monitor_run(layout, delivery, dev):
+    """One monitor canary run on ``dev`` with the CPU-made draws:
+    ``(state, monitor, registry, metrics, launches)``."""
+    params = monitor_canary_params(layout, delivery)
+    kn = swim.Knobs.for_params(params, loss_probability=0.25,
+                               suspicion_rounds=10 * params.suspicion_rounds)
+    draws = prng.TorchDraws(5, "cpu", params, crash_world(params, "cpu"))
+    world = crash_world(params, dev)
+    LAUNCHES.clear()
+    return monitor.run_monitored_metered(
+        5, params, world, canary_monitor_spec(params, world, dev),
+        MONITOR_CANARY_ROUNDS, draws=lambda r: draws(r).to(dev), knobs=kn,
+        device=dev) + (dict(LAUNCHES),)
+
+
+MONITOR_CANARY_CASES = (("wide", "wide", "shift"),
+                        ("compact_wire24", "compact_wire24", "shift"),
+                        ("scatter wide", "wide", "scatter"))
+
+
 def monitor_canary(device, label, layout, delivery):
     """Phase 5c: ``run_monitored_metered`` at ``MONITOR_CANARY_N`` x 16
     (the telemetry scenario's sped-up timing, node 3 crashed at round 10)
@@ -3705,25 +3891,9 @@ def monitor_canary(device, label, layout, delivery):
     and ``chaos_violations`` equal the monitor's total; the card launches
     the layout's kernels and seven ``trace_record`` a round (five codes,
     two self lanes)."""
-    cfg = ClusterConfig.default().replace(
-        gossip_interval=100, ping_interval=200, ping_timeout=100,
-        sync_interval=1_000, suspicion_mult=3)
-    params = swim.SwimParams.from_config(
-        cfg, n_members=MONITOR_CANARY_N, n_subjects=16, delivery=delivery,
-        **LAYOUTS[layout])
-    kn = swim.Knobs.for_params(params, loss_probability=0.25,
-                               suspicion_rounds=10 * params.suspicion_rounds)
-    draws = prng.TorchDraws(5, "cpu", params, crash_world(params, "cpu"))
-    runs = []
-    for dev in ("cpu", device):
-        world = crash_world(params, dev)
-        LAUNCHES.clear()
-        runs.append(monitor.run_monitored_metered(
-            5, params, world, canary_monitor_spec(params, world, dev),
-            MONITOR_CANARY_ROUNDS, draws=lambda r: draws(r).to(dev),
-            knobs=kn,
-            device=dev) + (dict(LAUNCHES),))
-    (cs, cmon, cms, cm, cpu_launches), (gs, gmon, gms, gm, launches) = runs
+    params = monitor_canary_params(layout, delivery)
+    cs, cmon, cms, cm, cpu_launches = cpu_half("monitor", label)
+    gs, gmon, gms, gm, launches = monitor_run(layout, delivery, device)
     tag = f"monitor canary {label} {MONITOR_CANARY_N}x16"
     for field in dataclasses.fields(swim.SwimState):
         if not torch.equal(getattr(cs, field.name),
@@ -3761,10 +3931,7 @@ def monitor_canaries(device):
     """Phase 5c: the monitor canaries (wide and compact + wire24 under
     shift, wide under scatter)."""
     launches = {}
-    for label, layout, delivery in (("wide", "wide", "shift"),
-                                    ("compact_wire24", "compact_wire24",
-                                     "shift"),
-                                    ("scatter wide", "wide", "scatter")):
+    for label, layout, delivery in MONITOR_CANARY_CASES:
         for name, count in monitor_canary(device, label, layout,
                                           delivery).items():
             launches[name] = launches.get(name, 0) + count
@@ -3942,6 +4109,491 @@ def instrumented_stack_path(device):
     return launches["stack"]
 
 
+# --------------------------------------------------------------------------
+# The CPU halves of the card-vs-CPU runs, in worker processes
+# --------------------------------------------------------------------------
+
+_CPU_JOBS = {}
+
+
+def _cpu_worker_init():
+    torch.set_num_threads(1)
+
+
+def cpu_work(kind, *args):
+    """The CPU half of one card-vs-CPU run, in a worker process: the run's
+    outputs, serialised with ``torch.save``."""
+    run = {"run": canary_run, "traced": traced_run, "monitor": monitor_run,
+           "drill": drill_run}[kind]
+    buf = io.BytesIO()
+    torch.save(run(*args), buf)
+    return buf.getvalue()
+
+
+def start_cpu_halves(pool):
+    """Submit to ``pool`` the CPU half of every canary (phases 5, 5b, 5c)
+    and of the blame drill (5d): they run while the card builds, checks
+    its kernels and runs the probes."""
+    for label, _, params, make_world, warm in canary_cases():
+        _CPU_JOBS["run", label] = pool.submit(
+            cpu_work, "run", params, make_world, "cpu", warm)
+    for label, _, params, make_world, capacity, _ in traced_canary_cases():
+        _CPU_JOBS["traced", label] = pool.submit(
+            cpu_work, "traced", params, make_world, capacity, "cpu")
+    for label, layout, delivery in MONITOR_CANARY_CASES:
+        _CPU_JOBS["monitor", label] = pool.submit(
+            cpu_work, "monitor", layout, delivery, "cpu")
+    _CPU_JOBS["drill", "drill"] = pool.submit(cpu_work, "drill",
+                                              drill_params(), "cpu")
+
+
+def cpu_half(kind, label):
+    """The outputs of a CPU half started by :func:`start_cpu_halves`."""
+    return torch.load(io.BytesIO(_CPU_JOBS.pop((kind, label)).result()),
+                      weights_only=False)
+
+
+# --------------------------------------------------------------------------
+# The provenance plane (phases 3d, 5d and 6e)
+# --------------------------------------------------------------------------
+
+
+def provenance_buffer(start, capacity, device):
+    """A [capacity, 6] buffer with ``start`` seeded rows already recorded
+    and 5 drops counted: ``(lanes, count, dropped)``."""
+    lanes = torch.full((capacity, kprov.N_LANES), -1, dtype=torch.int32,
+                       device=device)
+    lanes[:start] = torch.randint(0, 1 << 20, (start, kprov.N_LANES),
+                                  device=device, dtype=torch.int32)
+    return (lanes, torch.tensor(start, dtype=torch.int32, device=device),
+            torch.tensor(5, dtype=torch.int32, device=device))
+
+
+def provenance_inputs(density, start, capacity, seed, device, key_dtype,
+                      epoch_dtype=None, offset=0, split=True, joins=False):
+    """One ``provenance_observe`` case at 1M x 16 on the card: ``(kwargs,
+    its in-place outputs)``.  The status planes and epoch lanes as
+    :func:`observe_inputs` makes them (every self cell ALIVE -> SUSPECT,
+    half the subjects' self rows and 64 other rows leaving); the other
+    half of the self rows bump ``self_inc`` (ALIVE_REFUTED rows), as do
+    64 rows that hold no self cell (nothing to record), one from INT32_MAX
+    (it wraps: no bump).  The three key planes of ``key_dtype`` hold one
+    seeded record a cell (ALIVE, SUSPECT or DEAD at a random incarnation
+    within the wire's field) delivered by each channel with probability
+    0.6 (gossip), 0.4 (sync, half of them one below) and 0.2 (fd), else
+    -1, so ties, strict wins and DEAD winners occur; ``ping_req`` on 30 %
+    of the rows, read with ``split``; with ``joins`` four subjects join
+    this round (JOIN_REBIRTH)."""
+    kw, _ = observe_inputs(density, 0, 1, seed, device, torch.int32,
+                           epoch_dtype, offset)
+    del kw["new_inc"]
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    shape = (MAIN_N, MAIN_K)
+
+    def rand(size=shape):
+        return torch.rand(size, generator=g, device=device)
+
+    fmt = delivery.WIRE16 if key_dtype == torch.int16 else delivery.WIDE
+    status = torch.randint(0, 3, shape, generator=g, device=device,
+                           dtype=torch.int32).to(torch.int8)
+    inc = torch.randint(0, fmt.inc_sat(), shape, generator=g, device=device,
+                        dtype=torch.int32)
+    base = delivery.pack_record(status, inc, fmt=fmt)
+    gossip = torch.where(rand() < 0.6, base, -1).to(key_dtype)
+    sync = torch.where(rand() < 0.4, torch.where(rand() < 0.5, base,
+                                                  base - 1), -1)
+    sync = torch.where(sync < -1, -1, sync).to(key_dtype)
+    fd = torch.where(rand() < 0.2, base, -1).to(key_dtype)
+    sids = kw["subject_ids"]
+    self_rows = (sids - offset).long()
+    prev_self = kw.pop("self_inc")
+    new_self = prev_self.clone()
+    bumped = torch.cat([self_rows[1::2], torch.randint(
+        0, MAIN_N, (64,), generator=g, device=device)])
+    new_self[bumped] += 1
+    new_self[self_rows[0]] = INT32_MIN   # INT32_MAX -> wrapped: no bump
+    join_at = torch.full((MAIN_N + offset,), INT32_MAX, dtype=torch.int32,
+                         device=device)
+    if joins:
+        join_at[sids[::4].long()] = kw["round_idx"]
+    kw.update(fd=fd, gossip=gossip, sync=sync,
+              ping_req=rand((MAIN_N,)) < 0.3, prev_self_inc=prev_self,
+              new_self_inc=new_self, join_at=join_at,
+              dead_bit=fmt.dead_bit, split_ping_req=split)
+    lanes, count, dropped = provenance_buffer(start, capacity, device)
+    return kw, dict(lanes=lanes, count=count, dropped=dropped)
+
+
+def provenance_call(kw, outs):
+    return lambda: kprov.provenance_observe(**outs, **kw)
+
+
+def provenance_plain(kw, outs):
+    return lambda: kprov.provenance_observe_reference(**outs, **kw)
+
+
+def provenance_bytes(kw, events, recorded):
+    """The bytes a provenance round must move: both status planes, the
+    epoch planes when on, the subjects' ids, ``leave_at``, both
+    ``self_inc`` and ``join_at`` at their K self rows; per event the
+    three keys, the new epoch when on and the row's ``ping_req`` byte
+    when it splits; 24 B per recorded row; the two counters."""
+    cells = MAIN_N * MAIN_K
+    epoch = kw.get("prev_epoch")
+    e_size = 0 if epoch is None else epoch.element_size()
+    per_event = (3 * kw["fd"].element_size() + e_size
+                 + (1 if kw["split_ping_req"] else 0))
+    return (2 * cells + 2 * e_size * cells + 20 * MAIN_K + events * per_event
+            + recorded * 4 * kprov.N_LANES + 16)
+
+
+def check_provenance_observe(device):
+    """Phase 3d, the provenance plane's round (``provenance_observe``, the
+    third front end of ``csrc/trace_record.cu``) against its plain version
+    at 1M x 16 (``provenance_inputs``): wide int32 keys with the ping-req
+    split, the int16 wire's keys (dead bit 14), an int32 epoch lane and
+    the compact carry's int16 lanes (int16 keys) with four join-rebirth
+    columns, no ping-req members, self refutations and leavers under an
+    observer offset, then dense, sparse, overflowing, one below capacity
+    and at capacity; lanes, count and dropped exact, each case checked to
+    reach its edge (its channels, JOINED rows with an epoch lane,
+    SELF_REFUTATION rows at the bumped self rows only, a REMOVED row the
+    timer's).  Then the sparse and dense rounds timed as the trace
+    kernels' are."""
+    names = {i: n for i, n in enumerate(provenance.CHANNEL_NAMES)}
+    for (label, density, start, capacity, key, epoch, offset, split,
+         joins, want) in PROVENANCE_OBSERVE_CASES:
+        cap = MAIN_N * MAIN_K if capacity is None else capacity
+        kw, got = provenance_inputs(density, start, cap, 9, device, key,
+                                    epoch, offset, split, joins)
+        wanted = {k: v.clone() for k, v in got.items()}
+        provenance_call(kw, got)()
+        provenance_plain(kw, wanted)()
+        torch.cuda.synchronize()
+        max_abs_err(f"provenance_observe {label}",
+                    [got[n] for n in ("lanes", "count", "dropped")],
+                    [wanted[n] for n in ("lanes", "count", "dropped")])
+        count, dropped = int(got["count"]), int(got["dropped"])
+        total = count - start + dropped - 5
+        check_counters("provenance_observe", label, start, cap, total,
+                       count, dropped)
+        rows = got["lanes"][start:count].cpu()
+        channels = collections.Counter(names[c] for c in rows[:, 4].tolist())
+        types = collections.Counter(rows[:, 3].tolist())
+        on_self = rows[rows[:, 0] == rows[:, 1]]
+        refuted = on_self[on_self[:, 4] == provenance.CH_SELF_REFUTATION]
+        timer = rows[(rows[:, 3] == int(TraceEventType.REMOVED))
+                     & (rows[:, 4] == provenance.CH_FD_DIRECT)]
+        edge = reaches_edge(label, start, cap, total, count, dropped,
+                            MAIN_N * MAIN_K) and set(want) <= set(channels)
+        if capacity is None:
+            edge = (edge and len(refuted) == MAIN_K // 2
+                    and int((on_self[:, 3] != int(
+                        TraceEventType.ALIVE_REFUTED)).sum()) == MAIN_K // 2
+                    and len(timer) > 0)
+        if epoch is not None:
+            edge = edge and types[int(TraceEventType.JOINED)] > 0
+        if not edge:
+            raise AssertionError(
+                f"provenance_observe {label}: the case does not reach its "
+                f"edge ({total} events, channels {dict(channels)}, types "
+                f"{dict(types)}, {len(refuted)} self refutations, "
+                f"{len(timer)} timer removals)")
+        log(f"[kernel] provenance_observe {label} {MAIN_N}x{MAIN_K} (keys "
+            f"{key}, epoch {epoch}, offset {offset}, ping-req split "
+            f"{split}, joins {joins}): exact match (lanes, count, "
+            f"dropped), {total} events, {start} -> {count} of {cap} rows, "
+            f"dropped {dropped}, channels {dict(sorted(channels.items()))}")
+
+    def timed(density, seed, reset):
+        kw, outs = provenance_inputs(density, 0, MAIN_N * MAIN_K, seed,
+                                     device, torch.int32)
+        probe = {k: v.clone() for k, v in outs.items()}
+        provenance_plain(kw, probe)()
+        events = int(probe["count"])
+        return timed_trace(provenance_call(kw, outs),
+                           provenance_plain(kw, outs), outs["count"], reset,
+                           events, provenance_bytes(kw, events, events),
+                           OPS_PER_CELL["provenance_observe"])
+
+    return trace_row("provenance_observe", timed)
+
+
+def drill_params(provenance_on=True):
+    """``bench.py --blame``'s params (bench.py:2490-2503): the chaos
+    campaign's config at its N, scatter, every member probing every
+    round, no ping-req proxies, the SYNC exchange every 8 rounds."""
+    return swim.SwimParams.from_config(
+        campaign_config(), n_members=DRILL_N, delivery="scatter",
+        ping_known_only=False, ping_req_members=0, ping_every=1,
+        sync_interval=8, provenance=provenance_on)
+
+
+def drill_world(params, device):
+    """The blame drill (``chaos.blame_drill_scenario``, reference
+    ``chaos/scenarios.py:942-993``): one ``loss=1.0`` link rule from the
+    victim to the observer over [onset, onset + pulse), every other link
+    clean."""
+    return swim.SwimWorld.healthy(params, device=device).with_link_fault(
+        DRILL_VICTIM, DRILL_OBSERVER, 1.0, from_round=DRILL_ONSET,
+        until_round=DRILL_ONSET + DRILL_PULSE)
+
+
+def drill_run(params, dev):
+    """The drill's ``run_composed`` on ``dev`` with the CPU-made draws
+    (the provenance plane with the knob): ``(state, results, metrics,
+    launches)``."""
+    draws = prng.TorchDraws(DRILL_SEED, "cpu", params,
+                            drill_world(params, "cpu"))
+    LAUNCHES.clear()
+    return compose.run_composed(
+        DRILL_SEED, params, drill_world(params, dev), DRILL_HORIZON,
+        with_monitor=False, with_provenance=params.provenance,
+        provenance_capacity=DRILL_CAPACITY if params.provenance else None,
+        draws=lambda r: draws(r).to(dev), device=dev) + (dict(LAUNCHES),)
+
+
+def drill_path(device):
+    """Phase 5d, ``bench.py --blame``'s drill at its own size (N = 48,
+    seed 7, victim 3, observer 11, horizon 288; bench.py:2428-2700):
+    ``run_composed`` with the trace, the default registry and the
+    provenance plane (2,048 rows), on the card and on the CPU with the
+    same CPU-made draws (the CPU's in a worker process), and on the card
+    with the knob off.  The port's
+    ``blame_report`` must name observer 11 as origin via ``fd_direct``,
+    first-hand; ``channel_mix`` sum to 1.0; no provenance or trace drop;
+    the ``explain_belief`` probe, over the rows a journal round trip gives
+    back (``TelemetrySink.write_provenance``, ``sink.read_provenance``),
+    resolve with ``fd_direct`` at the onset round; the knob off give the
+    same final state and stacked metrics; the card's buffer (and trace,
+    state, metrics) equal the CPU's; one ``provenance_observe`` a round.
+    Returns the card's launches."""
+    params, off = drill_params(), drill_params(False)
+    g_state, g_res, g_m, launches = drill_run(params, device)
+    c_state, c_res, c_m, _ = cpu_half("drill", "drill")
+    o_state, o_res, o_m, _ = drill_run(off, device)
+    tag = f"[drill] {DRILL_N}x{DRILL_N}"
+    pv, tel = g_res["provenance"], g_res["trace"]
+    for name in ("lanes", "count", "dropped"):
+        if not torch.equal(getattr(pv, name).cpu(),
+                           getattr(c_res["provenance"], name)):
+            raise AssertionError(f"{tag}: provenance {name} card != CPU")
+    telemetry_equal(f"{tag} trace card vs CPU", tel, c_res["trace"])
+    for label, (s, m) in (("CPU", (c_state, c_m)),
+                          ("knob off", (o_state, o_m))):
+        for field in dataclasses.fields(swim.SwimState):
+            if not torch.equal(getattr(s, field.name).cpu(),
+                               getattr(g_state, field.name).cpu()):
+                raise AssertionError(f"{tag}: state.{field.name} differs "
+                                     f"from the {label} run's")
+        if set(m) != set(g_m) or any(not torch.equal(m[k].cpu(),
+                                                     g_m[k].cpu())
+                                     for k in m):
+            raise AssertionError(f"{tag}: metrics differ from the {label} "
+                                 f"run's")
+    telemetry_equal(f"{tag} trace knob on vs off", tel, o_res["trace"])
+    rows = provenance.decode_attributions(pv)
+    report = query.blame_report(rows, DRILL_VICTIM)
+    mix = query.channel_mix(rows)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/blame.jsonl"
+        with sink.TelemetrySink(path=path) as journal:
+            journal.write_manifest(params, label="blame drill")
+            journal.write_provenance(provenance.attributions_payload(pv))
+        journal_rows, acct = sink.read_provenance(path)
+    probe = query.explain_belief(journal_rows, DRILL_OBSERVER, DRILL_VICTIM,
+                                 report.get("onset_round"))
+    answer = probe["answer"] or {}
+    want = {merge.NAMES["wide"]: DRILL_HORIZON,
+            trace_kernel.OBSERVE: DRILL_HORIZON,
+            kprov.NAME: DRILL_HORIZON}
+    checks = {
+        "origin": (report.get("origin_observer"),
+                   report.get("origin_channel"),
+                   report.get("origin_first_hand"))
+        == (DRILL_OBSERVER, "fd_direct", True),
+        "mix sums to 1": abs(sum(mix.values()) - 1.0) < 1e-12,
+        "no drops": int(pv.dropped) == 0 and int(tel.trace.dropped) == 0,
+        "journal": journal_rows == rows and acct["dropped"] == 0,
+        "explain": (answer.get("channel"), answer.get("round"))
+        == ("fd_direct", report.get("onset_round")),
+        "launches": launches == want}
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{tag}: {failed} failed: report {report}, "
+                             f"mix {mix}, drops {int(pv.dropped)} / "
+                             f"{int(tel.trace.dropped)}, answer {answer}, "
+                             f"launches {launches} (want {want})")
+    log(f"{tag} scatter, seed {DRILL_SEED}, victim {DRILL_VICTIM} -> "
+        f"observer {DRILL_OBSERVER} loss 1.0 over rounds [{DRILL_ONSET}, "
+        f"{DRILL_ONSET + DRILL_PULSE}), horizon {DRILL_HORIZON}: blame "
+        f"{json.dumps(report)}; channel_mix {json.dumps(mix)} (sum 1.0); "
+        f"{int(pv.count)} attributions, 0 dropped; trace "
+        f"{int(tel.trace.count)} events, 0 dropped; explain probe "
+        f"{json.dumps(answer)}; knob off: state and metrics equal; card == "
+        f"CPU (buffer, trace, state, metrics); launches {launches}")
+    return launches
+
+
+def provenance_crash_path(device):
+    """Phase 6e, the slice's path at full width: ``bench_workload`` (LAN
+    defaults, N = 1M x K = 16, loss 0.02, node 3 crashed at round 10,
+    shift, wide) through ``run_composed`` with the trace, the default
+    registry and the provenance plane, both buffers at
+    ``PROV_CRASH_CAPACITY`` rows, for ``PROV_CRASH_ROUNDS`` rounds (node
+    3's SUSPECTED and REMOVED waves), and the same stack with the knob
+    off.  Gates: no provenance or trace drop; the channel counts sum to
+    ``count``, which is the trace's count plus the self refutations; every
+    record of the earliest round with a SUSPECTED row about node 3
+    first-hand (``fd_direct`` or ``pingreq_proxy``); most of node 3's rows
+    ``gossip`` or ``sync``; the knob off gives the same final state,
+    stacked metrics, trace and registry; one ``provenance_observe``, one
+    ``trace_observe`` and one merge a round.  Timing: the armed and the
+    unarmed stack in turns (armed, unarmed, unarmed, armed),
+    ``provenance_overhead_ratio`` (armed s / unarmed s, reported only);
+    profiled ``PROV_PROFILE_ROUNDS``-round windows of both over a quiet
+    stretch (from round ``PROV_QUIET_AT``) and over the SUSPECTED wave
+    (from round ``CRASH_AT``): device busy ms and launches a round and the
+    ``provenance.observe`` phase.  Returns the armed run's launches."""
+    off = profile_round.bench_params("wide", MAIN_N, MAIN_K)
+    params = dataclasses.replace(off, provenance=True)
+    world = crash_world(params, device)
+    cap, rounds = PROV_CRASH_CAPACITY, PROV_CRASH_ROUNDS
+
+    def stack(p, n_rounds, state=None, start=0):
+        return compose.run_composed(
+            0, p, world, n_rounds, with_monitor=False,
+            with_provenance=p.provenance, trace_capacity=cap,
+            provenance_capacity=cap if p.provenance else None, state=state,
+            start_round=start, device=device)
+
+    stack(params, 2)                         # allocator and first calls
+    stack(off, 2)
+    arms = {"armed": params, "unarmed": off}
+    turns, outputs, launches = [], {}, {}
+    for name in ("armed", "unarmed", "unarmed", "armed"):
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = stack(arms[name], rounds)
+        torch.cuda.synchronize()
+        turns.append((name, time.perf_counter() - t0))
+        if name not in outputs:
+            outputs[name] = out
+            launches[name] = dict(LAUNCHES)
+        del out
+    (a_state, a_res, a_m), (u_state, u_res, u_m) = (outputs["armed"],
+                                                   outputs["unarmed"])
+    tag = f"[provenance crash] wide {MAIN_N}x{MAIN_K}, {rounds} rounds"
+    for field in dataclasses.fields(swim.SwimState):
+        if not torch.equal(getattr(a_state, field.name),
+                           getattr(u_state, field.name)):
+            raise AssertionError(f"{tag}: state.{field.name} differs with "
+                                 f"the knob off")
+    if set(a_m) != set(u_m) or any(not torch.equal(a_m[k], u_m[k])
+                                   for k in a_m):
+        raise AssertionError(f"{tag}: stacked metrics differ with the knob "
+                             f"off")
+    telemetry_equal(f"{tag} trace knob on vs off", a_res["trace"],
+                    u_res["trace"])
+    registry_equal(f"{tag} registry knob on vs off", a_res["metrics"],
+                   u_res["metrics"])
+    pv, tel = a_res["provenance"], a_res["trace"]
+    count = int(pv.count)
+    rows = pv.lanes[:count]
+    by_channel = torch.bincount(rows[:, 4].long(),
+                                minlength=len(provenance.CHANNEL_NAMES))
+    channel_counts = dict(zip(provenance.CHANNEL_NAMES,
+                              by_channel.cpu().tolist()))
+    crashed = rows[rows[:, 1] == CRASHED]
+    suspected = crashed[crashed[:, 3] == int(TraceEventType.SUSPECTED)]
+    first_round = int(suspected[:, 5].min())
+    first = rows[rows[:, 5] == first_round]
+    first_hand = bool(((first[:, 4] == provenance.CH_FD_DIRECT)
+                       | (first[:, 4] == provenance.CH_PINGREQ_PROXY)).all())
+    relayed = int(((crashed[:, 4] == provenance.CH_GOSSIP)
+                   | (crashed[:, 4] == provenance.CH_SYNC)).sum())
+    types = collections.Counter(
+        TraceEventType(t).name for t in crashed[:, 3].cpu().tolist())
+    want = {merge.NAMES["wide"]: rounds, trace_kernel.OBSERVE: rounds,
+            kprov.NAME: rounds}
+    checks = {
+        "no drops": int(pv.dropped) == 0 and int(tel.trace.dropped) == 0,
+        "channels sum to count": sum(channel_counts.values()) == count,
+        "count = trace + self refutations":
+            count == int(tel.trace.count)
+            + channel_counts["self_refutation"],
+        "first sightings first-hand": first_hand,
+        "mostly relayed": 2 * relayed > len(crashed),
+        "launches": launches["armed"] == want}
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(
+            f"{tag}: {failed} failed: count {count}, dropped "
+            f"{int(pv.dropped)}, trace {int(tel.trace.count)} / "
+            f"{int(tel.trace.dropped)}, channels {channel_counts}, first "
+            f"round {first_round}: {first[:, 4].tolist()[:20]}, node "
+            f"{CRASHED}: {len(crashed)} rows, {relayed} relayed, launches "
+            f"{launches['armed']} (want {want})")
+    mean_s = {name: statistics.mean(s for n, s in turns if n == name)
+              for name in arms}
+    first_channels = collections.Counter(
+        provenance.CHANNEL_NAMES[c] for c in first[:, 4].cpu().tolist())
+    del outputs, a_state, a_res, u_state, u_res, rows, pv, tel
+
+    state_at = {}
+    for at in (CRASH_AT, PROV_QUIET_AT):
+        state_at[at], _ = swim.run(0, off, world, at, device=device)
+
+    def runner(p):
+        return lambda state, start, n: stack(p, n, state, start)
+
+    windows = {f"{arm} {label}": profile_round.profile_window(
+        p, world, state_at[at], at, PROV_PROFILE_ROUNDS, runner=runner(p))
+        for label, at in (("wave", CRASH_AT), ("quiet", PROV_QUIET_AT))
+        for arm, p in (("armed", params), ("unarmed", off))}
+    summary = dict(
+        card=card_line(), rounds=rounds, capacity=cap,
+        buffer_bytes=cap * 4 * kprov.N_LANES,
+        exposure_bytes=3 * MAIN_N * MAIN_K * 4,
+        count=count, trace_count=count - channel_counts["self_refutation"],
+        channel_counts=channel_counts,
+        node3_types=dict(types), node3_rows=len(crashed),
+        node3_relayed=relayed, first_suspected_round=first_round,
+        first_round_channels=dict(first_channels),
+        ms_per_round={name: s / rounds * 1e3 for name, s in mean_s.items()},
+        provenance_overhead_ratio=mean_s["armed"] / mean_s["unarmed"],
+        turns_ms_per_round=[(name, s / rounds * 1e3) for name, s in turns],
+        windows={label: dict(
+            busy_ms=w["device_busy_ms_per_round"],
+            launches=w["kernel_launches_per_round"],
+            wall_ms=w["wall_ms_per_round"], idle=w["device_idle_share"],
+            phases=w["phase_device_ms_per_round"],
+            phase_launches=w["phase_launches_per_round"])
+            for label, w in windows.items()},
+        extra_over_unarmed={label: dict(
+            busy_ms=windows[f"armed {label}"]["device_busy_ms_per_round"]
+            - windows[f"unarmed {label}"]["device_busy_ms_per_round"],
+            launches=windows[f"armed {label}"]["kernel_launches_per_round"]
+            - windows[f"unarmed {label}"]["kernel_launches_per_round"],
+            observe_ms=windows[f"armed {label}"][
+                "phase_device_ms_per_round"].get("provenance.observe"))
+            for label in ("wave", "quiet")})
+    log(f"[provenance crash] {json.dumps(summary)}")
+    log(f"{tag}: {count} attributions, 0 dropped ({cap} rows, "
+        f"{cap * 4 * kprov.N_LANES} B), channels {channel_counts} (sum = "
+        f"count = trace {count - channel_counts['self_refutation']} + self "
+        f"refutations); node {CRASHED}: {dict(types)}, {relayed} of "
+        f"{len(crashed)} via gossip or sync; first SUSPECTED round "
+        f"{first_round}: {dict(first_channels)}; knob off: state, metrics, "
+        f"trace and registry equal; ms/round "
+        f"{json.dumps(summary['ms_per_round'])}, provenance_overhead_ratio "
+        f"{summary['provenance_overhead_ratio']:.4f} ({summary['card']}); "
+        f"extra over unarmed a round "
+        f"{json.dumps(summary['extra_over_unarmed'])}")
+    return launches["armed"]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3952,6 +4604,19 @@ def main():
                          "merge_timers.cu (merge_ab)")
     args = ap.parse_args()
     t_start = time.perf_counter()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker_init)
+    try:
+        start_cpu_halves(pool)
+        run_phases(args, t_start)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_phases(args, t_start):
+    """Every phase after the CPU halves are submitted, then the kernels
+    line and the result line."""
     device = swim.resolve_device("cuda")
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3974,16 +4639,17 @@ def main():
     for name, row in check_block_codec(device).items():
         codec_rows[name].update(row)
     trace_rows = {trace_kernel.NAME: check_trace_record(device),
-                  trace_kernel.OBSERVE: check_trace_observe(device)}
+                  trace_kernel.OBSERVE: check_trace_observe(device),
+                  kprov.NAME: check_provenance_observe(device)}
     trace_rows[trace_kernel.NAME].update(check_monitor_record(device))
     stage("kernels", t_start)
     probe_launches, probe_rows = probe_path(device)
     stage("probes", t_start)
     canaries(device)
-    md_canaries(device)
     paths = {"traced_canaries": traced_canaries(device),
-             "monitor_canaries": monitor_canaries(device)}
-    stage("canaries", t_start)
+             "monitor_canaries": monitor_canaries(device),
+             "drill": drill_path(device)}
+    stage("canaries and the blame drill", t_start)
     paths["main"], shift_summary = main_path(device)
     stage("main path", t_start)
     paths["traced_window"], paths["record_api"] = traced_window_path(device)
@@ -3991,6 +4657,8 @@ def main():
     stage("traced window and telemetry", t_start)
     paths["instrumented_stack"] = instrumented_stack_path(device)
     stage("instrumented stack", t_start)
+    paths["provenance_crash"] = provenance_crash_path(device)
+    stage("attributed crash", t_start)
     paths["storm"] = storm_path(device, shift_summary)
     paths["bench_churn"] = bench_churn_path(device)
     stage("churn storm", t_start)
@@ -4041,11 +4709,13 @@ def main():
             launches_by_path={path: counts.get(name, 0)
                               for path, counts in paths.items()},
             **codec_rows[name]))
-    for name, line in ((trace_kernel.NAME, 254),
-                       (trace_kernel.OBSERVE, 166)):
+    for name, replaces in (
+            (trace_kernel.NAME, "telemetry/trace.py:254"),
+            (trace_kernel.OBSERVE, "telemetry/trace.py:166"),
+            (kprov.NAME, "models/provenance.py:324")):
         kernels.append(dict(
             name=name, route="cuda", source=CSRC + "trace_record.cu",
-            replaces=f"scalecube_cluster_tpu/telemetry/trace.py:{line}",
+            replaces=f"scalecube_cluster_tpu/{replaces}",
             launches=launches.get(name, 0),
             launches_by_path={path: counts.get(name, 0)
                               for path, counts in paths.items()},
@@ -4061,6 +4731,8 @@ def main():
             plain_ms_512x128=small["plain_ms"],
             library_ms_512x128=small["library_ms"],
             bound_ms_512x128=small["bound_ms"]))
+    log(f"[clock] {len(EVENT_CLOCK_FALLBACKS)} device-clock timings fell "
+        f"back to CUDA events: {EVENT_CLOCK_FALLBACKS}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

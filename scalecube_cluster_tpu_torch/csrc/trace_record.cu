@@ -1,4 +1,4 @@
-// The membership event trace's record, one launch a round: two front
+// The membership event trace's record, one launch a round: three front
 // ends over one single-pass, order-preserving compaction.
 //
 // The reference computes the trace in XLA (scalecube_cluster_tpu/
@@ -29,10 +29,29 @@
 // int16).  With subject_ids null the row's subject is its observer
 // (row + offset): the monitor's self lanes, an [N, 1] plane.
 //
-// Both update in place lanes [capacity, 5] int32, count and dropped: the
+// provenance_observe (the provenance plane's round, the reference's
+// models/provenance.py observe_round: round_channel_records :184-223 and
+// record_attributions :236-321, no Pallas counterpart) codes the cells as
+// trace_observe does, without the first-round stamps, and codes the self
+// cell of a row that bumped its own incarnation (new self_inc > prev)
+// ALIVE_REFUTED unless it leaves.  Each event's row is (row + offset,
+// subject, epoch, code - 1, channel, round) into lanes [capacity, 6]:
+// the epoch the new epoch lane's at the cell (0 without the lane), the
+// channel the reference's cascade (attribute_channels :135-181) over the
+// round's three exposed key planes fd, gossip and sync [N, K] (the wire
+// dtype, int32 or int16), read at event cells only: the winner is their
+// max; FD_DIRECT, then GOSSIP where gossip >= 0 ties the winner, SYNC
+// where sync does, FD where fd does (PINGREQ_PROXY where the row's
+// ping_req [N] flag is set, only with ping-req members configured), FD
+// for a REMOVED cell whose winner is not a DEAD key (dead_bit of the
+// wire format), JOIN_REBIRTH where join_at[subject] == round; the self
+// refutation's channel is SELF_REFUTATION.
+//
+// All three update in place their lanes, count and dropped: the
 // cell holding the round's e-th event (cell order, observer-major)
-// writes (round, row + offset, subject_ids[col], code - 1, inc) at slot
-// count + e while that slot is below the capacity; then count becomes
+// writes its row (trace_observe and trace_record: round, row + offset,
+// subject_ids[col], code - 1, inc) at slot count + e while that slot is
+// below the capacity; then count becomes
 // min(count + total, capacity) and dropped grows by the rest.  Overflow
 // is counted, never cut silently.
 //
@@ -96,7 +115,11 @@
 // recorded row.  At 1M x 16 without epochs a sparse round (about 11,000
 // events) is about 32.4 MB, 0.0097 ms.  trace_record: 1 B a cell of
 // codes; per event the incarnation and 20 B a row: a sparse round
-// (about 16,000 events) 0.0049 ms.
+// (about 16,000 events) 0.0049 ms.  provenance_observe: the status and
+// epoch bytes of trace_observe, 8 B a subject (its id, leave_at), 8 B a
+// self row (prev and new self_inc), 4 B a subject's join_at; per event
+// the three keys (3 x 4 or 3 x 2 B), the new epoch when the lane is on, a
+// ping_req byte when it splits, 24 B a recorded row.
 
 #include <cstdint>
 #include <type_traits>
@@ -112,7 +135,8 @@ constexpr int kVec = 2;                   // a thread's chunks in a tile
 constexpr int kPer = kChunk * kVec;       // a thread's cells in a tile
 constexpr int kTile = kThreads * kPer;    // 8,192
 constexpr int kMaskWords = kPer / 32;     // a thread's event mask words
-constexpr int kLanes = 5;
+constexpr int kLanes = 5;                 // trace rows
+constexpr int kProvLanes = 6;             // provenance rows
 constexpr int kStageRows = 768;           // rows staged at a time (15 KB)
 constexpr int kEarlyRows = 128;           // a sparse tile's rows, staged early
 constexpr int kGroup = kWarp;             // tiles whose totals add up in one word
@@ -125,12 +149,16 @@ constexpr int32_t kNever = 0x7fffffff;
 // records.MemberStatus; event codes (TraceEventType + 1).
 constexpr uint32_t kAlive = 0, kSuspect = 1, kDead = 2, kAbsent = 3;
 constexpr uint32_t kOnes4 = 0x01010101u;
-constexpr uint32_t kSuspected = 2, kRemoved = 4, kLeaving = 5, kJoined = 6;
+constexpr uint32_t kSuspected = 2, kRefuted = 3, kRemoved = 4, kLeaving = 5,
+                   kJoined = 6;
+// models/provenance.py channel codes.
+constexpr int32_t kChFd = 0, kChPingReq = 1, kChGossip = 2, kChSync = 3,
+                  kChSelf = 4, kChJoin = 5;
 
 constexpr unsigned long long kFlagAggregate = 1ull;
 constexpr uint32_t kGenMask = 0x3fffffffu;
 
-enum Front { kObserve, kRecord };
+enum Front { kObserve, kRecord, kProvenance };
 struct NoEpoch {};
 
 
@@ -146,6 +174,14 @@ struct Args {
   const int32_t* subject_ids;
   int32_t* first_suspect;     // observe
   int32_t* first_removed;
+  const void* fd;             // provenance: the three key planes
+  const void* gossip;
+  const void* sync;
+  const int32_t* prev_self_inc;  // provenance: [N] (self_inc the new one)
+  const int32_t* join_at;     // provenance: [world N]
+  const uint8_t* ping_req;    // provenance: [N] bool
+  int dead_bit;               // provenance: the wire format's
+  bool split_ping_req;        // provenance: ping-req members configured
   int32_t* lanes;
   int32_t* count;
   int32_t* dropped;
@@ -168,10 +204,11 @@ struct Args {
 // codes), the staged rows, the subject ids, two tiles' metadata, the scan.
 template <int kFront>
 struct Shared {
-  static constexpr int kPlanes = kFront == kObserve ? 2 : 1;
+  static constexpr int kPlanes = kFront == kRecord ? 1 : 2;
+  static constexpr int kRowLanes = kFront == kProvenance ? kProvLanes : kLanes;
   alignas(16) int8_t in[3][kPlanes][kTile];
-  int32_t rows[kStageRows * kLanes];
-  int32_t early[2][kEarlyRows * kLanes];    // a sparse tile's rows
+  int32_t rows[kStageRows * kRowLanes];
+  int32_t early[2][kEarlyRows * kRowLanes];  // a sparse tile's rows
   int32_t subjects[kSubjectSlots];          // subject_ids, where they fit
   // Two tiles' metadata: the one being coded and the one being written.
   uint32_t offsets[2][kThreads];            // each thread's first event
@@ -402,12 +439,66 @@ __device__ __forceinline__ uint32_t nth_event(const uint32_t* masks,
   return base + nth_bit(masks[kMaskWords - 1], r);
 }
 
+// A key of the wire format's dtype, sign-extended.
+template <typename KeyT>
+__device__ __forceinline__ int32_t key_at(const void* plane, uint32_t cell) {
+  return static_cast<int32_t>(static_cast<const KeyT*>(plane)[cell]);
+}
+
+// The provenance row of ``cell`` (its code ``code``) into ``out``:
+// observer, subject, epoch, type, channel, round.
+template <typename KeyT, typename EpochT>
+__device__ __forceinline__ void build_provenance_row(const Args& a,
+                                                     int32_t* out,
+                                                     uint32_t code,
+                                                     uint32_t cell,
+                                                     const int32_t* subjects) {
+  const uint32_t row = cell / a.cols;
+  const uint32_t col = cell - row * a.cols;
+  const int32_t observer = static_cast<int32_t>(row + a.observer_offset);
+  const int32_t subject = subjects[col];
+  int32_t channel;
+  if (code == kRefuted && subject == observer) {
+    channel = kChSelf;  // a self cell codes only LEAVING or the refutation
+  } else {
+    const int32_t fd = key_at<KeyT>(a.fd, cell);
+    const int32_t gossip = key_at<KeyT>(a.gossip, cell);
+    const int32_t sync = key_at<KeyT>(a.sync, cell);
+    const int32_t winner = max(fd, max(sync, gossip));
+    channel = kChFd;
+    if (gossip >= 0 && gossip == winner) channel = kChGossip;
+    if (sync >= 0 && sync == winner) channel = kChSync;
+    if (fd >= 0 && fd == winner) {
+      channel = a.split_ping_req && __ldg(a.ping_req + row) ? kChPingReq
+                                                            : kChFd;
+    }
+    const bool dead_winner = winner >= 0 && ((winner >> a.dead_bit) & 1);
+    if (code == kRemoved && !dead_winner) channel = kChFd;
+    if (__ldg(a.join_at + subject) == a.round_idx) channel = kChJoin;
+  }
+  int32_t epoch = 0;
+  if constexpr (!std::is_same<EpochT, NoEpoch>::value) {
+    epoch = static_cast<int32_t>(static_cast<const EpochT*>(a.new_epoch)[cell]);
+  }
+  out[0] = observer;
+  out[1] = subject;
+  out[2] = epoch;
+  out[3] = static_cast<int32_t>(code) - 1;
+  out[4] = channel;
+  out[5] = a.round_idx;
+}
+
 // The row of ``cell`` (its code ``code``) into ``out``: round, observer,
-// subject, type, incarnation (self_inc + 1 for LEAVING).
-template <int kFront, typename IncT>
+// subject, type, incarnation (self_inc + 1 for LEAVING); the provenance
+// row under that front end.
+template <int kFront, typename IncT, typename EpochT>
 __device__ __forceinline__ void build_row(const Args& a, int32_t* out,
                                           uint32_t code, uint32_t cell,
                                           const int32_t* subjects) {
+  if constexpr (kFront == kProvenance) {
+    build_provenance_row<IncT, EpochT>(a, out, code, cell, subjects);
+    return;
+  }
   const uint32_t row = cell / a.cols;
   const uint32_t col = cell - row * a.cols;
   int32_t inc;
@@ -495,8 +586,9 @@ __device__ __forceinline__ uint32_t code_tile(const Args& a,
     }
     __syncthreads();
     // The self cells: column k's lies in row subject_ids[k] - offset.  It
-    // codes nothing, or LEAVING where its row leaves this round; leave_at
-    // is read there only.
+    // codes nothing, or LEAVING where its row leaves this round (under the
+    // provenance front end, else ALIVE_REFUTED where the row bumped its
+    // own incarnation); leave_at and self_inc are read there only.
     const uint32_t base = tile * kTile;
     const uint32_t end = base + kTile < n ? base + kTile : n;
     for (uint32_t k = tid; k < a.cols; k += kThreads) {
@@ -505,8 +597,12 @@ __device__ __forceinline__ uint32_t code_tile(const Args& a,
       if (r >= a.rows) continue;
       const uint32_t cell = r * a.cols + k;
       if (cell < base || cell >= end) continue;
-      reinterpret_cast<uint8_t*>(sm.in[buf][0])[cell - base] =
-          __ldg(a.leave_at + r) == a.round_idx ? kLeaving : 0u;
+      uint8_t code = __ldg(a.leave_at + r) == a.round_idx ? kLeaving : 0u;
+      if (kFront == kProvenance && code == 0u &&
+          __ldg(a.self_inc + r) > __ldg(a.prev_self_inc + r)) {
+        code = kRefuted;
+      }
+      reinterpret_cast<uint8_t*>(sm.in[buf][0])[cell - base] = code;
     }
     __syncthreads();
     // The event and stamp masks, from the codes.
@@ -520,9 +616,11 @@ __device__ __forceinline__ uint32_t code_tile(const Args& a,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         chunk_events |= top_bits(nonzero_top(w[i])) << (4 * i);
-        chunk_stamps |= top_bits(equal_top(w[i], kSuspected) |
-                                 equal_top(w[i], kRemoved))
-                        << (4 * i);
+        if (kFront == kObserve) {
+          chunk_stamps |= top_bits(equal_top(w[i], kSuspected) |
+                                   equal_top(w[i], kRemoved))
+                          << (4 * i);
+        }
       }
       events |= static_cast<unsigned long long>(chunk_events)
                 << (v * kChunk);
@@ -692,9 +790,10 @@ __device__ __forceinline__ void look_finish(const Args& a, Shared<kFront>& sm,
 // ``slot`` (codes in input buffer ``buf``) into ``sm.early[slot]``, for a
 // tile with at most kEarlyRows events: a row does not depend on its slot,
 // so its loads overlap the look-back of the tile before.
-template <int kFront, typename IncT>
+template <int kFront, typename IncT, typename EpochT>
 __device__ __forceinline__ void stage_own(const Args& a, Shared<kFront>& sm,
                                           int buf, int slot, uint32_t tile) {
+  constexpr int kRow = Shared<kFront>::kRowLanes;
   const int tid = threadIdx.x;
   const int32_t* const subjects =
       a.cols <= kSubjectSlots ? sm.subjects : a.subject_ids;
@@ -706,8 +805,9 @@ __device__ __forceinline__ void stage_own(const Args& a, Shared<kFront>& sm,
 #pragma unroll 1
     for (uint32_t m = sm.masks[slot][tid][g]; m != 0u; m &= m - 1u, ++k) {
       const uint32_t i = 32u * g + __ffs(m) - 1;
-      build_row<kFront, IncT>(a, sm.early[slot] + k * kLanes, codes[i],
-                              tile * kTile + tid * kPer + i, subjects);
+      build_row<kFront, IncT, EpochT>(a, sm.early[slot] + k * kRow, codes[i],
+                                      tile * kTile + tid * kPer + i,
+                                      subjects);
     }
   }
 }
@@ -718,9 +818,10 @@ __device__ __forceinline__ void stage_own(const Args& a, Shared<kFront>& sm,
 // offsets, its cell by the owner's masks), stages them in shared memory,
 // then the block stores them as consecutive words (a tile with at most
 // kEarlyRows events has its rows staged already).
-template <int kFront, typename IncT>
+template <int kFront, typename IncT, typename EpochT>
 __device__ __forceinline__ void write_rows(const Args& a, Shared<kFront>& sm,
                                            int buf, int slot) {
+  constexpr int kRow = Shared<kFront>::kRowLanes;
   const int tid = threadIdx.x;
   const int32_t* const subjects =
       a.cols <= kSubjectSlots ? sm.subjects : a.subject_ids;
@@ -734,8 +835,8 @@ __device__ __forceinline__ void write_rows(const Args& a, Shared<kFront>& sm,
       room <= 0 ? 0u : (room < aggregate ? static_cast<uint32_t>(room)
                                          : aggregate);
   if (aggregate <= kEarlyRows) {  // staged while coding
-    int32_t* dst = a.lanes + tile_slot * kLanes;
-    for (int i = tid; i < static_cast<int>(kept) * kLanes; i += kThreads) {
+    int32_t* dst = a.lanes + tile_slot * kRow;
+    for (int i = tid; i < static_cast<int>(kept) * kRow; i += kThreads) {
       dst[i] = sm.early[slot][i];
     }
     return;
@@ -751,14 +852,14 @@ __device__ __forceinline__ void write_rows(const Args& a, Shared<kFront>& sm,
       const uint32_t i =
           nth_event(sm.masks[slot][owner], k - offsets[owner]);
       const uint32_t local = owner * kPer + i;
-      build_row<kFront, IncT>(
-          a, sm.rows + (k - lo) * kLanes,
+      build_row<kFront, IncT, EpochT>(
+          a, sm.rows + (k - lo) * kRow,
           reinterpret_cast<const uint8_t*>(sm.in[buf][0])[local],
           tile * kTile + local, subjects);
     }
     __syncthreads();
-    const int words = static_cast<int>(hi - lo) * kLanes;
-    int32_t* dst = a.lanes + (tile_slot + lo) * kLanes;
+    const int words = static_cast<int>(hi - lo) * kRow;
+    int32_t* dst = a.lanes + (tile_slot + lo) * kRow;
     for (int i = tid; i < words; i += kThreads) dst[i] = sm.rows[i];
     __syncthreads();
   }
@@ -805,13 +906,15 @@ __device__ __forceinline__ void trace_blocks(const Args& a) {
     Look lk;
     if (look) lk = look_start<kFront>(a, sm, slot ^ 1);
     if (coding && aggregate <= kEarlyRows) {
-      stage_own<kFront, IncT>(a, sm, buf, slot, tile);
+      stage_own<kFront, IncT, EpochT>(a, sm, buf, slot, tile);
     }
     if (look) look_finish<kFront>(a, sm, slot ^ 1, lk);
     __syncthreads();  // the next tile drawn; the pending one's prefix
     const uint32_t next = coding ? sm.next : a.n_tiles;
     if (next < a.n_tiles) prefetch<kFront>(a, sm, (buf + 1) % 3, next);
-    if (pending) write_rows<kFront, IncT>(a, sm, (buf + 2) % 3, slot ^ 1);
+    if (pending) {
+      write_rows<kFront, IncT, EpochT>(a, sm, (buf + 2) % 3, slot ^ 1);
+    }
     pending = coding;
     tile = next;
     buf = (buf + 1) % 3;
@@ -828,6 +931,12 @@ __global__ void __launch_bounds__(kThreads)
 template <typename IncT>
 __global__ void __launch_bounds__(kThreads) trace_record_kernel(const Args a) {
   trace_blocks<kRecord, IncT, NoEpoch>(a);
+}
+
+template <typename KeyT, typename EpochT>
+__global__ void __launch_bounds__(kThreads)
+    provenance_observe_kernel(const Args a) {
+  trace_blocks<kProvenance, KeyT, EpochT>(a);
 }
 
 bool aligned16(const void* p) {
@@ -884,6 +993,13 @@ int launch_record(const Args& a, cudaStream_t s) {
   static int resident[kMaxDevices] = {};
   return launch_persistent<kRecord>(trace_record_kernel<IncT>, resident, a,
                                     s);
+}
+
+template <typename KeyT, typename EpochT>
+int launch_provenance(const Args& a, cudaStream_t s) {
+  static int resident[kMaxDevices] = {};
+  return launch_persistent<kProvenance>(
+      provenance_observe_kernel<KeyT, EpochT>, resident, a, s);
 }
 
 }  // namespace
@@ -974,4 +1090,59 @@ extern "C" int trace_record_launch(const void* codes, const void* incs,
   const auto s = static_cast<cudaStream_t>(stream);
   return inc_bytes == 4 ? launch_record<int32_t>(a, s)
                         : launch_record<int16_t>(a, s);
+}
+
+// Keys: key_bytes 4 (int32) or 2 (int16), the three planes of one dtype;
+// join_at is the world's [N] column, indexed by subject id; ping_req is
+// read only with split_ping_req.  lanes is [capacity, 6].
+extern "C" int provenance_observe_launch(
+    const void* prev_status, const void* new_status, const void* fd,
+    const void* gossip, const void* sync, const void* prev_epoch,
+    const void* new_epoch, const void* prev_self_inc,
+    const void* new_self_inc, const void* leave_at, const void* join_at,
+    const void* ping_req, const void* subject_ids, void* lanes, void* count,
+    void* dropped, void* scratch, long long scratch_tiles, long long n_cells,
+    int cols, long long capacity, int round_idx, int observer_offset,
+    int key_bytes, int epoch_bytes, int dead_bit, int split_ping_req,
+    void* stream) {
+  if (n_cells <= 0) return 0;
+  Args a{};
+  a.codes = static_cast<const int8_t*>(prev_status);
+  a.new_status = static_cast<const int8_t*>(new_status);
+  a.fd = fd;
+  a.gossip = gossip;
+  a.sync = sync;
+  a.prev_epoch = epoch_bytes ? prev_epoch : nullptr;
+  a.new_epoch = epoch_bytes ? new_epoch : nullptr;
+  a.prev_self_inc = static_cast<const int32_t*>(prev_self_inc);
+  a.self_inc = static_cast<const int32_t*>(new_self_inc);
+  a.leave_at = static_cast<const int32_t*>(leave_at);
+  a.join_at = static_cast<const int32_t*>(join_at);
+  a.ping_req = static_cast<const uint8_t*>(ping_req);
+  a.subject_ids = static_cast<const int32_t*>(subject_ids);
+  a.lanes = static_cast<int32_t*>(lanes);
+  a.count = static_cast<int32_t*>(count);
+  a.dropped = static_cast<int32_t*>(dropped);
+  a.scratch = static_cast<unsigned long long*>(scratch);
+  a.scratch_tiles = static_cast<uint32_t>(scratch_tiles);
+  a.n_cells = static_cast<uint32_t>(n_cells);
+  a.rows = static_cast<uint32_t>(n_cells / cols);
+  a.cols = static_cast<uint32_t>(cols);
+  a.n_tiles = static_cast<uint32_t>((n_cells + kTile - 1) / kTile);
+  a.capacity = capacity;
+  a.round_idx = static_cast<int32_t>(round_idx);
+  a.observer_offset = static_cast<uint32_t>(observer_offset);
+  a.aligned = aligned16(prev_status) && aligned16(new_status);
+  a.epoch_aligned = aligned16(a.prev_epoch) && aligned16(a.new_epoch);
+  a.dead_bit = dead_bit;
+  a.split_ping_req = split_ping_req != 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (key_bytes == 4) {
+    if (epoch_bytes == 4) return launch_provenance<int32_t, int32_t>(a, s);
+    if (epoch_bytes == 2) return launch_provenance<int32_t, int16_t>(a, s);
+    return launch_provenance<int32_t, NoEpoch>(a, s);
+  }
+  if (epoch_bytes == 4) return launch_provenance<int16_t, int32_t>(a, s);
+  if (epoch_bytes == 2) return launch_provenance<int16_t, int16_t>(a, s);
+  return launch_provenance<int16_t, NoEpoch>(a, s);
 }

@@ -17,7 +17,9 @@ reference's ``checkpoint.state_from_arrays`` reads.  A membership trace
 of numpy arrays ``lanes``, ``count``, ``dropped``, ``first_suspect`` and
 ``first_removed`` (:func:`telemetry_from_arrays`,
 :func:`telemetry_to_arrays`), so a port run can resume a reference
-trace.  A state's carry layout
+trace; a provenance buffer (``models.provenance.ProvenanceState``) as
+``lanes``, ``count`` and ``dropped`` (:func:`provenance_from_arrays`,
+:func:`provenance_to_arrays`).  A state's carry layout
 (wide, or the ``compact_carry`` int16/int8 lanes) must be the one its
 params name.
 """
@@ -190,3 +192,37 @@ def telemetry_to_arrays(tel) -> dict:
                 dropped=tel.trace.dropped.cpu().numpy(),
                 first_suspect=tel.first_suspect.cpu().numpy(),
                 first_removed=tel.first_removed.cpu().numpy())
+
+
+_PROVENANCE_FIELDS = ("lanes", "count", "dropped")
+
+
+def provenance_from_arrays(arrays: Mapping, device="cuda"):
+    """A port ``models.provenance.ProvenanceState`` from the reference's,
+    as the numpy arrays ``lanes`` [capacity, 6], ``count`` and
+    ``dropped`` (all int32)."""
+    from scalecube_cluster_tpu_torch.models import provenance
+
+    device = swim.resolve_device(device)
+    missing = [f for f in _PROVENANCE_FIELDS if f not in arrays]
+    if missing:
+        raise KeyError(f"provenance arrays lack {missing}")
+    out = {}
+    for name in _PROVENANCE_FIELDS:
+        value = np.asarray(arrays[name])
+        if value.dtype != np.int32:
+            raise ValueError(f"provenance field {name} is {value.dtype}, "
+                             f"expected int32")
+        out[name] = torch.tensor(value, device=device)
+    if out["lanes"].ndim != 2 or out["lanes"].shape[1] != 6:
+        raise ValueError(f"provenance lanes are "
+                         f"{tuple(out['lanes'].shape)}, expected "
+                         f"[capacity, 6]")
+    return provenance.ProvenanceState(**out)
+
+
+def provenance_to_arrays(pv) -> dict:
+    """A port ``ProvenanceState`` as the numpy arrays
+    :func:`provenance_from_arrays` reads (the reference's field names)."""
+    return {name: getattr(pv, name).cpu().numpy()
+            for name in _PROVENANCE_FIELDS}

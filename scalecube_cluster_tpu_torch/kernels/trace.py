@@ -74,7 +74,8 @@ def derive_event_codes(prev_status, prev_inc, new_status, new_inc,
     epoch lane; None when off), a cell whose stored epoch advanced to a
     live record codes JOINED, which wins over every status code.  The
     masks are disjoint, so the codes are one weighted sum.  ``prev_inc``
-    is unused (the reference's signature)."""
+    is unused (the reference's signature); with ``new_inc`` None the
+    incarnations are not derived (None)."""
     prev, new = prev_status, new_status
     added = (((prev == records.ABSENT) | (prev == records.DEAD))
              & (new == records.ALIVE))
@@ -104,6 +105,8 @@ def derive_event_codes(prev_status, prev_inc, new_status, new_inc,
     code = code.masked_fill(is_self, 0)
     code = code.masked_fill(leaving_now, int(TraceEventType.LEAVING) + 1)
 
+    if new_inc is None:
+        return code.to(torch.int8), None
     inc = new_inc.to(torch.int32)
     inc = torch.where(leaving_now, self_inc.to(torch.int32)[:, None] + 1,
                       inc)

@@ -27,14 +27,17 @@ on it:
   :func:`run_composed`                     -> the stack
                                               :func:`build_stack` makes
 
-(``TracePlane`` in ``telemetry/trace.py``, ``MetricsPlane`` in
-``telemetry/metrics.py``, ``MonitorPlane`` in ``chaos/monitor.py``.)
+(``TracePlane`` in ``telemetry/trace.py``, ``ProvenancePlane`` in
+``models/provenance.py``, ``MetricsPlane`` in ``telemetry/metrics.py``,
+``MonitorPlane`` in ``chaos/monitor.py``.)
 
 The reference's fused steps (``rounds_per_step``) give the same outputs
 as single rounds, and the port runs single rounds whatever
-``rounds_per_step`` says, so no plane needs the fused hooks.  The
-provenance plane is not ported yet: :func:`build_stack` raises
-``NotImplementedError`` naming it.  The batch and row-sharded runners
+``rounds_per_step`` says, so no plane needs the fused hooks.  With
+``SwimParams.provenance`` on, the round's per-channel evidence is popped
+out of its metrics (:func:`_pop_provenance`) into
+:attr:`RoundCtx.provenance` before the metrics are stacked, whether or
+not the provenance plane rides.  The batch and row-sharded runners
 (``composed_batch_scan``, ``composed_shard_scan``,
 ``_pipelined_rounds``) are not ported either.
 
@@ -71,15 +74,18 @@ class RoundCtx:
     from one round's (prev, new) pair, computed once and memoised.
 
     ``prev``/``new`` are the carry before and after the round in their
-    stored layout; ``metrics`` the round's metrics dict.  Planes read the
-    raw fields for stored-layout math and the properties for the shared
-    derivations."""
+    stored layout; ``metrics`` the round's metrics dict; ``provenance``
+    the round's per-channel evidence (``dict(fd=, gossip=, sync=,
+    ping_req=)``, ``SwimParams.provenance``), None with the knob off.
+    Planes read the raw fields for stored-layout math and the properties
+    for the shared derivations."""
 
     __slots__ = ("params", "world", "kn", "round_idx", "prev", "new",
-                 "metrics", "offset", "_cache", "_plane_prev", "_plane_new")
+                 "metrics", "offset", "provenance", "_cache", "_plane_prev",
+                 "_plane_new")
 
     def __init__(self, params, world, kn, round_idx, prev, new, metrics,
-                 offset=0):
+                 offset=0, provenance=None):
         self.params = params
         self.world = world
         self.kn = kn
@@ -88,6 +94,7 @@ class RoundCtx:
         self.new = new
         self.metrics = metrics
         self.offset = offset
+        self.provenance = provenance
         self._cache = {}
         self._plane_prev = {}
         self._plane_new = {}
@@ -204,6 +211,13 @@ class FinalCtx:
                      for k in ("messages_gossip",) if k in self.metrics})
 
 
+def _pop_provenance(m: dict):
+    """The round's per-channel evidence taken out of its metrics dict
+    (``swim._round_metrics`` passes it through), so that it never reaches
+    the stacked metrics; None with the knob off."""
+    return m.pop("_provenance", None)
+
+
 def _apply_planes(planes, rc: RoundCtx, slices) -> Tuple:
     """One round's plane folds, in stack order, publishing each plane's
     before/after slice into the context for cross-plane reads."""
@@ -277,10 +291,13 @@ def composed_scan(seed: int, params: "swim.SwimParams",
                                    joins.get(round_idx),
                                    pushes.get(round_idx, ()))
         state = swim._encoded(state, round_idx, params)
+        prov = _pop_provenance(m)
         if planes:
-            rc = RoundCtx(params, world, kn, round_idx, prev, state, m)
+            rc = RoundCtx(params, world, kn, round_idx, prev, state, m,
+                          provenance=prov)
             slices = _apply_planes(planes, rc, slices)
             del rc, prev
+        del prov
         rows.append(m)
     metrics = _stack_metrics(rows, params, device)
     fc = FinalCtx(params, world, kn, start_round + n_rounds, state, metrics)
@@ -295,16 +312,14 @@ def build_stack(with_trace: bool, with_metrics: bool, with_monitor: bool,
                 monitor_spec=None, trace_capacity=None, metrics_spec=None,
                 monitor_capacity=None, telemetry=None, metrics_state=None,
                 monitor=None, with_provenance: bool = False,
-                provenance_capacity=None):
+                provenance_capacity=None, provenance=None):
     """The observer-plane stack of :func:`run_composed`, in the
     reference's order: trace, provenance, monitor, then metrics (whose
     ``chaos_violations`` counter reads the monitor's per-round count
     delta when both ride).  The monitor needs ``monitor_spec``
-    (``ValueError`` otherwise); the provenance plane is not ported and
-    raises ``NotImplementedError`` naming it."""
-    if with_provenance:
-        raise NotImplementedError(
-            "the provenance plane (with_provenance=True) is not ported")
+    (``ValueError`` otherwise); the provenance plane's ``init`` raises
+    the reference's ``ValueError`` when ``SwimParams.provenance`` is off.
+    ``provenance`` resumes a ``ProvenanceState``."""
     planes = []
     if with_trace:
         from scalecube_cluster_tpu_torch.telemetry import trace as ttrace
@@ -313,6 +328,13 @@ def build_stack(with_trace: bool, with_metrics: bool, with_monitor: bool,
             capacity=(ttrace.DEFAULT_CAPACITY if trace_capacity is None
                       else trace_capacity),
             telemetry=telemetry))
+    if with_provenance:
+        from scalecube_cluster_tpu_torch.models import provenance as mprov
+
+        planes.append(mprov.ProvenancePlane(
+            capacity=(mprov.DEFAULT_CAPACITY if provenance_capacity is None
+                      else provenance_capacity),
+            state=provenance))
     if with_monitor:
         from scalecube_cluster_tpu_torch.chaos import monitor as cmonitor
 
@@ -349,15 +371,16 @@ def run_composed(seed: int, params: "swim.SwimParams",
                  with_provenance: bool = False,
                  provenance_capacity: Optional[int] = None,
                  draws: Optional[Callable[[int], object]] = None,
-                 device="cuda"):
+                 provenance=None, device="cuda"):
     """The full instrumented stack (event trace, invariant monitor,
-    health-metrics registry) in one pass over the rounds, sharing one
+    health-metrics registry, and with ``with_provenance`` the channel
+    attribution) in one pass over the rounds, sharing one
     :class:`RoundCtx` a round; each plane's output and the state equal
     the single-plane aliases' (``run_traced``, ``run_monitored``,
     ``run_metered``).  The reference's arguments and defaults;
     ``with_*`` toggle planes, and resume slices thread through
-    ``telemetry``, ``metrics_state`` and ``monitor`` (none is
-    modified).  Returns ``(final_state, results, metrics)`` with
+    ``telemetry``, ``metrics_state``, ``monitor`` and ``provenance``
+    (none is modified).  Returns ``(final_state, results, metrics)`` with
     ``results`` mapping each plane's name to its finalized slice."""
     stack = build_stack(
         with_trace, with_metrics, with_monitor, monitor_spec=monitor_spec,
@@ -365,7 +388,7 @@ def run_composed(seed: int, params: "swim.SwimParams",
         monitor_capacity=monitor_capacity, telemetry=telemetry,
         metrics_state=metrics_state, monitor=monitor,
         with_provenance=with_provenance,
-        provenance_capacity=provenance_capacity)
+        provenance_capacity=provenance_capacity, provenance=provenance)
     return composed_scan(seed, params, world, n_rounds, planes=stack,
                          state=state, start_round=start_round, draws=draws,
                          knobs=knobs, device=device)
@@ -399,7 +422,7 @@ _OBSERVER_PLANES = (
     dict(name="provenance", kind="observer", knobs=("provenance",),
          lanes=(),
          doc="per-belief channel attribution "
-             "(models/provenance.ProvenancePlane; not ported)"),
+             "(models/provenance.ProvenancePlane)"),
     dict(name="monitor", kind="observer", knobs=(), lanes=(),
          doc="invariant monitor (chaos/monitor.MonitorPlane)"),
     dict(name="metrics", kind="observer", knobs=(), lanes=(),

@@ -124,8 +124,12 @@ schedule values the reference lets vary as data (``Knobs.from_params``
 by default; ``Knobs.for_params`` checks overrides against their
 ceilings); ``models/fd.run`` is ``run`` with gossip and SYNC silenced.
 
-A setting outside the port raises ``NotImplementedError`` naming the
-knob: ``provenance``.
+The provenance knob (``provenance``, ``models/provenance.py``; no delay
+ring) has every tick body expose its per-channel folded maxima beside
+the combined inbox, ``dict(fd=, gossip=, sync=, ping_req=)`` in the
+round's metrics under ``_provenance``, which the composed runner pops
+into ``RoundCtx.provenance`` before it stacks the metrics.  The inbox is
+built as with the knob off, so the states and metrics are the same.
 ``rounds_per_step`` is accepted and ignored: the reference's outputs are
 bit-identical for any value.
 """
@@ -174,12 +178,6 @@ def resolve_device(device) -> torch.device:
 # --------------------------------------------------------------------------
 # Static parameters
 # --------------------------------------------------------------------------
-
-# Knobs whose non-default values select code the port does not carry.
-_UNPORTED = (
-    ("provenance", lambda p: p.provenance),
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class SwimParams:
@@ -234,11 +232,12 @@ class SwimParams:
             if getattr(self, name) < 0:
                 raise ValueError(f"{name} must be >= 0 "
                                  f"(got {getattr(self, name)})")
-        for name, selected in _UNPORTED:
-            if selected(self):
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported (the port "
-                    f"carries the plane-off round)")
+        if self.provenance and self.max_delay_rounds > 0:
+            raise ValueError(
+                "provenance requires max_delay_rounds == 0: the delay "
+                "ring folds every channel into shared per-round bins "
+                "before delivery, so the winning record's channel is "
+                "unrecoverable once it has been through the ring")
         if self.metadata_keys > 0:
             if not self.full_view:
                 raise ValueError(
@@ -1567,13 +1566,17 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
     channel and the full table the anti-entropy pair, with each
     channel's gates, arriving now only (never through the ring).
     Returns ``(inbox, inbox_alive, g_delivered, messages_gossip, link,
-    messages_anti_entropy, md_delivered)``; ``g_delivered`` [N, G] is
-    None without user gossips; ``link`` is None, or under
+    messages_anti_entropy, md_delivered, prov)``; ``g_delivered`` [N, G]
+    is None without user gossips; ``link`` is None, or under
     ``link_counters`` the channels' ``(sent, lost)`` [N] int32 wire
     counters at the senders (the exchanges' included);
     ``messages_anti_entropy`` is None with the plane off;
     ``md_delivered`` [N, K*M] int32 the max-folded md words (0: none),
-    None with the metadata plane off."""
+    None with the metadata plane off; ``prov`` (the provenance knob, else
+    None) ``{"gossip": ..., "sync": ...}``, the same channels' arrivals
+    max-folded apart by family, [N, K] in the wire dtype: the gossip
+    channels, and the SYNC family (the refute push, the SYNC channel, the
+    anti-entropy pair, the joiner <-> seed exchange)."""
     d_ids, d_alive, d_part = views
     n, k = params.n_members, params.n_subjects
     r_proxies, f = params.ping_req_members, params.fanout
@@ -1632,6 +1635,18 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
 
     inbox = fd["fd_inbox"]
     inbox_alive = torch.zeros((n, k), dtype=torch.bool, device=status.device)
+    # The provenance accumulators: each arrival folded a second time,
+    # into its channel family's maximum, beside the combined inbox.
+    prov = None
+    if params.provenance:
+        prov = {name: torch.full_like(inbox, no_msg)
+                for name in ("gossip", "sync")}
+
+    def fold(inbox, contribution, family):
+        if prov is not None:
+            prov[family] = torch.maximum(prov[family], contribution)
+        return torch.maximum(inbox, contribution)
+
     ring = None
     if params.max_delay_rounds > 0:
         ring = _DelayRing(state, params, round_idx)
@@ -1683,8 +1698,8 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
         e_c = draws.e_gossip[c] if draws.e_gossip is not None else None
         ok_now = arriving(ok_c, delivered, delivered_flags, delay_c, e_c,
                           g_bits)
-        inbox = torch.maximum(
-            inbox, torch.where(ok_now[:, None], delivered, no_msg))
+        inbox = fold(inbox, torch.where(ok_now[:, None], delivered, no_msg),
+                     "gossip")
         inbox_alive |= delivered_flags & ok_now[:, None]
         if g_bits is not None:
             g_delivered |= g_bits & ok_now[:, None]
@@ -1713,8 +1728,8 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
         link[1].add_(_unshift(eng, pushing_r & dropped_r, fd_shift))
     delivered_r, flags_r = deliver_channel(fd_shift, 2)
     ok_r = arriving(ok_r, delivered_r, flags_r, delay_r, draws.e_refute)
-    inbox = torch.maximum(inbox, torch.where(ok_r[:, None], delivered_r,
-                                             no_msg))
+    inbox = fold(inbox, torch.where(ok_r[:, None], delivered_r, no_msg),
+                 "sync")
     inbox_alive |= flags_r & ok_r[:, None]
     fold_md(h_md_hot, fd_shift, ok_r)
     sender_refuting = eng.deliver(h_pushers, sync_shift)
@@ -1737,7 +1752,8 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
               | (sender_part != part_here))
     delivered, delivered_flags = deliver_channel(sync_shift, 2)
     ok_s = arriving(ok_s, delivered, delivered_flags, delay_sy, draws.e_sync)
-    inbox = torch.maximum(inbox, torch.where(ok_s[:, None], delivered, no_msg))
+    inbox = fold(inbox, torch.where(ok_s[:, None], delivered, no_msg),
+                 "sync")
     inbox_alive |= delivered_flags & ok_s[:, None]
     fold_md(h_md_hot, sync_shift, ok_s)
 
@@ -1763,22 +1779,29 @@ def _delivery_phase(state: SwimState, eng, views, ctx: dict, fd: dict,
             if link is not None:
                 count(sft, attempt_ae, dropped_ae)
             delivered, delivered_flags = deliver_channel(sft, 2)
-            inbox = torch.maximum(inbox, torch.where(ok_ae[:, None],
-                                                     delivered, no_msg))
+            inbox = fold(inbox, torch.where(ok_ae[:, None], delivered,
+                                            no_msg), "sync")
             inbox_alive |= delivered_flags & ok_ae[:, None]
             fold_md(h_md_full, sft, ok_ae)
 
     # The joiner <-> seed exchange: its pushers are gated on the SYNC
     # round, so other rounds skip it; delivered the same round.
     if h_status is not None and ctx["sync_round"]:
+        sync_keys = torch.where(syncable, record_keys, no_msg)
         inbox, inbox_alive, ss_sent, ss_lost = _seed_anti_entropy(
-            status, torch.where(syncable, record_keys, no_msg), inbox,
-            inbox_alive, round_idx, params, kn, world, ctx, draws)
+            status, sync_keys, inbox, inbox_alive, round_idx, params, kn,
+            world, ctx, draws)
+        if prov is not None:
+            # The same draws give the same arrivals (the join path is a
+            # SYNC exchange).
+            prov["sync"] = _seed_anti_entropy(
+                status, sync_keys, prov["sync"], None, round_idx, params,
+                kn, world, ctx, draws)[0]
         if link is not None:
             link[0].add_(ss_sent)
             link[1].add_(ss_lost)
     return (inbox, inbox_alive, g_delivered, n_gossip_sent, link, ae_sent,
-            md_delivered)
+            md_delivered, prov)
 
 
 def _buddy_push(push_refute, params: SwimParams, kn: Knobs):
@@ -2023,7 +2046,8 @@ def _scatter_send_phase(state: SwimState, ctx: dict, fd: dict,
 
 def _scatter_channel_bufs(s: dict, params: SwimParams, inbox, inbox_alive,
                           gossip_extra_drop=None, sync_extra_drop=None,
-                          with_ae: bool = True, md_buf=None) -> None:
+                          with_ae: bool = True, md_buf=None,
+                          sync_inbox=None) -> None:
     """Fold one delay bin of the round's gossip and SYNC scatters into
     ``inbox`` (wire keys) and, on the two-buffer wire
     (``fused_wire=False``), ``inbox_alive`` (ALIVE flags), in place.
@@ -2032,20 +2056,23 @@ def _scatter_channel_bufs(s: dict, params: SwimParams, inbox, inbox_alive,
     round has them (bin 0 only: the exchange is same-round).  ``md_buf``
     [N, K*M] (bin 0 under the metadata plane): also the md payloads'
     scatters on the same targets and drops (hot rows on the gossip and
-    SYNC channels, the table on the exchange's)."""
+    SYNC channels, the table on the exchange's).  ``sync_inbox`` (the
+    provenance knob): the SYNC family's keys (the SYNC channel and the
+    exchange) fold there instead, the gossip channel's into ``inbox``."""
     g_drop, s_drop = s["gossip_drop"], s["sync_drop"]
     if gossip_extra_drop is not None:
         g_drop = g_drop | gossip_extra_drop
         s_drop = s_drop | sync_extra_drop
-    channels = [("gossip_keys", "alive_flags", "md_hot", "gossip_targets",
-                 g_drop),
-                ("sync_keys", "sync_alive_flags", "md_hot", "sync_target",
-                 s_drop)]
+    s_inbox = inbox if sync_inbox is None else sync_inbox
+    channels = [(inbox, "gossip_keys", "alive_flags", "md_hot",
+                 "gossip_targets", g_drop),
+                (s_inbox, "sync_keys", "sync_alive_flags", "md_hot",
+                 "sync_target", s_drop)]
     if with_ae and "ae_targets" in s:
-        channels.append(("sync_keys", "sync_alive_flags", "md_full",
+        channels.append((s_inbox, "sync_keys", "sync_alive_flags", "md_full",
                          "ae_targets", s["ae_drop"]))
-    for keys, flags, md, targets, drop in channels:
-        delivery.scatter_max_into(inbox, s[keys], s[targets], drop)
+    for into, keys, flags, md, targets, drop in channels:
+        delivery.scatter_max_into(into, s[keys], s[targets], drop)
         if not params.fused_wire:
             delivery.scatter_or_into(inbox_alive, s[flags], s[targets], drop)
         if md_buf is not None:
@@ -2061,10 +2088,14 @@ def _scatter_deliver(state: SwimState, ctx: dict, fd: dict, s: dict,
     exchange, and the user-gossip bits on the gossip channels' targets
     and drops.  Under the fused wire the ALIVE flags are those of the
     folded winners.  Returns ``(inbox, inbox_alive, g_delivered,
-    seed_counters, md_delivered)``: ``seed_counters`` the seed exchange's
-    ``(sent, lost)`` [N] or None where it did not run, ``md_delivered``
-    [N, K*M] the bin-0 md scatters (-1: none; same-round only), None with
-    the metadata plane off."""
+    seed_counters, md_delivered, prov)``: ``seed_counters`` the seed
+    exchange's ``(sent, lost)`` [N] or None where it did not run,
+    ``md_delivered`` [N, K*M] the bin-0 md scatters (-1: none; same-round
+    only), None with the metadata plane off.  With the provenance knob the gossip channel
+    and the SYNC family scatter into two buffers of their own, max-folded
+    with the FD verdicts into the inbox (an integer max in any order gives
+    the same keys); returned as ``prov`` (``{"gossip", "sync"}``, the seed
+    exchange folded into the SYNC family), else None."""
     n, k = params.n_members, params.n_subjects
     wf = params.wire_format
     inbox = fd["fd_inbox"]
@@ -2093,8 +2124,18 @@ def _scatter_deliver(state: SwimState, ctx: dict, fd: dict, s: dict,
     if params.metadata_keys > 0:
         md_delivered = torch.full(s["md_hot"].shape, delivery.NO_MESSAGE,
                                   dtype=torch.int32, device=inbox.device)
-    _scatter_channel_bufs(s, params, inbox, inbox_alive, late(q_g, 0),
-                          late(q_s, 0), md_buf=md_delivered)
+    prov = None
+    if params.provenance:
+        # No delay ring under the knob: every message arrives now.
+        prov = {name: torch.full_like(inbox, delivery.no_message(wf))
+                for name in ("gossip", "sync")}
+        _scatter_channel_bufs(s, params, prov["gossip"], inbox_alive,
+                              md_buf=md_delivered, sync_inbox=prov["sync"])
+        inbox = torch.maximum(inbox, torch.maximum(prov["gossip"],
+                                                   prov["sync"]))
+    else:
+        _scatter_channel_bufs(s, params, inbox, inbox_alive, late(q_g, 0),
+                              late(q_s, 0), md_buf=md_delivered)
     if q_g is not None:
         for j in range(1, ring.d):
             slot = ring.slot(j)
@@ -2107,6 +2148,12 @@ def _scatter_deliver(state: SwimState, ctx: dict, fd: dict, s: dict,
         inbox, inbox_alive, *seed_counters = _seed_anti_entropy(
             ctx["status"], s["sync_keys"], inbox, inbox_alive, round_idx,
             params, kn, world, ctx, draws)
+        if prov is not None:
+            # The same draws give the same arrivals (the join path is a
+            # SYNC exchange).
+            prov["sync"] = _seed_anti_entropy(
+                ctx["status"], s["sync_keys"], prov["sync"], None,
+                round_idx, params, kn, world, ctx, draws)[0]
     if params.fused_wire:
         inbox_alive = delivery.is_alive_key(inbox, fmt=wf)
     g_delivered = None
@@ -2125,7 +2172,8 @@ def _scatter_deliver(state: SwimState, ctx: dict, fd: dict, s: dict,
                 delivery.scatter_or_into(ring.g[ring.slot(j)], s["hot_g"],
                                          s["gossip_targets"],
                                          g_drop | (q_g != j))
-    return inbox, inbox_alive, g_delivered, seed_counters, md_delivered
+    return (inbox, inbox_alive, g_delivered, seed_counters, md_delivered,
+            prov)
 
 
 def _scatter_send_aux(fd: dict, s: dict, params: SwimParams, alive,
@@ -2182,9 +2230,9 @@ def _tick_scatter(state: SwimState, ctx: dict, round_idx: int,
     with record_function("swim.delivery"):
         s = _scatter_send_phase(state, ctx, fd, round_idx, params, kn, world,
                                 draws)
-        (inbox, inbox_alive, g_delivered, seed_counters,
-         md_delivered) = _scatter_deliver(state, ctx, fd, s, round_idx,
-                                          params, kn, world, draws)
+        (inbox, inbox_alive, g_delivered, seed_counters, md_delivered,
+         prov) = _scatter_deliver(state, ctx, fd, s, round_idx, params, kn,
+                                  world, draws)
     with record_function("swim.merge"):
         new_state, refuted = _merge_and_timers(
             state, ctx, inbox, inbox_alive, g_delivered, round_idx, params,
@@ -2192,6 +2240,9 @@ def _tick_scatter(state: SwimState, ctx: dict, round_idx: int,
                                     fd["lhm_clean"]))
     aux = dict(_scatter_send_aux(fd, s, params, ctx["alive"], seed_counters),
                refutations=(refuted & ctx["alive"]).sum(dtype=torch.int32))
+    if prov is not None:
+        aux["_provenance"] = _exposure(fd["fd_inbox"], prov["gossip"],
+                                       prov["sync"], fd["ping_req_launches"])
     return _metadata_phase(new_state, md_delivered, ctx, round_idx, params,
                            aux)
 
@@ -2243,8 +2294,9 @@ def _tick_shift(state: SwimState, ctx: dict, round_idx: int,
                        draws)
     with record_function("swim.delivery"):
         (inbox, inbox_alive, g_delivered, n_gossip_sent, link, ae_sent,
-         md_delivered) = _delivery_phase(state, eng, views, ctx, fd, shifts,
-                                         round_idx, params, kn, world, draws)
+         md_delivered, prov) = _delivery_phase(state, eng, views, ctx, fd,
+                                               shifts, round_idx, params, kn,
+                                               world, draws)
     with record_function("swim.merge"):
         new_state, refuted = _merge_and_timers(
             state, ctx, inbox, inbox_alive, g_delivered, round_idx, params,
@@ -2265,8 +2317,20 @@ def _tick_shift(state: SwimState, ctx: dict, round_idx: int,
                                + fd["ping_req_launches"].to(torch.int32)
                                * params.ping_req_members)
         aux["lost_by_node"] = link[1]
+    if prov is not None:
+        aux["_provenance"] = _exposure(fd["fd_inbox"], prov["gossip"],
+                                       prov["sync"], fd["ping_req_launches"])
     return _metadata_phase(new_state, md_delivered, ctx, round_idx, params,
                            aux)
+
+
+def _exposure(fd, gossip, sync, ping_req) -> dict:
+    """The provenance knob's per-channel evidence of one round
+    (``models/provenance.py``): the FD verdicts, the gossip channels' and
+    the SYNC family's max-folded arrivals ([N, K], the wire dtype, -1 = no
+    message) and the rows whose direct probe failed (``ping_req`` [N]
+    bool)."""
+    return dict(fd=fd, gossip=gossip, sync=sync, ping_req=ping_req)
 
 
 def _metadata_phase(new_state: SwimState, md_delivered, ctx: dict,
@@ -2423,6 +2487,13 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
     hot_any = torch.zeros((n,), dtype=torch.bool, device=device)
     refuted = torch.zeros((n,), dtype=torch.bool, device=device)
     self_inc = state.self_inc
+    # The provenance accumulators, filled block by block (the gossip
+    # channels carry tx bit 1, the SYNC family bit 2).
+    prov = None
+    if params.provenance:
+        prov = {name: torch.full((n, k), no_msg, dtype=wf.dtype,
+                                 device=device)
+                for name in ("gossip", "sync")}
     for c0 in range(0, k, kb):
         blk = slice(c0, c0 + kb)
         with record_function("swim.carry"):
@@ -2463,6 +2534,9 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
                 payload = torch.where(tx & ok, eng.deliver(h_keys, s),
                                       no_msg)
                 inbox = torch.maximum(inbox, payload)
+                if prov is not None:
+                    family = prov["gossip" if tx_bit == 1 else "sync"][:, blk]
+                    family.copy_(torch.maximum(family, payload))
                 inbox_alive |= delivery.is_alive_key(payload, fmt=wf)
         with record_function("swim.merge"):
             # The new planes go straight into the output carry's columns
@@ -2526,6 +2600,14 @@ def _tick_shift_blocked(state: SwimState, ctx: dict, round_idx: int,
     )
     if ae_sent is not None:
         aux["messages_anti_entropy"] = ae_sent
+    if prov is not None:
+        # One FD verdict a row, built whole.
+        fd_inbox = torch.where(
+            (torch.arange(k, dtype=torch.int32, device=device)[None, :]
+             == t[:, None]) & verdict_suspect[:, None], fd_key[:, None],
+            no_msg)
+        aux["_provenance"] = _exposure(fd_inbox, prov["gossip"],
+                                       prov["sync"], ping_req_launches)
     return new, aux
 
 
@@ -2753,6 +2835,10 @@ def _round_metrics(new_state: SwimState, status, aux: dict,
             dim=0, dtype=torch.int32)
     if params.metadata_keys > 0:
         metrics["metadata_divergent"] = aux["metadata_divergent"]
+    if params.provenance:
+        # The per-channel evidence, un-reduced; the composed runner pops
+        # it before the metrics are stacked.
+        metrics["_provenance"] = aux["_provenance"]
     return metrics
 
 

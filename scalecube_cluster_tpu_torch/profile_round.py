@@ -19,8 +19,10 @@ each phase range of ``models/swim.py`` (``swim.carry``/``context``/
 window, ``profile_window(..., trace_capacity=C)``, the trace's
 ``trace.record``: one ``trace_observe`` launch a round, and in an
 instrumented one, ``profile_window(..., runner=...)``, the metrics
-plane's ``metrics.observe`` and the monitor's ``monitor.check`` and
-``monitor.record``: its ``trace_record`` launches), the top kernels
+plane's ``metrics.observe``, the monitor's ``monitor.check`` and
+``monitor.record`` (its ``trace_record`` launches) and the provenance
+plane's ``provenance.observe``: one ``provenance_observe`` launch a
+round), the top kernels
 by device time, and the delay ring's bytes.
 
 Run on a card: ``python -m scalecube_cluster_tpu_torch.profile_round
@@ -47,7 +49,8 @@ from scalecube_cluster_tpu_torch.models import swim
 
 PHASES = ("swim.carry", "swim.context", "swim.fd", "swim.delivery",
           "swim.merge", "swim.metrics", "swim.metadata", "trace.record",
-          "metrics.observe", "monitor.check", "monitor.record")
+          "provenance.observe", "metrics.observe", "monitor.check",
+          "monitor.record")
 # Knob settings of each carry/wire layout.
 LAYOUTS = {"wide": {}, "int16_wire": dict(int16_wire=True),
            "compact": dict(compact_carry=True),
@@ -60,7 +63,8 @@ _OWN_KERNELS = {"merge_and_timers_kernel": "swim.merge",
                 "carry_decode_kernel": "swim.carry",
                 "carry_encode_kernel": "swim.carry",
                 "trace_observe_kernel": "trace.record",
-                "trace_record_kernel": "trace.record"}
+                "trace_record_kernel": "trace.record",
+                "provenance_observe_kernel": "provenance.observe"}
 INT32_MAX = 2**31 - 1
 # The network configuration's schedule for a 600-round run (rounds scale
 # with the run's length): a brownout of the links from the first tenth
@@ -193,7 +197,7 @@ def _card() -> str:
 
 def profile_window(params, world, state, start_round: int, rounds: int,
                    top: int = 12, trace_capacity: int = 0,
-                   runner=None) -> dict:
+                   runner=None, traces: int = 5) -> dict:
     """Run ``rounds`` rounds from ``state`` at ``start_round`` twice: on
     the host clock (ending in a device sync), then under
     ``torch.profiler``.  Returns per-round wall ms, device busy ms, idle
@@ -203,7 +207,8 @@ def profile_window(params, world, state, start_round: int, rounds: int,
     runs the window traced (``swim.run_traced`` into a fresh buffer of
     that many events); ``runner(state, start_round, rounds)``, if given,
     runs it instead (an instrumented entry point: ``run_metered``,
-    ``run_monitored``, ``run_composed``)."""
+    ``run_monitored``, ``run_composed``).  A profiled run that shows no
+    device time is run again, up to ``traces`` times in all."""
     device = world.device
 
     def window():
@@ -224,11 +229,22 @@ def profile_window(params, world, state, start_round: int, rounds: int,
     window()
     wall_ms = (time.perf_counter() - t0) / rounds * 1e3
     peak_bytes = torch.cuda.max_memory_allocated()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        window()
-
-    rows = prof.key_averages()
+    # The tracer now and then misses a whole window's device activity
+    # (several in a row while the host's cores are busy): such a trace is
+    # taken again after a pause.
+    for attempt in range(traces):
+        if attempt:
+            time.sleep(0.5)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            window()
+        rows = prof.key_averages()
+        if any(e.device_type == DeviceType.CUDA and e.device_time_total > 0
+               for e in rows):
+            break
+    else:
+        raise RuntimeError(f"the profiler saw no device time in {traces} "
+                           f"traces of the window")
     per_round = 1e-3 / rounds                         # us total -> ms/round
     kernels = [e for e in rows
                if e.device_type == DeviceType.CUDA and e.key not in PHASES]

@@ -15,8 +15,12 @@ Counterpart of ``scalecube_cluster_tpu/telemetry/``:
   - ``sink``     JSONL run journals (``TelemetrySink``, ``read_records``,
                  ``covered_upto``, ``JournalFollower``, ...) in the
                  reference's record kinds, ``stream_traced_run``, and the
-                 gated TensorBoard export.
+                 gated TensorBoard export;
+  - ``query``    the blame engine over provenance rows
+                 (``blame_report``, ``channel_mix``, ``provenance_slos``,
+                 ``infection_paths``, ``explain_belief``).
 
-The reference's alarm engine and query layer are not ported yet.
+The reference's alarm engine and the rest of its query layer are not
+ported yet.
 Importing this package imports none of its modules.
 """

@@ -558,8 +558,9 @@ def test_run_monitored_metered_matches_reference_stack():
 
 
 def test_build_stack_raises_only_for_provenance():
-    """Every plane but provenance builds, in the reference's order; the
-    monitor without a spec is the reference's ``ValueError``."""
+    """Every plane builds, provenance too (the last to be ported), in the
+    reference's order: trace, provenance, monitor, metrics; the monitor
+    without a spec is the reference's ``ValueError``."""
     params = port_params(MONITORED)
     spec = monitor.MonitorSpec.passive(params, device="cpu")
     stack = compose.build_stack(True, True, True, monitor_spec=spec)
@@ -568,8 +569,16 @@ def test_build_stack_raises_only_for_provenance():
     assert compose.build_stack(False, True, False)[0].chaos_from is None
     with pytest.raises(ValueError, match="monitor_spec"):
         compose.build_stack(False, False, True)
-    with pytest.raises(NotImplementedError, match="provenance"):
-        compose.build_stack(False, False, False, with_provenance=True)
+    (plane,) = compose.build_stack(False, False, False, with_provenance=True,
+                                   provenance_capacity=64)
+    assert (plane.name, plane.capacity) == ("provenance", 64)
+    full = compose.build_stack(True, True, True, monitor_spec=spec,
+                               with_provenance=True)
+    jfull = jcompose.build_stack(
+        True, True, True, monitor_spec=jmonitor.MonitorSpec.passive(MONITORED),
+        with_provenance=True)
+    assert [p.name for p in full] == [p.name for p in jfull] == [
+        "trace", "provenance", "monitor", "metrics"]
     jstack = jcompose.build_stack(
         True, True, True, monitor_spec=jmonitor.MonitorSpec.passive(MONITORED))
     assert [p.name for p in jstack] == [p.name for p in stack]

@@ -125,16 +125,29 @@ def test_torch_draws_shapes_and_ranges():
     assert prng.TorchDraws(4, "cpu", params)(11).shifts != d.shifts
 
 
+# The knob the port refused until its plane was ported (provenance, the
+# last one): its case now builds in every tick body.
 UNPORTED = [("provenance", True)]
 PLANES = [("sync_interval", 8), ("lhm_max", 4), ("dead_suppress_rounds", 8)]
 
 
 @pytest.mark.parametrize("knob,value", UNPORTED, ids=[k for k, _ in UNPORTED])
 def test_unported_knob_raises_naming_it(knob, value):
-    overrides = {"delivery": "shift", knob: value}
-    with pytest.raises(NotImplementedError, match=knob):
-        swim.SwimParams.from_config(fast_config(), n_members=64,
-                                    **overrides)
+    """The formerly unported knob builds in shift, scatter and
+    ``k_block``, as the reference's does; with a delay ring both raise
+    the reference's ``ValueError`` naming it."""
+    for overrides in (dict(delivery="shift"), dict(delivery="scatter"),
+                      dict(delivery="shift", k_block=16)):
+        params = swim.SwimParams.from_config(fast_config(), n_members=64,
+                                             **overrides, **{knob: value})
+        assert getattr(params, knob) == value
+        jparams = jswim.SwimParams.from_config(fast_config(), n_members=64,
+                                               **overrides, **{knob: value})
+        assert port_params(jparams) == params
+    for side in (swim, jswim):
+        with pytest.raises(ValueError, match=knob):
+            side.SwimParams.from_config(fast_config(), n_members=64,
+                                        max_delay_rounds=2, **{knob: value})
 
 
 UNPORTED_PLANES = [("metrics", dict(with_monitor=False)),
@@ -146,11 +159,11 @@ UNPORTED_PLANES = [("metrics", dict(with_monitor=False)),
 @pytest.mark.parametrize("plane,flags", UNPORTED_PLANES,
                          ids=[p for p, _ in UNPORTED_PLANES])
 def test_unported_observer_plane_raises_naming_it(plane, flags):
-    """``compose.run_composed`` raises ``NotImplementedError`` naming the
-    provenance plane, the one observer plane the port does not carry,
-    before any round runs; the metrics and monitor planes (ported) run a
-    round beside the trace and give their slices (the monitor with the
-    reference's passive spec)."""
+    """The observer planes the port once refused (metrics, monitor, then
+    provenance, the last) run a round beside the trace and give their
+    slices (the monitor with the reference's passive spec, provenance
+    with its knob on, and without it the reference's ``ValueError``
+    naming the knob before any round runs)."""
     from scalecube_cluster_tpu_torch.chaos import monitor
     from scalecube_cluster_tpu_torch.models import compose
 
@@ -158,9 +171,9 @@ def test_unported_observer_plane_raises_naming_it(plane, flags):
                                          delivery="shift")
     world = swim.SwimWorld.healthy(params, device="cpu")
     if plane == "provenance":
-        with pytest.raises(NotImplementedError, match=plane):
+        with pytest.raises(ValueError, match="provenance=True"):
             compose.run_composed(0, params, world, 1, device="cpu", **flags)
-        return
+        params = dataclasses.replace(params, provenance=True)
     spec = monitor.MonitorSpec.passive(params, device="cpu")
     _, results, _ = compose.run_composed(0, params, world, 1,
                                          monitor_spec=spec, device="cpu",

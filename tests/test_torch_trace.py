@@ -414,8 +414,9 @@ def test_stream_traced_run_matches_monolithic(capacity):
 def test_run_composed_trace_only_equals_run_traced():
     """``run_composed`` with the trace alone is ``run_traced``; the
     reference's default stack without a monitor spec raises its
-    ``ValueError``, and the unported provenance plane
-    ``NotImplementedError`` naming it."""
+    ``ValueError``, and so does the provenance plane without its knob;
+    with the knob on it runs beside the trace, which stays
+    ``run_traced``'s."""
     _, (params, world, state, tel) = _traced_both("traced:shift-wide")
     draws = _draws("traced:shift-wide")
     final, results, _ = compose.run_composed(
@@ -426,10 +427,18 @@ def test_run_composed_trace_only_equals_run_traced():
     assert trace.decode_events(results["trace"]) == trace.decode_events(tel)
     with pytest.raises(ValueError, match="monitor_spec"):
         compose.run_composed(0, params, world, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="provenance"):
+    with pytest.raises(ValueError, match="provenance=True"):
         compose.run_composed(0, params, world, 2, with_metrics=False,
                              with_monitor=False, with_provenance=True,
                              device="cpu")
+    armed, results, _ = compose.run_composed(
+        0, dataclasses.replace(params, provenance=True), world, ROUNDS,
+        with_metrics=False, with_monitor=False, with_provenance=True,
+        draws=draws, device="cpu")
+    assert list(results) == ["trace", "provenance"]
+    assert torch.equal(armed.status, state.status)
+    assert trace.decode_events(results["trace"]) == trace.decode_events(tel)
+    assert int(results["provenance"].count) > 0
     none = compose.build_stack(False, False, False)
     assert none == ()
 

@@ -10,6 +10,7 @@ probabilities, so every comparison is exact equality.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -51,13 +52,34 @@ def jax_draws(key, params, world=None):
     anti-entropy fold_in(keys[7], 29) split in three :2583-2620; the
     planes' draws as :func:`_plane_draws` says).  Unit exponentials are
     ``-jnp.log1p(-u)``, as the reference computes them."""
-    n, r, f = params.n_members, params.ping_req_members, params.fanout
     facts = DrawFacts.of(params, world)
     if facts.delivery == "scatter":
         return _jax_scatter_draws(key, params, facts)
+    one = _shift_draw_program(params.n_members, params.ping_req_members,
+                              params.fanout, facts)
+
+    def draws(round_idx):
+        out = {name: np.array(value)
+               for name, value in one(key, jnp.int32(round_idx)).items()}
+        shifts = tuple(int(s) for s in out.pop("shifts"))
+        fields = dict(u_direct=None, u_proxy=None)
+        if "ae_offset" in out:
+            fields["ae_offset"] = int(out.pop("ae_offset"))
+        fields.update((name, torch.from_numpy(value))
+                      for name, value in out.items())
+        return RoundDraws(shifts=shifts, **fields)
+
+    return draws
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_draw_program(n, r, f, facts):
+    """The shift round's draw program for these static facts, built once
+    a process (the key is an argument, so cases that differ only in
+    layout or key share it)."""
 
     @jax.jit
-    def one(round_idx):
+    def one(key, round_idx):
         rk = jprng.round_key(key, round_idx)
         keys = jax.random.split(jprng.round_key(rk, 0), 8)
         k_shifts = jax.random.fold_in(rk, 0x5317)
@@ -94,18 +116,7 @@ def jax_draws(key, params, world=None):
         out.update(_plane_draws(k_shifts, keys, n, facts))
         return out
 
-    def draws(round_idx):
-        out = {name: np.array(value)
-               for name, value in one(jnp.int32(round_idx)).items()}
-        shifts = tuple(int(s) for s in out.pop("shifts"))
-        fields = dict(u_direct=None, u_proxy=None)
-        if "ae_offset" in out:
-            fields["ae_offset"] = int(out.pop("ae_offset"))
-        fields.update((name, torch.from_numpy(value))
-                      for name, value in out.items())
-        return RoundDraws(shifts=shifts, **fields)
-
-    return draws
+    return one
 
 
 def unit_exp(u):
@@ -165,14 +176,32 @@ def _jax_scatter_draws(key, params, facts):
     target, keys[7] its drop, bins under fold_in(keys[7], 7) and the seed
     exchange under fold_in(keys[7], 29).  Targets are the raw
     ``randint(0, N - 1)`` draws of ``prng.targets_excluding_self``."""
-    n, k = params.n_members, params.n_subjects
-    r, f = params.ping_req_members, params.fanout
+    one = _scatter_draw_program(params.n_members, params.n_subjects,
+                                params.ping_req_members, params.fanout,
+                                facts)
+
+    def draws(round_idx):
+        out = {name: np.array(value)
+               for name, value in one(key, jnp.int32(round_idx)).items()}
+        if "ae_offset" in out:
+            out["ae_offset"] = int(out["ae_offset"])
+        return ScatterDraws(**{
+            name: value if isinstance(value, int) else torch.from_numpy(value)
+            for name, value in out.items()})
+
+    return draws
+
+
+@functools.lru_cache(maxsize=None)
+def _scatter_draw_program(n, k, r, f, facts):
+    """The scatter round's draw program for these static facts, built
+    once a process."""
 
     def targets(kk, width):
         return jax.random.randint(kk, (n, width), 0, n - 1)
 
     @jax.jit
-    def one(round_idx):
+    def one(key, round_idx):
         rk = jprng.round_key(key, round_idx)
         keys = jax.random.split(jprng.round_key(rk, 0), 8)
         out = dict(proxies=targets(keys[2], r), gossip_t=targets(keys[4], f),
@@ -205,16 +234,7 @@ def _jax_scatter_draws(key, params, facts):
                                 facts))
         return out
 
-    def draws(round_idx):
-        out = {name: np.array(value)
-               for name, value in one(jnp.int32(round_idx)).items()}
-        if "ae_offset" in out:
-            out["ae_offset"] = int(out["ae_offset"])
-        return ScatterDraws(**{
-            name: value if isinstance(value, int) else torch.from_numpy(value)
-            for name, value in out.items()})
-
-    return draws
+    return one
 
 
 def port_params(jax_params):
