@@ -286,24 +286,63 @@ and prints no result):
    (no timer past round + ``suspicion_rounds * 8``, checked every round),
    node 3 suspected within 50 rounds; prints its numbers (ms/round with
    the monitor) beside phase 7's wide run;
-8c. the staged config rollout at full view N = K = 16,384, the metadata
-    plane's path (``rollout_path``): ``bench.py --rollout``'s scenario
-    (``rollout_world``: the chaos campaign's config, shift,
-    ``sync_every=0``, one key, the exchange every 8 rounds, seed 11; a
-    revive storm of 4 nodes, a half/half split over rounds [256, 512),
-    3 stages of 4 owners pushing at rounds 384, 512 and 640; horizon
-    832), the port's own draws.  The gated arm runs in segments of 2
-    rounds, reading the open pushes' owner columns on the device after
-    each: every push must converge inside ``max(push, heal) + 118`` and
-    the divergence probe read 0 at the horizon; a profiled 10-round
-    window from round 384.  The gossip-only control (``sync_interval=0``)
-    must still diverge at round 832.  Prints the p99, the control's
+8c. the staged config rollout at full view N = K = 8,192 (cut for the
+    time limit from the reference's unblocked ceiling, 16,384), the
+    metadata plane's path (``rollout_path``): ``bench.py --rollout``'s scenario
+    built by the port's DSL (``rollout_scenario``, ``rollout_world``:
+    ``ChurnStorm``, ``RollingPartition``, ``StagedRollout`` through
+    ``chaos.Scenario.build``, its eight match-nothing link rules
+    included, so the FD chains run per hop as in the reference; the chaos
+    campaign's config, shift, ``sync_every=0``, one key, the exchange
+    every 8 rounds, seed 11; a revive storm of 4 nodes, a half/half split
+    over rounds [240, 480), 3 stages of 4 owners pushing at rounds 360,
+    472 and 584; horizon 768), the port's own draws.  The gated arm runs
+    in segments of 2 rounds, reading the open pushes' owner columns on
+    the device after each: every push must converge inside ``max(push,
+    heal) + 112`` and the divergence probe read 0 at the horizon; a
+    profiled 10-round window from round 360.  The gossip-only control
+    (``sync_interval=0``) must still diverge at round 768.  Prints the
+    p99, the control's
     count, each arm's ms/round, member-rounds/s, peak bytes and bytes
     per cell, and the window's device time per phase range
     (``swim.metadata`` among them).  Then ``bench_rollout_path``: the
-    same rollout at the bench's N = 48, both arms, on the card and on
-    the CPU with the same CPU-made draws (card == CPU), its p99 and
-    control count beside the reference's committed ones;
+    same rollout at the bench's N = 48, its three arms (the monitored
+    composite through ``run_monitored`` with the scenario's spec, gated
+    green; the gated arm; the control), on the card and on the CPU with
+    the same CPU-made draws (card == CPU), its p99 and control count
+    beside the reference's committed ones;
+8d. (run last, after phase 13, when its CPU halves are done) the
+    gossip-only simulator (``gossip_path``, ``models/gossip.py``) at
+    N = 1,000,000 x G = 16 gossips, LAN defaults, 122 rounds
+    (``gossip_periods_to_sweep(3, N)``), a lossy arm (loss 0.02) and a
+    delayed arm (the same loss, a mean delay of one gossip interval, a
+    4-slot ring): each card == CPU (every lane and metric) on CPU-made
+    draws, then on the card's own draws; every gossip fully disseminated,
+    each gossip's summed sends within ``max_messages_per_gossip_total``,
+    the delayed arm's mean dissemination round no earlier than the lossy
+    arm's; ms/round, a profiled window, peak bytes;
+8e. ``bench.py --chaos`` at its defaults (``chaos_campaign_path``):
+    ``generate_campaign(seed=100, n_scenarios=21, n=32)`` through
+    ``chaos.run_campaign`` (shift, CPU-made draws, the journal through a
+    ``TelemetrySink`` read back): each verdict row card == CPU, every
+    scenario green but the stream effects named in ``CHAOS_STREAM_REDS``,
+    each with its one code, subject and round;
+8f. the fuzz coverage arm, serial (``fuzz_path``): the first campaign
+    scenario of two ops or more that promises completeness, under
+    ``weakened_knobs``: red with COMPLETENESS on the card and the CPU
+    alike; ``minimize`` keeps every code; its ``repro()`` line, evaluated
+    under the port's ``chaos``, reproduces the verdict;
+8g. ``bench.py --lifeguard`` at its defaults (``lifeguard_path``): 3
+    scenarios of ``asymmetric_degradation(11 + i, n=48)``, scatter,
+    ``ping_known_only=False``, ``lhm_max`` 0 against 8, the degraded
+    rack crashed at round 120, through ``run_metered``, card == CPU:
+    ``fp_ratio`` <= 0.5 and the detection p99 delta <= +1 round;
+8h. the DSL at scale (``dsl_scale_path``): ``generate_scenario(seed=100,
+    n=4096, severity="severe")`` at full view 4,096 x 4,096 through
+    ``run_monitored`` on the card: whole and one round at a time equal,
+    the monitor's recorded + dropped rows equal to the cells of each
+    code's first violating round; verdict, ms/round, busy, launches and
+    bytes per cell printed (green not gated);
 9. the seeded cold start at full view N = K = 4,096 (LAN defaults, loss
    0, seeds 0, 1, 2) for 12 x periods_to_spread rounds: every cell must
    be ALIVE at the end; prints the round membership became full;
@@ -322,8 +361,9 @@ and prints no result):
     (``experiments/fullview_ceiling.py:88-94``: LAN defaults, N = K =
     36,864, compact carry, ``k_block=1024``, suspicion 6 rounds, ping
     every 2, SYNC every 4, aggregate metrics, loss 0, node 3 crashed at
-    round 2) for 120 rounds: the wire16 merge, decode and encode each
-    launched 36 times a round; at the end >= 99% of live observers hold
+    round 2) for 48 rounds (cut for the time limit from the reference's
+    120): the wire16 merge, decode and encode each launched 36 times a
+    round; at the end >= 99% of live observers hold
     node 3 DEAD; no false positive in any round; peak allocation <= 18
     B/cell (two carries and one block's transients); node 0's
     ``node_snapshot`` lists node 3 DEAD and equals the snapshot of its row
@@ -348,7 +388,6 @@ import dataclasses
 import functools
 import io
 import json
-import math
 import multiprocessing
 import statistics
 import subprocess
@@ -362,13 +401,15 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from scalecube_cluster_tpu_torch import mosaic_probe, profile_round, records
-from scalecube_cluster_tpu_torch.chaos import monitor
+from scalecube_cluster_tpu_torch import swim_math
+from scalecube_cluster_tpu_torch.chaos import campaign, monitor, scenarios
 from scalecube_cluster_tpu_torch.config import ClusterConfig
 from scalecube_cluster_tpu_torch.kernels import LAUNCHES, _build
 from scalecube_cluster_tpu_torch.kernels import carry, merge, probes
 from scalecube_cluster_tpu_torch.kernels import provenance as kprov
 from scalecube_cluster_tpu_torch.kernels import trace as trace_kernel
-from scalecube_cluster_tpu_torch.models import compose, lifeguard, metadata
+from scalecube_cluster_tpu_torch.models import compose, gossip, lifeguard
+from scalecube_cluster_tpu_torch.models import metadata
 from scalecube_cluster_tpu_torch.models import provenance, swim
 from scalecube_cluster_tpu_torch.models import sync as sync_plane
 from scalecube_cluster_tpu_torch.ops import delivery, prng
@@ -390,9 +431,11 @@ OPS_PER_CELL = {"merge": 60, "carry_decode": 10, "carry_encode": 20,
 
 MAIN_N, MAIN_K, MAIN_ROUNDS, CRASHED, CRASH_AT = 1_000_000, 16, 600, 3, 10
 # The full-view capacity configuration (experiments/fullview_ceiling.py:
-# 88-94): N = K, k_block column blocks, node 3 crashed at round 2; the
-# reference's 60-round first window plus its 60 timed rounds.
-FULL_N, FULL_KB, FULL_ROUNDS, FULL_CRASH_AT = 36_864, 1_024, 120, 2
+# 88-94): N = K, k_block column blocks, node 3 crashed at round 2; 48
+# rounds, cut for the time limit from the reference's 60-round first
+# window plus its 60 timed rounds (every live observer holds node 3 DEAD
+# from round 16 on the card).
+FULL_N, FULL_KB, FULL_ROUNDS, FULL_CRASH_AT = 36_864, 1_024, 48, 2
 FULL_LAYOUT = "compact"
 # A round's peak allocation may hold two compact carries (the input and
 # the output) and the [N, Kb] transients of one block.
@@ -481,12 +524,13 @@ MD_JOIN_AT, MD_JOIN_PUSH = 40, (3, 1, 1023, 50)
 # exchange every 8 rounds, seed 11; 3 stages of 4 owners pushing 641; a
 # revive churn storm of 4 nodes (waves of 2 from round 8, every 24
 # rounds, each down quiesce_bound rounds); a half/half split over
-# [phase, 2 phase).  At N = 16,384 (computed on the CPU with the
-# reference): quiesce_bound 245, phase 256, metadata_convergence_bound
-# 118, stage_every 128, stages at rounds 384, 512 and 640, horizon 832;
-# at the bench's own N = 48: 137, 144, 64, 64, rounds 216, 280 and 344,
-# horizon 448.  The pushes are polled every 2 rounds.
-ROLLOUT_N, ROLLOUT_BENCH_N, ROLLOUT_SEED = 16_384, 48, 11
+# [phase, 2 phase).  At N = 8,192: quiesce_bound 233 (245 at 16,384),
+# phase 240, metadata_convergence_bound 112, stages at rounds 360, 472 and
+# 584, horizon 768; at the bench's own N = 48: 137, 144, 64, rounds 216,
+# 280 and 344, horizon 448.  The pushes are polled every 2 rounds.
+# Full view at 8,192 x 8,192 on the card (cut for the time limit from the
+# reference's unblocked ceiling, 16,384).
+ROLLOUT_N, ROLLOUT_BENCH_N, ROLLOUT_SEED = 8_192, 48, 11
 ROLLOUT_SYNC_INTERVAL, ROLLOUT_STAGES, ROLLOUT_STAGE_SIZE = 8, 3, 4
 ROLLOUT_VALUE, ROLLOUT_PROBE_STEP = 641, 2
 ROLLOUT_STORM, ROLLOUT_WAVE, ROLLOUT_STORM_START, ROLLOUT_WAVE_EVERY = (
@@ -584,6 +628,33 @@ DRILL_ONSET, DRILL_PULSE, DRILL_HORIZON, DRILL_CAPACITY = 32, 160, 288, 2048
 # start, the profiled windows' rounds.
 PROV_CRASH_CAPACITY, PROV_CRASH_ROUNDS = 4_194_304, 600
 PROV_QUIET_AT, PROV_PROFILE_ROUNDS = 200, 20
+# The gossip-only simulator at its docstring's scale (models/gossip.py):
+# N members, G gossips, LAN defaults, the bench's loss; the delayed arm's
+# ring depth; its seed.
+GOSSIP_N, GOSSIP_G, GOSSIP_LOSS = 1_000_000, 16, 0.02
+GOSSIP_DELAY_ROUNDS, GOSSIP_SEED = 3, 0
+GOSSIP_LANES = ("infected", "spread_until", "ring")
+# bench.py --chaos at its defaults (bench.py:835-880): seed, scenarios, N.
+CHAOS_SEED, CHAOS_SCENARIOS, CHAOS_N = 100, 21, 32
+# The campaign's red scenarios on the port's own draws (the CPU-made
+# stream), each with the one code, subject and round of all its evidence:
+# moderate-110's graceful leaver 25 still SUSPECT in six live tables at
+# its completeness deadline, round 154.  A stream effect of the
+# scenario's bound, not a port fault: on the reference's draws the port
+# equals the reference's verdict (green), and the reference's own runs of
+# the scenario are red with the same code, subject and round on 4 of 40
+# keys (python -m tests.torch_chaos_reference).  Any other red fails.
+CHAOS_STREAM_REDS = {
+    "moderate-110-leave+churn+churn_arrivals": ("COMPLETENESS", 25, 154)}
+# bench.py --lifeguard at its defaults (bench.py:2108-2135): N, first
+# seed, scenarios, the plane's lhm_max, the degraded rack's crash round;
+# the reference's committed CPU run (artifacts/lifeguard_fp.json):
+# fp_ratio and the detection p99 delta.
+LIFEGUARD_N, LIFEGUARD_SEED, LIFEGUARD_SCENARIOS = 48, 11, 3
+LIFEGUARD_LHM, LIFEGUARD_CRASH_AT = 8, 120
+LIFEGUARD_REFERENCE = (0.324763, -0.17)
+# The DSL at scale: generate_scenario(seed, n, "severe") at full view.
+DSL_SEED, DSL_N = 100, 4_096
 # The CPU halves of the card-vs-CPU runs run in this many worker
 # processes while the card works.
 CPU_WORKERS = 6
@@ -1799,19 +1870,9 @@ def network_path(device):
     return launches, summary
 
 
-def campaign_config():
-    """The reference's chaos campaign config
-    (``chaos/campaign.campaign_config``): the loopback defaults with a
-    100 ms gossip round, pings every 200 ms with a 100 ms timeout, SYNC
-    every second, suspicion multiplier 3."""
-    return ClusterConfig.default_local().replace(
-        gossip_interval=100, ping_interval=200, ping_timeout=100,
-        sync_interval=1_000, suspicion_mult=3)
-
-
 def heal_params(sync_interval):
     return swim.SwimParams.from_config(
-        campaign_config(), n_members=HEAL_N, n_subjects=HEAL_K,
+        campaign.campaign_config(), n_members=HEAL_N, n_subjects=HEAL_K,
         delivery="shift", sync_every=0, sync_interval=sync_interval)
 
 
@@ -2128,7 +2189,7 @@ def row_state(state, node):
 
 def capacity_path(device):
     """Phase 13: the full-width capacity path, 36,864 x 36,864 compact
-    with k_block=1,024, 120 rounds, with its gates."""
+    with k_block=1,024, ``FULL_ROUNDS`` rounds, with its gates."""
     params = capacity_params(FULL_N, FULL_LAYOUT, FULL_KB)
     world = capacity_world(params, device)
     cells = FULL_N * FULL_N
@@ -2188,7 +2249,8 @@ def storm_params(n, k, layout="wide", delivery="shift", guard=True):
     """The storm's params: the chaos campaign's config with the open-world
     plane on (``epoch_guard=False``: the naive-reuse arm), loss 0."""
     return swim.SwimParams.from_config(
-        campaign_config(), n_members=n, n_subjects=k, delivery=delivery,
+        campaign.campaign_config(), n_members=n, n_subjects=k,
+        delivery=delivery,
         open_world=True, epoch_guard=guard, **LAYOUTS[layout])
 
 
@@ -2241,7 +2303,7 @@ def storm_world(params, device, seed=STORM_SEED):
     for slot, at in joins:
         world = world.with_join(slot, at)
     last_join = max(at for _, at in joins)
-    horizon = -(-(last_join + monitor.completeness_bound(params, n) + 24)
+    horizon = -(-(last_join + scenarios.completeness_bound(params, n) + 24)
                 // STORM_HORIZON_QUANTUM) * STORM_HORIZON_QUANTUM
     return world, horizon, disruption_end, joins
 
@@ -2482,34 +2544,46 @@ def storm_path(device, shift_main):
     return launches
 
 
+def churn_scenario(seed, n, guard, device):
+    """``bench.py --churn``'s workload built by the port's DSL:
+    ``chaos.churn_growth_scenario(seed, n)`` under the campaign params
+    (shift, the open world, ``epoch_guard=guard``).  Returns the
+    scenario, params, world, monitor spec and the (slot, round) joins."""
+    scen = scenarios.churn_growth_scenario(seed, n=n)
+    params = campaign.campaign_params(scen, delivery="shift",
+                                      epoch_guard=guard)
+    world, spec = scen.build(params, device=device)
+    joins = [(slot, at) for slot, at in enumerate(world.join_at.tolist())
+             if at < INT32_MAX]
+    return scen, params, world, spec, joins
+
+
 def bench_churn_path(device):
     """``bench.py --churn``'s own A/B on the card (``bench.py:2911-3090``:
     N = 48, full view, shift, ``churn_growth_scenario(seed, n=48)`` for
-    seeds 3, 4 and 5, each run with its seed; ``storm_world`` at full
-    view draws its pools from every member, as the reference does)
-    through ``chaos.monitor.run_monitored`` (``storm_spec``), both arms,
-    on the card and on the CPU with the same CPU-made draws.  Gates: card
-    == CPU (every state lane, the whole monitor); the guard arm's join
-    codes 0 and every joined slot known at epoch 1 at the end of each
-    scenario; the naive arm's ``NO_RESURRECTION`` summed over the
-    scenarios above 0, the hazard the guard kills (the bench's gate)."""
+    seeds 3, 4 and 5, each run with its seed; :func:`churn_scenario`, the
+    port's ``Scenario.build`` and its ``MonitorSpec``) through
+    ``chaos.monitor.run_monitored``, both arms, on the card and on the CPU
+    with the same CPU-made draws.  Gates: card == CPU (every state lane,
+    the whole monitor); the guard arm's join codes 0 and every joined
+    slot known at epoch 1 at the end of each scenario; the naive arm's
+    ``NO_RESURRECTION`` summed over the scenarios above 0, the hazard the
+    guard kills (the bench's gate)."""
     n = 48
     launches, totals = {}, {}
     for seed in (STORM_SEED, STORM_SEED + 1, STORM_SEED + 2):
         for guard in (True, False):
-            params = storm_params(n, n, guard=guard)
-            world_cpu, horizon, disruption_end, joins = storm_world(
-                params, "cpu", seed)
+            scen, params, world_cpu, _, joins = churn_scenario(
+                seed, n, guard, "cpu")
+            horizon = scen.horizon
             draws = prng.TorchDraws(seed, "cpu", params, world_cpu)
             runs = []
             for dev in ("cpu", device):
-                world = storm_world(params, dev, seed)[0]
-                known_by, _ = monitor.join_deadlines(params, world,
-                                                     disruption_end)
+                _, _, world, spec, _ = churn_scenario(seed, n, guard, dev)
                 LAUNCHES.clear()
                 state, mon, _ = monitor.run_monitored(
-                    seed, params, world, storm_spec(params, known_by, dev),
-                    horizon, draws=lambda q: draws(q).to(dev), device=dev)
+                    seed, params, world, spec, horizon,
+                    draws=lambda q: draws(q).to(dev), device=dev)
                 runs.append((state, mon, dict(LAUNCHES), world))
             (cs, cmon, _, _), (gs, gmon, g_launches, world) = runs
             label = f"bench churn seed {seed} {'guard' if guard else 'naive'}"
@@ -2547,77 +2621,75 @@ def bench_churn_path(device):
     return launches
 
 
-def quiesce_bound(params, n):
-    """The reference's ``chaos/scenarios.quiesce_bound``: rounds a fault's
-    effects need to go cold (detection and verdict spread, timers,
-    tombstone gossip)."""
-    log2n = math.ceil(math.log2(n + 1))
-    return (24 * max(1, params.ping_every) + params.suspicion_rounds
-            + params.periods_to_spread + 1 + 4 * log2n + 16)
-
-
-def metadata_convergence_bound(params, n):
-    """The reference's ``chaos/scenarios.metadata_convergence_bound``:
-    rounds within which a pushed word must reach every live table."""
-    log2n = math.ceil(math.log2(n + 1))
-    return (params.sync_interval + 4 * log2n + params.periods_to_spread
-            + 2 * max(1, params.ping_every) + 16)
-
-
 def rollout_params(n, sync_interval=ROLLOUT_SYNC_INTERVAL):
     """The rollout's params: the chaos campaign's config, full view,
     shift, no per-round SYNC, one metadata key, the exchange every
     ``sync_interval`` rounds (0: the gossip-only control)."""
     return swim.SwimParams.from_config(
-        campaign_config(), n_members=n, delivery="shift", sync_every=0,
-        sync_interval=sync_interval, metadata_keys=1)
+        campaign.campaign_config(), n_members=n, delivery="shift",
+        sync_every=0, sync_interval=sync_interval, metadata_keys=1)
+
+
+def rollout_scenario(n, seed=ROLLOUT_SEED, n_stages=ROLLOUT_STAGES,
+                     stage_size=ROLLOUT_STAGE_SIZE,
+                     sync_interval=ROLLOUT_SYNC_INTERVAL, device="cpu"):
+    """``bench.py --rollout``'s scenario (``bench.py:1836-1870``) built by
+    the port's DSL, match-nothing rules included: a revive storm
+    (``ChurnStorm`` of 4 nodes, each down ``quiesce_bound`` rounds), one
+    quiesced split (``RollingPartition`` over [phase, 2 phase)) and the
+    ``StagedRollout`` of ``n_stages`` x ``stage_size`` owners from the
+    bench's seeded permutation (the ``--smoke`` takes 2 x 2).  Returns
+    ``(scenario, params, world, spec, rollout)``, the params with the
+    exchange every ``sync_interval`` rounds (0: the control)."""
+    p0 = rollout_params(n)
+    quiesce = scenarios.quiesce_bound(p0, n)
+    phase = -(-quiesce // 16) * 16
+    bound = scenarios.metadata_convergence_bound(p0, n)
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 0x19C0]))
+    perm = [int(x) for x in rng.permutation(n)]
+    storm = scenarios.ChurnStorm(
+        nodes=tuple(perm[:ROLLOUT_STORM]), wave_size=ROLLOUT_WAVE,
+        start_round=ROLLOUT_STORM_START, wave_every=ROLLOUT_WAVE_EVERY,
+        down_rounds=quiesce)
+    rollout = scenarios.StagedRollout(
+        members=tuple(perm[ROLLOUT_STORM:ROLLOUT_STORM
+                           + n_stages * stage_size]),
+        n_stages=n_stages, key=0, value=ROLLOUT_VALUE,
+        start_round=phase + phase // 2,
+        stage_every=-(-bound // 16) * 16, rollback_value=7)
+    rollout.validate_gate(p0, n)
+    last_stage = rollout.stage_round(n_stages - 1)
+    horizon = -(-(max(last_stage, 2 * phase) + bound + 32) // 64) * 64
+    scen = scenarios.Scenario(
+        name=f"config-rollout-n{n}", n_members=n, horizon=horizon,
+        ops=(storm, scenarios.RollingPartition(
+            from_round=phase, phase_rounds=phase, n_cycles=1), rollout),
+        seed=seed)
+    params = campaign.campaign_params(scen, delivery="shift", sync_every=0,
+                                      sync_interval=sync_interval)
+    world, spec = scen.build(params, device=device)
+    return scen, params, world, spec, rollout
 
 
 def rollout_world(n, device, seed=ROLLOUT_SEED, n_stages=ROLLOUT_STAGES,
                   stage_size=ROLLOUT_STAGE_SIZE):
-    """The staged rollout's world, ``bench.py --rollout``'s scenario
-    (``bench.py:1834-1870``) built without the reference: the revive
-    storm's crash windows, the split over [phase, 2 phase), and the
-    stages' pushes, owners and storm nodes from the reference's seeded
-    permutation.  The reference pads its scenarios with match-nothing
-    link rules (a traced shape); they change no outcome at loss 0 and
-    are left out.  Returns ``(world, geometry)``: the horizon, the split,
-    the convergence bound, the storm nodes and the pushes (owner, key,
-    value, round, clock start, deadline).  ``n_stages`` x ``stage_size``
-    owners (the bench's ``--smoke`` takes 2 x 2)."""
-    p0 = rollout_params(n)
-    quiesce = quiesce_bound(p0, n)
-    phase = -(-quiesce // 16) * 16
-    bound = metadata_convergence_bound(p0, n)
-    stage_every = -(-bound // 16) * 16
-    split_at, heal_at = phase, 2 * phase
-    start = phase + phase // 2
-    rng = np.random.default_rng(np.random.SeedSequence([seed, 0x19C0]))
-    perm = [int(x) for x in rng.permutation(n)]
-    storm = perm[:ROLLOUT_STORM]
-    owners = perm[ROLLOUT_STORM:ROLLOUT_STORM + n_stages * stage_size]
-    last_stage = start + (n_stages - 1) * stage_every
-    horizon = -(-(max(last_stage, heal_at) + bound + 32) // 64) * 64
-    world = swim.SwimWorld.healthy(p0, device=device)
-    for w in range(ROLLOUT_STORM // ROLLOUT_WAVE):
-        at = ROLLOUT_STORM_START + w * ROLLOUT_WAVE_EVERY
-        world = world.with_crash(
-            storm[w * ROLLOUT_WAVE:(w + 1) * ROLLOUT_WAVE], at, at + quiesce)
-    phases = [[0] * n, [1 if i < n // 2 else 0 for i in range(n)], [0] * n]
-    while len(phases) * phase <= horizon:
-        phases.append([0] * n)
-    world = world.with_partition_schedule(np.asarray(phases, np.int8), phase)
+    """The staged rollout's world (:func:`rollout_scenario`) and its
+    geometry: the horizon, the split, the convergence bound, the storm
+    nodes and the pushes (owner, key, value, round, clock start, deadline;
+    a push inside the split starts its clock at the heal)."""
+    scen, params, world, _, rollout = rollout_scenario(
+        n, seed, n_stages, stage_size, device=device)
+    split = scen.ops[1]
+    split_at, heal_at = split.from_round, 2 * split.phase_rounds
+    bound = scenarios.metadata_convergence_bound(params, n)
     pushes = []
-    for s in range(n_stages):
-        at = start + s * stage_every
-        for owner in owners[s * stage_size:(s + 1) * stage_size]:
-            world = world.with_metadata_push(owner, 0, ROLLOUT_VALUE, at)
-            clock = heal_at if split_at <= at < heal_at else at
-            pushes.append(dict(owner=owner, key=0, value=ROLLOUT_VALUE,
-                               push_round=at, clock_from=clock,
-                               deadline=clock + bound))
-    return world, dict(horizon=horizon, split_at=split_at, heal_at=heal_at,
-                       bound=bound, storm=storm, pushes=pushes)
+    for owner, key, value, at in rollout.push_schedule():
+        clock = heal_at if split_at <= at < heal_at else at
+        pushes.append(dict(owner=owner, key=key, value=value, push_round=at,
+                           clock_from=clock, deadline=clock + bound))
+    return world, dict(horizon=scen.horizon, split_at=split_at,
+                       heal_at=heal_at, bound=bound,
+                       storm=list(scen.ops[0].nodes), pushes=pushes)
 
 
 def rollout_gated(params, world, geo, device, draws=None, aside=None,
@@ -2704,13 +2776,13 @@ def rollout_gated(params, world, geo, device, draws=None, aside=None,
 
 
 def rollout_path(device):
-    """The staged config rollout at full view N = K = 16,384 (its
+    """The staged config rollout at full view N = K = ``ROLLOUT_N`` (its
     geometry, ``rollout_world``): the gated arm, every push converging
     inside its deadline and the divergence probe 0 at the horizon, with a
-    profiled window from round 384 (the first stage's push round, inside
-    the split); then the gossip-only control (``sync_interval=0``), still
-    divergent at the horizon.  Each arm launches the merge kernel once a
-    round.  At round 384 the same window is also profiled with the plane
+    profiled window from the first stage's push round (inside the split);
+    then the gossip-only control (``sync_interval=0``), still divergent at
+    the horizon.  Each arm launches the merge kernel once a round.  At
+    that round the same window is also profiled with the plane
     off (the state without its md lanes, ``metadata_keys=0``): the
     difference in ``swim.delivery`` is the md channels' device time.
     Prints the p99, the control's divergent cells, each arm's ms/round,
@@ -2750,7 +2822,6 @@ def rollout_path(device):
     if c_div == 0:
         raise AssertionError("rollout: the gossip-only control converged")
     window, off = gated["window"]
-    cells = n * n
     log(f"[rollout] {n}x{n} shift wide, split [{geo['split_at']}, "
         f"{geo['heal_at']}), storm {geo['storm']}, pushes at rounds "
         f"{sorted({p['push_round'] for p in geo['pushes']})}, bound "
@@ -2766,7 +2837,7 @@ def rollout_path(device):
         log(f"[rollout] {label}: {horizon} rounds in {seconds:.3f} s, "
             f"{seconds / horizon * 1e3:.4f} ms/round, "
             f"{n * horizon / seconds:.6g} member-rounds/s, peak {peak} B, "
-            f"{peak / cells:.4f} B/cell")
+            f"{peak / n ** 2:.4f} B/cell")
     log(f"[rollout] gossip-only control: divergent cells at round "
         f"{horizon}: {c_div}")
     log(f"[rollout] profiled {PROFILE_ROUNDS} rounds from round "
@@ -2801,14 +2872,47 @@ def rollout_path(device):
 
 def bench_rollout_path(device):
     """The rollout at ``bench.py --rollout``'s own size (N = 48, its
-    geometry) on the card and on the CPU with the same CPU-made draws,
-    both arms.  Gates: card == CPU (every state lane, every per-round
-    metric, the converged rounds, the probes), every push inside its
-    deadline, the gated arm's probe 0 and the control's above 0.  Prints
-    the p99 and the control's count beside the reference's committed
-    ones (its own draws differ, so they are compared, not gated)."""
+    scenario built by the DSL, padded) on the card and on the CPU with the
+    same CPU-made draws, its three arms: the monitored composite (bench
+    Arm 1, ``run_monitored`` with the scenario's ``MonitorSpec``), the
+    gated rollout and the gossip-only control.  Gates: card == CPU (every
+    state lane, every per-round metric, the whole monitor, the converged
+    rounds, the probes), the monitored arm green (as the reference's
+    committed run), every push inside its deadline, the gated arm's
+    probe 0 and the control's above 0.  Prints the p99 and the control's
+    count beside the reference's committed ones (its own draws differ, so
+    they are compared, not gated)."""
     n = ROLLOUT_BENCH_N
     launches, results = {}, {}
+    scen, params, world_cpu, _, _ = rollout_scenario(n)
+    draws = prng.TorchDraws(ROLLOUT_SEED, "cpu", params, world_cpu)
+    runs = []
+    for dev in ("cpu", device):
+        _, _, world, spec, _ = rollout_scenario(n, device=dev)
+        LAUNCHES.clear()
+        state, mon, _ = monitor.run_monitored(
+            ROLLOUT_SEED, params, world, spec, scen.horizon,
+            draws=lambda q: draws(q).to(dev), device=dev)
+        runs.append((state, mon, dict(LAUNCHES)))
+    (cs, cmon, _), (gs, gmon, m_launches) = runs
+    label = f"bench rollout monitored {n}x{n}"
+    for field in dataclasses.fields(swim.SwimState):
+        if not torch.equal(getattr(cs, field.name),
+                           getattr(gs, field.name).cpu()):
+            raise AssertionError(f"{label}: state.{field.name} differs "
+                                 f"between card and CPU")
+    monitor_equal(f"{label} card vs CPU", cmon, gmon)
+    m_verdict = monitor.verdict(gmon)
+    if not m_verdict["green"]:
+        raise AssertionError(f"{label}: red, codes {codes_of(gmon)}")
+    for name, count in m_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    log(f"[bench rollout] monitored arm {n}x{n}, horizon {scen.horizon}, "
+        f"{world_cpu.faults.n_rules} link rules (match-nothing padding), "
+        f"agreement checked from round {int(spec.agree_from)}: green, codes "
+        f"{codes_of(gmon)} (card == CPU, every state lane and the "
+        f"monitor; the reference's committed run: monitored_green true); "
+        f"launches {m_launches}")
     for arm, sync_interval in (("gated", ROLLOUT_SYNC_INTERVAL),
                                ("control", 0)):
         params = rollout_params(n, sync_interval)
@@ -4110,6 +4214,474 @@ def instrumented_stack_path(device):
 
 
 # --------------------------------------------------------------------------
+# The gossip-only simulator and the chaos layer (phases 8d-8h)
+# --------------------------------------------------------------------------
+
+
+def gossip_params(delayed):
+    """The gossip simulator at its docstring's scale: LAN defaults (fanout
+    3, repeat 3: 60 spread rounds at 1M), ``GOSSIP_G`` gossips, loss 0.02
+    (the bench's); the delayed arm adds a mean delay of one gossip
+    interval and a ``GOSSIP_DELAY_ROUNDS``-slot ring (``tests/
+    test_delay.py:127``'s matrix)."""
+    config = ClusterConfig.default()
+    return gossip.GossipSimParams.from_config(
+        config, GOSSIP_N, GOSSIP_G, loss_probability=GOSSIP_LOSS,
+        mean_delay_ms=float(config.gossip_interval) if delayed else 0.0,
+        max_delay_rounds=GOSSIP_DELAY_ROUNDS if delayed else 0)
+
+
+def gossip_rounds():
+    """``gossip_periods_to_sweep(3, N)``: 122 rounds at 1M."""
+    return swim_math.gossip_periods_to_sweep(3, GOSSIP_N)
+
+
+def gossip_cpu_run(delayed, dev):
+    """One arm on ``dev`` with the CPU-made draws: ``(state, metrics)``
+    on the host."""
+    params = gossip_params(delayed)
+    draws = gossip.GossipTorchDraws(GOSSIP_SEED, "cpu", params)
+    state, metrics = gossip.run(GOSSIP_SEED, params, gossip_rounds(),
+                                draws=draws, device=dev)
+    return ({name: getattr(state, name).cpu() for name in GOSSIP_LANES},
+            {name: value.cpu() for name, value in metrics.items()})
+
+
+def gossip_gates(label, params, metrics):
+    """The simulator's gates on one run's metrics: every gossip fully
+    disseminated, each gossip's summed sends inside ClusterMath's bound.
+    Returns the dissemination rounds."""
+    rounds = gossip.dissemination_rounds(metrics, params.n_members).cpu()
+    sent = metrics["messages_sent"].sum(dim=0, dtype=torch.int64).cpu()
+    bound = swim_math.max_messages_per_gossip_total(
+        params.fanout, 3, params.n_members)
+    if (rounds < 0).any() or (sent > bound).any():
+        raise AssertionError(f"gossip {label}: dissemination rounds "
+                             f"{rounds.tolist()}, messages {sent.tolist()} "
+                             f"(bound {bound})")
+    return rounds, sent, bound
+
+
+def gossip_path(device):
+    """Phase 8d, the gossip-only simulator (``models/gossip.py``) at N =
+    1,000,000 members x G = 16 gossips for 122 rounds, a lossy arm and a
+    delayed arm (:func:`gossip_params`).  Each arm runs on the card with
+    the CPU-made draws (equal to the CPU's run in a worker, every state
+    lane and metric) and with the card's own draws (timed, profiled).
+    Gates, on every run: each gossip fully disseminated; each gossip's
+    summed ``messages_sent`` within ``max_messages_per_gossip_total(3, 3,
+    N)``; the delayed arm's mean dissemination round over the 16 gossips
+    no earlier than the lossy arm's.  Prints ms/round, device busy ms and
+    launches a round and peak bytes.  Launches no kernel of the port."""
+    n_rounds = gossip_rounds()
+    means = {}
+    LAUNCHES.clear()
+    for delayed in (False, True):
+        arm = "delayed" if delayed else "lossy"
+        params = gossip_params(delayed)
+        c_state, c_metrics = cpu_half("gossip", arm)
+        draws = gossip.GossipTorchDraws(GOSSIP_SEED, "cpu", params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = gossip.run(GOSSIP_SEED, params, n_rounds,
+                                    draws=draws, device=device)
+        torch.cuda.synchronize()
+        host_draws_s = time.perf_counter() - t0
+        for name, value in c_state.items():
+            if not torch.equal(getattr(state, name).cpu(), value):
+                raise AssertionError(f"gossip {arm}: {name} card != CPU")
+        for name, value in c_metrics.items():
+            if not torch.equal(metrics[name].cpu(), value):
+                raise AssertionError(f"gossip {arm}: metric {name} card != "
+                                     f"CPU")
+        rounds, sent, bound = gossip_gates(f"{arm} host draws", params,
+                                           metrics)
+        del state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        d_state, d_metrics = gossip.run(GOSSIP_SEED, params, n_rounds,
+                                        device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        d_rounds, d_sent, _ = gossip_gates(f"{arm} card draws", params,
+                                           d_metrics)
+        start = int(d_rounds.max())
+        window = profile_round.profile_window(
+            params, None, d_state, start, PROFILE_ROUNDS,
+            runner=lambda st, r0, k: gossip.run(
+                GOSSIP_SEED, params, k, state=st, device=device))
+        means[arm] = (float(rounds.float().mean()),
+                      float(d_rounds.float().mean()))
+        log(f"[gossip] {arm} {GOSSIP_N}x{GOSSIP_G}, loss {GOSSIP_LOSS}, "
+            f"mean delay {params.mean_delay_ms} ms, ring "
+            f"{params.ring_slots} slots, {n_rounds} rounds: card == CPU "
+            f"(every lane and metric) on the CPU-made draws, "
+            f"{host_draws_s / n_rounds * 1e3:.4f} ms/round with host draws; "
+            f"dissemination rounds {rounds.tolist()} (mean "
+            f"{means[arm][0]:.4f}), max summed messages {int(sent.max())} "
+            f"of {bound}; card draws: {seconds / n_rounds * 1e3:.4f} "
+            f"ms/round, {GOSSIP_N * n_rounds / seconds:.6g} member-rounds/s, "
+            f"peak {peak} B, rounds {d_rounds.tolist()} (mean "
+            f"{means[arm][1]:.4f}), max messages {int(d_sent.max())}; "
+            f"profiled {PROFILE_ROUNDS} rounds from round {start}: device "
+            f"busy {window['device_busy_ms_per_round']:.4f} ms/round, "
+            f"{window['kernel_launches_per_round']:.2f} launches/round, wall "
+            f"{window['wall_ms_per_round']:.4f} ms/round, idle share "
+            f"{window['device_idle_share']:.4f}, ring "
+            f"{window['ring_bytes']} B, top kernels "
+            f"{json.dumps(window['top_kernels'][:4])}")
+        del d_state
+    for i, source in enumerate(("host", "card")):
+        if means["delayed"][i] < means["lossy"][i]:
+            raise AssertionError(f"gossip ({source} draws): the delayed arm "
+                                 f"disseminates earlier on average "
+                                 f"({means['delayed'][i]}) than the lossy "
+                                 f"arm ({means['lossy'][i]})")
+    return dict(LAUNCHES)
+
+
+def chaos_campaign_scenarios():
+    """``bench.py --chaos`` at its defaults: ``generate_campaign(seed=100,
+    n_scenarios=21, n=32)``."""
+    return scenarios.generate_campaign(CHAOS_SEED, CHAOS_SCENARIOS,
+                                       n=CHAOS_N)
+
+
+def chaos_campaign_cpu(dev):
+    """The campaign on ``dev`` with the CPU-made draws, no journal: each
+    verdict's JSON row."""
+    result = campaign.run_campaign(chaos_campaign_scenarios(),
+                                   seed=CHAOS_SEED, device=dev,
+                                   draw_device="cpu")
+    return [v.to_json() for v in result.verdicts]
+
+
+def chaos_campaign_path(device):
+    """Phase 8e, ``bench.py --chaos`` at its defaults through the port's
+    ``chaos.run_campaign`` (shift, scenario i with seed 100 + i, the
+    CPU-made draws), its journal written through a ``TelemetrySink`` and
+    read back.  Gates: each verdict row (verdict digest with its
+    evidence, counters, repro) equal to the CPU's run in a worker; every
+    scenario green but those ``CHAOS_STREAM_REDS`` names, whose codes and
+    evidence must be exactly the named ones; the journal's manifest, 21
+    ``chaos_scenario`` rows and the ``chaos_verdict`` summary.  Returns
+    the launches."""
+    scens = chaos_campaign_scenarios()
+    cpu_rows = cpu_half("chaos", "campaign")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/chaos.jsonl"
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with sink.TelemetrySink(path=path) as journal:
+            result = campaign.run_campaign(scens, seed=CHAOS_SEED,
+                                           sink=journal, device=device,
+                                           draw_device="cpu")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        rows = sink.read_records(path)
+    rounds = sum(s.horizon for s in scens)
+    for v, want in zip(result.verdicts, cpu_rows):
+        if v.to_json() != want:
+            raise AssertionError(f"chaos {v.scenario.name}: verdict card "
+                                 f"{json.dumps(v.to_json())} != CPU "
+                                 f"{json.dumps(want)}")
+        log(f"[chaos] {v.scenario.name} (horizon {v.scenario.horizon}, "
+            f"loss {v.scenario.loss_probability}): "
+            f"{'green' if v.green else 'RED ' + v.repro()}, counters "
+            f"{json.dumps(v.counters)} (card == CPU)")
+    summary = result.summary()
+    kinds = [r["kind"] for r in rows]
+    if kinds != ["manifest"] + ["chaos_scenario"] * len(scens) + [
+            "chaos_verdict"] or rows[-1]["green_scenarios"] != summary[
+                "green_scenarios"]:
+        raise AssertionError(f"chaos journal: kinds {kinds}, summary "
+                             f"{rows[-1]}")
+    unexplained = []
+    for v in result.verdicts:
+        if v.green:
+            continue
+        codes = [c for c, d in v.verdict["codes"].items() if d["violations"]]
+        lanes = {(e["code"], e["subject"], e["round"])
+                 for e in v.verdict["evidence"]}
+        known = CHAOS_STREAM_REDS.get(v.scenario.name)
+        if known is None or codes != [known[0]] or lanes != {known}:
+            unexplained.append((v.repro(), codes, sorted(lanes)[:4]))
+        else:
+            log(f"[chaos] {v.scenario.name}: red on the port's draws as "
+                f"established on the CPU (a stream effect; the port equals "
+                f"the reference on the reference's draws): {codes}, "
+                f"{v.verdict['codes'][known[0]]['violations']} cells, "
+                f"evidence {sorted(lanes)}")
+    if unexplained:
+        raise AssertionError(f"chaos campaign: {summary['green_scenarios']}"
+                             f" of {len(scens)} green, red: {unexplained}")
+    log(f"[chaos] campaign seed {CHAOS_SEED}, {len(scens)} scenarios at "
+        f"n = {CHAOS_N}, shift: {summary['green_scenarios']} of "
+        f"{summary['scenarios']} green (the reference's committed CPU "
+        f"run: 21 of 21), violations "
+        f"{json.dumps(summary['violations_by_code'])}"
+        f", card == CPU on every verdict; {rounds} rounds in "
+        f"{seconds:.3f} s, {seconds / rounds * 1e3:.4f} ms/round; journal "
+        f"{len(rows)} records; launches {launches}")
+    return launches
+
+
+def fuzz_scenario():
+    """The first campaign scenario with two ops or more whose spec
+    promises completeness (a finite ``complete_by``), and its run seed."""
+    for i, scen in enumerate(chaos_campaign_scenarios()):
+        spec = scen.build(campaign.campaign_params(scen), device="cpu")[1]
+        if len(scen.ops) > 1 and bool((spec.complete_by < INT32_MAX).any()):
+            return scen, CHAOS_SEED + i
+    raise AssertionError("no campaign scenario promises completeness")
+
+
+def weakened(params):
+    return campaign.weakened_knobs(None, params)
+
+
+def fuzz_cpu(dev):
+    """The fuzz arm's weakened run on ``dev`` with the CPU-made draws."""
+    scen, seed = fuzz_scenario()
+    return campaign.run_scenario(scen, seed=seed, knobs=weakened,
+                                 device=dev, draw_device="cpu").to_json()
+
+
+def fuzz_path(device):
+    """Phase 8f, the fuzz coverage arm, serial: one campaign scenario that
+    promises completeness (:func:`fuzz_scenario`) under
+    ``campaign.weakened_knobs`` (suspicion timers at 2^20 rounds).  Gates:
+    red with COMPLETENESS on the card and on the CPU (a worker) alike,
+    the verdicts equal; ``minimize`` on the card keeps every original
+    code; its one-line ``repro()`` evaluated under the port's ``chaos``
+    reproduces the minimized verdict."""
+    scen, seed = fuzz_scenario()
+    want = cpu_half("fuzz", "weakened")
+    LAUNCHES.clear()
+    v = campaign.run_scenario(scen, seed=seed, knobs=weakened, device=device,
+                              draw_device="cpu")
+    if v.to_json() != want:
+        raise AssertionError(f"fuzz {scen.name}: weakened verdict card != "
+                             f"CPU")
+    codes = [c for c, d in v.verdict["codes"].items() if d["violations"]]
+    if v.green or "COMPLETENESS" not in codes:
+        raise AssertionError(f"fuzz {scen.name}: weakened run codes {codes}")
+
+    def replay(cand):
+        return campaign.run_scenario(cand, seed=seed, knobs=weakened,
+                                     device=device, draw_device="cpu")
+
+    t0 = time.perf_counter()
+    m = campaign.minimize(
+        v, run=replay,
+        repro_args="knobs=lambda p: chaos.weakened_knobs(None, p), "
+                   "draw_device='cpu'")
+    seconds = time.perf_counter() - t0
+    from scalecube_cluster_tpu_torch import chaos
+    again = eval(m.repro(), {"chaos": chaos})  # noqa: S307 (the repro line)
+    kept = [c for c in codes if m.verdict.verdict["codes"][c]["violations"]]
+    if kept != codes or again.verdict != m.verdict.verdict:
+        raise AssertionError(f"fuzz {scen.name}: minimized codes {kept} of "
+                             f"{codes}, repro verdict "
+                             f"{json.dumps(again.verdict['codes'])}")
+    launches = dict(LAUNCHES)
+    log(f"[fuzz] {scen.name} ({len(scen.ops)} ops, seed {seed}) under "
+        f"weakened_knobs: red, codes {codes} (card == CPU); minimize "
+        f"dropped {m.dropped_ops} op(s) in {seconds:.3f} s, kept "
+        f"{m.codes}; repro {m.repro()} reproduces the verdict "
+        f"({json.dumps(again.verdict['codes']['COMPLETENESS'])})")
+    return launches
+
+
+def lifeguard_params(lhm_max):
+    """``bench.py --lifeguard``'s params (``bench.py:2108-2135``): the
+    campaign preset at its finest probe cadence (pings every 100 ms, a
+    50 ms timeout), scatter, uniform probe targets; ``lhm_max`` 0 is the
+    control."""
+    cfg = campaign.campaign_config().replace(ping_interval=100,
+                                             ping_timeout=50)
+    return swim.SwimParams.from_config(
+        cfg, n_members=LIFEGUARD_N, delivery="scatter",
+        ping_known_only=False, lhm_max=lhm_max)
+
+
+def lifeguard_world(s_i, device):
+    """Scenario ``s_i``'s world: ``asymmetric_degradation(11 + s_i, n=48)``
+    built under the control's params, the degraded rack crashed for good
+    at round ``LIFEGUARD_CRASH_AT``.  Returns the scenario and world."""
+    scen = scenarios.asymmetric_degradation(LIFEGUARD_SEED + s_i,
+                                            LIFEGUARD_N)
+    world, _ = scen.build(lifeguard_params(0), device=device)
+    rack = list(range(scenarios.asymmetric_degraded_range(LIFEGUARD_N)))
+    return scen, world.with_crash(rack, LIFEGUARD_CRASH_AT)
+
+
+def lifeguard_run(s_i, lhm_max, dev):
+    """One arm of one scenario through ``run_metered`` on ``dev`` with the
+    CPU-made draws: the final state, the registry's JSON and the
+    per-round ``suspect`` / ``dead`` columns, on the host."""
+    params = lifeguard_params(lhm_max)
+    scen, world_cpu = lifeguard_world(s_i, "cpu")
+    draws = prng.TorchDraws(LIFEGUARD_SEED + s_i, "cpu", params, world_cpu)
+    world = lifeguard_world(s_i, dev)[1]
+    LAUNCHES.clear()
+    state, ms, m = swim.run_metered(
+        LIFEGUARD_SEED + s_i, params, world, scen.horizon,
+        draws=lambda r: draws(r).to(dev), device=dev)
+    return (swim.SwimState(**{f.name: getattr(state, f.name).cpu()
+                              for f in dataclasses.fields(state)}),
+            metrics.to_json(ms, metrics.MetricsSpec.default()),
+            {name: m[name].cpu() for name in ("suspect", "dead")},
+            dict(LAUNCHES))
+
+
+def lifeguard_path(device):
+    """Phase 8g, ``bench.py --lifeguard`` at its defaults: 3 scenarios of
+    ``asymmetric_degradation`` at n = 48 (:func:`lifeguard_world`), each
+    through ``run_metered`` with the control (``lhm_max=0``) and the plane
+    (``lhm_max=8``) on the same draws, on the card and on the CPU (a
+    worker).  Gates: card == CPU (every state lane, the registry, the
+    suspect and dead columns); the bench's own two, ``fp_ratio`` (the
+    plane's false-positive observer rate over the control's) at most 0.5
+    and the crash-detection p99 delta at most +1 round.  Prints them
+    beside the reference's committed CPU values."""
+    totals = {0: [0, 0], LIFEGUARD_LHM: [0, 0]}
+    latencies = {0: [], LIFEGUARD_LHM: []}
+    launches = {}
+    rack = range(scenarios.asymmetric_degraded_range(LIFEGUARD_N))
+    t0 = time.perf_counter()
+    for s_i in range(LIFEGUARD_SCENARIOS):
+        for lhm_max in (0, LIFEGUARD_LHM):
+            g_state, digest, cols, g_launches = lifeguard_run(
+                s_i, lhm_max, device)
+            c_state, c_digest, c_cols, _ = cpu_half(
+                "lifeguard", (s_i, lhm_max))
+            label = f"lifeguard scenario {s_i} lhm_max {lhm_max}"
+            for field in dataclasses.fields(swim.SwimState):
+                if not torch.equal(getattr(g_state, field.name),
+                                   getattr(c_state, field.name)):
+                    raise AssertionError(f"{label}: state.{field.name} card "
+                                         f"!= CPU")
+            if digest != c_digest or any(
+                    not torch.equal(cols[k], c_cols[k]) for k in cols):
+                raise AssertionError(f"{label}: registry or metrics card "
+                                     f"!= CPU")
+            for name, count in g_launches.items():
+                launches[name] = launches.get(name, 0) + count
+            totals[lhm_max][0] += digest["counters"]["false_suspicion_onsets"]
+            totals[lhm_max][1] += digest["counters"]["live_observer_rounds"]
+            seen = (cols["suspect"] + cols["dead"])[LIFEGUARD_CRASH_AT:] > 0
+            horizon = cols["suspect"].shape[0]
+            for c in rack:
+                hit = torch.nonzero(seen[:, c])
+                latencies[lhm_max].append(
+                    int(hit[0, 0]) if hit.numel()
+                    else horizon - LIFEGUARD_CRASH_AT)
+    seconds = time.perf_counter() - t0
+    fp_off = totals[0][0] / max(totals[0][1], 1)
+    fp_on = totals[LIFEGUARD_LHM][0] / max(totals[LIFEGUARD_LHM][1], 1)
+    fp_ratio = fp_on / fp_off if fp_off > 0 else None
+    p99_off = float(np.percentile(latencies[0], 99))
+    p99_on = float(np.percentile(latencies[LIFEGUARD_LHM], 99))
+    delta = p99_on - p99_off
+    if fp_ratio is None or fp_ratio > 0.5 or delta > 1.0:
+        raise AssertionError(f"lifeguard: fp_ratio {fp_ratio}, detection "
+                             f"p99 delta {delta}")
+    log(f"[lifeguard] {LIFEGUARD_SCENARIOS} scenarios at n = {LIFEGUARD_N}, "
+        f"scatter, lhm_max 0 / {LIFEGUARD_LHM}, card == CPU: false-positive "
+        f"observer rate {fp_off:.6f} / {fp_on:.6f}, fp_ratio {fp_ratio:.6f} "
+        f"(gate <= 0.5; the reference's committed CPU run "
+        f"{LIFEGUARD_REFERENCE[0]}), detection p99 {p99_off:.2f} / "
+        f"{p99_on:.2f}, delta {delta:.2f} rounds (gate <= +1; reference "
+        f"{LIFEGUARD_REFERENCE[1]}); onsets {totals[0][0]} / "
+        f"{totals[LIFEGUARD_LHM][0]} over {totals[0][1]} observer-rounds; "
+        f"six runs on the card in {seconds:.3f} s; launches {launches}")
+    return launches
+
+
+def dsl_scale_path(device):
+    """Phase 8h, the DSL at scale: ``generate_scenario(seed=100, n=4096,
+    severity="severe")`` at full view 4,096 x 4,096 through
+    ``run_scenario``'s params, world and spec on the card, the port's own
+    draws: one whole ``run_monitored`` (timed), then, when a code tripped,
+    the same rounds one at a time (the monitor resumed) up to the last
+    code's first round, whose per-round code totals say how many cells
+    each code's first round recorded (no row is recorded after it).
+    Gates: ``count + dropped`` equals the cells of each code's first
+    violating round summed over the codes (0 for a green run), the
+    stepped monitor's rows, count and dropped are the whole run's, and
+    each recorded lane is of its code's first round.  Green is not
+    gated."""
+    scen = scenarios.generate_scenario(DSL_SEED, n=DSL_N, severity="severe")
+    params = campaign.campaign_params(scen)
+    world, spec = scen.build(params, device=device)
+    horizon = scen.horizon
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    state, mon, m = monitor.run_monitored(DSL_SEED, params, world, spec,
+                                          horizon, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(LAUNCHES)
+    v = monitor.verdict(mon)
+    firsts = mon.code_first_round.cpu()
+    tripped = [c for c in range(monitor.N_CODES) if firsts[c] != INT32_MAX]
+    step_state, step_mon, totals = None, None, []
+    for r in range(max((int(firsts[c]) + 1 for c in tripped), default=0)):
+        step_state, step_mon, _ = monitor.run_monitored(
+            DSL_SEED, params, world, spec, 1, state=step_state,
+            start_round=r, monitor=step_mon, device=device)
+        totals.append(step_mon.code_counts.cpu().to(torch.int64))
+    if step_mon is not None:
+        for name in ("lanes", "count", "dropped", "code_first_round"):
+            if not torch.equal(getattr(step_mon, name), getattr(mon, name)):
+                raise AssertionError(f"dsl scale: stepped monitor {name} "
+                                     f"differs from the whole run's")
+    expected = 0
+    if totals:
+        deltas = torch.diff(torch.stack([torch.zeros_like(totals[0])]
+                                        + totals), dim=0)
+        expected = sum(int(deltas[int(firsts[c]), c]) for c in tripped)
+    recorded = int(mon.count) + int(mon.dropped)
+    lanes = monitor.decode_violations(mon)
+    stray = [x for x in lanes if x.round != int(firsts[int(x.code)])]
+    if recorded != expected or stray:
+        raise AssertionError(f"dsl scale: recorded + dropped {recorded}, "
+                             f"first-round cells {expected}, lanes off "
+                             f"their code's first round {stray[:4]}")
+    window = profile_round.profile_window(
+        params, world, state, horizon, PROFILE_ROUNDS,
+        runner=lambda st, r0, k: monitor.run_monitored(
+            DSL_SEED, params, world, spec, k, state=st, start_round=r0,
+            device=device))
+    cells = DSL_N * DSL_N
+    firsts_by_code = {c: d["first_round"] for c, d in v["codes"].items()}
+    log(f"[dsl scale] {scen.name} at {DSL_N}x{DSL_N}, loss "
+        f"{scen.loss_probability}, {world.faults.n_rules} link rules, "
+        f"horizon {horizon}: {'green' if v['green'] else 'red'}, codes "
+        f"{json.dumps({c: d['violations'] for c, d in v['codes'].items()})}, "
+        f"first rounds {json.dumps(firsts_by_code)}"
+        f"; recorded {int(mon.count)} + dropped {int(mon.dropped)} = the "
+        f"{expected} cells of the codes' first rounds; {seconds:.3f} s, "
+        f"{seconds / horizon * 1e3:.4f} ms/round, "
+        f"{cells * horizon / seconds:.6g} record-updates/s, peak {peak} B, "
+        f"{peak / cells:.4f} B/cell; profiled {PROFILE_ROUNDS} rounds from "
+        f"round {horizon}: busy {window['device_busy_ms_per_round']:.4f} "
+        f"ms/round, {window['kernel_launches_per_round']:.2f} launches/round"
+        f", wall {window['wall_ms_per_round']:.4f}, idle share "
+        f"{window['device_idle_share']:.4f}, phases "
+        f"{json.dumps(window['phase_device_ms_per_round'])}; launches "
+        f"{launches}")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # The CPU halves of the card-vs-CPU runs, in worker processes
 # --------------------------------------------------------------------------
 
@@ -4124,16 +4696,19 @@ def cpu_work(kind, *args):
     """The CPU half of one card-vs-CPU run, in a worker process: the run's
     outputs, serialised with ``torch.save``."""
     run = {"run": canary_run, "traced": traced_run, "monitor": monitor_run,
-           "drill": drill_run}[kind]
+           "drill": drill_run, "gossip": gossip_cpu_run,
+           "chaos": chaos_campaign_cpu, "fuzz": fuzz_cpu,
+           "lifeguard": lifeguard_run}[kind]
     buf = io.BytesIO()
     torch.save(run(*args), buf)
     return buf.getvalue()
 
 
 def start_cpu_halves(pool):
-    """Submit to ``pool`` the CPU half of every canary (phases 5, 5b, 5c)
-    and of the blame drill (5d): they run while the card builds, checks
-    its kernels and runs the probes."""
+    """Submit to ``pool`` the CPU half of every canary (phases 5, 5b, 5c),
+    of the blame drill (5d) and of the gossip simulator, the chaos
+    campaign, the fuzz arm and the Lifeguard A/B (8d-8g): they run while
+    the card builds, checks its kernels and runs the earlier phases."""
     for label, _, params, make_world, warm in canary_cases():
         _CPU_JOBS["run", label] = pool.submit(
             cpu_work, "run", params, make_world, "cpu", warm)
@@ -4145,6 +4720,18 @@ def start_cpu_halves(pool):
             cpu_work, "monitor", layout, delivery, "cpu")
     _CPU_JOBS["drill", "drill"] = pool.submit(cpu_work, "drill",
                                               drill_params(), "cpu")
+    # The gossip simulator's CPU halves at 1M x 16 are the longest (several
+    # hundred seconds of index_reduce_ on one thread): queued early, read
+    # last.
+    for delayed in (True, False):
+        _CPU_JOBS["gossip", "delayed" if delayed else "lossy"] = pool.submit(
+            cpu_work, "gossip", delayed, "cpu")
+    _CPU_JOBS["chaos", "campaign"] = pool.submit(cpu_work, "chaos", "cpu")
+    _CPU_JOBS["fuzz", "weakened"] = pool.submit(cpu_work, "fuzz", "cpu")
+    for s_i in range(LIFEGUARD_SCENARIOS):
+        for lhm_max in (0, LIFEGUARD_LHM):
+            _CPU_JOBS["lifeguard", (s_i, lhm_max)] = pool.submit(
+                cpu_work, "lifeguard", s_i, lhm_max, "cpu")
 
 
 def cpu_half(kind, label):
@@ -4324,19 +4911,21 @@ def drill_params(provenance_on=True):
     campaign's config at its N, scatter, every member probing every
     round, no ping-req proxies, the SYNC exchange every 8 rounds."""
     return swim.SwimParams.from_config(
-        campaign_config(), n_members=DRILL_N, delivery="scatter",
+        campaign.campaign_config(), n_members=DRILL_N, delivery="scatter",
         ping_known_only=False, ping_req_members=0, ping_every=1,
         sync_interval=8, provenance=provenance_on)
 
 
 def drill_world(params, device):
-    """The blame drill (``chaos.blame_drill_scenario``, reference
-    ``chaos/scenarios.py:942-993``): one ``loss=1.0`` link rule from the
-    victim to the observer over [onset, onset + pulse), every other link
-    clean."""
-    return swim.SwimWorld.healthy(params, device=device).with_link_fault(
-        DRILL_VICTIM, DRILL_OBSERVER, 1.0, from_round=DRILL_ONSET,
-        until_round=DRILL_ONSET + DRILL_PULSE)
+    """The blame drill, ``chaos.blame_drill_scenario`` built by the DSL
+    (as ``bench.py --blame`` builds it): one ``loss=1.0`` link rule from
+    the victim to the observer over [onset, onset + pulse), padded with
+    seven match-nothing rules, every other link clean."""
+    scen = scenarios.blame_drill_scenario(
+        DRILL_SEED, n=DRILL_N, victim=DRILL_VICTIM, observer=DRILL_OBSERVER,
+        onset_round=DRILL_ONSET, pulse_rounds=DRILL_PULSE,
+        cool_rounds=DRILL_HORIZON - DRILL_ONSET - DRILL_PULSE)
+    return scen.build(params, device=device)[0]
 
 
 def drill_run(params, dev):
@@ -4671,6 +5260,11 @@ def run_phases(args, t_start):
     paths["rollout"] = rollout_path(device)
     paths["bench_rollout"] = bench_rollout_path(device)
     stage("metadata rollout", t_start)
+    paths["chaos"] = chaos_campaign_path(device)
+    paths["fuzz"] = fuzz_path(device)
+    paths["lifeguard"] = lifeguard_path(device)
+    paths["dsl_scale"] = dsl_scale_path(device)
+    stage("chaos layer", t_start)
     paths["cold_start"] = cold_start_path(device)
     paths["scatter_main"], scatter_summary = main_path(
         device, "scatter", narrow=("int16_wire",))
@@ -4685,6 +5279,8 @@ def run_phases(args, t_start):
     paths["k_block_pair_planes"] = blocked_pair(device, planes=True)
     paths["capacity"] = capacity_path(device)
     stage("k_block pair and capacity", t_start)
+    paths["gossip"] = gossip_path(device)
+    stage("gossip simulator", t_start)
     launches = {}
     for counts in paths.values():
         for name, count in counts.items():

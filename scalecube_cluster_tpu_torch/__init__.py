@@ -24,6 +24,13 @@ tick-level planes (SYNC anti-entropy, Lifeguard, dead suppression, the
 open world, metadata); the composed plane runner (``models/compose.py``)
 with the membership event trace (``telemetry/``: ``run_traced``,
 ``stream_traced_run``, the record kernel ``kernels/trace.py``,
-``csrc/trace_record.cu``); ``models/fd.run`` (``models/swim.py``
-docstring lists what raises ``NotImplementedError``).
+``csrc/trace_record.cu``); ``models/fd.run``; the health-metrics,
+invariant-monitor and provenance planes; the gossip-only simulator
+(``models/gossip.py``, its own draws ``GossipDraws``); the chaos layer
+(``chaos/``: the scenario DSL and its seeded generators, the serial
+campaign runner with its journals and the minimizing reducer) and the
+whole analytic model (``swim_math.py``).  Not covered: the batched
+campaign runner, the oracle cross-validation and multi-GPU
+(``models/swim.py`` and ``chaos/campaign.py`` list what raises
+``NotImplementedError``).
 """

@@ -60,16 +60,15 @@ off, a ``complete_by`` with no deadline, an agreement deadline not
 reached) are neither computed nor recorded, and no [codes, N, K] stack
 is built: the spec is read to the host once a run.
 
-Also the deadline rule of the reference's scenarios for the join codes
-(:func:`join_deadlines`) and its bound (:func:`completeness_bound`).
-The batched monitor (``run_monitored_batch``) is not ported.
+Also :func:`join_deadlines`, ``chaos/scenarios.Scenario.build``'s join
+rule for a world built without the DSL.  The batched monitor
+(``run_monitored_batch``) is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-import math
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -203,27 +202,19 @@ class MonitorSpec:
             device=device))
 
 
-def completeness_bound(params: "swim.SwimParams", n: int) -> int:
-    """Rounds within which a permanent crash must be DEAD in every
-    eligible view, and a join live in every eligible view: detection
-    slack, the suspicion timeout, dissemination and anti-entropy slack
-    (the reference's ``chaos/scenarios.completeness_bound``)."""
-    log2n = math.ceil(math.log2(n + 1))
-    return (params.suspicion_rounds + 24 * max(1, params.ping_every)
-            + 4 * log2n + 2 * max(1, params.sync_every) + 16)
-
-
 def join_deadlines(params: "swim.SwimParams", world: "swim.SwimWorld",
                    disruption_end: int = 0) -> Tuple[torch.Tensor, bool]:
     """``(join_known_by [K] int32, check_joins)``: each joined subject's
     deadline, ``max(join round, disruption_end) + completeness_bound``
     (INT32_MAX where no join is scheduled), and whether the codes apply
-    at all (the plane on and some join scheduled): the reference's
-    ``chaos/scenarios.Scenario.build`` rule.  ``disruption_end``: the
+    at all (the plane on and some join scheduled):
+    ``chaos/scenarios.Scenario.build``'s rule.  ``disruption_end``: the
     last round of the scenario's network disruptions (0 for none).  The
-    reference's rule also drops every deadline under a permanent
-    disruption and adds a scenario's extra slack; no caller here has
-    either."""
+    rule also drops every deadline under a permanent disruption and adds
+    a scenario's extra slack; no caller here has either."""
+    from scalecube_cluster_tpu_torch.chaos.scenarios import (
+        completeness_bound)
+
     bound = completeness_bound(params, params.n_members)
     join_at = world.join_at[world.subject_ids.long()].to(torch.int64)
     checkable = join_at < INT32_MAX

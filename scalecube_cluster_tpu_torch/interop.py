@@ -19,7 +19,10 @@ of numpy arrays ``lanes``, ``count``, ``dropped``, ``first_suspect`` and
 :func:`telemetry_to_arrays`), so a port run can resume a reference
 trace; a provenance buffer (``models.provenance.ProvenanceState``) as
 ``lanes``, ``count`` and ``dropped`` (:func:`provenance_from_arrays`,
-:func:`provenance_to_arrays`).  A state's carry layout
+:func:`provenance_to_arrays`); a gossip-only model's state
+(``models.gossip.GossipState``) as ``infected``, ``spread_until`` and
+``ring`` (:func:`gossip_state_from_arrays`,
+:func:`gossip_state_to_arrays`).  A state's carry layout
 (wide, or the ``compact_carry`` int16/int8 lanes) must be the one its
 params name.
 """
@@ -226,3 +229,38 @@ def provenance_to_arrays(pv) -> dict:
     :func:`provenance_from_arrays` reads (the reference's field names)."""
     return {name: getattr(pv, name).cpu().numpy()
             for name in _PROVENANCE_FIELDS}
+
+
+_GOSSIP_FIELDS = {"infected": np.bool_, "spread_until": np.int32,
+                  "ring": np.bool_}
+
+
+def gossip_state_from_arrays(arrays: Mapping, device="cuda"):
+    """A port ``models.gossip.GossipState`` from the reference's, as the
+    numpy arrays ``infected`` [N, G] bool, ``spread_until`` [N, G] int32
+    and ``ring`` [D, N, G] bool: a reference gossip run resumes in the
+    port."""
+    from scalecube_cluster_tpu_torch.models import gossip
+
+    device = swim.resolve_device(device)
+    missing = [f for f in _GOSSIP_FIELDS if f not in arrays]
+    if missing:
+        raise KeyError(f"gossip state arrays lack {missing}")
+    out = {}
+    for name, dtype in _GOSSIP_FIELDS.items():
+        value = np.asarray(arrays[name])
+        if value.dtype != dtype:
+            raise ValueError(f"gossip state field {name} is {value.dtype}, "
+                             f"expected {np.dtype(dtype)}")
+        out[name] = torch.tensor(value, device=device)
+    if out["ring"].shape[1:] != out["infected"].shape:
+        raise ValueError(f"gossip ring {tuple(out['ring'].shape)} does not "
+                         f"match infected {tuple(out['infected'].shape)}")
+    return gossip.GossipState(**out)
+
+
+def gossip_state_to_arrays(state) -> dict:
+    """A port ``GossipState`` as the numpy arrays
+    :func:`gossip_state_from_arrays` reads (the reference's field names)."""
+    return {name: getattr(state, name).cpu().numpy()
+            for name in _GOSSIP_FIELDS}

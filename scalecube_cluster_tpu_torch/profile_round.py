@@ -207,9 +207,10 @@ def profile_window(params, world, state, start_round: int, rounds: int,
     runs the window traced (``swim.run_traced`` into a fresh buffer of
     that many events); ``runner(state, start_round, rounds)``, if given,
     runs it instead (an instrumented entry point: ``run_metered``,
-    ``run_monitored``, ``run_composed``).  A profiled run that shows no
-    device time is run again, up to ``traces`` times in all."""
-    device = world.device
+    ``run_monitored``, ``run_composed``, or the gossip-only model's
+    ``models.gossip.run``, with ``world`` None).  A profiled run that
+    shows no device time is run again, up to ``traces`` times in all."""
+    device = None if world is None else world.device
 
     def window():
         if runner is not None:
@@ -255,9 +256,10 @@ def profile_window(params, world, state, start_round: int, rounds: int,
         phases[phase] = phases.get(phase, 0.0) + us * per_round
     top_kernels = sorted(kernels, key=lambda e: e.device_time_total,
                          reverse=True)
-    ring_bytes = sum(t.numel() * t.element_size()
-                     for t in (state.inbox_ring, state.flag_ring,
-                               state.g_ring))
+    rings = (getattr(state, name, None)
+             for name in ("inbox_ring", "flag_ring", "g_ring", "ring"))
+    ring_bytes = sum(t.numel() * t.element_size() for t in rings
+                     if t is not None)
     return dict(
         rounds=rounds, start_round=start_round,
         wall_ms_per_round=wall_ms,

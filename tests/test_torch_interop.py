@@ -118,6 +118,17 @@ def test_port_runs_with_jax_blocked():
         "s, m = swim.run(0, r, u, 12, device='cpu')",
         "assert s.md.shape == (16, 16, 1) and m['metadata_divergent'].shape"
         " == (12,)",
+        "from scalecube_cluster_tpu_torch.models import gossip",
+        "g = gossip.GossipSimParams.from_config(ClusterConfig.default(), 64,"
+        " 2, loss_probability=0.1, mean_delay_ms=200.0, max_delay_rounds=2)",
+        "gs, gm = gossip.run(0, g, 12, device='cpu')",
+        "assert gs.ring.shape == (3, 64, 2) and gm['infected_count'].shape"
+        " == (12, 2)",
+        "from scalecube_cluster_tpu_torch import chaos",
+        "sc = chaos.Scenario('t', 16, 12, (chaos.Crash(3, 2),"
+        " chaos.ConfigPush(5, 0, 9, 1)))",
+        "v = chaos.run_scenario(sc, seed=1, device='cpu')",
+        "assert v.verdict['codes']['COMPLETENESS']['violations'] == 0",
         "importlib.import_module('chip_smoke')",
         "assert not any(k.startswith(('jax', 'scalecube_cluster_tpu.'))"
         " for k in sys.modules if sys.modules[k] is not None)",
@@ -130,9 +141,14 @@ def test_port_runs_with_jax_blocked():
 
 
 def test_entry_points_default_to_cuda():
+    from scalecube_cluster_tpu_torch.chaos import campaign, scenarios
+    from scalecube_cluster_tpu_torch.models import gossip
+
     for fn in (swim.initial_state, swim.run, swim.SwimWorld.healthy,
                interop.world_from_arrays, interop.state_from_arrays,
-               interop.load_jax_checkpoint):
+               interop.load_jax_checkpoint, gossip.initial_state, gossip.run,
+               interop.gossip_state_from_arrays, scenarios.Scenario.build,
+               campaign.run_scenario, campaign.run_campaign):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     params = swim.SwimParams.from_config(fast_config(), n_members=32,
                                          n_subjects=4, delivery="shift")

@@ -144,13 +144,12 @@ def _setup(name):
                                                   JOIN_AT + 4)))
         return params, world, JOIN_AT + 4 + _bound(params)
     if kind == "smoke":
-        # bench.py --rollout --smoke: N = 24, 2 stages of 2 owners, without
-        # the scenario's match-nothing rules (as chip_smoke.rollout_world).
+        # bench.py --rollout --smoke: N = 24, 2 stages of 2 owners, as
+        # Scenario.build pads it: eight match-nothing link rules, so the
+        # rounds take the per-hop FD chains and their draws.
         scen, params, world, _, _, _ = reference_rollout(
             SMOKE_N, n_stages=2, stage_size=2,
             sync_interval=8 if rest == "gated" else 0)
-        world = dataclasses.replace(
-            world, faults=jswim.SwimWorld.healthy(params).faults)
         return params, world, scen.horizon
     raise KeyError(name)
 
@@ -507,15 +506,21 @@ def test_bench_smoke_rollout_matches_reference(arm):
     (the gated arm, polled every 2 rounds) or whole (the control): every
     lane and per-round metric equal to the reference's whole run; the
     gated arm converges every push inside its deadline with no divergent
-    cell at the horizon, the control stays divergent.  The geometry
-    (``chip_smoke.rollout_world``) is the reference scenario's."""
+    cell at the horizon, the control stays divergent.  The world is the
+    reference scenario's as ``Scenario.build`` pads it (the per-hop FD
+    chains run), and the port's DSL (``chip_smoke.rollout_world``) builds
+    the same world and geometry."""
     import chip_smoke
 
     jparams, jworld, horizon = _setup(f"smoke:{arm}")
     params, world = port_params(jparams), port_world(jworld)
-    _, geo = chip_smoke.rollout_world(SMOKE_N, "cpu", n_stages=2,
-                                      stage_size=2)
+    dsl_world, geo = chip_smoke.rollout_world(SMOKE_N, "cpu", n_stages=2,
+                                              stage_size=2)
     assert geo["horizon"] == horizon
+    assert jworld.faults.n_rules == dsl_world.faults.n_rules == 8
+    for name in swim.LinkFaults.ARRAYS:
+        np.testing.assert_array_equal(getattr(dsl_world.faults, name).numpy(),
+                                      getattr(world.faults, name).numpy())
     jstate, jmetrics = _reference_programs()[f"smoke:{arm}"](
         jax.random.key(0), jworld, state=jswim.initial_state(jparams, jworld),
         start_round=0)
@@ -541,21 +546,40 @@ def test_bench_smoke_rollout_matches_reference(arm):
 @pytest.mark.parametrize("n", [48, 16_384])
 def test_rollout_world_is_the_reference_scenario(n):
     """``chip_smoke.rollout_world`` builds ``bench.py --rollout``'s
-    scenario without the reference: its crash windows, partition
-    schedule, push schedule and horizon equal ``Scenario.build``'s at the
-    bench's N = 48 and at the card's 16,384."""
+    scenario with the port's DSL (``chaos/scenarios.Scenario.build``):
+    every world field (crash windows, partition schedule, push schedule,
+    the eight match-nothing link rules), the monitor spec and the horizon
+    equal the reference's ``Scenario.build`` at the bench's N = 48 and at
+    the card's 16,384."""
     import chip_smoke
 
     scen, jparams, jworld, _, heal_at, bound = reference_rollout(n)
     world, geo = chip_smoke.rollout_world(n, "cpu")
     assert (geo["horizon"], geo["heal_at"], geo["bound"]) == (
         scen.horizon, heal_at, bound)
+    want = port_world(jworld)
     names = ("down_from", "down_until", "leave_at", "partition_of",
+             "join_at", "subject_ids", "slot_of_node",
              *swim.SwimWorld.PUSH_FIELDS)
     for name in names:
         np.testing.assert_array_equal(getattr(world, name).numpy(),
-                                      np.asarray(getattr(jworld, name)),
+                                      getattr(want, name).numpy(),
                                       err_msg=name)
+    for name in swim.LinkFaults.ARRAYS:
+        got = getattr(world.faults, name)
+        assert got.dtype == getattr(want.faults, name).dtype, name
+        np.testing.assert_array_equal(got.numpy(),
+                                      getattr(want.faults, name).numpy(),
+                                      err_msg=name)
+    assert world.faults.n_rules == 8
+    assert not np.asarray(jworld.faults.src_hi).any()   # match-nothing rules
     assert world.partition_phase_rounds == int(jworld.partition_phase_rounds)
     assert chip_smoke.rollout_params(n) == port_params(jparams)
-    assert not np.asarray(jworld.faults.src_hi).any()   # match-nothing rules
+    _, params, _, spec, _ = chip_smoke.rollout_scenario(n)
+    jspec = scen.build(jparams)[1]
+    np.testing.assert_array_equal(spec.complete_by.numpy(),
+                                  np.asarray(jspec.complete_by))
+    assert (spec.agree_from, spec.check_agreement,
+            spec.check_false_suspicion) == (
+        int(jspec.agree_from), jspec.check_agreement,
+        jspec.check_false_suspicion)

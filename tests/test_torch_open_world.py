@@ -45,7 +45,8 @@ from scalecube_cluster_tpu.models import swim as jswim  # noqa: E402
 from scalecube_cluster_tpu.ops import delivery as jdelivery  # noqa: E402
 from scalecube_cluster_tpu.utils import checkpoint  # noqa: E402
 from scalecube_cluster_tpu_torch import interop, records  # noqa: E402
-from scalecube_cluster_tpu_torch.chaos import monitor  # noqa: E402
+from scalecube_cluster_tpu_torch.chaos import campaign  # noqa: E402
+from scalecube_cluster_tpu_torch.chaos import monitor, scenarios  # noqa: E402
 from scalecube_cluster_tpu_torch.kernels import merge as kmerge  # noqa: E402
 from scalecube_cluster_tpu_torch.models import swim  # noqa: E402
 from scalecube_cluster_tpu_torch.ops import delivery  # noqa: E402
@@ -532,13 +533,40 @@ def test_join_completeness_trips_before_a_join_is_known():
 
 
 def test_storm_world_is_the_reference_churn_storm():
-    """``chip_smoke.storm_world``, which builds the churn storm for the
-    card (pools drawn from the focal subjects), at full view draws its
-    pools from every member as the reference does: at n = 24 its world,
-    joins and horizon are ``churn_growth_scenario(seed=3, n=24)``'s."""
+    """The port's ``chaos.churn_growth_scenario(seed=3, n=24)`` built by
+    its DSL equals the reference's (scenario, params, every world field
+    with the padded link rules, the monitor spec); and
+    ``chip_smoke.storm_world``, which builds the storm for the card at
+    1M x 16 (pools drawn from the focal subjects), at full view draws
+    its pools from every member as the reference does: at n = 24 its
+    world, joins and horizon are the scenario's."""
     import chip_smoke
 
     scen, jparams, jworld, spec = _storm(True)
+    port_scen = scenarios.churn_growth_scenario(seed=STORM_SEED, n=STORM_N)
+    assert repr(port_scen) == repr(scen)
+    params = campaign.campaign_params(port_scen, delivery="shift")
+    assert params == port_params(jparams)
+    built, port_spec = port_scen.build(params, device="cpu")
+    want = port_world(jworld)
+    for name in ("down_from", "down_until", "leave_at", "join_at",
+                 "partition_of", "subject_ids", "slot_of_node"):
+        np.testing.assert_array_equal(getattr(built, name).numpy(),
+                                      getattr(want, name).numpy(),
+                                      err_msg=name)
+    for name in swim.LinkFaults.ARRAYS:
+        np.testing.assert_array_equal(getattr(built.faults, name).numpy(),
+                                      getattr(want.faults, name).numpy(),
+                                      err_msg=name)
+    assert built.faults.n_rules == 8
+    ref_spec = port_monitor_spec(spec)
+    for name in ("complete_by", "join_known_by"):
+        np.testing.assert_array_equal(getattr(port_spec, name).numpy(),
+                                      getattr(ref_spec, name).numpy())
+    assert (port_spec.agree_from, port_spec.check_agreement,
+            port_spec.check_false_suspicion, port_spec.check_joins) == (
+        ref_spec.agree_from, ref_spec.check_agreement,
+        ref_spec.check_false_suspicion, ref_spec.check_joins)
     world, horizon, disruption_end, joins = chip_smoke.storm_world(
         chip_smoke.storm_params(STORM_N, STORM_N), "cpu", STORM_SEED)
     assert horizon == scen.horizon

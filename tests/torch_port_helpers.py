@@ -237,6 +237,44 @@ def _scatter_draw_program(n, k, r, f, facts):
     return one
 
 
+def jax_gossip_draws(key, params, n_rounds):
+    """``round_idx -> GossipDraws`` holding exactly the draws the
+    reference's gossip tick consumes under ``key`` for the reference's
+    ``GossipSimParams`` over rounds 0 .. ``n_rounds - 1``
+    (models/gossip.py:136-166): ``fold_in(key, r)`` split in three, the
+    raw ``randint(0, N - 1)`` targets of ``prng.targets_excluding_self``,
+    the drop ``uniform`` of ``bernoulli_mask``, and with the ring on the
+    delay ``uniform`` of ``ring.delay_bins`` as ``-log1p(-u)``, made by
+    XLA.  One program a shape, built once a process."""
+    from scalecube_cluster_tpu_torch.models.gossip import GossipDraws
+
+    one = _gossip_draw_program(params.n_members, params.fanout,
+                               params.max_delay_rounds > 0)
+    rounds = [{name: torch.from_numpy(np.array(value))
+               for name, value in one(key, jnp.int32(r)).items()}
+              for r in range(n_rounds)]
+
+    def draws(round_idx):
+        return GossipDraws(**rounds[round_idx])
+
+    return draws
+
+
+@functools.lru_cache(maxsize=None)
+def _gossip_draw_program(n, f, delayed):
+    @jax.jit
+    def one(key, round_idx):
+        k_targets, k_drop, k_delay = jax.random.split(
+            jprng.round_key(key, round_idx), 3)
+        out = dict(targets=jax.random.randint(k_targets, (n, f), 0, n - 1),
+                   drop_u=jax.random.uniform(k_drop, (n, f)))
+        if delayed:
+            out["delay_e"] = unit_exp(jax.random.uniform(k_delay, (n, f)))
+        return out
+
+    return one
+
+
 def port_params(jax_params):
     return interop.params_from_fields(dataclasses.asdict(jax_params))
 

@@ -8,7 +8,11 @@ affords, beside which the port's run on the card is read.
 Run: ``JAX_PLATFORMS=cpu python -m tests.torch_rollout_reference --n 48``.
 Prints, for the gated arm, each push's converged round (polled every 2
 rounds, as the bench does), ``metadata_convergence_p99`` and the
-divergence probe at the horizon, and the gossip-only control's probe.
+divergence probe at the horizon, and the gossip-only control's probe;
+then the same for the port (``chip_smoke.rollout_gated`` and
+``models.swim.run``) on the reference's world (its match-nothing link
+rules included) and the reference's draws (``jax_draws``), with whether
+its final states equal the reference's.
 """
 
 import argparse
@@ -97,6 +101,38 @@ def main(argv=None):
           f"{bound}: converged at {[p[4] for p in pushes]}, p99 "
           f"{float(np.percentile(lats, 99)) if lats else None}, final "
           f"divergent cells {final}; control {c_div}", flush=True)
+    port_rollout(args.n, scen, params, world, state, c_state)
+
+
+def port_rollout(n, scen, params, world, state, c_state):
+    """The port's gated arm and control on the reference's world and
+    draws; prints its verdict beside the reference's."""
+    import chip_smoke
+    from scalecube_cluster_tpu_torch.models import metadata, swim
+    from tests.torch_port_helpers import (jax_draws, port_params,
+                                          port_world)
+
+    p_params, p_world = port_params(params), port_world(world)
+    _, geo = chip_smoke.rollout_world(n, "cpu")
+    draws = jax_draws(jax.random.key(SEED), params, world)
+    p_state, summary = chip_smoke.rollout_gated(p_params, p_world, geo, "cpu",
+                                                draws=draws)
+    j_control = jswim.SwimParams(**dict(vars(params), sync_interval=0))
+    control = port_params(j_control)
+    pc_state, _ = swim.run(SEED, control, p_world, scen.horizon,
+                           draws=jax_draws(jax.random.key(SEED), j_control,
+                                           world), device="cpu")
+    c_div = int(metadata.divergence_probe(pc_state, control, p_world,
+                                          scen.horizon))
+    equal = all(np.array_equal(getattr(p_state, f).numpy(),
+                               np.asarray(getattr(state, f)))
+                for f in ("status", "inc", "md", "md_spread"))
+    c_equal = np.array_equal(pc_state.md.numpy(), np.asarray(c_state.md))
+    print(f"port on the reference's draws: converged at "
+          f"{summary['converged_at']}, p99 {summary['p99']}, final "
+          f"divergent cells {summary['final_div']}; control {c_div}; final "
+          f"states equal to the reference's: gated {equal}, control "
+          f"{c_equal}", flush=True)
 
 
 if __name__ == "__main__":
