@@ -75,6 +75,19 @@ and prints no result):
    its edge (its channels, JOINED rows, the self refutations at the
    bumped self rows only, the timer's REMOVED rows); its sparse and dense
    rounds timed beside their byte bounds;
+3e. the batch forms of the trace's two kernels
+   (``check_trace_record_batch``, ``check_trace_observe_batch``:
+   ``kernels/trace.trace_record_batch`` and ``trace_observe_batch``, one
+   launch for B rounds of one shape, each row into its own buffer)
+   against their plain versions (the one-round plain versions looped over
+   the rows) at the fuzz campaign's shape (12 x 32 x 32) and at 16 x
+   65,536 x 16: rows empty, dense, sparse, overflowing partway, one below
+   and at capacity, each checked to reach its edge; the record with
+   subject ids and as the self lanes, the observe with int32 and int16
+   incarnations and epoch lanes; lanes, count, dropped and the
+   first-round matrices exact; each shape timed on the device clock
+   beside its byte bound (``batch_*`` and ``batch_large_*`` fields of the
+   ``trace_record`` and ``trace_observe`` rows);
 4. the probe path: ``python -m scalecube_cluster_tpu_torch.mosaic_probe``
    at [512, 128] and at [1,000,000, 16] (each probe once, checked against
    its plain version), then each probe timed at both shapes on the
@@ -180,8 +193,8 @@ and prints no result):
    launches per round (a profiled 10-round window) and peak memory (and
    the bytes already allocated when its run began);
 6a. ``bench.py``'s traced window at full width (``traced_window_path``):
-    the main path's workload (wide, shift) for 256 rounds through
-    ``telemetry/sink.stream_traced_run`` in 4 segments of 64 at 65,536
+    the main path's workload (wide, shift) for 128 rounds through
+    ``telemetry/sink.stream_traced_run`` in 4 segments of 32 at 65,536
     rows a segment, ``decode=False``, against the untraced ``run`` of the
     same rounds and draws, each timed twice in turns: final state (every
     lane) and metrics equal; one ``trace_observe`` a round and no
@@ -191,7 +204,7 @@ and prints no result):
     (``trace.record_events``, one ``trace_record`` a round, and
     ``trace.update_first_rounds``) makes of those codes; both ms/round and
     ``traced_overhead_ratio`` (traced ms over untraced), peak bytes, and
-    profiled windows from round 256, traced and untraced;
+    profiled windows from round 128, traced and untraced;
 6b. ``bench.py``'s telemetry scenario (``telemetry_path``): 4,096 x 16,
     the sped-up timing, node 3 crashed at round 10,
     ``suspicion_rounds + 80`` rounds in segments of a third: no drop, and
@@ -200,13 +213,13 @@ and prints no result):
 6d. (after 6b) ``bench.py --compose``'s full instrumented stack at full
     width (``instrumented_stack_path``): the main path's workload (wide,
     shift) through ``models/compose.run_composed`` (trace at 65,536
-    rows, passive monitor, default registry) for 256 rounds: its final
+    rows, passive monitor, default registry) for 128 rounds: its final
     status, trace lanes and count, monitor and registry (but
     ``chaos_violations``) equal to ``run_traced``'s, ``run_monitored``'s
     and ``run_metered``'s; the monitor green; one merge, one
     ``trace_observe`` and five ``trace_record`` a round; bare ``run``, the
     stack and ``run_metered`` timed in turns, ``full_stack_overhead_ratio``
-    and ``metrics_overhead_ratio``; profiled windows from round 256
+    and ``metrics_overhead_ratio``; profiled windows from round 128
     (bare, the stack, the monitor alone, the metrics alone: device busy
     ms, launches, the ``metrics.observe``, ``monitor.check`` and
     ``monitor.record`` phases); ``metrics.stream_metered_run`` through a
@@ -223,7 +236,7 @@ and prints no result):
     the knob off giving the same state, stacked metrics, trace and
     registry; one ``provenance_observe`` a round; armed and unarmed timed
     in turns (``provenance_overhead_ratio``, reported only) and profiled
-    20-round windows of both over the SUSPECTED wave (from round 10) and a
+    10-round windows of both over the SUSPECTED wave (from round 10) and a
     quiet stretch (from round 200), with the ``provenance.observe`` phase;
 6c. the churn storm at full width, the open-world plane's path: the
     reference's ``chaos.churn_growth_scenario`` geometry (``bench.py
@@ -332,6 +345,24 @@ and prints no result):
     ``weakened_knobs``: red with COMPLETENESS on the card and the CPU
     alike; ``minimize`` keeps every code; its ``repro()`` line, evaluated
     under the port's ``chaos``, reproduces the verdict;
+8i. (after 8f) ``bench.py --fuzz``'s three stages through the port's
+    batched runner (``fuzz_batch_path``, ``bench.py:3094-3275``):
+    ``generate_fuzz_campaign(100, 4, 32)``, 12 scenarios, checked to be
+    phase 8e's first 12, bucketed by ``campaign.build_buckets`` (11
+    buckets), the CPU-made draws.  Stage 1 (the timed batched sweep):
+    ``run_campaign_vmapped`` with its journal; each row's verdict equal
+    to phase 8e's serial verdict and to the CPU's (a worker);
+    ``moderate-110`` the one red (``CHAOS_STREAM_REDS``); one merge a row
+    and round, the monitor's record by ``trace_record_batch`` alone.
+    Stage 2: the batched arm's scenarios/s beside the serial arm's (phase
+    8e's wall seconds of the same scenarios), ms a batch round, and a
+    profiled window of the largest bucket.  Stage 3:
+    ``run_weakened_slice``: COMPLETENESS found, the healthy violations on
+    the slice only the stream reds', the first red row's repro line red
+    with COMPLETENESS.  Then the batched stack canary
+    (``fuzz_stack_canary``: the two-row bucket through
+    ``composed_batch_scan`` with the trace, monitor and metrics planes,
+    64 rounds, card == CPU; one ``trace_observe_batch`` a round);
 8g. ``bench.py --lifeguard`` at its defaults (``lifeguard_path``): 3
     scenarios of ``asymmetric_degradation(11 + i, n=48)``, scatter,
     ``ping_known_only=False``, ``lhm_max`` 0 against 8, the degraded
@@ -353,7 +384,7 @@ and prints no result):
     path's first SUSPECT round and final DEAD share beside its own;
 11. phase 9 under scatter delivery;
 12. blocked == unblocked on the card: the capacity configuration below
-    at N = K = 8,192 for 60 rounds, wide and compact, with
+    at N = K = 8,192 for 40 rounds, wide and compact, with
     ``k_block=1024`` and without; every state lane and metric equal;
     each run's peak bytes and bytes per cell; then compact again with
     the three planes on (the exchange every 8 rounds);
@@ -361,7 +392,7 @@ and prints no result):
     (``experiments/fullview_ceiling.py:88-94``: LAN defaults, N = K =
     36,864, compact carry, ``k_block=1024``, suspicion 6 rounds, ping
     every 2, SYNC every 4, aggregate metrics, loss 0, node 3 crashed at
-    round 2) for 48 rounds (cut for the time limit from the reference's
+    round 2) for 32 rounds (cut for the time limit from the reference's
     120): the wire16 merge, decode and encode each launched 36 times a
     round; at the end >= 99% of live observers hold
     node 3 DEAD; no false positive in any round; peak allocation <= 18
@@ -431,17 +462,17 @@ OPS_PER_CELL = {"merge": 60, "carry_decode": 10, "carry_encode": 20,
 
 MAIN_N, MAIN_K, MAIN_ROUNDS, CRASHED, CRASH_AT = 1_000_000, 16, 600, 3, 10
 # The full-view capacity configuration (experiments/fullview_ceiling.py:
-# 88-94): N = K, k_block column blocks, node 3 crashed at round 2; 48
+# 88-94): N = K, k_block column blocks, node 3 crashed at round 2; 32
 # rounds, cut for the time limit from the reference's 60-round first
 # window plus its 60 timed rounds (every live observer holds node 3 DEAD
 # from round 16 on the card).
-FULL_N, FULL_KB, FULL_ROUNDS, FULL_CRASH_AT = 36_864, 1_024, 48, 2
+FULL_N, FULL_KB, FULL_ROUNDS, FULL_CRASH_AT = 36_864, 1_024, 32, 2
 FULL_LAYOUT = "compact"
 # A round's peak allocation may hold two compact carries (the input and
 # the output) and the [N, Kb] transients of one block.
 MAX_BYTES_PER_CELL = 18
 # Blocked against unblocked on the card, at a size both fit.
-PAIR_N, PAIR_ROUNDS = 8_192, 60
+PAIR_N, PAIR_ROUNDS = 8_192, 40
 PROFILE_FULL_ROUNDS = 5
 # The block-form kernel checks: a [FULL_N, BLOCK_CARRY_K] carry (the real
 # row count, 1-4 KB row segments), blocks of FULL_KB columns at these
@@ -489,6 +520,9 @@ ROUND_KERNELS = {
     "compact_wire24": (merge.NAMES["wire24"], carry.DECODE, carry.ENCODE),
 }
 CSRC = "scalecube_cluster_tpu_torch/csrc/"
+# The batch forms reported as ``batch_*`` fields of their one-round rows.
+BATCH_FORMS = {trace_kernel.NAME: trace_kernel.RECORD_BATCH,
+               trace_kernel.OBSERVE: trace_kernel.OBSERVE_BATCH}
 # The merge kernel's plane branches in phase 3: multipliers in [1, 8], a
 # 64-round suppression window, and deadlines (relative to the round; None
 # = no timer) with expiries at the round and one round either side.
@@ -567,12 +601,29 @@ TRACE_OBSERVE_CASES = (
      torch.int32, None, 0),
     ("at capacity", 1e-3, TRACE_CAPACITY, TRACE_CAPACITY, torch.int32, None,
      0))
+# Phase 3e, the two batch forms: (B, N, K, capacity) at the fuzz
+# campaign's shape and at 16 x 65,536 x 16, and the rows' cases, cycled
+# over the batch (label, event density, rows already recorded as a
+# function of the capacity and the row's cells).
+TRACE_BATCH_SHAPES = ((12, 32, 32, 1_024), (16, 65_536, 16, 65_536 * 16))
+TRACE_BATCH_CASES = (
+    ("empty", 0.0, lambda cap, cells: 0),
+    ("dense", 0.9, lambda cap, cells: 0),
+    ("sparse", 1e-2, lambda cap, cells: 0),
+    ("overflow", 0.5, lambda cap, cells: cap - cells // 4),
+    ("one below capacity", 1e-2, lambda cap, cells: cap - 1),
+    ("at capacity", 1e-2, lambda cap, cells: cap))
+# The observe batch's variants: (shape index, incarnation dtype, epoch
+# dtype or None).
+TRACE_BATCH_OBSERVE = ((0, torch.int32, torch.int32), (1, torch.int32, None),
+                       (1, torch.int16, torch.int16))
 # The traced canaries: node 5 leaves at round 30; the overflowing one's
-# capacity.  bench.py's traced window (bench.py:475-540): 256 rounds in 4
-# segments at traced_window_policy's capacity (65,536 at 1M); its
+# capacity.  bench.py's traced window (bench.py:475-540): 128 rounds (cut
+# for the time limit from 256) in 4 segments at traced_window_policy's
+# capacity (65,536 at 1M); its
 # telemetry scenario (bench.py:327-328, :666-720).
 TRACE_LEAVER, TRACE_LEAVE_AT, TRACE_CANARY_SMALL_CAPACITY = 5, 30, 256
-TRACE_ROUNDS, TRACE_SEGMENTS = 256, 4
+TRACE_ROUNDS, TRACE_SEGMENTS = 128, 4
 # The monitor's record cases at 1M x 16 (label, density of violating cells
 # a code, density of each self lane, rows already recorded, codes no
 # longer fresh), into the monitor's default 4,096 rows.
@@ -585,9 +636,9 @@ MONITOR_RECORD_CASES = (
     ("one below capacity", 2e-5, 2e-4, MONITOR_CAPACITY - 1, ()),
     ("at capacity", 2e-5, 2e-4, MONITOR_CAPACITY, ()))
 MONITOR_CANARY_N, MONITOR_CANARY_ROUNDS = 512, 100
-# The instrumented stack's timed window (bench.py --metrics windows at a
-# quarter of its rounds; 256 keeps every int32 counter far from wrapping).
-STACK_ROUNDS, STACK_PROFILE_ROUNDS = 256, 20
+# The instrumented stack's timed window (128 rounds, cut for the time limit
+# from 256; every int32 counter stays far from wrapping).
+STACK_ROUNDS, STACK_PROFILE_ROUNDS = 128, 10
 TELEMETRY_N, TELEMETRY_CRASH_AT = 4_096, 10
 # The provenance round's kernel cases at 1M x 16 (label, density of
 # changed cells, rows already recorded, capacity, key dtype, epoch dtype
@@ -627,7 +678,7 @@ DRILL_ONSET, DRILL_PULSE, DRILL_HORIZON, DRILL_CAPACITY = 32, 160, 288, 2048
 # REMOVED waves, about 2M rows, fit), the window, the quiet stretch's
 # start, the profiled windows' rounds.
 PROV_CRASH_CAPACITY, PROV_CRASH_ROUNDS = 4_194_304, 600
-PROV_QUIET_AT, PROV_PROFILE_ROUNDS = 200, 20
+PROV_QUIET_AT, PROV_PROFILE_ROUNDS = 200, 10
 # The gossip-only simulator at its docstring's scale (models/gossip.py):
 # N members, G gossips, LAN defaults, the bench's loss; the delayed arm's
 # ring depth; its seed.
@@ -646,6 +697,10 @@ CHAOS_SEED, CHAOS_SCENARIOS, CHAOS_N = 100, 21, 32
 # keys (python -m tests.torch_chaos_reference).  Any other red fails.
 CHAOS_STREAM_REDS = {
     "moderate-110-leave+churn+churn_arrivals": ("COMPLETENESS", 25, 154)}
+# bench.py --fuzz (bench.py:3094-3275) at the chaos campaign's seed and
+# size: generate_fuzz_campaign(100, 4, 32), 12 scenarios, the first 12 of
+# phase 8e's list; the batched stack canary's rounds.
+FUZZ_SEEDS_PER_TIER, FUZZ_STACK_ROUNDS = 4, 64
 # bench.py --lifeguard at its defaults (bench.py:2108-2135): N, first
 # seed, scenarios, the plane's lhm_max, the degraded rack's crash round;
 # the reference's committed CPU run (artifacts/lifeguard_fp.json):
@@ -718,7 +773,7 @@ def time_ms(fn, samples=10, inner=10, warmup=3):
 EVENT_CLOCK_FALLBACKS = []
 
 
-def device_ms(fn, calls=20, warmup=3, traces=5, pause_s=0.5):
+def device_ms(fn, calls=10, warmup=3, traces=5, pause_s=0.5):
     """Mean device milliseconds per call of ``fn()``: the summed time of
     the CUDA kernels (and copies) it runs, from a ``torch.profiler``
     trace of ``calls`` calls, without the host's time between them.  A
@@ -2133,7 +2188,7 @@ def check_launches(label, params, launches, rounds, layout):
 
 
 def blocked_pair(device, planes=False):
-    """Phase 12: the capacity configuration at N = 8,192 for 60 rounds,
+    """Phase 12: the capacity configuration at N = 8,192 for 40 rounds,
     wide and compact, blocked (k_block=1,024) and unblocked: per-round
     metrics and every state lane equal; peak bytes printed.  ``planes``:
     compact only, with the three tick-level planes on (the exchange
@@ -3056,11 +3111,10 @@ def merge_ab(device, baseline):
 # --------------------------------------------------------------------------
 
 
-def trace_planes(density, seed, device):
-    """Seeded [1M, 16] code planes (event types 1-6 at ``density``) and
-    event incarnations on the card."""
+def trace_planes(density, seed, device, shape=(MAIN_N, MAIN_K)):
+    """Seeded [N, K] code planes (event types 1-6 at ``density``; 1M x 16
+    by default) and event incarnations on the card."""
     g = torch.Generator(device=device).manual_seed(seed)
-    shape = (MAIN_N, MAIN_K)
     kinds = torch.randint(1, 7, shape, generator=g, device=device,
                           dtype=torch.int32)
     codes = torch.where(torch.rand(shape, generator=g, device=device)
@@ -3294,7 +3348,8 @@ def observe_plain(kw, outs):
 def observe_codes(kw):
     """The plain derivation's codes of an observe case."""
     sids, offset = kw["subject_ids"], kw["observer_offset"]
-    is_self = trace_kernel.self_mask(sids, MAIN_N, offset)
+    is_self = trace_kernel.self_mask(sids, kw["prev_status"].shape[0],
+                                     offset)
     leaving = (kw["leave_at"] == kw["round_idx"])[:, None] & is_self
     codes, _ = trace_kernel.derive_event_codes(
         kw["prev_status"], None, kw["new_status"], kw["new_inc"], is_self,
@@ -3313,7 +3368,8 @@ def observe_bytes(kw, codes, recorded):
     epoch = kw.get("prev_epoch")
     return (2 * cells + (0 if epoch is None else 2 * epoch.element_size()
                          * cells)
-            + 8 * MAIN_K + events * kw["new_inc"].element_size()
+            + 8 * kw["subject_ids"].numel()
+            + events * kw["new_inc"].element_size()
             + recorded * 4 * trace_kernel.N_LANES + stamps * 8 + 16)
 
 
@@ -3385,6 +3441,234 @@ def check_trace_observe(device):
                            OPS_PER_CELL["trace_observe"])
 
     return trace_row("trace_observe", timed)
+
+
+def batch_cases(batch, cells, cap):
+    """Row b's case of a batch: ``(label, density, start)``, the cases
+    cycled over the rows."""
+    out = []
+    for b in range(batch):
+        label, density, start = TRACE_BATCH_CASES[b % len(TRACE_BATCH_CASES)]
+        out.append((label, density, start(cap, cells)))
+    return out
+
+
+def batch_buffer(starts, cap, device):
+    """A [B, cap, 5] buffer, row b with ``starts[b]`` seeded rows and 5
+    drops: ``(lanes, count, dropped)``."""
+    rows = [trace_buffer(start, cap, device) for start in starts]
+    return tuple(torch.stack([r[i] for r in rows]) for i in range(3))
+
+
+def batch_subjects(batch, n, k, device):
+    """[B, K] distinct subject ids, row b's shifted by b."""
+    cols = torch.arange(k, dtype=torch.int32, device=device) * (n // k)
+    return torch.stack([(cols + b) % n for b in range(batch)])
+
+
+def check_batch_rows(name, cases, cap, totals, count, dropped, cells):
+    """Raise unless every row's counters moved as its record must and the
+    row reached the edge its case names."""
+    for b, (label, _, start) in enumerate(cases):
+        c, d = int(count[b]), int(dropped[b])
+        check_counters(name, f"row {b} ({label})", start, cap, totals[b], c,
+                       d)
+        edge = (totals[b] == 0 and c == start) if label == "empty" else \
+            reaches_edge(label, start, cap, totals[b], c, d, cells)
+        if not edge:
+            raise AssertionError(f"{name} row {b} ({label}): the case does "
+                                 f"not reach its edge ({totals[b]} events, "
+                                 f"{start} -> {c} of {cap})")
+
+
+def timed_batch(kernel, plain, count, starts, n_bytes):
+    """A batch kernel's device-clock time and its plain version's, the
+    counts put back to ``starts`` before each call (a copy inside the
+    device time), beside the byte bound ``n_bytes``."""
+    def again(fn):
+        def call():
+            count.copy_(starts)
+            fn()
+        return call
+    return dict(ms=device_ms(again(kernel)), plain_ms=device_ms(again(plain)),
+                bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3)
+
+
+def batch_fields(name, rows):
+    """The ``batch_*`` fields of a kernel's row from its timed shapes
+    (the fuzz shape's as ``batch_*``, the larger one's as
+    ``batch_large_*``), logged."""
+    out = dict(batch_max_abs_err=0)
+    for (shape, timed), prefix in zip(rows, ("batch_", "batch_large_")):
+        log(f"[kernel] {name}_batch {'x'.join(map(str, shape))}: device "
+            f"clock {timed['ms']:.4f} ms (plain {timed['plain_ms']:.4f}), "
+            f"bound {timed['bound_ms']:.4f} ms (bytes), "
+            f"{timed['bound_ms'] / timed['ms']:.3f} of the byte bound")
+        out.update({prefix + "shape": list(shape), prefix + "ms": timed["ms"],
+                    prefix + "plain_ms": timed["plain_ms"],
+                    prefix + "bound_ms": timed["bound_ms"],
+                    prefix + "bound_by": "bytes"})
+    return out
+
+
+def check_trace_record_batch(device):
+    """Phase 3e, the codes-in record's batch form
+    (``kernels/trace.trace_record_batch``) against its plain version (the
+    one-round plain version looped over the rows) at the fuzz shape (12 x
+    32 x 32) and at 16 x 65,536 x 16: rows empty, dense, sparse,
+    overflowing partway, one below and at capacity, each row checked to
+    reach its edge; at the fuzz shape also the self lanes ([B, N, 1], no
+    subject ids).  Lanes, count and dropped exact.  Each shape timed on
+    the device clock beside its byte bound."""
+    timed_rows = []
+    for batch, n, k, cap in TRACE_BATCH_SHAPES:
+        cases = batch_cases(batch, n * k, cap)
+        planes = [trace_planes(density, 20 + b, device, (n, k))
+                  for b, (_, density, _) in enumerate(cases)]
+        codes = torch.stack([p[0] for p in planes])
+        incs = torch.stack([p[1] for p in planes])
+        variants = [(codes, incs, batch_subjects(batch, n, k, device))]
+        if n * k <= 4_096:
+            variants.append((codes[:, :, :1].contiguous(),
+                             incs[:, :, :1].contiguous(), None))
+        for codes_v, incs_v, sids in variants:
+            starts = [start for _, _, start in cases]
+            got = batch_buffer(starts, cap, device)
+            want = tuple(t.clone() for t in got)
+            trace_kernel.trace_record_batch(*got, codes_v, incs_v, sids,
+                                            TRACE_RECORD_ROUND)
+            trace_kernel.trace_record_batch_reference(
+                *want, codes_v, incs_v, sids, TRACE_RECORD_ROUND)
+            torch.cuda.synchronize()
+            label = "self lanes" if sids is None else "codes"
+            max_abs_err(f"trace_record_batch {label} {batch}x{n}x{k}", got,
+                        want)
+            totals = (codes_v > 0).flatten(1).sum(-1).tolist()
+            if sids is not None:
+                check_batch_rows("trace_record_batch", cases, cap, totals,
+                                 got[1], got[2], n * k)
+            log(f"[kernel] trace_record_batch {label} {batch}x{n}x{k}: exact "
+                f"match (lanes, count, dropped), rows "
+                f"{[c[0] for c in cases]}, events {totals}, counts "
+                f"{got[1].tolist()}")
+        lanes, count, dropped = batch_buffer(starts, cap, device)
+        start_t = count.clone()
+        totals = (codes > 0).flatten(1).sum(-1).tolist()
+        n_bytes = sum(record_bytes(codes[b], min(totals[b], max(
+            cap - starts[b], 0)), totals[b]) for b in range(batch))
+        timed_rows.append(((batch, n, k), timed_batch(
+            lambda: trace_kernel.trace_record_batch(
+                lanes, count, dropped, codes, incs, variants[0][2],
+                TRACE_RECORD_ROUND),
+            lambda: trace_kernel.trace_record_batch_reference(
+                lanes, count, dropped, codes, incs, variants[0][2],
+                TRACE_RECORD_ROUND),
+            count, start_t, n_bytes)))
+    return batch_fields("trace_record", timed_rows)
+
+
+def observe_row(n, k, density, seed, device, inc_dtype, epoch_dtype,
+                subject_ids, leaves):
+    """One row of an observe batch at [N, K]: ``observe_inputs``' carries
+    (random statuses, a ``density`` share changed, the self cells ALIVE
+    to SUSPECT, an epoch lane advancing on ``density / 2``), and with
+    ``leaves`` half the subjects' self rows and a few others leaving this
+    round, one at ``self_inc`` INT32_MAX.  Returns the inputs and the
+    first-round matrices."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand():
+        return torch.rand((n, k), generator=g, device=device)
+
+    def randint(lo, hi, size=(n, k), dtype=torch.int32):
+        return torch.randint(lo, hi, size, generator=g, device=device,
+                             dtype=dtype)
+
+    prev = torch.where(rand() < 0.3, randint(0, 4), records.ALIVE)
+    new = torch.where(rand() < density, (prev + randint(1, 4)) % 4, prev)
+    self_rows = subject_ids.long()
+    cols = torch.arange(k, device=device)
+    prev[self_rows, cols] = records.ALIVE
+    new[self_rows, cols] = records.SUSPECT
+    hi = 1 << (15 if inc_dtype == torch.int16 else 30)
+    row = dict(prev_status=prev.to(torch.int8), new_status=new.to(torch.int8),
+               new_inc=randint(-hi, hi, dtype=inc_dtype),
+               self_inc=randint(0, 1 << 30, (n,)),
+               leave_at=torch.full((n,), INT32_MAX, dtype=torch.int32,
+                                   device=device))
+    if leaves:
+        row["leave_at"][self_rows[::2]] = TRACE_RECORD_ROUND
+        row["leave_at"][randint(0, n, (max(1, n // 16),)).long()] = \
+            TRACE_RECORD_ROUND
+        row["self_inc"][self_rows[0]] = INT32_MAX
+    if epoch_dtype is not None:
+        prev_epoch = randint(0, 1000, dtype=epoch_dtype)
+        row["prev_epoch"] = prev_epoch
+        row["new_epoch"] = (prev_epoch + (rand() < density / 2)).to(
+            epoch_dtype)
+    firsts = [torch.where(rand() < 0.5, INT32_MAX, randint(0, 30))
+              for _ in range(2)]
+    return row, firsts
+
+
+def check_trace_observe_batch(device):
+    """Phase 3e, the fused observe's batch form
+    (``kernels/trace.trace_observe_batch``) against its plain version at
+    the fuzz shape (12 x 32 x 32, int32 incarnations and epoch lane) and
+    at 16 x 65,536 x 16 (the wide carry; int16 incarnations and epoch
+    lane): rows empty (no change, no leaver), dense, sparse, overflowing
+    partway, one below and at capacity, each row checked to reach its
+    edge; lanes, count, dropped and both first-round matrices exact.  The
+    fuzz shape and the wide 65,536 x 16 batch timed on the device clock
+    beside their byte bounds."""
+    timed_rows = []
+    for shape_i, inc, epoch in TRACE_BATCH_OBSERVE:
+        batch, n, k, cap = TRACE_BATCH_SHAPES[shape_i]
+        cases = batch_cases(batch, n * k, cap)
+        sids = batch_subjects(batch, n, k, device)
+        rows = [observe_row(n, k, density, 40 + b, device, inc, epoch,
+                            sids[b], label != "empty")
+                for b, (label, density, _) in enumerate(cases)]
+        kw = {name: torch.stack([r[0][name] for r in rows])
+              for name in rows[0][0]}
+        kw.update(subject_ids=sids, round_idx=TRACE_RECORD_ROUND)
+        starts = [start for _, _, start in cases]
+        lanes, count, dropped = batch_buffer(starts, cap, device)
+        got = dict(lanes=lanes, count=count, dropped=dropped,
+                   first_suspect=torch.stack([r[1][0] for r in rows]),
+                   first_removed=torch.stack([r[1][1] for r in rows]))
+        want = {name: t.clone() for name, t in got.items()}
+        trace_kernel.trace_observe_batch(**got, **kw)
+        trace_kernel.trace_observe_batch_reference(**want, **kw)
+        torch.cuda.synchronize()
+        names = ("lanes", "count", "dropped", "first_suspect",
+                 "first_removed")
+        label = f"{batch}x{n}x{k} inc {inc} epoch {epoch}"
+        max_abs_err(f"trace_observe_batch {label}", [got[m] for m in names],
+                    [want[m] for m in names])
+        totals, n_bytes = [], 0
+        for b in range(batch):
+            row_kw = {name: (v[b] if isinstance(v, torch.Tensor) else v)
+                      for name, v in kw.items()}
+            row_kw["observer_offset"] = 0
+            codes = observe_codes(row_kw)
+            totals.append(int((codes > 0).sum()))
+            n_bytes += observe_bytes(row_kw, codes, min(
+                totals[-1], max(cap - starts[b], 0)))
+        check_batch_rows("trace_observe_batch", cases, cap, totals,
+                         got["count"], got["dropped"], n * k)
+        log(f"[kernel] trace_observe_batch {label}: exact match (lanes, "
+            f"count, dropped, first_suspect, first_removed), rows "
+            f"{[c[0] for c in cases]}, events {totals}, counts "
+            f"{got['count'].tolist()}")
+        if inc == torch.int32:
+            start_t = torch.tensor(starts, dtype=torch.int32, device=device)
+            timed_rows.append(((batch, n, k), timed_batch(
+                lambda: trace_kernel.trace_observe_batch(**got, **kw),
+                lambda: trace_kernel.trace_observe_batch_reference(**got,
+                                                                   **kw),
+                got["count"], start_t, n_bytes)))
+    return batch_fields("trace_observe", timed_rows)
 
 
 def traced_world(params, device):
@@ -3545,7 +3829,7 @@ def traced_window_path(device):
     (``bench_workload``, bench.py:388-412, through ``timed_traced_run``'s
     runner, bench.py:475-540): LAN defaults, N = 1M x K = 16, loss 0.02,
     node 3 crashed at round 10, shift, wide; ``stream_traced_run`` over
-    256 rounds in 4 segments at ``traced_window_policy``'s capacity of
+    128 rounds in 4 segments at ``traced_window_policy``'s capacity of
     65,536 a segment, ``decode=False``, and the untraced ``run`` of the
     same rounds and draws, each timed twice, in turns.  The final states
     must be equal lane for lane and the metrics equal; each segment's
@@ -3554,7 +3838,7 @@ def traced_window_path(device):
     Prints both ms/round (means of the two windows), their ratio
     (``traced_overhead_ratio``: untraced member-rounds/s over traced,
     i.e. traced ms over untraced), peak bytes, and profiled 10-round
-    windows from round 256, traced and untraced."""
+    windows from round 128, traced and untraced."""
     params = profile_round.bench_params("wide", MAIN_N, MAIN_K)
     world = crash_world(params, device)
     segment = TRACE_ROUNDS // TRACE_SEGMENTS
@@ -4060,8 +4344,8 @@ def instrumented_stack_path(device):
     composed stack and ``run_metered`` in turns (bare, stack, metered,
     metered, stack, bare); ``full_stack_overhead_ratio`` (stack s / bare
     s) and ``metrics_overhead_ratio`` (metered s / bare s, bench.py's
-    unmetered rate over metered) from the means.  Profiled 20-round
-    windows from round 256: bare, the stack, the monitor alone, the
+    unmetered rate over metered) from the means.  Profiled 10-round
+    windows from round 128: bare, the stack, the monitor alone, the
     metrics alone (device busy ms and launches a round, the
     ``metrics.observe``, ``monitor.check`` and ``monitor.record``
     phases).  Then ``stream_metered_run`` through a ``TelemetrySink``
@@ -4367,17 +4651,20 @@ def chaos_campaign_path(device):
     scenario green but those ``CHAOS_STREAM_REDS`` names, whose codes and
     evidence must be exactly the named ones; the journal's manifest, 21
     ``chaos_scenario`` rows and the ``chaos_verdict`` summary.  Returns
-    the launches."""
+    the launches, the verdict rows and each scenario's wall seconds (its
+    verdict read back)."""
     scens = chaos_campaign_scenarios()
     cpu_rows = cpu_half("chaos", "campaign")
+    clock = ScenarioClock()
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/chaos.jsonl"
         LAUNCHES.clear()
         t0 = time.perf_counter()
+        clock.ends.append(t0)
         with sink.TelemetrySink(path=path) as journal:
             result = campaign.run_campaign(scens, seed=CHAOS_SEED,
-                                           sink=journal, device=device,
-                                           draw_device="cpu")
+                                           sink=journal, log=clock,
+                                           device=device, draw_device="cpu")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = dict(LAUNCHES)
@@ -4426,7 +4713,226 @@ def chaos_campaign_path(device):
         f", card == CPU on every verdict; {rounds} rounds in "
         f"{seconds:.3f} s, {seconds / rounds * 1e3:.4f} ms/round; journal "
         f"{len(rows)} records; launches {launches}")
+    return launches, [v.to_json() for v in result.verdicts], \
+        [b - a for a, b in zip(clock.ends, clock.ends[1:])]
+
+
+class ScenarioClock:
+    """A campaign's ``log``: the host clock at each scenario's verdict."""
+
+    def __init__(self):
+        self.ends = []
+
+    def info(self, *args):
+        self.ends.append(time.perf_counter())
+
+
+def fuzz_scenarios():
+    """``bench.py --fuzz``'s list at the chaos campaign's seed and size,
+    checked to be the first 12 of phase 8e's."""
+    scens = scenarios.generate_fuzz_campaign(CHAOS_SEED, FUZZ_SEEDS_PER_TIER,
+                                             n=CHAOS_N)
+    head = chaos_campaign_scenarios()[:len(scens)]
+    if [s.repro() for s in scens] != [s.repro() for s in head]:
+        raise AssertionError("generate_fuzz_campaign(100, 4, 32) is not the "
+                             "head of generate_campaign(100, 21, 32)")
+    return scens
+
+
+def fuzz_batch_cpu(dev):
+    """The bucketed campaign on ``dev`` with the CPU-made draws: each
+    verdict's JSON row."""
+    result = campaign.run_campaign_vmapped(fuzz_scenarios(), seed=CHAOS_SEED,
+                                           device=dev, draw_device="cpu")
+    return [v.to_json() for v in result.verdicts]
+
+
+def fuzz_stack_run(dev):
+    """The batched stack canary: the fuzz list's two-row bucket through
+    ``composed_batch_scan`` with the trace, monitor and metrics planes,
+    ``FUZZ_STACK_ROUNDS`` rounds, the CPU-made draws."""
+    bucket = next(b for b in campaign.build_buckets(
+        fuzz_scenarios(), seed=CHAOS_SEED, device=dev) if b.size > 1)
+    draws = [campaign._moved_draws(s, bucket.params, w, dev, "cpu")
+             for s, w in zip(bucket.seeds, bucket.worlds)]
+    planes = (ttrace.TracePlane(capacity=TRACE_CANARY_SMALL_CAPACITY),
+              monitor.MonitorPlane(bucket.specs),
+              metrics.MetricsPlane(metrics.MetricsSpec.default(),
+                                   chaos_from="monitor"))
+    return compose.composed_batch_scan(
+        bucket.seeds, bucket.params, bucket.worlds, FUZZ_STACK_ROUNDS,
+        planes=planes, draws=draws, knobs=bucket.knobs, device=dev)
+
+
+def tensors_equal(label, got, want):
+    """Raise unless two results of one structure hold equal tensors
+    (``got`` on the card, ``want`` on the CPU)."""
+    if isinstance(want, torch.Tensor):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{label}: card != CPU")
+    elif dataclasses.is_dataclass(want):
+        for f in dataclasses.fields(want):
+            tensors_equal(f"{label}.{f.name}", getattr(got, f.name),
+                          getattr(want, f.name))
+    elif isinstance(want, (dict, tuple, list)):
+        items = want.items() if isinstance(want, dict) else enumerate(want)
+        for k, v in items:
+            tensors_equal(f"{label}.{k}", got[k], v)
+
+
+def fuzz_stack_canary(device):
+    """Phase 8i's batched stack canary (``fuzz_stack_run``) on the card
+    equal to the CPU's (states, every plane, metrics); one
+    ``trace_observe_batch`` a round and the monitor's
+    ``trace_record_batch`` launches a whole number a round."""
+    want = cpu_half("fuzz_stack", "canary")
+    LAUNCHES.clear()
+    got = fuzz_stack_run(device)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    tensors_equal("fuzz stack canary", got, want)
+    if launches.get(trace_kernel.OBSERVE_BATCH) != FUZZ_STACK_ROUNDS \
+            or launches.get(trace_kernel.RECORD_BATCH, 0) \
+            % FUZZ_STACK_ROUNDS:
+        raise AssertionError(f"fuzz stack canary: launches {launches}")
+    counts = got[1]["trace"].trace.count.tolist()
+    log(f"[fuzz] batched stack canary (the two-row bucket, trace, monitor, "
+        f"metrics, {FUZZ_STACK_ROUNDS} rounds): card == CPU (states, "
+        f"trace, monitor, registry, metrics), trace counts {counts}, "
+        f"launches {launches}")
     return launches
+
+
+def fuzz_batch_path(device, chaos_rows, chaos_seconds):
+    """Phase 8i, ``bench.py --fuzz``'s three stages through the port
+    (``bench.py:3094-3275``) at the chaos campaign's seed and size:
+    ``generate_fuzz_campaign(100, 4, 32)`` (12 scenarios, phase 8e's
+    first 12), shift, seed 100 + i, bucketed by ``build_buckets``, the
+    CPU-made draws.  Stage 1, timed (the batched sweep):
+    ``run_campaign_vmapped`` at the monitor's default capacity with its
+    journal; each row's verdict equal to phase 8e's serial verdict and
+    to the CPU's (a worker); ``moderate-110`` the one red, as
+    ``CHAOS_STREAM_REDS`` names it; the journal's kinds.  Stage 2: the
+    batched arm's scenarios/s against the serial arm's, phase 8e's
+    per-scenario wall seconds for the same 12 rows; a profiled window of
+    the largest bucket (launches and ms per batch round).  Stage 3:
+    ``run_weakened_slice``: COMPLETENESS found (> 0); the healthy arm's
+    violations on the slice only the stream reds'; the first red row's
+    repro line, evaluated under the port's ``chaos``, red with
+    COMPLETENESS.  Returns the launches of stages 1 and 3."""
+    scens = fuzz_scenarios()
+    cpu_rows = cpu_half("fuzz_batch", "verdicts")
+    buckets = campaign.build_buckets(scens, seed=CHAOS_SEED, device=device)
+    sizes = [b.size for b in buckets]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/fuzz.jsonl"
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with sink.TelemetrySink(path=path) as journal:
+            result = campaign.run_campaign_vmapped(
+                scens, seed=CHAOS_SEED, sink=journal, buckets=buckets,
+                device=device, draw_device="cpu")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        kinds = [r["kind"] for r in sink.read_records(path)]
+    for i, v in enumerate(result.verdicts):
+        row = v.to_json()
+        if row != chaos_rows[i] or row != cpu_rows[i]:
+            raise AssertionError(
+                f"fuzz {v.scenario.name}: the batched verdict differs from "
+                f"phase 8e's serial one ({row == chaos_rows[i]}) or the "
+                f"CPU's ({row == cpu_rows[i]})")
+    reds = {v.scenario.name for v in result.verdicts if not v.green}
+    if reds != set(CHAOS_STREAM_REDS) & {s.name for s in scens}:
+        raise AssertionError(f"fuzz: red rows {sorted(reds)}")
+    if launches.get(merge.NAMES["wide"]) != sum(s.horizon for s in scens) \
+            or not launches.get(trace_kernel.RECORD_BATCH) \
+            or launches.get(trace_kernel.NAME):
+        raise AssertionError(f"fuzz: launches {launches} (each row's round "
+                             f"launches its merge; the batched monitor "
+                             f"records with trace_record_batch only)")
+    if kinds != (["manifest"] + ["chaos_bucket"] * len(buckets)
+                 + ["chaos_scenario"] * len(scens) + ["chaos_verdict"]):
+        raise AssertionError(f"fuzz journal kinds {kinds}")
+    batch_rounds = sum(b.horizon for b in buckets)
+    serial_s = sum(chaos_seconds[:len(scens)])
+    largest = max(buckets, key=lambda b: b.size)
+    window = batch_window(largest, device)
+    log(f"[fuzz] stage 1: {len(scens)} scenarios in {len(buckets)} buckets "
+        f"(sizes {sizes}), each row's verdict equal to phase 8e's serial "
+        f"one and to the CPU's; red: {sorted(reds)} (the stream effect "
+        f"CHAOS_STREAM_REDS names); {batch_rounds} batch rounds in "
+        f"{seconds:.3f} s; journal {len(kinds)} records; launches "
+        f"{launches}")
+    log(f"[fuzz] stage 2: batched {len(scens) / seconds:.4f} scenarios/s "
+        f"({seconds:.3f} s, stage 1's run), serial "
+        f"{len(scens) / serial_s:.4f} scenarios/s ({serial_s:.3f} s, phase "
+        f"8e's wall seconds of the same 12 scenarios), batched/serial "
+        f"speed {serial_s / seconds:.4f}; "
+        f"{seconds / batch_rounds * 1e3:.4f} ms a batch round over the "
+        f"sweep; the largest bucket ({largest.size} rows: "
+        f"{[s.name for s in largest.scenarios]}) profiled from round 0: "
+        f"{window['wall_ms_per_round']:.4f} ms and "
+        f"{window['kernel_launches_per_round']:.2f} launches a batch round, "
+        f"busy {window['device_busy_ms_per_round']:.4f} ms, idle "
+        f"{window['device_idle_share']:.4f}, phases "
+        f"{json.dumps(window['phase_device_ms_per_round'])} "
+        f"[launches {json.dumps(window['phase_launches_per_round'])}]")
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    cov, weak_counts, first_red = campaign.run_weakened_slice(
+        buckets, draw_device="cpu")
+    torch.cuda.synchronize()
+    weak_seconds = time.perf_counter() - t0
+    for name, count in LAUNCHES.items():
+        launches[name] = launches.get(name, 0) + count
+    complete = int(weak_counts[monitor.InvariantCode.COMPLETENESS])
+    healthy = {result.verdicts[i].scenario.name:
+               result.verdicts[i].verdict["total_violations"]
+               for i in cov if result.verdicts[i].verdict["total_violations"]}
+    if complete <= 0 or set(healthy) - set(CHAOS_STREAM_REDS) \
+            or first_red is None:
+        raise AssertionError(f"fuzz coverage: COMPLETENESS {complete}, "
+                             f"healthy violations {healthy}, first red "
+                             f"{first_red}")
+    repro = (f"chaos.run_scenario({scens[first_red].repro()}, "
+             f"seed={CHAOS_SEED + first_red}, delivery='shift', "
+             f"knobs=lambda p: chaos.weakened_knobs(None, p), "
+             f"draw_device='cpu')")
+    from scalecube_cluster_tpu_torch import chaos
+    again = eval(repro, {"chaos": chaos})  # noqa: S307 (the repro line)
+    if again.green or not again.verdict["codes"]["COMPLETENESS"][
+            "violations"]:
+        raise AssertionError(f"fuzz coverage: {repro} gives "
+                             f"{json.dumps(again.verdict['codes'])}")
+    weak = {monitor.InvariantCode(c).name: int(n)
+            for c, n in enumerate(weak_counts) if n}
+    log(f"[fuzz] stage 3: the weakened slice, {len(cov)} completeness-"
+        f"promising scenarios rerun in {weak_seconds:.3f} s: violations "
+        f"{weak}; the healthy arm's on the slice {healthy} (the stream "
+        f"reds); first red row {first_red}, its repro line reproduces the "
+        f"red (COMPLETENESS {again.verdict['codes']['COMPLETENESS']})")
+    return launches
+
+
+def batch_window(bucket, device):
+    """A profiled window of ``bucket``'s batch from round 0 (the monitor
+    plane, the CPU-made draws): ms, busy ms and launches a batch
+    round."""
+    draws = [campaign._moved_draws(s, bucket.params, w, device, "cpu")
+             for s, w in zip(bucket.seeds, bucket.worlds)]
+
+    def runner(states, start_round, rounds):
+        compose.composed_batch_scan(
+            bucket.seeds, bucket.params, bucket.worlds, rounds,
+            planes=(monitor.MonitorPlane(bucket.specs),), states=states,
+            start_round=start_round, draws=draws, knobs=bucket.knobs,
+            device=device)
+
+    return profile_round.profile_window(bucket.params, bucket.worlds[0],
+                                        None, 0, PROFILE_ROUNDS,
+                                        runner=runner)
 
 
 def fuzz_scenario():
@@ -4698,6 +5204,7 @@ def cpu_work(kind, *args):
     run = {"run": canary_run, "traced": traced_run, "monitor": monitor_run,
            "drill": drill_run, "gossip": gossip_cpu_run,
            "chaos": chaos_campaign_cpu, "fuzz": fuzz_cpu,
+           "fuzz_batch": fuzz_batch_cpu, "fuzz_stack": fuzz_stack_run,
            "lifeguard": lifeguard_run}[kind]
     buf = io.BytesIO()
     torch.save(run(*args), buf)
@@ -4728,6 +5235,10 @@ def start_cpu_halves(pool):
             cpu_work, "gossip", delayed, "cpu")
     _CPU_JOBS["chaos", "campaign"] = pool.submit(cpu_work, "chaos", "cpu")
     _CPU_JOBS["fuzz", "weakened"] = pool.submit(cpu_work, "fuzz", "cpu")
+    _CPU_JOBS["fuzz_batch", "verdicts"] = pool.submit(cpu_work, "fuzz_batch",
+                                                      "cpu")
+    _CPU_JOBS["fuzz_stack", "canary"] = pool.submit(cpu_work, "fuzz_stack",
+                                                    "cpu")
     for s_i in range(LIFEGUARD_SCENARIOS):
         for lhm_max in (0, LIFEGUARD_LHM):
             _CPU_JOBS["lifeguard", (s_i, lhm_max)] = pool.submit(
@@ -5231,6 +5742,8 @@ def run_phases(args, t_start):
                   trace_kernel.OBSERVE: check_trace_observe(device),
                   kprov.NAME: check_provenance_observe(device)}
     trace_rows[trace_kernel.NAME].update(check_monitor_record(device))
+    trace_rows[trace_kernel.NAME].update(check_trace_record_batch(device))
+    trace_rows[trace_kernel.OBSERVE].update(check_trace_observe_batch(device))
     stage("kernels", t_start)
     probe_launches, probe_rows = probe_path(device)
     stage("probes", t_start)
@@ -5260,8 +5773,10 @@ def run_phases(args, t_start):
     paths["rollout"] = rollout_path(device)
     paths["bench_rollout"] = bench_rollout_path(device)
     stage("metadata rollout", t_start)
-    paths["chaos"] = chaos_campaign_path(device)
+    paths["chaos"], chaos_rows, chaos_seconds = chaos_campaign_path(device)
     paths["fuzz"] = fuzz_path(device)
+    paths["fuzz_batch"] = fuzz_batch_path(device, chaos_rows, chaos_seconds)
+    paths["fuzz_stack"] = fuzz_stack_canary(device)
     paths["lifeguard"] = lifeguard_path(device)
     paths["dsl_scale"] = dsl_scale_path(device)
     stage("chaos layer", t_start)
@@ -5316,6 +5831,13 @@ def run_phases(args, t_start):
             launches_by_path={path: counts.get(name, 0)
                               for path, counts in paths.items()},
             **trace_rows[name]))
+        batch = BATCH_FORMS.get(name)
+        if batch is not None:
+            kernels[-1].update(
+                batch_launches=launches.get(batch, 0),
+                batch_launches_by_path={
+                    path: counts[batch] for path, counts in paths.items()
+                    if counts.get(batch)})
     for name in probes.NAMES:
         small = probe_rows[name]["512x128"]
         kernels.append(dict(

@@ -11,12 +11,14 @@ Counterpart of ``scalecube_cluster_tpu/chaos``:
   - :mod:`~scalecube_cluster_tpu_torch.chaos.monitor`, the invariant
     monitor riding the rounds (a fixed-capacity violation buffer, overflow
     counted: a violated run completes and reports);
-  - :mod:`~scalecube_cluster_tpu_torch.chaos.campaign`, the serial
-    campaign runner with its JSONL manifests and the minimizing reducer.
+  - :mod:`~scalecube_cluster_tpu_torch.chaos.campaign`, the campaign
+    runners, serial and bucketed (each bucket one batch of
+    ``models/compose.composed_batch_scan``), with their JSONL manifests
+    and the minimizing reducer.
 
 Every name a ``repro()`` line uses resolves here, so a red verdict's line
 runs as written after ``from scalecube_cluster_tpu_torch import chaos``.
-The batched runner and the oracle replay raise ``NotImplementedError``.
+The oracle replay (``cross_validate*``) raises ``NotImplementedError``.
 """
 
 from scalecube_cluster_tpu_torch.chaos.monitor import (  # noqa: F401
@@ -27,7 +29,9 @@ from scalecube_cluster_tpu_torch.chaos.monitor import (  # noqa: F401
     MonitorState,
     decode_violations,
     run_monitored,
+    run_monitored_batch,
     run_monitored_metered,
+    unstack_monitor,
     verdict,
 )
 from scalecube_cluster_tpu_torch.chaos.scenarios import (  # noqa: F401
@@ -61,6 +65,7 @@ from scalecube_cluster_tpu_torch.chaos.scenarios import (  # noqa: F401
 from scalecube_cluster_tpu_torch.chaos.campaign import (  # noqa: F401
     CampaignResult,
     MinimizedRepro,
+    ScenarioBucket,
     ScenarioVerdict,
     alarm_breach_knobs,
     build_buckets,

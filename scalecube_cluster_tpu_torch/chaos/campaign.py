@@ -1,5 +1,5 @@
-"""The campaign runner's serial half: monitored scenario sweeps and JSONL
-verdict manifests.
+"""The campaign runner: monitored scenario sweeps, serial and batched,
+and JSONL verdict manifests.
 
 Counterpart of ``scalecube_cluster_tpu/chaos/campaign.py``.
 :func:`run_scenario` builds one :class:`~.scenarios.Scenario` against
@@ -16,9 +16,16 @@ scenario to the ops that still reproduce its codes, and
 :func:`weakened_knobs` / :func:`alarm_breach_knobs` are the coverage
 arm's and the alarm drill's knob overrides.
 
-Not ported, raising ``NotImplementedError``: the batched runner
-(:func:`build_buckets`, :func:`run_bucket`, :func:`run_campaign_vmapped`,
-:func:`run_weakened_slice`; ROADMAP A10) and the oracle cross-validation
+The batched half: :func:`build_buckets` groups a scenario list by the
+shape of its built runs (:func:`_bucket_key`), :func:`run_bucket` runs
+one bucket as one batch (``chaos/monitor.run_monitored_batch`` over
+``models/compose.composed_batch_scan``), :func:`run_campaign_vmapped`
+is the bucketed campaign (the reference's name; its manifest adds one
+``chaos_bucket`` row a bucket) and :func:`run_weakened_slice` the fuzz
+coverage arm.  Row i keeps seed ``seed + i``, so every row's verdict is
+the serial run's.
+
+Not ported, raising ``NotImplementedError``: the oracle cross-validation
 (``cross_validate*``, ``run_campaign(cross_validate_small_n=True)``;
 ROADMAP A12).
 """
@@ -27,6 +34,9 @@ from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
 
 from scalecube_cluster_tpu_torch.chaos import monitor as cmonitor
 from scalecube_cluster_tpu_torch.chaos import scenarios as cscenarios
@@ -113,7 +123,8 @@ class ScenarioVerdict:
 class CampaignResult:
     verdicts: List[ScenarioVerdict]
     manifest_path: Optional[str]
-    # The batched runner's compile-shape buckets; None for this runner.
+    # The bucketed runner's buckets (size, n, horizon), never silent; None
+    # for the serial runner.
     buckets: Optional[List[dict]] = None
 
     @property
@@ -159,11 +170,7 @@ def run_scenario(scenario: "cscenarios.Scenario", seed: int = 0,
                              **param_overrides)
     world, spec = scenario.build(params, device=device)
     if draws is None and draw_device is not None:
-        source = prng.TorchDraws(seed, draw_device, params, world)
-
-        def draws(round_idx):
-            return source(round_idx).to(device)
-
+        draws = _moved_draws(seed, params, world, device, draw_device)
     _, mon, metrics = cmonitor.run_monitored(
         seed, params, world, spec, scenario.horizon, capacity=capacity,
         knobs=knobs(params) if callable(knobs) else knobs, draws=draws,
@@ -218,32 +225,231 @@ def run_campaign(scenarios: Sequence["cscenarios.Scenario"],
     return result
 
 
-def _batched(name: str):
-    raise NotImplementedError(
-        f"chaos.campaign.{name} is the batched campaign runner (one batched "
-        f"program a compile-shape bucket, compose.composed_batch_scan), "
-        f"which is not ported (ROADMAP A10); run_campaign runs the same "
-        f"scenarios one by one with the same verdicts")
+def _moved_draws(seed: int, params, world, device, draw_device):
+    """The port's draws for ``seed`` made on ``draw_device`` and moved to
+    the run's ``device``."""
+    source = prng.TorchDraws(seed, draw_device, params, world)
+
+    def draws(round_idx):
+        return source(round_idx).to(device)
+
+    return draws
 
 
-def build_buckets(*args, **kwargs):
-    """Not ported: the batched runner (ROADMAP A10)."""
-    _batched("build_buckets")
+# --------------------------------------------------------------------------
+# The bucketed campaign: group by the built runs' shape, run a bucket as
+# one batch
+# --------------------------------------------------------------------------
 
 
-def run_bucket(*args, **kwargs):
-    """Not ported: the batched runner (ROADMAP A10)."""
-    _batched("run_bucket")
+def _shape_signature(x):
+    """A built world's or spec's shape: each tensor's shape and dtype, each
+    other number as a scalar leaf, each flag by value, through the
+    dataclass fields (not the private host caches)."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), str(x.dtype))
+    if dataclasses.is_dataclass(x):
+        return (type(x).__name__,) + tuple(
+            (f.name, _shape_signature(getattr(x, f.name)))
+            for f in dataclasses.fields(x) if not f.name.startswith("_"))
+    if isinstance(x, bool):
+        return x
+    if isinstance(x, (int, float)):
+        return ((), type(x).__name__)
+    return x
 
 
-def run_campaign_vmapped(*args, **kwargs):
-    """Not ported: the batched runner (ROADMAP A10)."""
-    _batched("run_campaign_vmapped")
+def _bucket_key(params: "swim.SwimParams", horizon: int, world, spec):
+    """The shape one batch must share: the params, the horizon, and the
+    shapes and dtypes of the built world's and spec's tensors (the rule
+    padding and partition-schedule lengths through the world's, the
+    monitor's check flags through the spec's), the port's counterpart of
+    the reference's pytree signature."""
+    return (params, int(horizon), _shape_signature(world),
+            _shape_signature(spec))
 
 
-def run_weakened_slice(*args, **kwargs):
-    """Not ported: the batched runner (ROADMAP A10)."""
-    _batched("run_weakened_slice")
+@dataclasses.dataclass
+class ScenarioBucket:
+    """One bucket of a batched campaign: scenarios whose
+    :func:`_bucket_key` is the same, with their built ``worlds`` and
+    ``specs``, run seeds (``seed`` + the scenario's index) and knobs, one
+    a row, which :func:`run_bucket` runs as one batch."""
+
+    indices: List[int]
+    scenarios: List["cscenarios.Scenario"]
+    params: "swim.SwimParams"
+    horizon: int
+    worlds: List["swim.SwimWorld"]
+    specs: List["cmonitor.MonitorSpec"]
+    seeds: List[int]
+    knobs: List["swim.Knobs"]
+
+    @property
+    def size(self) -> int:
+        return len(self.indices)
+
+    @property
+    def members(self) -> List[tuple]:
+        """The rows' ``(world, spec)`` pairs."""
+        return list(zip(self.worlds, self.specs))
+
+    @property
+    def device(self) -> torch.device:
+        return self.worlds[0].device
+
+
+def build_buckets(scenarios: Sequence["cscenarios.Scenario"],
+                  seed: int = 0, delivery: str = "shift",
+                  knobs_fn=None, log=None, device="cuda",
+                  **param_overrides) -> List[ScenarioBucket]:
+    """Group ``scenarios`` by the shape of their built runs
+    (:func:`_bucket_key`) into :class:`ScenarioBucket` s, in order of
+    first appearance, worlds and specs built on ``device``.  Row i keeps
+    the serial runner's seed ``seed + i`` (i the scenario's index in the
+    list), so a bucketed run's verdicts equal ``run_campaign``'s on the
+    same list.  Never drops a scenario: every index lands in exactly one
+    bucket, and a bucket of one still runs; the sizes are logged.
+    ``knobs_fn(scenario, params) -> swim.Knobs`` sets a row's knobs
+    (default ``Knobs.from_params``; :func:`weakened_knobs`); knobs never
+    split a bucket."""
+    device = swim.resolve_device(device)
+    groups: dict = {}
+    for i, scen in enumerate(scenarios):
+        params = campaign_params(scen, delivery=delivery, **param_overrides)
+        world, spec = scen.build(params, device=device)
+        key = _bucket_key(params, scen.horizon, world, spec)
+        groups.setdefault(key, []).append((i, scen, params, world, spec))
+    buckets = []
+    for members in groups.values():
+        params = members[0][2]
+        buckets.append(ScenarioBucket(
+            indices=[m[0] for m in members],
+            scenarios=[m[1] for m in members],
+            params=params,
+            horizon=members[0][1].horizon,
+            worlds=[m[3] for m in members],
+            specs=[m[4] for m in members],
+            seeds=[seed + m[0] for m in members],
+            knobs=[knobs_fn(m[1], params) if knobs_fn is not None
+                   else swim.Knobs.from_params(params) for m in members]))
+    if log is not None:
+        for b in buckets:
+            log.info("chaos bucket: %d scenario(s) @ n=%d horizon=%d "
+                     "(first: %s)", b.size, b.params.n_members, b.horizon,
+                     b.scenarios[0].name)
+    return buckets
+
+
+def run_bucket(bucket: ScenarioBucket,
+               capacity: int = cmonitor.DEFAULT_CAPACITY, knobs=None,
+               draws=None, draw_device=None):
+    """One bucket as one batch (``chaos/monitor.run_monitored_batch``) on
+    the bucket's device.  Returns ``(monitors, metrics)``, both
+    batch-leading.  ``knobs`` (one a row) replaces the bucket's;
+    ``draws`` (one source a row) replaces the port's own draws, which
+    ``draw_device`` makes on another device (as :func:`run_scenario`)."""
+    if draws is None and draw_device is not None:
+        draws = [_moved_draws(s, bucket.params, w, bucket.device,
+                              draw_device)
+                 for s, w in zip(bucket.seeds, bucket.worlds)]
+    _, mon, metrics = cmonitor.run_monitored_batch(
+        bucket.seeds, bucket.params, bucket.worlds, bucket.specs,
+        bucket.horizon, capacity=capacity,
+        knobs=bucket.knobs if knobs is None else knobs, draws=draws,
+        device=bucket.device)
+    return mon, metrics
+
+
+def run_campaign_vmapped(scenarios: Sequence["cscenarios.Scenario"],
+                         seed: int = 0, delivery: str = "shift",
+                         capacity: int = cmonitor.DEFAULT_CAPACITY,
+                         sink=None, log=None, knobs_fn=None,
+                         buckets: Optional[List[ScenarioBucket]] = None,
+                         device="cuda", draw_device=None) -> CampaignResult:
+    """The bucketed campaign (the reference's name): ``scenarios`` grouped
+    by :func:`build_buckets` (or the ``buckets`` given), each bucket run
+    as one batch (:func:`run_bucket`), every row's verdict extracted.
+    Row i's verdict is ``run_scenario(scenarios[i], seed=seed + i)``'s.
+
+    The manifest is ``run_campaign``'s (a ``manifest`` header,
+    ``chaos_scenario`` rows in scenario order, the closing
+    ``chaos_verdict``) plus one ``chaos_bucket`` row a bucket.
+    ``draw_device``: see :func:`run_scenario`."""
+    if buckets is None:
+        buckets = build_buckets(scenarios, seed=seed, delivery=delivery,
+                                knobs_fn=knobs_fn, log=log, device=device)
+    if sink is not None:
+        sink.write_manifest(
+            params=campaign_config(),
+            workload={"kind": "chaos_campaign_vmapped",
+                      "scenarios": len(scenarios), "seed": seed,
+                      "delivery": delivery,
+                      "bucket_sizes": [b.size for b in buckets]})
+    verdicts: List[Optional[ScenarioVerdict]] = [None] * len(scenarios)
+    for b in buckets:
+        mon_b, metrics_b = run_bucket(b, capacity=capacity,
+                                      draw_device=draw_device)
+        counters = {k: metrics_b[k].flatten(1).sum(-1).tolist()
+                    for k in _COUNTER_KEYS if k in metrics_b}
+        for j, (i, scen, mon) in enumerate(zip(
+                b.indices, b.scenarios, cmonitor.unstack_monitor(mon_b))):
+            v = cmonitor.verdict(mon)
+            verdicts[i] = ScenarioVerdict(
+                scenario=scen, green=v["green"], verdict=v, seed=seed + i,
+                delivery=delivery,
+                counters={k: int(c[j]) for k, c in counters.items()})
+        green = sum(1 for i in b.indices if verdicts[i].green)
+        if sink is not None:
+            sink.write_record("chaos_bucket", {
+                "scenarios": b.size, "n_members": b.params.n_members,
+                "horizon": b.horizon, "green_scenarios": green})
+        if log is not None:
+            log.info("chaos bucket (%d scenarios, horizon %d): %d green",
+                     b.size, b.horizon, green)
+    if sink is not None:
+        for v in verdicts:
+            sink.write_record("chaos_scenario", v.to_json())
+    result = CampaignResult(
+        verdicts=verdicts, manifest_path=getattr(sink, "path", None),
+        buckets=[{"scenarios": b.size, "n_members": b.params.n_members,
+                  "horizon": b.horizon} for b in buckets])
+    if sink is not None:
+        sink.write_record("chaos_verdict", result.summary())
+    return result
+
+
+def run_weakened_slice(buckets: List[ScenarioBucket],
+                       capacity: int = cmonitor.DEFAULT_CAPACITY,
+                       knobs_fn=None, draw_device=None):
+    """The fuzz coverage arm: every bucket holding a row that promises
+    completeness (a finite ``MonitorSpec.complete_by``) rerun under
+    ``knobs_fn`` (default :func:`weakened_knobs`).  Returns
+    ``(cov_indices, weak_counts, first_red)``: the completeness-promising
+    scenario indices, their summed per-code violation totals on the
+    weakened build (int64 [N_CODES]) and the first red row's index (None
+    if the weakened arm found nothing)."""
+    if knobs_fn is None:
+        knobs_fn = weakened_knobs
+    cov = {i for b in buckets for i, spec in zip(b.indices, b.specs)
+           if bool((torch.as_tensor(spec.complete_by) < INT32_MAX).any())}
+    weak_counts = np.zeros(cmonitor.N_CODES, dtype=np.int64)
+    first_red = None
+    for b in buckets:
+        if not any(i in cov for i in b.indices):
+            continue
+        mon_w, _ = run_bucket(
+            b, capacity=capacity,
+            knobs=[knobs_fn(s, b.params) for s in b.scenarios],
+            draw_device=draw_device)
+        for i, mon in zip(b.indices, cmonitor.unstack_monitor(mon_w)):
+            if i not in cov:
+                continue
+            counts = mon.code_counts.cpu().numpy().astype(np.int64)
+            weak_counts += counts
+            if first_red is None and counts.sum() > 0:
+                first_red = i
+    return cov, weak_counts, first_red
 
 
 def _oracle(name: str):

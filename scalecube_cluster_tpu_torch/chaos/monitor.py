@@ -1,10 +1,10 @@
 """The invariant monitor: the paper's guarantees checked every round on
 the device, with graceful degradation.
 
-Counterpart of ``scalecube_cluster_tpu/chaos/monitor.py`` (its
-sequential part).  The monitor rides the rounds as a plane of
-``models/compose``; its state is a fixed-capacity violation buffer
-(the trace's pattern: overflow counted, never silent).
+Counterpart of ``scalecube_cluster_tpu/chaos/monitor.py``.  The monitor
+rides the rounds as a plane of ``models/compose``; its state is a
+fixed-capacity violation buffer (the trace's pattern: overflow counted,
+never silent).
 
 Invariant codes (:class:`InvariantCode`; lane values are stable):
 
@@ -60,9 +60,15 @@ off, a ``complete_by`` with no deadline, an agreement deadline not
 reached) are neither computed nor recorded, and no [codes, N, K] stack
 is built: the spec is read to the host once a run.
 
+The batched monitor (:func:`run_monitored_batch`, the plane's
+``on_round_batch`` in ``models/compose.composed_batch_scan``) runs the
+same checks over the batch's [B, N, K] carries, each row's spec and
+knobs broadcast in, and records with ``kernels/trace.trace_record_batch``:
+one launch a checked code and one a self lane for the whole batch, each
+row into its own buffer; :func:`unstack_monitor` splits the result.
+
 Also :func:`join_deadlines`, ``chaos/scenarios.Scenario.build``'s join
-rule for a world built without the DSL.  The batched monitor
-(``run_monitored_batch``) is not ported.
+rule for a world built without the DSL.
 """
 
 from __future__ import annotations
@@ -232,7 +238,9 @@ def join_deadlines(params: "swim.SwimParams", world: "swim.SwimWorld",
 class _RunFacts:
     """What a run's checks read from the world and the spec that does
     not change from round to round, read to the host once: the self
-    mask, the subjects' columns, which spec-gated codes can trip."""
+    mask, the subjects' columns, which spec-gated codes can trip.  The
+    per-subject values are shaped to broadcast against the [N, K]
+    planes (:class:`_BatchFacts` against [B, N, K])."""
 
     def __init__(self, spec: MonitorSpec, world: "swim.SwimWorld", n: int):
         self.subjects = world.subject_ids.long()
@@ -244,8 +252,86 @@ class _RunFacts:
         self.agree_from = int(spec.agree_from)
         self.join_known_by = torch.as_tensor(spec.join_known_by).to(
             world.device).reshape(-1)[None, :]
-        self.fault_ref = torch.minimum(world.down_from,
-                                       world.leave_at)[self.subjects]
+        self.fault_ref = self.col(torch.minimum(world.down_from,
+                                                world.leave_at))
+        self.flags = (spec.check_false_suspicion, spec.check_agreement,
+                      spec.check_joins)
+
+    def col(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-member vector [N] read at the subjects, as [1, K]."""
+        return x[self.subjects][None, :]
+
+    def agree_due(self, round_idx: int):
+        """Whether POST_HEAL_DIVERGENCE is checked this round: None when
+        it is not, True when it is."""
+        return True if round_idx >= self.agree_from else None
+
+    def per_row(self, kn, name, fn):
+        """``fn(knobs)``: a value of the run's knobs (``name`` keys a
+        batch's cache)."""
+        return fn(kn)
+
+    @staticmethod
+    def total(v: torch.Tensor) -> torch.Tensor:
+        return v.sum(dtype=torch.int32)
+
+
+class _BatchFacts(_RunFacts):
+    """:class:`_RunFacts` of a batch (``compose.composed_batch_scan``): B
+    specs over a ``compose.StackedWorld``, the per-subject values [B, 1,
+    K], the self mask [B, N, K], the knob values [B, 1, 1].  The specs'
+    check flags must agree (the reference stacks specs of one shape); a
+    code any row checks is computed for every row (an unchecked row's
+    cells stay false)."""
+
+    def __init__(self, specs, world, n: int):
+        self.subjects = world.subject_ids.long()
+        self.is_self = torch.stack([swim._is_self(w, n) for w in world.rows])
+        self.has_joins = bool((world.join_at < INT32_MAX).any())
+        k = self.subjects.shape[1]
+        device = world.device
+
+        def per_subject(values):
+            return torch.stack([torch.as_tensor(v).to(device).reshape(-1)
+                                .expand(k) for v in values])[:, None, :]
+
+        self.complete_by = per_subject(s.complete_by for s in specs)
+        self.completeness = bool((self.complete_by < INT32_MAX).any())
+        self.agree_from = [int(s.agree_from) for s in specs]
+        self.join_known_by = per_subject(s.join_known_by for s in specs)
+        self.fault_ref = self.col(torch.minimum(world.down_from,
+                                                world.leave_at))
+        flags = {(s.check_false_suspicion, s.check_agreement, s.check_joins)
+                 for s in specs}
+        if len(flags) != 1:
+            raise ValueError(f"a monitored batch needs one set of check "
+                             f"flags for every row, got {sorted(flags)}")
+        self.flags = flags.pop()
+        self.device = device
+        self._agree_from = torch.tensor(self.agree_from, dtype=torch.int64,
+                                        device=device)[:, None, None]
+        self._knobs = {}
+
+    def col(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.gather(x, 1, self.subjects)[:, None, :]
+
+    def agree_due(self, round_idx: int):
+        if all(round_idx < a for a in self.agree_from):
+            return None
+        return self._agree_from <= round_idx
+
+    def per_row(self, kns, name, fn):
+        """The rows' ``fn(knobs)`` [B, 1, 1] int32, made once a run (the
+        knobs do not change within one)."""
+        if name not in self._knobs:
+            self._knobs[name] = torch.tensor(
+                [fn(kn) for kn in kns], dtype=torch.int32,
+                device=self.device)[:, None, None]
+        return self._knobs[name]
+
+    @staticmethod
+    def total(v: torch.Tensor) -> torch.Tensor:
+        return v.flatten(1).sum(-1, dtype=torch.int32)
 
 
 def check_cells(spec: MonitorSpec, params: "swim.SwimParams",
@@ -253,7 +339,11 @@ def check_cells(spec: MonitorSpec, params: "swim.SwimParams",
                 new: "swim.SwimState", world: "swim.SwimWorld",
                 alive_now=None, facts: Optional[_RunFacts] = None):
     """Evaluate every invariant on one round's (prev, new) wide carries:
-    the reference's ``_check_cells`` without its stacks.
+    the reference's ``_check_cells`` without its stacks.  With
+    ``_BatchFacts`` (the monitor's batched fold) the carries are [B, ...],
+    ``kn`` the B rows' knobs and ``world`` a ``compose.StackedWorld``, and
+    every output gains the leading B (``totals`` [B, N_CODES]); ``spec``
+    is then unused.
 
     Returns ``(cells, self_lanes, totals)``: ``cells`` the checked codes
     in code order as ``(code, vio [N, K] bool, detail)`` with ``detail``
@@ -262,15 +352,14 @@ def check_cells(spec: MonitorSpec, params: "swim.SwimParams",
     of the self-incarnation checks (detail ``new.self_inc``);
     ``totals`` [N_CODES] int32 on the device.  A code the spec folds to
     zero is left out of ``cells`` (its total is 0)."""
-    n, k = prev.status.shape
-    device = prev.status.device
     if facts is None:
-        facts = _RunFacts(spec, world, n)
+        facts = _RunFacts(spec, world, prev.status.shape[0])
     if alive_now is None:
         alive_now = world.alive_at(round_idx)
-    subjects, is_self = facts.subjects, facts.is_self
-    obs_alive = alive_now[:, None]
-    subj_alive = alive_now[subjects][None, :]
+    is_self = facts.is_self
+    check_false_suspicion, check_agreement, check_joins = facts.flags
+    obs_alive = alive_now[..., :, None]
+    subj_alive = facts.col(alive_now)
 
     ps, pi = prev.status, prev.inc.to(torch.int32)
     ns, ni = new.status, new.inc.to(torch.int32)
@@ -290,11 +379,11 @@ def check_cells(spec: MonitorSpec, params: "swim.SwimParams",
     if has_epoch:
         ne_ep = new.epoch.to(torch.int32)
         pe_ep = prev.epoch.to(torch.int32)
-        true_ep = world.epoch_at(round_idx)[subjects][None, :]
+        true_ep = facts.col(world.epoch_at(round_idx))
     joining_vec = (world.join_at == round_idx) if facts.has_joins else None
     cells = []
 
-    if spec.check_false_suspicion:
+    if check_false_suspicion:
         v_fs = (obs_alive & subj_alive & ~is_self
                 & (ns == records.SUSPECT) & (ps != records.SUSPECT))
         if has_epoch:
@@ -304,21 +393,28 @@ def check_cells(spec: MonitorSpec, params: "swim.SwimParams",
     v_inc = (((ps == records.ALIVE) | (ps == records.SUSPECT))
              & (ns != records.DEAD) & (ni < pi))
     if joining_vec is not None:
-        v_inc = v_inc & ~joining_vec[:, None]
+        v_inc = v_inc & ~joining_vec[..., :, None]
     if has_epoch:
         v_inc = v_inc & (ne_ep == pe_ep)
     elif facts.has_joins:
-        v_inc = v_inc & ~(world.join_at[subjects] < INT32_MAX)[None, :]
+        v_inc = v_inc & ~(facts.col(world.join_at) < INT32_MAX)
     cells.append((InvariantCode.INC_REGRESSION, v_inc, ni_detail))
+
+    def after(span):
+        """``round_idx + span`` in int32 arithmetic (wrapping)."""
+        if isinstance(span, torch.Tensor):
+            return span + round_idx
+        return i32(round_idx + span)
 
     susp = ns == records.SUSPECT
     has_timer = dl != INT32_MAX
-    horizon = i32(round_idx + i32(kn.suspicion_rounds
-                                  * max(1, params.lhm_max)))
+    horizon = after(facts.per_row(kn, "timer_span", lambda k: i32(
+        k.suspicion_rounds * max(1, params.lhm_max))))
     if params.dead_suppress_rounds > 0:
         dead_hold = (ns == records.DEAD) & has_timer
-        bad = dead_hold & (
-            dl > i32(round_idx + swim.knob_dead_suppress(kn, params)))
+        bad = dead_hold & (dl > after(facts.per_row(
+            kn, "suppress_span",
+            lambda k: swim.knob_dead_suppress(k, params))))
         timed = has_timer & ~dead_hold
     else:
         dead_hold, bad, timed = None, None, has_timer
@@ -336,21 +432,24 @@ def check_cells(spec: MonitorSpec, params: "swim.SwimParams",
 
     if facts.completeness:
         due = facts.complete_by <= round_idx
-        disturbed = ((world.down_from[:, None] <= round_idx)
-                     & (world.down_until[:, None] > facts.fault_ref[None, :]))
+        disturbed = ((world.down_from[..., :, None] <= round_idx)
+                     & (world.down_until[..., :, None] > facts.fault_ref))
         v_comp = due & obs_alive & ~disturbed & ~is_self & live_records()
         cells.append((InvariantCode.COMPLETENESS, v_comp, ns_detail))
 
-    if spec.check_agreement and round_idx >= facts.agree_from:
+    agree_due = facts.agree_due(round_idx) if check_agreement else None
+    if agree_due is not None:
         v_div, _ = msync.divergent_cells(ns, ni, alive_now)
+        if agree_due is not True:
+            v_div = v_div & agree_due
         cells.append((InvariantCode.POST_HEAL_DIVERGENCE, v_div, ns_detail))
 
-    if spec.check_joins:
+    if check_joins:
         ns_live = live_records()
         join_due = facts.join_known_by <= round_idx
-        join_at = world.join_at[subjects][None, :]
+        join_at = facts.col(world.join_at)
         joined_col = join_at < INT32_MAX
-        subj_self_inc = new.self_inc[subjects][None, :]
+        subj_self_inc = facts.col(new.self_inc)
         ghost_inc = (obs_alive & ~is_self & joined_col & ns_live
                      & (ni > subj_self_inc))
         if has_epoch:
@@ -360,8 +459,8 @@ def check_cells(spec: MonitorSpec, params: "swim.SwimParams",
         else:
             v_res = ghost_inc
             known = ns_live
-        disturbed_j = ((world.down_from[:, None] <= round_idx)
-                       & (world.down_until[:, None] > join_at))
+        disturbed_j = ((world.down_from[..., :, None] <= round_idx)
+                       & (world.down_until[..., :, None] > join_at))
         v_jc = (join_due & joined_col & subj_alive & obs_alive
                 & ~disturbed_j & ~is_self & ~known)
         cells.append((InvariantCode.NO_RESURRECTION, v_res,
@@ -375,12 +474,13 @@ def check_cells(spec: MonitorSpec, params: "swim.SwimParams",
     self_lanes = ((InvariantCode.INC_REGRESSION, v_self_inc),
                   (InvariantCode.WIRE_SATURATION, v_self_sat))
 
-    sums = {int(code): vio.sum(dtype=torch.int32) for code, vio, _ in cells}
+    sums = {int(code): facts.total(vio) for code, vio, _ in cells}
     for code, v in self_lanes:
-        s = v.sum(dtype=torch.int32)
+        s = facts.total(v)
         sums[int(code)] = sums[int(code)] + s if int(code) in sums else s
-    zero = torch.zeros((), dtype=torch.int32, device=device)
-    totals = torch.stack([sums.get(c, zero) for c in range(N_CODES)])
+    zero = torch.zeros_like(sums[int(InvariantCode.INC_REGRESSION)])
+    totals = torch.stack([sums.get(c, zero) for c in range(N_CODES)],
+                         dim=-1)
     return cells, self_lanes, totals
 
 
@@ -393,18 +493,21 @@ def record_round(mon: MonitorState, round_idx: int, cells, self_lanes,
     one ``trace_record`` call a plane).  ``fresh`` [N_CODES] bool: the
     codes with no violation before this round.  ``record`` (default
     ``kernels/trace.trace_record``) takes ``trace_record``'s arguments;
-    ``kernels/trace.trace_record_reference`` checks the kernel."""
+    ``kernels/trace.trace_record_reference`` checks the kernel.  A batch
+    ([B, ...] cells, ``fresh`` [B, N_CODES], ``mon`` batch-leading)
+    records with ``record=kernels/trace.trace_record_batch``, each row
+    into its own buffer."""
     if record is None:
         record = trace_kernel.trace_record
     for code, vio, detail in cells:
-        plane = (vio & fresh[int(code)]).view(torch.int8)
+        plane = (vio & fresh[..., int(code), None, None]).view(torch.int8)
         if code:
             plane = plane * (int(code) + 1)
         record(mon.lanes, mon.count, mon.dropped, plane, detail(),
                subject_ids, round_idx, 0)
-    incs = self_inc[:, None]
+    incs = self_inc[..., None]
     for code, v in self_lanes:
-        plane = (v & fresh[int(code)]).view(torch.int8)[:, None] \
+        plane = (v & fresh[..., int(code), None]).view(torch.int8)[..., None] \
             * (int(code) + 1)
         record(mon.lanes, mon.count, mon.dropped, plane, incs, None,
                round_idx, 0)
@@ -414,12 +517,14 @@ def check_round(mon: MonitorState, spec: MonitorSpec,
                 params: "swim.SwimParams", kn: "swim.Knobs", round_idx: int,
                 prev: "swim.SwimState", new: "swim.SwimState",
                 world: "swim.SwimWorld", alive_now=None,
-                facts: Optional[_RunFacts] = None) -> MonitorState:
+                facts: Optional[_RunFacts] = None,
+                record=None) -> MonitorState:
     """Evaluate every invariant on one round's (prev, new) wide carries
     (:func:`check_cells`) and fold the result into the monitor: the
     evidence recorded into ``mon``'s buffer in place, the counts and
     first rounds returned in a new state.  Nothing is read back to the
-    host."""
+    host.  With ``_BatchFacts`` and a batch-leading ``mon`` it folds a
+    batch (``record`` the batch record, :func:`record_round`)."""
     with record_function("monitor.check"):
         if facts is None:
             facts = _RunFacts(spec, world, prev.status.shape[0])
@@ -433,7 +538,7 @@ def check_round(mon: MonitorState, spec: MonitorSpec,
         counts = mon.code_counts + totals
     with record_function("monitor.record"):
         record_round(mon, round_idx, cells, self_lanes, new.self_inc,
-                     world.subject_ids, fresh)
+                     world.subject_ids, fresh, record=record)
     return dataclasses.replace(mon, code_counts=counts,
                                code_first_round=first_round)
 
@@ -447,9 +552,11 @@ class MonitorPlane:
     """The invariant monitor as a plane of ``models/compose``: its slice
     a :class:`MonitorState`, its round hook :func:`check_round` on the
     shared round context's wide decodes (``rc.prev_wide``,
-    ``rc.new_wide``), no finalizer work.  ``monitor`` resumes an earlier
-    buffer (cloned once, then updated in place).  The reference's batched
-    fold (``on_round_batch``) waits for the batch runner."""
+    ``rc.new_wide``), no finalizer work; in the batched runner
+    :meth:`on_round_batch` over a batch-leading state, ``spec`` then one
+    :class:`MonitorSpec` for every row or a sequence of B.  ``monitor``
+    resumes an earlier buffer (batch-leading in the batched runner;
+    cloned once, then updated in place)."""
 
     name = "monitor"
 
@@ -469,10 +576,44 @@ class MonitorPlane:
             return self.monitor.clone()
         return MonitorState.init(self.capacity, world.device)
 
+    def init_batch(self, params, worlds):
+        from scalecube_cluster_tpu_torch.models import compose
+
+        specs = (list(self.spec) if isinstance(self.spec, (list, tuple))
+                 else [self.spec] * len(worlds))
+        if len(specs) != len(worlds):
+            raise ValueError(f"{len(specs)} monitor specs for a batch of "
+                             f"{len(worlds)}")
+        self._facts = _BatchFacts(specs, compose.StackedWorld(worlds),
+                                  params.n_members)
+        device = worlds[0].device
+        if self.monitor is not None:
+            if tuple(self.monitor.count.shape) != (len(worlds),):
+                raise ValueError(f"batched monitor counts are "
+                                 f"{tuple(self.monitor.count.shape)}, the "
+                                 f"batch needs {(len(worlds),)}")
+            if self.monitor.lanes.device != device:
+                raise ValueError(f"monitor is on {self.monitor.lanes.device}"
+                                 f", the worlds on {device}")
+            return self.monitor.clone()
+        return compose.stack_rows([MonitorState.init(self.capacity, device)
+                                   for _ in worlds])
+
     def on_round(self, rc, mon):
         return check_round(mon, self.spec, rc.params, rc.kn, rc.round_idx,
                            rc.prev_wide, rc.new_wide, rc.world,
                            alive_now=rc.alive_now, facts=self._facts)
+
+    def on_round_batch(self, rc, mon):
+        """The batched fold (``compose.BatchRoundCtx``): the checks over
+        the batch's wide carries, the evidence of every row recorded by
+        ``trace_record_batch`` (one launch a code and a self lane); a row
+        with nothing fresh records nothing, so each row equals its serial
+        run."""
+        return check_round(mon, None, rc.params, rc.kn, rc.round_idx,
+                           rc.prev_wide, rc.new_wide, rc.world,
+                           alive_now=rc.alive_now, facts=self._facts,
+                           record=trace_kernel.trace_record_batch)
 
     def finalize(self, fc, mon):
         return mon
@@ -484,7 +625,8 @@ def run_monitored(seed: int, params: "swim.SwimParams",
                   state: Optional["swim.SwimState"] = None,
                   start_round: int = 0, draws=None,
                   knobs: Optional["swim.Knobs"] = None,
-                  monitor: Optional[MonitorState] = None, device="cuda"):
+                  monitor: Optional[MonitorState] = None,
+                  shift_key: Optional[int] = None, device="cuda"):
     """``models/swim.run`` with the invariant monitor riding the rounds.
 
     Returns ``(final_state, monitor_state, metrics)``.  The monitor only
@@ -497,8 +639,41 @@ def run_monitored(seed: int, params: "swim.SwimParams",
     plane = MonitorPlane(spec, capacity=capacity, monitor=monitor)
     final_state, results, metrics = compose.composed_scan(
         seed, params, world, n_rounds, planes=(plane,), state=state,
-        start_round=start_round, draws=draws, knobs=knobs, device=device)
+        start_round=start_round, draws=draws, knobs=knobs,
+        shift_key=shift_key, device=device)
     return final_state, results["monitor"], metrics
+
+
+def run_monitored_batch(seeds, params: "swim.SwimParams", worlds, specs,
+                        n_rounds: int, capacity: int = DEFAULT_CAPACITY,
+                        knobs=None, draws=None, shift_key=None,
+                        device="cuda"):
+    """A batch of monitored runs advancing together
+    (``compose.composed_batch_scan`` with one :class:`MonitorPlane`):
+    ``seeds``, ``worlds``, ``specs`` and ``knobs`` (default the params'
+    for every row) sequences of length B of one params; the specs' check
+    flags must agree.  ``draws``: an optional sequence of B draw sources.
+
+    Returns ``(final_states, monitors, metrics)``, each batch-leading;
+    row i equals ``run_monitored(seeds[i], params, worlds[i], specs[i],
+    n_rounds, capacity, knobs=knobs[i])`` (:func:`unstack_monitor` splits
+    the monitors)."""
+    from scalecube_cluster_tpu_torch.models import compose
+
+    plane = MonitorPlane(list(specs), capacity=capacity)
+    final_states, results, metrics = compose.composed_batch_scan(
+        seeds, params, worlds, n_rounds, planes=(plane,), draws=draws,
+        knobs=knobs, shift_key=shift_key, device=device)
+    return final_states, results["monitor"], metrics
+
+
+def unstack_monitor(mon: MonitorState) -> List[MonitorState]:
+    """A batch-leading :class:`MonitorState` (``run_monitored_batch``'s)
+    as one state a row, each decoding and judged (``decode_violations``,
+    ``verdict``) as a serial run's."""
+    from scalecube_cluster_tpu_torch.models import compose
+
+    return [compose.row_of(mon, b) for b in range(mon.count.shape[0])]
 
 
 def run_monitored_metered(seed: int, params: "swim.SwimParams",
@@ -509,7 +684,7 @@ def run_monitored_metered(seed: int, params: "swim.SwimParams",
                           knobs: Optional["swim.Knobs"] = None,
                           monitor: Optional[MonitorState] = None,
                           metrics_spec=None, metrics_state=None,
-                          device="cuda"):
+                          shift_key: Optional[int] = None, device="cuda"):
     """``run_monitored`` with the health-metrics registry stacked after
     the monitor (its ``chaos_violations`` counter fed by the monitor's
     per-round count delta).  Returns ``(final_state, monitor_state,
@@ -524,7 +699,8 @@ def run_monitored_metered(seed: int, params: "swim.SwimParams",
                                     chaos_from="monitor"))
     final_state, results, metrics = compose.composed_scan(
         seed, params, world, n_rounds, planes=planes, state=state,
-        start_round=start_round, draws=draws, knobs=knobs, device=device)
+        start_round=start_round, draws=draws, knobs=knobs,
+        shift_key=shift_key, device=device)
     return final_state, results["monitor"], results["metrics"], metrics
 
 

@@ -143,7 +143,7 @@ constexpr int kGroup = kWarp;             // tiles whose totals add up in one wo
 constexpr int kSubjectSlots = 512;        // subject ids kept in shared memory
 constexpr int kMaxDevices = 64;
 constexpr unsigned int kSpinNs = 64;      // back-off between look-back polls
-constexpr int kBatch = 4;                 // first-round stamps read at once
+constexpr int kStamps = 4;                // first-round stamps read at once
 constexpr int32_t kNever = 0x7fffffff;
 
 // records.MemberStatus; event codes (TraceEventType + 1).
@@ -185,13 +185,20 @@ struct Args {
   int32_t* lanes;
   int32_t* count;
   int32_t* dropped;
-  unsigned long long* scratch;  // tile counter, generation, descriptors,
-                                // group totals
-  uint32_t scratch_tiles;       // descriptors the scratch holds
-  uint32_t n_cells;
+  unsigned long long* scratch;  // tile counter, generation (a batch: the
+                                // rows done), descriptors, group totals
+  unsigned long long* desc;     // the descriptors (a batch row's)
+  unsigned long long* totals;   // bank 0 of the group totals (a row's)
+  uint32_t bank_words;          // words from bank 0 to bank 1
+  uint32_t n_cells;           // a round's (a batch row's) cells
   uint32_t rows;              // n_cells / cols
   uint32_t cols;
-  uint32_t n_tiles;
+  uint32_t n_tiles;           // the launch's tiles (every row's)
+  uint32_t row_tiles;         // a row's tiles (n_tiles for one round)
+  uint32_t row_groups;        // a row's groups of tiles
+  uint32_t batch;             // a batch launch's rows (0: one round)
+  int inc_bytes;              // batch row strides
+  int epoch_bytes;
   long long capacity;
   int32_t round_idx;
   uint32_t observer_offset;
@@ -214,10 +221,65 @@ struct Shared {
   uint32_t offsets[2][kThreads];            // each thread's first event
   uint32_t masks[2][kThreads][kMaskWords];  // each thread's event masks
   uint32_t tiles[2], aggregates[2], exclusive[2];
+  uint32_t batch_rows[2];                   // a batch: the tiles' rows
+  int32_t counts[2];                        // the tiles' rows' counts
   uint32_t warp_sums[kWarps];
   uint32_t next, gen;
   int32_t count;
 };
+
+// A batch row's arguments: the launch's, with every per-row pointer moved
+// to row ``b`` (the planes [B, N, K], the [B, N] and [B, K] vectors, the
+// [B, capacity, 5] lanes, the [B] counters, the row's descriptors and
+// group totals).
+__device__ __forceinline__ Args row_args(const Args& a, uint32_t b) {
+  Args r = a;
+  const size_t cells = static_cast<size_t>(b) * a.n_cells;
+  r.codes = a.codes + cells;
+  if (a.new_status) r.new_status = a.new_status + cells;
+  r.incs = static_cast<const char*>(a.incs) + cells * a.inc_bytes;
+  if (a.prev_epoch) {
+    r.prev_epoch = static_cast<const char*>(a.prev_epoch) + cells * a.epoch_bytes;
+    r.new_epoch = static_cast<const char*>(a.new_epoch) + cells * a.epoch_bytes;
+  }
+  if (a.self_inc) r.self_inc = a.self_inc + static_cast<size_t>(b) * a.rows;
+  if (a.leave_at) r.leave_at = a.leave_at + static_cast<size_t>(b) * a.rows;
+  if (a.subject_ids) {
+    r.subject_ids = a.subject_ids + static_cast<size_t>(b) * a.cols;
+  }
+  if (a.first_suspect) {
+    r.first_suspect = a.first_suspect + cells;
+    r.first_removed = a.first_removed + cells;
+  }
+  r.lanes = a.lanes + static_cast<size_t>(b) * a.capacity * kLanes;
+  r.count = a.count + b;
+  r.dropped = a.dropped + b;
+  r.desc = a.desc + static_cast<size_t>(b) * a.row_tiles;
+  r.totals = a.totals + static_cast<size_t>(b) * a.row_groups;
+  return r;
+}
+
+// The arguments a tile works with: the launch's for one round, a copy
+// moved to its row for a batch.
+template <bool kBatch>
+struct RowArgs {
+  const Args& r;
+  __device__ RowArgs(const Args& a, uint32_t) : r(a) {}
+};
+
+template <>
+struct RowArgs<true> {
+  Args r;
+  __device__ RowArgs(const Args& a, uint32_t b) : r(row_args(a, b)) {}
+};
+
+// The subject ids a tile reads: in shared memory where they fit (one
+// round), else the row's in device memory.
+template <int kFront, bool kBatch>
+__device__ __forceinline__ const int32_t* subjects_of(const Args& a,
+                                                      const Shared<kFront>& sm) {
+  return !kBatch && a.cols <= kSubjectSlots ? sm.subjects : a.subject_ids;
+}
 
 __device__ __forceinline__ unsigned long long descriptor(
     uint32_t gen, unsigned long long flag, uint32_t value) {
@@ -378,15 +440,13 @@ __device__ __forceinline__ void chunk_codes(const uint32_t (&p)[4],
 // other bank (the last launch's, done) for the next one.
 __device__ __forceinline__ unsigned long long* group_totals(const Args& a,
                                                             uint32_t gen) {
-  const uint32_t groups = (a.scratch_tiles + kGroup - 1) / kGroup;
-  return a.scratch + 2 + a.scratch_tiles + (gen & 1u) * groups;
+  return a.totals + (gen & 1u) * a.bank_words;
 }
 
 __device__ __forceinline__ void clear_next_totals(const Args& a,
                                                   uint32_t gen) {
-  const uint32_t groups = (a.scratch_tiles + kGroup - 1) / kGroup;
   unsigned long long* const next = group_totals(a, gen + 1u);
-  for (uint32_t g = blockIdx.x * kThreads + threadIdx.x; g < groups;
+  for (uint32_t g = blockIdx.x * kThreads + threadIdx.x; g < a.bank_words;
        g += gridDim.x * kThreads) {
     next[g] = 0ull;
   }
@@ -517,26 +577,27 @@ __device__ __forceinline__ void build_row(const Args& a, int32_t* out,
   out[4] = inc;
 }
 
-// Code one tile from input buffer ``buf`` into metadata slot ``slot``:
-// the codes (over the tile's first input plane), the event masks, the
-// block scan; publish its aggregate; draw the block's next tile into
+// Code one tile (``tile`` of batch row ``row``; ``a`` the row's
+// arguments) from input buffer ``buf`` into metadata slot ``slot``: the
+// codes (over the tile's first input plane), the event masks, the block
+// scan; publish its aggregate; draw the block's next tile into
 // ``sm.next``; stamp the first-round matrices.  A block so holds at most
 // one tile that it has drawn and not coded.
-template <int kFront, typename IncT, typename EpochT>
+template <int kFront, typename IncT, typename EpochT, bool kBatch>
 __device__ __forceinline__ uint32_t code_tile(const Args& a,
                                               Shared<kFront>& sm, int buf,
-                                              int slot, uint32_t tile) {
+                                              int slot, uint32_t tile,
+                                              uint32_t row) {
   constexpr bool kEpoch = !std::is_same<EpochT, NoEpoch>::value;
   const int tid = threadIdx.x;
   const int lane = tid & (kWarp - 1);
   const int warp = tid / kWarp;
   const uint32_t gen = sm.gen;
-  volatile unsigned long long* const desc = a.scratch + 2;
+  volatile unsigned long long* const desc = a.desc;
   const uint32_t n = a.n_cells;
   const uint32_t c0 = tile * kTile + tid * kPer;
   int8_t* const mine_in = &sm.in[buf][0][tid * kPer];
-  const int32_t* const subjects =
-      a.cols <= kSubjectSlots ? sm.subjects : a.subject_ids;
+  const int32_t* const subjects = subjects_of<kFront, kBatch>(a, sm);
 
   // The thread's codes, one byte a cell, over its first input plane, and
   // its event masks (bit i of word g: cell 32 g + i holds an event).
@@ -659,30 +720,37 @@ __device__ __forceinline__ uint32_t code_tile(const Args& a,
   sm.offsets[slot][tid] = before + incl - mine;  // its first event
   if (tid == 0) {
     sm.tiles[slot] = tile;
+    sm.batch_rows[slot] = row;
     sm.aggregates[slot] = aggregate;
   }
 
   // Publish (count and the generation were read before the block's first
-  // barrier): the tile's aggregate for the later tiles of its group, and
-  // into its group's total for the later groups.
+  // barrier; a batch row's count is read here, before the tile publishes,
+  // so the row's last tile cannot have moved it yet): the tile's aggregate
+  // for the later tiles of its group, and into its group's total for the
+  // later groups.
   const uint32_t group = tile / kGroup;
   unsigned long long* const totals = group_totals(a, gen);
   if (tid == 2 * kWarp) keep_next(a, draw(a), sm.next);
   if (tid == kWarp) {
+    if constexpr (kBatch) {
+      sm.counts[slot] = *reinterpret_cast<volatile int32_t*>(a.count);
+      __threadfence();
+    }
     desc[tile] = descriptor(gen, kFlagAggregate, aggregate);
     atomicAdd(totals + group, (1ull << 32) | aggregate);
   }
-  // The first-round stamps, kBatch cells' reads in flight at once.
+  // The first-round stamps, kStamps cells' reads in flight at once.
   const uint8_t* const my_codes = reinterpret_cast<const uint8_t*>(mine_in);
   if constexpr (kFront == kObserve) {
 #pragma unroll
     for (int g = 0; g < kMaskWords; ++g) {
 #pragma unroll 1
       for (uint32_t m = stamps[g]; m != 0u;) {
-        int32_t* at[kBatch];
-        int32_t held[kBatch];
+        int32_t* at[kStamps];
+        int32_t held[kStamps];
 #pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
+        for (int b = 0; b < kStamps; ++b) {
           at[b] = nullptr;
           if (m != 0u) {
             const uint32_t i = 32u * g + __ffs(m) - 1;
@@ -693,9 +761,9 @@ __device__ __forceinline__ uint32_t code_tile(const Args& a,
           }
         }
 #pragma unroll
-        for (int b = 0; b < kBatch; ++b) held[b] = at[b] ? *at[b] : 0;
+        for (int b = 0; b < kStamps; ++b) held[b] = at[b] ? *at[b] : 0;
 #pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
+        for (int b = 0; b < kStamps; ++b) {
           if (at[b] && held[b] == kNever) *at[b] = a.round_idx;
         }
       }
@@ -725,7 +793,7 @@ __device__ __forceinline__ Look look_start(const Args& a,
   lk.tile = sm.tiles[slot];
   lk.group = lk.tile / kGroup;
   const uint32_t mate = lk.group * kGroup + lane;  // a tile of the group
-  volatile unsigned long long* const desc = a.scratch + 2;
+  volatile unsigned long long* const desc = a.desc;
   lk.desc = mate < lk.tile ? desc[mate] : 0ull;
   lk.total = lane < lk.group
                  ? *static_cast<volatile unsigned long long*>(
@@ -734,12 +802,14 @@ __device__ __forceinline__ Look look_start(const Args& a,
   return lk;
 }
 
-template <int kFront>
-__device__ __forceinline__ void look_finish(const Args& a, Shared<kFront>& sm,
-                                            int slot, Look lk) {
+// ``a`` is the tile's row's arguments and ``launch`` the launch's.
+template <int kFront, bool kBatch>
+__device__ __forceinline__ void look_finish(const Args& a, const Args& launch,
+                                            Shared<kFront>& sm, int slot,
+                                            Look lk) {
   const int lane = threadIdx.x & (kWarp - 1);
   const uint32_t gen = sm.gen;
-  volatile unsigned long long* const desc = a.scratch + 2;
+  volatile unsigned long long* const desc = a.desc;
   unsigned long long* const totals = group_totals(a, gen);
   uint32_t sum = 0u;
   for (uint32_t g = lane; g < lk.group; g += kWarp) {
@@ -767,13 +837,15 @@ __device__ __forceinline__ void look_finish(const Args& a, Shared<kFront>& sm,
   }
   if (lane != 0) return;
   sm.exclusive[slot] = sum;
-  if (lk.tile == a.n_tiles - 1) {
-    // Every tile has read count (and the generation): move count and
-    // dropped, and open the next generation.
+  if (lk.tile == a.row_tiles - 1) {
+    // Every tile (of the row) has read count (and the generation): move
+    // count and dropped; once every row has, open the next generation (a
+    // batch zeroes the next launch's group totals first: its blocks do
+    // not clear them at their start).
     __threadfence();
     const long long total =
         static_cast<long long>(sum) + sm.aggregates[slot];
-    const long long old_count = sm.count;
+    const long long old_count = kBatch ? sm.counts[slot] : sm.count;
     long long new_count = old_count + total;
     if (new_count > a.capacity) new_count = a.capacity;
     const uint32_t lost =
@@ -781,7 +853,16 @@ __device__ __forceinline__ void look_finish(const Args& a, Shared<kFront>& sm,
     *a.dropped =
         static_cast<int32_t>(static_cast<uint32_t>(*a.dropped) + lost);
     *a.count = static_cast<int32_t>(new_count);
-    *reinterpret_cast<volatile unsigned long long*>(a.scratch + 1) =
+    if constexpr (kBatch) {
+      unsigned int* const done = reinterpret_cast<unsigned int*>(
+          launch.scratch + 2);
+      if (atomicAdd(done, 1u) != launch.batch - 1u) return;
+      *reinterpret_cast<volatile unsigned int*>(done) = 0u;
+      unsigned long long* const next = group_totals(launch, gen + 1u);
+      for (uint32_t g = 0; g < launch.bank_words; ++g) next[g] = 0ull;
+      __threadfence();
+    }
+    *reinterpret_cast<volatile unsigned long long*>(launch.scratch + 1) =
         (gen + 1u) & kGenMask;
   }
 }
@@ -790,13 +871,12 @@ __device__ __forceinline__ void look_finish(const Args& a, Shared<kFront>& sm,
 // ``slot`` (codes in input buffer ``buf``) into ``sm.early[slot]``, for a
 // tile with at most kEarlyRows events: a row does not depend on its slot,
 // so its loads overlap the look-back of the tile before.
-template <int kFront, typename IncT, typename EpochT>
+template <int kFront, typename IncT, typename EpochT, bool kBatch>
 __device__ __forceinline__ void stage_own(const Args& a, Shared<kFront>& sm,
                                           int buf, int slot, uint32_t tile) {
   constexpr int kRow = Shared<kFront>::kRowLanes;
   const int tid = threadIdx.x;
-  const int32_t* const subjects =
-      a.cols <= kSubjectSlots ? sm.subjects : a.subject_ids;
+  const int32_t* const subjects = subjects_of<kFront, kBatch>(a, sm);
   const uint8_t* const codes =
       reinterpret_cast<const uint8_t*>(&sm.in[buf][0][tid * kPer]);
   uint32_t k = sm.offsets[slot][tid];
@@ -817,19 +897,20 @@ __device__ __forceinline__ void stage_own(const Args& a, Shared<kFront>& sm,
 // lo + t + 256, ... (the owner of event k by binary search over the
 // offsets, its cell by the owner's masks), stages them in shared memory,
 // then the block stores them as consecutive words (a tile with at most
-// kEarlyRows events has its rows staged already).
-template <int kFront, typename IncT, typename EpochT>
+// kEarlyRows events has its rows staged already).  ``a`` is the tile's
+// row's arguments.
+template <int kFront, typename IncT, typename EpochT, bool kBatch>
 __device__ __forceinline__ void write_rows(const Args& a, Shared<kFront>& sm,
                                            int buf, int slot) {
   constexpr int kRow = Shared<kFront>::kRowLanes;
   const int tid = threadIdx.x;
-  const int32_t* const subjects =
-      a.cols <= kSubjectSlots ? sm.subjects : a.subject_ids;
+  const int32_t* const subjects = subjects_of<kFront, kBatch>(a, sm);
   const uint32_t tile = sm.tiles[slot];
   const uint32_t aggregate = sm.aggregates[slot];
   const uint32_t* const offsets = sm.offsets[slot];
   const long long tile_slot =
-      static_cast<long long>(sm.count) + sm.exclusive[slot];
+      static_cast<long long>(kBatch ? sm.counts[slot] : sm.count) +
+      sm.exclusive[slot];
   const long long room = a.capacity - tile_slot;
   const uint32_t kept =
       room <= 0 ? 0u : (room < aggregate ? static_cast<uint32_t>(room)
@@ -866,8 +947,9 @@ __device__ __forceinline__ void write_rows(const Args& a, Shared<kFront>& sm,
 }
 
 // The persistent loop: draw a tile, copy it in, work on it (drawing and
-// copying in the next as soon as this one has published).
-template <int kFront, typename IncT, typename EpochT>
+// copying in the next as soon as this one has published).  A batch launch
+// draws its rows' tiles from one counter, row after row.
+template <int kFront, typename IncT, typename EpochT, bool kBatch>
 __device__ __forceinline__ void trace_blocks(const Args& a) {
   extern __shared__ __align__(16) unsigned char shared_raw[];
   Shared<kFront>& sm = *reinterpret_cast<Shared<kFront>*>(shared_raw);
@@ -875,7 +957,7 @@ __device__ __forceinline__ void trace_blocks(const Args& a) {
   if (tid == 0) {
     keep_next(a, draw(a), sm.next);
   }
-  if (!a.self_subject && a.cols <= kSubjectSlots) {
+  if (!kBatch && !a.self_subject && a.cols <= kSubjectSlots) {
     for (uint32_t i = tid; i < a.cols; i += kThreads) {
       sm.subjects[i] = __ldg(a.subject_ids + i);
     }
@@ -885,35 +967,51 @@ __device__ __forceinline__ void trace_blocks(const Args& a) {
                  *reinterpret_cast<volatile unsigned long long*>(
                      a.scratch + 1)) &
              kGenMask;
-    sm.count = *reinterpret_cast<volatile int32_t*>(a.count);
+    if (!kBatch) sm.count = *reinterpret_cast<volatile int32_t*>(a.count);
   }
   __syncthreads();
-  clear_next_totals(a, sm.gen);
+  if (!kBatch) clear_next_totals(a, sm.gen);
   // Three input buffers: the tile being coded, the one whose rows are
   // written (a step behind, so its look-back waits out the coding of the
   // next), and the next one being copied in.
   uint32_t tile = sm.next;
-  if (tile < a.n_tiles) prefetch<kFront>(a, sm, 0, tile);
+  if (tile < a.n_tiles) {
+    const uint32_t row = kBatch ? tile / a.row_tiles : 0u;
+    const RowArgs<kBatch> ra(a, row);
+    prefetch<kFront>(ra.r, sm, 0, tile - row * a.row_tiles);
+  }
   int buf = 0, slot = 0;
   bool pending = false;  // a coded tile whose rows are still to write
   while (tile < a.n_tiles || pending) {
     cp_async_wait_all();
     __syncthreads();  // the tile's copies are visible; the last step done
     const bool coding = tile < a.n_tiles;
+    const uint32_t row = kBatch && coding ? tile / a.row_tiles : 0u;
+    const uint32_t t = tile - row * a.row_tiles;
+    const RowArgs<kBatch> ra(a, row);  // the coded tile's row
+    const RowArgs<kBatch> rp(a, kBatch && pending ? sm.batch_rows[slot ^ 1]
+                                                  : 0u);  // the pending one's
     const uint32_t aggregate =
-        coding ? code_tile<kFront, IncT, EpochT>(a, sm, buf, slot, tile) : 0u;
+        coding ? code_tile<kFront, IncT, EpochT, kBatch>(ra.r, sm, buf, slot,
+                                                         t, row)
+               : 0u;
     const bool look = pending && tid < kWarp;
     Look lk;
-    if (look) lk = look_start<kFront>(a, sm, slot ^ 1);
+    if (look) lk = look_start<kFront>(rp.r, sm, slot ^ 1);
     if (coding && aggregate <= kEarlyRows) {
-      stage_own<kFront, IncT, EpochT>(a, sm, buf, slot, tile);
+      stage_own<kFront, IncT, EpochT, kBatch>(ra.r, sm, buf, slot, t);
     }
-    if (look) look_finish<kFront>(a, sm, slot ^ 1, lk);
+    if (look) look_finish<kFront, kBatch>(rp.r, a, sm, slot ^ 1, lk);
     __syncthreads();  // the next tile drawn; the pending one's prefix
     const uint32_t next = coding ? sm.next : a.n_tiles;
-    if (next < a.n_tiles) prefetch<kFront>(a, sm, (buf + 1) % 3, next);
+    if (next < a.n_tiles) {
+      const uint32_t next_row = kBatch ? next / a.row_tiles : 0u;
+      const RowArgs<kBatch> rn(a, next_row);
+      prefetch<kFront>(rn.r, sm, (buf + 1) % 3, next - next_row * a.row_tiles);
+    }
     if (pending) {
-      write_rows<kFront, IncT, EpochT>(a, sm, (buf + 2) % 3, slot ^ 1);
+      write_rows<kFront, IncT, EpochT, kBatch>(rp.r, sm, (buf + 2) % 3,
+                                               slot ^ 1);
     }
     pending = coding;
     tile = next;
@@ -922,21 +1020,21 @@ __device__ __forceinline__ void trace_blocks(const Args& a) {
   }
 }
 
-template <typename IncT, typename EpochT>
+template <typename IncT, typename EpochT, bool kBatch>
 __global__ void __launch_bounds__(kThreads)
     trace_observe_kernel(const Args a) {
-  trace_blocks<kObserve, IncT, EpochT>(a);
+  trace_blocks<kObserve, IncT, EpochT, kBatch>(a);
 }
 
-template <typename IncT>
+template <typename IncT, bool kBatch>
 __global__ void __launch_bounds__(kThreads) trace_record_kernel(const Args a) {
-  trace_blocks<kRecord, IncT, NoEpoch>(a);
+  trace_blocks<kRecord, IncT, NoEpoch, kBatch>(a);
 }
 
 template <typename KeyT, typename EpochT>
 __global__ void __launch_bounds__(kThreads)
     provenance_observe_kernel(const Args a) {
-  trace_blocks<kProvenance, KeyT, EpochT>(a);
+  trace_blocks<kProvenance, KeyT, EpochT, false>(a);
 }
 
 bool aligned16(const void* p) {
@@ -981,18 +1079,48 @@ int launch_persistent(void (*kernel)(Args), int (&resident)[kMaxDevices],
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename IncT, typename EpochT>
+template <typename IncT, typename EpochT, bool kBatch>
 int launch_observe(const Args& a, cudaStream_t s) {
   static int resident[kMaxDevices] = {};
-  return launch_persistent<kObserve>(trace_observe_kernel<IncT, EpochT>,
-                                     resident, a, s);
+  return launch_persistent<kObserve>(
+      trace_observe_kernel<IncT, EpochT, kBatch>, resident, a, s);
 }
 
-template <typename IncT>
+template <typename IncT, bool kBatch>
 int launch_record(const Args& a, cudaStream_t s) {
   static int resident[kMaxDevices] = {};
-  return launch_persistent<kRecord>(trace_record_kernel<IncT>, resident, a,
-                                    s);
+  return launch_persistent<kRecord>(trace_record_kernel<IncT, kBatch>,
+                                    resident, a, s);
+}
+
+// The descriptors and group totals of a one-round launch: the scratch's
+// two words, one descriptor a tile it holds, then two banks of group
+// totals, each as many words as the held tiles make groups.
+void one_round_scratch(Args& a, void* scratch, long long scratch_tiles) {
+  a.scratch = static_cast<unsigned long long*>(scratch);
+  a.desc = a.scratch + 2;
+  a.totals = a.desc + scratch_tiles;
+  a.bank_words = static_cast<uint32_t>((scratch_tiles + kGroup - 1) / kGroup);
+  a.row_tiles = a.n_tiles;
+  a.row_groups = (a.n_tiles + kGroup - 1) / kGroup;
+  a.batch = 0u;
+}
+
+// A batch launch's: four words (tile counter, generation, rows done, a
+// spare), one descriptor a held tile, then two banks of scratch_groups
+// group totals each; row b's descriptors start at b x row_tiles and its
+// group totals at b x row_groups.
+void batch_scratch(Args& a, void* scratch, long long scratch_tiles,
+                   long long scratch_groups, long long batch,
+                   long long n_cells) {
+  a.scratch = static_cast<unsigned long long*>(scratch);
+  a.desc = a.scratch + 4;
+  a.totals = a.desc + scratch_tiles;
+  a.bank_words = static_cast<uint32_t>(scratch_groups);
+  a.batch = static_cast<uint32_t>(batch);
+  a.row_tiles = static_cast<uint32_t>((n_cells + kTile - 1) / kTile);
+  a.row_groups = (a.row_tiles + kGroup - 1) / kGroup;
+  a.n_tiles = a.row_tiles * a.batch;
 }
 
 template <typename KeyT, typename EpochT>
@@ -1000,6 +1128,19 @@ int launch_provenance(const Args& a, cudaStream_t s) {
   static int resident[kMaxDevices] = {};
   return launch_persistent<kProvenance>(
       provenance_observe_kernel<KeyT, EpochT>, resident, a, s);
+}
+
+template <bool kBatch>
+int dispatch_observe(const Args& a, int inc_bytes, int epoch_bytes,
+                     cudaStream_t s) {
+  if (inc_bytes == 4) {
+    if (epoch_bytes == 4) return launch_observe<int32_t, int32_t, kBatch>(a, s);
+    if (epoch_bytes == 2) return launch_observe<int32_t, int16_t, kBatch>(a, s);
+    return launch_observe<int32_t, NoEpoch, kBatch>(a, s);
+  }
+  if (epoch_bytes == 4) return launch_observe<int16_t, int32_t, kBatch>(a, s);
+  if (epoch_bytes == 2) return launch_observe<int16_t, int16_t, kBatch>(a, s);
+  return launch_observe<int16_t, NoEpoch, kBatch>(a, s);
 }
 
 }  // namespace
@@ -1038,26 +1179,18 @@ extern "C" int trace_observe_launch(
   a.lanes = static_cast<int32_t*>(lanes);
   a.count = static_cast<int32_t*>(count);
   a.dropped = static_cast<int32_t*>(dropped);
-  a.scratch = static_cast<unsigned long long*>(scratch);
-  a.scratch_tiles = static_cast<uint32_t>(scratch_tiles);
   a.n_cells = static_cast<uint32_t>(n_cells);
   a.rows = static_cast<uint32_t>(n_cells / cols);
   a.cols = static_cast<uint32_t>(cols);
   a.n_tiles = static_cast<uint32_t>((n_cells + kTile - 1) / kTile);
+  one_round_scratch(a, scratch, scratch_tiles);
   a.capacity = capacity;
   a.round_idx = static_cast<int32_t>(round_idx);
   a.observer_offset = static_cast<uint32_t>(observer_offset);
   a.aligned = aligned16(prev_status) && aligned16(new_status);
   a.epoch_aligned = aligned16(a.prev_epoch) && aligned16(a.new_epoch);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (inc_bytes == 4) {
-    if (epoch_bytes == 4) return launch_observe<int32_t, int32_t>(a, s);
-    if (epoch_bytes == 2) return launch_observe<int32_t, int16_t>(a, s);
-    return launch_observe<int32_t, NoEpoch>(a, s);
-  }
-  if (epoch_bytes == 4) return launch_observe<int16_t, int32_t>(a, s);
-  if (epoch_bytes == 2) return launch_observe<int16_t, int16_t>(a, s);
-  return launch_observe<int16_t, NoEpoch>(a, s);
+  return dispatch_observe<false>(a, inc_bytes, epoch_bytes,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int trace_record_launch(const void* codes, const void* incs,
@@ -1076,20 +1209,96 @@ extern "C" int trace_record_launch(const void* codes, const void* incs,
   a.lanes = static_cast<int32_t*>(lanes);
   a.count = static_cast<int32_t*>(count);
   a.dropped = static_cast<int32_t*>(dropped);
-  a.scratch = static_cast<unsigned long long*>(scratch);
-  a.scratch_tiles = static_cast<uint32_t>(scratch_tiles);
   a.n_cells = static_cast<uint32_t>(n_cells);
   a.rows = static_cast<uint32_t>(n_cells / cols);
   a.cols = static_cast<uint32_t>(cols);
   a.n_tiles = static_cast<uint32_t>((n_cells + kTile - 1) / kTile);
+  one_round_scratch(a, scratch, scratch_tiles);
   a.capacity = capacity;
   a.round_idx = static_cast<int32_t>(round_idx);
   a.observer_offset = static_cast<uint32_t>(observer_offset);
   a.aligned = aligned16(codes);
   a.self_subject = subject_ids == nullptr;
   const auto s = static_cast<cudaStream_t>(stream);
-  return inc_bytes == 4 ? launch_record<int32_t>(a, s)
-                        : launch_record<int16_t>(a, s);
+  return inc_bytes == 4 ? launch_record<int32_t, false>(a, s)
+                        : launch_record<int16_t, false>(a, s);
+}
+
+// The batch forms: B rounds of one shape, row b's planes, vectors, lanes
+// and counters at b times their row strides (the planes [B, N, K]
+// contiguous, self_inc and leave_at [B, N], subject_ids [B, K], lanes
+// [B, capacity, 5], count and dropped [B]), one launch.  The scratch is a
+// batch scratch (batch_scratch): scratch_tiles at least batch x the
+// row's tiles, scratch_groups at least batch x the row's groups of 32
+// tiles, and the same scratch_groups for every launch sharing it.
+extern "C" int trace_observe_batch_launch(
+    const void* prev_status, const void* new_status, const void* new_inc,
+    const void* prev_epoch, const void* new_epoch, const void* self_inc,
+    const void* leave_at, const void* subject_ids, void* first_suspect,
+    void* first_removed, void* lanes, void* count, void* dropped,
+    void* scratch, long long scratch_tiles, long long scratch_groups,
+    long long batch, long long n_cells, int cols, long long capacity,
+    int round_idx, int observer_offset, int inc_bytes, int epoch_bytes,
+    void* stream) {
+  if (n_cells <= 0 || batch <= 0) return 0;
+  Args a{};
+  a.codes = static_cast<const int8_t*>(prev_status);
+  a.new_status = static_cast<const int8_t*>(new_status);
+  a.incs = new_inc;
+  a.prev_epoch = epoch_bytes ? prev_epoch : nullptr;
+  a.new_epoch = epoch_bytes ? new_epoch : nullptr;
+  a.self_inc = static_cast<const int32_t*>(self_inc);
+  a.leave_at = static_cast<const int32_t*>(leave_at);
+  a.subject_ids = static_cast<const int32_t*>(subject_ids);
+  a.first_suspect = static_cast<int32_t*>(first_suspect);
+  a.first_removed = static_cast<int32_t*>(first_removed);
+  a.lanes = static_cast<int32_t*>(lanes);
+  a.count = static_cast<int32_t*>(count);
+  a.dropped = static_cast<int32_t*>(dropped);
+  a.n_cells = static_cast<uint32_t>(n_cells);
+  a.rows = static_cast<uint32_t>(n_cells / cols);
+  a.cols = static_cast<uint32_t>(cols);
+  batch_scratch(a, scratch, scratch_tiles, scratch_groups, batch, n_cells);
+  a.capacity = capacity;
+  a.round_idx = static_cast<int32_t>(round_idx);
+  a.observer_offset = static_cast<uint32_t>(observer_offset);
+  a.inc_bytes = inc_bytes;
+  a.epoch_bytes = epoch_bytes;
+  a.aligned = aligned16(prev_status) && aligned16(new_status) &&
+              n_cells % 16 == 0;
+  a.epoch_aligned = aligned16(a.prev_epoch) && aligned16(a.new_epoch) &&
+                    (n_cells * epoch_bytes) % 16 == 0;
+  return dispatch_observe<true>(a, inc_bytes, epoch_bytes,
+                                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int trace_record_batch_launch(
+    const void* codes, const void* incs, const void* subject_ids,
+    void* lanes, void* count, void* dropped, void* scratch,
+    long long scratch_tiles, long long scratch_groups, long long batch,
+    long long n_cells, int cols, long long capacity, int round_idx,
+    int observer_offset, int inc_bytes, void* stream) {
+  if (n_cells <= 0 || batch <= 0) return 0;
+  Args a{};
+  a.codes = static_cast<const int8_t*>(codes);
+  a.incs = incs;
+  a.subject_ids = static_cast<const int32_t*>(subject_ids);
+  a.lanes = static_cast<int32_t*>(lanes);
+  a.count = static_cast<int32_t*>(count);
+  a.dropped = static_cast<int32_t*>(dropped);
+  a.n_cells = static_cast<uint32_t>(n_cells);
+  a.rows = static_cast<uint32_t>(n_cells / cols);
+  a.cols = static_cast<uint32_t>(cols);
+  batch_scratch(a, scratch, scratch_tiles, scratch_groups, batch, n_cells);
+  a.capacity = capacity;
+  a.round_idx = static_cast<int32_t>(round_idx);
+  a.observer_offset = static_cast<uint32_t>(observer_offset);
+  a.inc_bytes = inc_bytes;
+  a.aligned = aligned16(codes) && n_cells % 16 == 0;
+  a.self_subject = subject_ids == nullptr;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return inc_bytes == 4 ? launch_record<int32_t, true>(a, s)
+                        : launch_record<int16_t, true>(a, s);
 }
 
 // Keys: key_bytes 4 (int32) or 2 (int16), the three planes of one dtype;
@@ -1123,12 +1332,11 @@ extern "C" int provenance_observe_launch(
   a.lanes = static_cast<int32_t*>(lanes);
   a.count = static_cast<int32_t*>(count);
   a.dropped = static_cast<int32_t*>(dropped);
-  a.scratch = static_cast<unsigned long long*>(scratch);
-  a.scratch_tiles = static_cast<uint32_t>(scratch_tiles);
   a.n_cells = static_cast<uint32_t>(n_cells);
   a.rows = static_cast<uint32_t>(n_cells / cols);
   a.cols = static_cast<uint32_t>(cols);
   a.n_tiles = static_cast<uint32_t>((n_cells + kTile - 1) / kTile);
+  one_round_scratch(a, scratch, scratch_tiles);
   a.capacity = capacity;
   a.round_idx = static_cast<int32_t>(round_idx);
   a.observer_offset = static_cast<uint32_t>(observer_offset);

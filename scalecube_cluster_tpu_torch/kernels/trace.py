@@ -14,7 +14,13 @@ single-pass compaction (the reference's XLA trace,
   - :func:`trace_record`, the codes-in record behind ``record_events``
     and the invariant monitor's evidence (``chaos/monitor.record_round``:
     one plane a code, and with ``subject_ids=None`` the self lanes, each
-    row's subject its observer).
+    row's subject its observer);
+  - :func:`trace_observe_batch` and :func:`trace_record_batch`, the two
+    over a batch of B rounds of one shape (the batched runner's planes,
+    ``models/compose.composed_batch_scan``): row b's planes, vectors,
+    buffer and counters at index b, each row recorded into its own
+    buffer with its own overflow, in one launch.  Their plain versions
+    are the one-round plain versions looped over the rows.
 
 Both compact their events into the trace's lanes in cell order and
 advance its ``count`` and ``dropped`` in place, all on the device.  On
@@ -43,6 +49,8 @@ from scalecube_cluster_tpu_torch.telemetry.events import TraceEventType
 SOURCE = "trace_record"
 NAME = "trace_record"
 OBSERVE = "trace_observe"
+RECORD_BATCH = "trace_record_batch"
+OBSERVE_BATCH = "trace_observe_batch"
 N_LANES = 5
 INT32_MAX = 2**31 - 1
 # The flattened [N, K] index, the slots and the rows' observer are int32.
@@ -187,6 +195,35 @@ def trace_observe_reference(lanes, count, dropped, first_suspect,
                            round_idx, observer_offset)
 
 
+def trace_record_batch_reference(lanes, count, dropped, codes, incs,
+                                 subject_ids, round_idx: int,
+                                 observer_offset: int = 0) -> None:
+    """Plain version of :func:`trace_record_batch`: :func:`trace_record_
+    reference` on each row."""
+    for b in range(codes.shape[0]):
+        trace_record_reference(
+            lanes[b], count[b], dropped[b], codes[b], incs[b],
+            None if subject_ids is None else subject_ids[b], round_idx,
+            observer_offset)
+
+
+def trace_observe_batch_reference(lanes, count, dropped, first_suspect,
+                                  first_removed, prev_status, new_status,
+                                  new_inc, self_inc, leave_at, subject_ids,
+                                  round_idx: int, observer_offset: int = 0,
+                                  prev_epoch=None, new_epoch=None) -> None:
+    """Plain version of :func:`trace_observe_batch`:
+    :func:`trace_observe_reference` on each row."""
+    for b in range(prev_status.shape[0]):
+        trace_observe_reference(
+            lanes[b], count[b], dropped[b], first_suspect[b],
+            first_removed[b], prev_status[b], new_status[b], new_inc[b],
+            self_inc[b], leave_at[b], subject_ids[b], round_idx,
+            observer_offset,
+            None if prev_epoch is None else prev_epoch[b],
+            None if new_epoch is None else new_epoch[b])
+
+
 # --------------------------------------------------------------------------
 # The kernels
 # --------------------------------------------------------------------------
@@ -209,6 +246,16 @@ def _library():
            ctypes.c_longlong]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.trace_record_launch.restype = ctypes.c_int
+    lib.trace_observe_batch_launch.argtypes = (
+        [ctypes.c_void_p] * 14
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_longlong]
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.trace_observe_batch_launch.restype = ctypes.c_int
+    lib.trace_record_batch_launch.argtypes = (
+        [ctypes.c_void_p] * 7
+        + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_longlong]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.trace_record_batch_launch.restype = ctypes.c_int
     return lib
 
 
@@ -233,6 +280,27 @@ def _scratch(device: torch.device, n_cells: int):
         held = torch.zeros((4 + 2 * tiles,), dtype=torch.int64, device=device)
         _SCRATCH[device] = held
     return held.data_ptr(), (held.numel() - 4) // 2
+
+
+_BATCH_SCRATCH = {}
+
+
+def _batch_scratch(device: torch.device, batch: int, n_cells: int):
+    """The batch forms' scratch on ``device``: four words, one descriptor
+    a tile and two banks of group totals, a row's tiles and groups times
+    ``batch`` at least, int64, zeroed once and reused (a larger launch
+    allocates a larger one, zeroed).  Returns ``(pointer, tiles,
+    groups)``; every launch sharing it passes the same bank size."""
+    row_tiles = -(-n_cells // _tile_cells())
+    tiles, groups = batch * row_tiles, batch * -(-row_tiles // 32)
+    held = _BATCH_SCRATCH.get(device)
+    if held is None or held[1] < tiles or held[2] < groups:
+        tiles = max(tiles, held[1] if held else 0)
+        groups = max(groups, held[2] if held else 0)
+        held = (torch.zeros((4 + tiles + 2 * groups,), dtype=torch.int64,
+                            device=device), tiles, groups)
+        _BATCH_SCRATCH[device] = held
+    return held[0].data_ptr(), held[1], held[2]
 
 
 def _check_common(kernel, device, n, k, lanes, count, dropped, subject_ids):
@@ -344,5 +412,114 @@ def trace_observe(lanes, count, dropped, first_suspect, first_removed,
            first_suspect.data_ptr(), first_removed.data_ptr(),
            lanes.data_ptr(), count.data_ptr(), dropped.data_ptr(),
            *_scratch(device, n * k), n * k, k, lanes.shape[0],
+           i32(round_idx), i32(observer_offset), new_inc.element_size(),
+           epoch_bytes)
+
+
+def _check_batch_common(kernel, device, b, n, k, lanes, count, dropped,
+                        subject_ids):
+    if n * k > MAX_CELLS:
+        raise ValueError(f"{kernel}: {n} x {k} cells a row exceed int32 "
+                         f"indexing")
+    if subject_ids is None:
+        if k != 1:
+            raise ValueError(f"{kernel}: without subject_ids the codes "
+                             f"must be [B, N, 1] (the self lanes), got "
+                             f"{b} x {n} x {k}")
+    else:
+        check_args(kernel, device, (b, k),
+                   dict(subject_ids=(subject_ids, torch.int32)))
+    if lanes.dim() != 3:
+        raise ValueError(f"{kernel}: lanes must be [B, capacity, "
+                         f"{N_LANES}], got {tuple(lanes.shape)}")
+    check_args(kernel, device, (b, lanes.shape[1], N_LANES),
+               dict(lanes=(lanes, torch.int32)))
+    check_args(kernel, device, (b,), dict(count=(count, torch.int32),
+                                          dropped=(dropped, torch.int32)))
+
+
+def trace_record_batch(lanes, count, dropped, codes, incs, subject_ids,
+                       round_idx: int, observer_offset: int = 0) -> None:
+    """:func:`trace_record` over a batch of B rounds of one shape, in one
+    launch: row b records ``codes[b]`` ([B, N, K] int8) with
+    ``incs[b]`` ([B, N, K] int32 or int16) and ``subject_ids[b]`` ([B, K]
+    int32; None for the self lanes, codes [B, N, 1]) into ``lanes[b]``
+    ([B, capacity, 5] int32) from slot ``count[b]``, moving ``count[b]``
+    and ``dropped[b]`` ([B] int32) as :func:`trace_record` does."""
+    device = codes.device
+    if codes.dim() != 3:
+        raise ValueError(f"{RECORD_BATCH}: codes must be [B, N, K], got "
+                         f"{tuple(codes.shape)}")
+    b, n, k = codes.shape
+    inc_dtype = _inc_dtype(RECORD_BATCH, "incs", incs)
+    check_args(RECORD_BATCH, device, (b, n, k),
+               dict(codes=(codes, torch.int8), incs=(incs, inc_dtype)))
+    _check_batch_common(RECORD_BATCH, device, b, n, k, lanes, count,
+                        dropped, subject_ids)
+    if on_cpu(RECORD_BATCH, device):
+        trace_record_batch_reference(lanes, count, dropped, codes, incs,
+                                     subject_ids, round_idx, observer_offset)
+        return
+    launch(RECORD_BATCH, _library().trace_record_batch_launch, device,
+           codes.data_ptr(), incs.data_ptr(),
+           None if subject_ids is None else subject_ids.data_ptr(),
+           lanes.data_ptr(), count.data_ptr(), dropped.data_ptr(),
+           *_batch_scratch(device, b, n * k), b, n * k, k, lanes.shape[1],
+           i32(round_idx), i32(observer_offset), incs.element_size())
+
+
+def trace_observe_batch(lanes, count, dropped, first_suspect, first_removed,
+                        prev_status, new_status, new_inc, self_inc, leave_at,
+                        subject_ids, round_idx: int,
+                        observer_offset: int = 0, prev_epoch=None,
+                        new_epoch=None) -> None:
+    """:func:`trace_observe` over a batch of B rounds of one shape, in one
+    launch: row b observes ``prev_status[b]``/``new_status[b]`` ([B, N,
+    K] int8), ``new_inc[b]``, the epoch lanes' rows (each [B, N, K], or
+    None), ``self_inc[b]``/``leave_at[b]`` ([B, N] int32) and
+    ``subject_ids[b]`` ([B, K] int32), stamping ``first_suspect[b]``/
+    ``first_removed[b]`` ([B, N, K] int32) and recording into
+    ``lanes[b]`` ([B, capacity, 5]) with ``count[b]``/``dropped[b]``
+    ([B] int32), as :func:`trace_observe` does for one round."""
+    device = prev_status.device
+    if prev_status.dim() != 3:
+        raise ValueError(f"{OBSERVE_BATCH}: prev_status must be [B, N, K], "
+                         f"got {tuple(prev_status.shape)}")
+    b, n, k = prev_status.shape
+    inc_dtype = _inc_dtype(OBSERVE_BATCH, "new_inc", new_inc)
+    check_args(OBSERVE_BATCH, device, (b, n, k),
+               dict(prev_status=(prev_status, torch.int8),
+                    new_status=(new_status, torch.int8),
+                    new_inc=(new_inc, inc_dtype),
+                    first_suspect=(first_suspect, torch.int32),
+                    first_removed=(first_removed, torch.int32)))
+    check_args(OBSERVE_BATCH, device, (b, n),
+               dict(self_inc=(self_inc, torch.int32),
+                    leave_at=(leave_at, torch.int32)))
+    _check_batch_common(OBSERVE_BATCH, device, b, n, k, lanes, count,
+                        dropped, subject_ids)
+    if prev_epoch is not None and prev_epoch.numel() == 0:
+        prev_epoch = new_epoch = None
+    epoch_bytes = 0
+    if prev_epoch is not None:
+        epoch_dtype = _inc_dtype(OBSERVE_BATCH, "prev_epoch", prev_epoch)
+        check_args(OBSERVE_BATCH, device, (b, n, k),
+                   dict(prev_epoch=(prev_epoch, epoch_dtype),
+                        new_epoch=(new_epoch, epoch_dtype)))
+        epoch_bytes = prev_epoch.element_size()
+    if on_cpu(OBSERVE_BATCH, device):
+        trace_observe_batch_reference(
+            lanes, count, dropped, first_suspect, first_removed, prev_status,
+            new_status, new_inc, self_inc, leave_at, subject_ids, round_idx,
+            observer_offset, prev_epoch, new_epoch)
+        return
+    launch(OBSERVE_BATCH, _library().trace_observe_batch_launch, device,
+           prev_status.data_ptr(), new_status.data_ptr(), new_inc.data_ptr(),
+           prev_epoch.data_ptr() if epoch_bytes else None,
+           new_epoch.data_ptr() if epoch_bytes else None,
+           self_inc.data_ptr(), leave_at.data_ptr(), subject_ids.data_ptr(),
+           first_suspect.data_ptr(), first_removed.data_ptr(),
+           lanes.data_ptr(), count.data_ptr(), dropped.data_ptr(),
+           *_batch_scratch(device, b, n * k), b, n * k, k, lanes.shape[1],
            i32(round_idx), i32(observer_offset), new_inc.element_size(),
            epoch_bytes)

@@ -37,9 +37,15 @@ as single rounds, and the port runs single rounds whatever
 ``SwimParams.provenance`` on, the round's per-channel evidence is popped
 out of its metrics (:func:`_pop_provenance`) into
 :attr:`RoundCtx.provenance` before the metrics are stacked, whether or
-not the provenance plane rides.  The batch and row-sharded runners
-(``composed_batch_scan``, ``composed_shard_scan``,
-``_pipelined_rounds``) are not ported either.
+not the provenance plane rides.
+
+:func:`composed_batch_scan` is the batched runner: B independent runs
+of one params advancing round by round together, each row running its
+own round, the planes folding the stacked batch through one
+:class:`BatchRoundCtx` (a plane's ``init_batch``/``on_round_batch``
+where it has them, its serial hooks row by row otherwise).  The
+row-sharded runners (``composed_shard_scan``, ``_pipelined_rounds``) are
+not ported (ROADMAP A11).
 
 The in-tick planes (SYNC anti-entropy, Lifeguard, the open-world epoch
 lane, metadata, delay rings, user gossip) are compiled into the round by
@@ -49,6 +55,7 @@ their ``SwimParams`` knobs and carried in ``SwimState`` lanes;
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Optional, Tuple
 
@@ -246,22 +253,40 @@ def _stack_metrics(rows, params: "swim.SwimParams", device) -> dict:
             for name, shape in swim.metric_shapes(params).items()}
 
 
+def _draws_for(seed: int, params, world, draws, shift_key, device):
+    """The run's draw source: ``draws`` as given, else the port's own
+    ``TorchDraws`` with ``shift_key`` as its shift seed."""
+    if draws is None:
+        return prng.TorchDraws(seed, device, params, world,
+                               shift_seed=shift_key)
+    if shift_key is not None:
+        raise ValueError("shift_key seeds the port's own draws; the draws "
+                         "given carry their own shifts")
+    return draws
+
+
 def composed_scan(seed: int, params: "swim.SwimParams",
                   world: "swim.SwimWorld", n_rounds: int, planes=(),
                   state: Optional["swim.SwimState"] = None,
                   start_round: int = 0,
                   draws: Optional[Callable[[int], object]] = None,
-                  knobs: Optional["swim.Knobs"] = None, device="cuda"):
+                  knobs: Optional["swim.Knobs"] = None, shift_key=None,
+                  device="cuda"):
     """Run the round ``n_rounds`` times from ``start_round`` with
     ``planes`` riding the carry: the one round loop behind ``run``,
     ``run_traced`` and :func:`run_composed`.
 
-    ``draws`` (default ``TorchDraws(seed, device, params, world)``) is
-    any callable ``round_idx -> draws``; ``knobs`` default to
-    ``Knobs.from_params(params)``.  ``state`` is not modified (its rings
-    are copied once, then updated in place).  Each carry is released as
-    soon as the next one exists; while a plane stack rides, the stored
-    carry before the round is held through it as ``RoundCtx.prev``.
+    ``draws`` (default ``TorchDraws(seed, device, params, world,
+    shift_seed=shift_key)``) is any callable ``round_idx -> draws``;
+    ``shift_key`` (an int, default ``seed``) seeds only the channel
+    shifts (and the anti-entropy offset) of the port's own draws, the
+    shared-shift hook of the batched sweeps; with ``draws`` given it
+    raises ``ValueError`` (the caller's draws carry their shifts).
+    ``knobs`` default to ``Knobs.from_params(params)``.  ``state`` is not
+    modified (its rings are copied once, then updated in place).  Each
+    carry is released as soon as the next one exists; while a plane stack
+    rides, the stored carry before the round is held through it as
+    ``RoundCtx.prev``.
     Nothing syncs with the host per round.
 
     Returns ``(final_state, {plane name: finalized slice}, metrics)``,
@@ -273,8 +298,7 @@ def composed_scan(seed: int, params: "swim.SwimParams",
     else:
         swim.check_lanes(state, params)
         state = swim._own_rings(state)
-    if draws is None:
-        draws = prng.TorchDraws(seed, device, params, world)
+    draws = _draws_for(seed, params, world, draws, shift_key, device)
     kn = knobs if knobs is not None else swim.Knobs.from_params(params)
     joins, pushes = swim._schedules(params, world)
     slices = tuple(p.init(params, world) for p in planes)
@@ -302,6 +326,286 @@ def composed_scan(seed: int, params: "swim.SwimParams",
     metrics = _stack_metrics(rows, params, device)
     fc = FinalCtx(params, world, kn, start_round + n_rounds, state, metrics)
     return state, _finalize_planes(planes, fc, slices), metrics
+
+
+# --------------------------------------------------------------------------
+# The batched runner: B independent runs advancing round by round together
+# --------------------------------------------------------------------------
+
+
+#: RoundCtx memo keys whose batched values slice row by row into a per-row
+#: fold's cache.  ``any_status_change`` is left out on purpose: the
+#: batched value is the batch-level predicate (any row changed), not a
+#: row's own, so a per-row fold recomputes its own from the seeded
+#: ``status_changed``.
+_ROW_CACHE_KEYS = ("alive_now", "status_changed", "prev_wide", "new_wide",
+                   "prev_deadline_wide")
+
+
+class _Rows(list):
+    """A per-row plane's slice in a batched run: one slice a row."""
+
+
+def row_of(x, b: int):
+    """Row ``b`` of a batch-leading value: a tensor's ``x[b]`` (a view), a
+    per-row plane's row slice, and the same taken through dataclasses,
+    dicts, tuples and lists; any other value is shared by every row."""
+    if isinstance(x, (torch.Tensor, _Rows)):
+        return x[b]
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return type(x)(**{f.name: row_of(getattr(x, f.name), b)
+                          for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: row_of(v, b) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(row_of(v, b) for v in x)
+    return x
+
+
+def stack_rows(rows):
+    """The inverse of :func:`row_of`: row values of one structure stacked
+    batch-leading (tensors by ``torch.stack``; one row as a view with a
+    leading 1, no copy); any other value is the first row's."""
+    first = rows[0]
+    if isinstance(first, torch.Tensor):
+        return first.unsqueeze(0) if len(rows) == 1 else torch.stack(rows)
+    if dataclasses.is_dataclass(first) and not isinstance(first, type):
+        return type(first)(**{
+            f.name: stack_rows([getattr(r, f.name) for r in rows])
+            for f in dataclasses.fields(first)})
+    if isinstance(first, dict):
+        return {k: stack_rows([r[k] for r in rows]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(stack_rows(list(col)) for col in zip(*rows))
+    return first
+
+
+class StackedWorld:
+    """B worlds of one shape (``rows``) with the fields the batched planes
+    read stacked [B, ...]: ``down_from``, ``down_until``, ``leave_at``,
+    ``join_at`` [B, N] and ``subject_ids`` [B, K] int32.  ``alive_at`` and
+    ``epoch_at`` give [B, N], as ``SwimWorld``'s do a row."""
+
+    FIELDS = ("down_from", "down_until", "leave_at", "join_at",
+              "subject_ids")
+
+    def __init__(self, worlds):
+        self.rows = list(worlds)
+        for name in self.FIELDS:
+            setattr(self, name,
+                    torch.stack([getattr(w, name) for w in self.rows]))
+
+    @property
+    def device(self) -> torch.device:
+        return self.down_from.device
+
+    def alive_at(self, round_idx: int) -> torch.Tensor:
+        return swim.SwimWorld.alive_at(self, round_idx)
+
+    def epoch_at(self, round_idx: int) -> torch.Tensor:
+        return swim.SwimWorld.epoch_at(self, round_idx)
+
+
+class BatchRoundCtx(RoundCtx):
+    """The batched :class:`RoundCtx`: ``prev``/``new`` are the batch's
+    carries stacked [B, ...], ``world`` a :class:`StackedWorld`, ``kn``
+    the B rows' knobs, ``metrics`` and ``provenance`` the B rows' own.
+    The derivations are computed once over the whole batch and memoised,
+    so every plane reads the same [B, ...] values.
+
+    :attr:`any_status_change` (inherited) is the batch-level emptiness
+    predicate: any row changed.  The reference gates its batched folds on
+    it with ``lax.cond``; the port computes through it (no host read a
+    round), and the record kernels' silent cells are the identity, so
+    every row stays bit-identical to its serial run."""
+
+    __slots__ = ()
+
+    def _rows_wide(self, st, cursor):
+        """``st`` decoded wide: elementwise on the batch, but the compact
+        carry's decode (a kernel over [N, K]) row by row."""
+        if not self.params.compact_carry:
+            return wide_view(self.params, st, cursor)
+        return stack_rows([wide_view(self.params, row_of(st, b), cursor)
+                           for b in range(len(self.kn))])
+
+    @property
+    def prev_wide(self):
+        return self._memo("prev_wide",
+                          lambda: self._rows_wide(self.prev, self.round_idx))
+
+    @property
+    def new_wide(self):
+        return self._memo(
+            "new_wide", lambda: self._rows_wide(self.new, self.round_idx + 1))
+
+    def per_row_fold(self, plane, rows):
+        """A plane's serial ``on_round`` run row by row, the fallback for
+        a plane without ``on_round_batch``: ``plane`` holds one plane copy
+        a row and ``rows`` one slice a row.  Each row gets a plain
+        :class:`RoundCtx` seeded with its row of every batch-level memo
+        already paid (:data:`_ROW_CACHE_KEYS`) and of every plane slice
+        already published, so cross-plane reads and the computed-once
+        contract hold across the row boundary."""
+        cached = [k for k in _ROW_CACHE_KEYS if k in self._cache]
+        out = _Rows()
+        for b, (copy, sl) in enumerate(zip(plane, rows)):
+            rc = RoundCtx(self.params, self.world.rows[b], self.kn[b],
+                          self.round_idx, row_of(self.prev, b),
+                          row_of(self.new, b), self.metrics[b],
+                          offset=self.offset, provenance=self.provenance[b])
+            rc._cache.update((k, row_of(self._cache[k], b)) for k in cached)
+            rc._plane_prev.update((n, row_of(v, b))
+                                  for n, v in self._plane_prev.items())
+            rc._plane_new.update((n, row_of(v, b))
+                                 for n, v in self._plane_new.items())
+            out.append(copy.on_round(rc, sl))
+        return out
+
+
+def _apply_planes_batch(planes, rc: BatchRoundCtx, slices) -> Tuple:
+    """One round's plane folds over the batched context, in stack order: a
+    plane with ``on_round_batch`` folds the whole batch at once; any other
+    folds row by row (:meth:`BatchRoundCtx.per_row_fold`)."""
+    out = []
+    for plane, sl in zip(planes, slices):
+        rc._plane_prev[plane.name] = sl
+        if isinstance(sl, _Rows):
+            new_sl = rc.per_row_fold(plane.rows, sl)
+        else:
+            new_sl = plane.on_round_batch(rc, sl)
+        rc._plane_new[plane.name] = new_sl
+        out.append(new_sl)
+    return tuple(out)
+
+
+class _RowPlanes:
+    """A plane without a batched fold, in a batched run: one copy of it a
+    row (a plane may keep per-world facts from its ``init``)."""
+
+    def __init__(self, plane, params, worlds):
+        self.name = plane.name
+        self.rows = [copy.copy(plane) for _ in worlds]
+        self.slices = _Rows(p.init(params, w)
+                            for p, w in zip(self.rows, worlds))
+
+
+def composed_batch_scan(seeds, params: "swim.SwimParams", worlds,
+                        n_rounds: int, planes=(), states=None,
+                        start_round: int = 0, draws=None, knobs=None,
+                        shift_key=None, device="cuda"):
+    """The batched :func:`composed_scan`: B independent runs (B scenarios,
+    one scenario under B knob settings, or any mix) advancing round by
+    round together, with the planes folding the whole batch.
+
+    ``seeds``, ``worlds`` and ``knobs`` (default ``Knobs.from_params``
+    for every row) are sequences of length B; ``draws`` an optional
+    sequence of B callables ``round_idx -> draws`` (default each row's
+    ``TorchDraws(seed, device, params, world, shift_seed=shift_key)``:
+    one ``shift_key`` shares the channel shifts across the batch);
+    ``states`` an optional batch-leading ``SwimState`` to resume (as
+    returned; not modified).
+
+    Each round every row runs the round (its own merge launch), the B new
+    carries are stacked once, and one :class:`BatchRoundCtx` feeds every
+    plane: ``on_round_batch`` where a plane has it (the trace and the
+    monitor: one record launch a round or a code for the whole batch),
+    the serial ``on_round`` row by row otherwise (the metrics and
+    provenance planes, one plane copy a row).  A batched plane's resume
+    slice is batch-leading; a per-row plane's is given to every row.
+
+    Contract (the reference's): B = 1 equals :func:`composed_scan` bit
+    for bit, and row i of any batch equals the serial run of row i's
+    (seed, world, knobs) alone.
+
+    Returns ``(final_states, {plane name: finalized slice}, metrics)``,
+    each batch-leading (metrics ``[B, n_rounds, ...]``)."""
+    device = swim.resolve_device(device)
+    worlds, seeds = list(worlds), list(seeds)
+    batch = len(worlds)
+    kns = ([swim.Knobs.from_params(params)] * batch if knobs is None
+           else list(knobs))
+    if draws is None:
+        sources = [_draws_for(s, params, w, None, shift_key, device)
+                   for s, w in zip(seeds, worlds)]
+    else:
+        sources = [_draws_for(s, params, w, d, shift_key, device)
+                   for s, w, d in zip(seeds, worlds, draws)]
+    if not batch or {len(seeds), len(kns), len(sources)} != {batch}:
+        raise ValueError(f"composed_batch_scan: {len(seeds)} seeds, {batch} "
+                         f"worlds, {len(kns)} knobs and {len(sources)} draw "
+                         f"sources (need the same B >= 1 of each)")
+    for w in worlds:
+        swim._check_world_device(w, device)
+    if states is None:
+        rows = [swim.initial_state(params, w, device=device) for w in worlds]
+    else:
+        rows = [row_of(states, b) for b in range(batch)]
+        for st in rows:
+            swim.check_lanes(st, params)
+        rows = [swim._own_rings(st) for st in rows]
+    schedules = [swim._schedules(params, w) for w in worlds]
+    stacked_world = StackedWorld(worlds) if planes else None
+    row_planes = {}
+    slices = []
+    for p in planes:
+        if hasattr(p, "on_round_batch"):
+            slices.append(p.init_batch(params, worlds))
+        else:
+            row_planes[p.name] = _RowPlanes(p, params, worlds)
+            slices.append(row_planes[p.name].slices)
+    fold_planes = tuple(row_planes.get(p.name, p) for p in planes)
+    slices = tuple(slices)
+    stacked = stack_rows(rows) if planes else None
+    metric_rows = [[] for _ in range(batch)]
+    for round_idx in range(start_round, start_round + n_rounds):
+        provs = []
+        for b in range(batch):
+            joins, pushes = schedules[b]
+            st = swim._decoded(rows[b], round_idx, params)
+            st, m = swim._wide_tick(st, round_idx, params, worlds[b],
+                                    sources[b](round_idx), kns[b],
+                                    joins.get(round_idx),
+                                    pushes.get(round_idx, ()))
+            rows[b] = swim._encoded(st, round_idx, params)
+            provs.append(_pop_provenance(m))
+            metric_rows[b].append(m)
+        if planes:
+            new_stacked = stack_rows(rows)
+            rc = BatchRoundCtx(params, stacked_world, kns, round_idx, stacked,
+                               new_stacked, [m[-1] for m in metric_rows],
+                               provenance=provs)
+            slices = _apply_planes_batch(fold_planes, rc, slices)
+            stacked = new_stacked
+            del rc
+        del provs
+    per_row = [_stack_metrics(m, params, device) for m in metric_rows]
+    metrics = {name: torch.stack([m[name] for m in per_row])
+               for name in per_row[0]}
+    end_round = start_round + n_rounds
+    results = {}
+    for p, fold, sl in zip(planes, fold_planes, slices):
+        copies = fold.rows if isinstance(fold, _RowPlanes) else [p] * batch
+        results[p.name] = stack_rows([
+            copies[b].finalize(
+                FinalCtx(params, worlds[b], kns[b], end_round, rows[b],
+                         per_row[b]), row_of(sl, b))
+            for b in range(batch)])
+    return stack_rows(rows), results, metrics
+
+
+def batch_shard_unsupported_reason(params: "swim.SwimParams") -> str:
+    """Why :func:`composed_batch_scan` does not compose with a member-row
+    mesh: a declared reason, never a silent wrong answer.  The batch runs
+    independent worlds on one device; the sharded runner's collectives
+    reduce over member rows of one world split across devices.  Shard
+    the members or batch the scenarios, not both in one program; for
+    batch throughput on several cards, run one batch a card over
+    disjoint scenario sub-batches."""
+    return ("batch axis is single-device: composed_shard_scan's "
+            "shard_map collectives reduce over member rows of one "
+            "world and cannot be vmapped over independent batched "
+            "worlds")
 
 
 # --------------------------------------------------------------------------
@@ -371,7 +675,7 @@ def run_composed(seed: int, params: "swim.SwimParams",
                  with_provenance: bool = False,
                  provenance_capacity: Optional[int] = None,
                  draws: Optional[Callable[[int], object]] = None,
-                 provenance=None, device="cuda"):
+                 provenance=None, shift_key=None, device="cuda"):
     """The full instrumented stack (event trace, invariant monitor,
     health-metrics registry, and with ``with_provenance`` the channel
     attribution) in one pass over the rounds, sharing one
@@ -391,7 +695,7 @@ def run_composed(seed: int, params: "swim.SwimParams",
         provenance_capacity=provenance_capacity, provenance=provenance)
     return composed_scan(seed, params, world, n_rounds, planes=stack,
                          state=state, start_round=start_round, draws=draws,
-                         knobs=knobs, device=device)
+                         knobs=knobs, shift_key=shift_key, device=device)
 
 
 # --------------------------------------------------------------------------

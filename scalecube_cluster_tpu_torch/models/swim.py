@@ -2950,7 +2950,7 @@ def swim_tick(state: SwimState, round_idx: int, params: SwimParams,
 def run(seed: int, params: SwimParams, world: SwimWorld, n_rounds: int,
         state: Optional[SwimState] = None, start_round: int = 0,
         draws: Optional[Callable[[int], prng.RoundDraws]] = None,
-        knobs: Optional[Knobs] = None,
+        knobs: Optional[Knobs] = None, shift_key: Optional[int] = None,
         device="cuda") -> Tuple[SwimState, Dict[str, torch.Tensor]]:
     """Run ``n_rounds`` rounds from ``start_round``.
 
@@ -2958,7 +2958,10 @@ def run(seed: int, params: SwimParams, world: SwimWorld, n_rounds: int,
     device as ``[n_rounds, ...]`` (a zero-round run gives every metric
     with a leading 0); nothing syncs with the host per round.
     ``draws`` (default ``TorchDraws(seed, device, params, world)``) is
-    any callable ``round_idx -> RoundDraws``.  ``knobs`` (default
+    any callable ``round_idx -> RoundDraws``.  ``shift_key`` (an int,
+    default ``seed``) seeds only the port's own draws of the channel
+    shifts and the anti-entropy offset (the reference's ``shift_key``,
+    the shared-shift hook of ``sweep.sweep_run``).  ``knobs`` (default
     ``Knobs.from_params(params)``) are the schedule values the round
     reads.  ``state``/``start_round`` resume a run; ``state`` is not
     modified (its rings are copied once, then updated in place round
@@ -2969,7 +2972,8 @@ def run(seed: int, params: SwimParams, world: SwimWorld, n_rounds: int,
 
     final_state, _, metrics = compose.composed_scan(
         seed, params, world, n_rounds, planes=(), state=state,
-        start_round=start_round, draws=draws, knobs=knobs, device=device)
+        start_round=start_round, draws=draws, knobs=knobs,
+        shift_key=shift_key, device=device)
     return final_state, metrics
 
 
@@ -2978,7 +2982,7 @@ def run_traced(seed: int, params: SwimParams, world: SwimWorld,
                state: Optional[SwimState] = None, start_round: int = 0,
                draws: Optional[Callable[[int], prng.RoundDraws]] = None,
                knobs: Optional[Knobs] = None, telemetry=None,
-               device="cuda"):
+               shift_key: Optional[int] = None, device="cuda"):
     """``run`` with the membership event trace riding the rounds
     (``telemetry/trace.TracePlane``): each round's net cell transitions
     are coded, recorded into the fixed-capacity event buffer (overflow
@@ -3002,7 +3006,8 @@ def run_traced(seed: int, params: SwimParams, world: SwimWorld,
         telemetry=telemetry)
     final_state, results, metrics = compose.composed_scan(
         seed, params, world, n_rounds, planes=(plane,), state=state,
-        start_round=start_round, draws=draws, knobs=knobs, device=device)
+        start_round=start_round, draws=draws, knobs=knobs,
+        shift_key=shift_key, device=device)
     return final_state, results["trace"], metrics
 
 
@@ -3011,7 +3016,7 @@ def run_metered(seed: int, params: SwimParams, world: SwimWorld,
                 start_round: int = 0,
                 draws: Optional[Callable[[int], prng.RoundDraws]] = None,
                 knobs: Optional[Knobs] = None, metrics_state=None,
-                device="cuda"):
+                shift_key: Optional[int] = None, device="cuda"):
     """``run`` with the health-metrics registry riding the rounds
     (``telemetry/metrics.MetricsPlane``): each round folds its probe
     outcomes, gossip and refutation counters, suspicion transitions and
@@ -3032,7 +3037,8 @@ def run_metered(seed: int, params: SwimParams, world: SwimWorld,
         metrics_state=metrics_state)
     final_state, results, metrics = compose.composed_scan(
         seed, params, world, n_rounds, planes=(plane,), state=state,
-        start_round=start_round, draws=draws, knobs=knobs, device=device)
+        start_round=start_round, draws=draws, knobs=knobs,
+        shift_key=shift_key, device=device)
     return final_state, results["metrics"], metrics
 
 

@@ -67,12 +67,13 @@ def divergent_cells(status: torch.Tensor, inc: torch.Tensor,
     """``(cell_mask [N, K] bool, divergent_cols [K] bool)``: live
     observers whose packed (status, incarnation) record differs from
     their column's maximum over live observers, and the columns holding
-    any.  Frozen rows are left out (unreachable state)."""
+    any.  Frozen rows are left out (unreachable state).  Leading batch
+    dimensions ([B, N, K] planes, [B, N] liveness) carry through."""
     key = records.merge_key(status, inc.to(torch.int32))
-    live = alive_rows.bool()[:, None]
-    col_max = torch.where(live, key, INT32_MIN).amax(dim=0)
-    cell_mask = live & (key != col_max[None, :])
-    return cell_mask, cell_mask.any(dim=0)
+    live = alive_rows.bool()[..., :, None]
+    col_max = torch.where(live, key, INT32_MIN).amax(dim=-2)
+    cell_mask = live & (key != col_max[..., None, :])
+    return cell_mask, cell_mask.any(dim=-2)
 
 
 def divergence_probe(state, params, world, n_rounds: int) -> torch.Tensor:

@@ -285,10 +285,18 @@ class TorchDraws:
     or :class:`ScatterDraws` a round, as ``params.delivery`` says.
     ``params`` (a ``models.swim.SwimParams``) fixes the shapes and, with
     ``world`` (a ``models.swim.SwimWorld``; None = no rules, no seeds),
-    which fields a round takes (:class:`DrawFacts`)."""
+    which fields a round takes (:class:`DrawFacts`).
 
-    def __init__(self, seed: int, device, params, world=None):
+    ``shift_seed`` (default ``seed``) seeds the host generator alone: the
+    channel shifts and the anti-entropy offset, which the reference
+    draws from its ``shift_key`` (``models/swim.py:1911-1925``).  Rows of
+    a batch given one ``shift_seed`` share their shifts while every other
+    draw stays their own."""
+
+    def __init__(self, seed: int, device, params, world=None,
+                 shift_seed: Optional[int] = None):
         self.seed = int(seed)
+        self.shift_seed = self.seed if shift_seed is None else int(shift_seed)
         self.device = torch.device(device)
         self.n = params.n_members
         self.k = params.n_subjects
@@ -323,7 +331,7 @@ class TorchDraws:
 
     def __call__(self, round_idx: int):
         s = round_seed(self.seed, round_idx)
-        self._host.manual_seed(s)
+        self._host.manual_seed(round_seed(self.shift_seed, round_idx))
         self._dev.manual_seed(s)
         if self.facts.delivery == "scatter":
             return self._scatter()

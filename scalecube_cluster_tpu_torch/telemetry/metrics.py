@@ -486,7 +486,7 @@ def stream_metered_run(seed: int, params, world, n_rounds: int, *,
                        spec: Optional[MetricsSpec] = None, state=None,
                        knobs=None, start_round: int = 0,
                        skip_covered: bool = True, alarm_specs=None,
-                       draws=None, device="cuda"):
+                       draws=None, shift_key=None, device="cuda"):
     """Drive ``models/swim.run_metered`` in flush windows.
 
     After each ``window_rounds``-round window the registry is read to the
@@ -495,14 +495,14 @@ def stream_metered_run(seed: int, params, world, n_rounds: int, *,
     ``round_end``: with an append-mode journal sink, windows whose
     ``round_end`` the journal already covers are run (the carry must
     advance) but not written again (``skip_covered``), so a resumed run
-    leaves no duplicate rows.  ``alarm_specs`` (the reference's alarm
-    engine) is not ported and raises ``NotImplementedError``.
+    leaves no duplicate rows.  ``shift_key`` seeds the port's own draws'
+    channel shifts (``swim.run``).  ``alarm_specs`` (the reference's
+    alarm engine) is not ported and raises ``NotImplementedError``.
 
     Returns ``(final_state, window_rows)``: every window's payload
     (written or not), each ``{"round_start", "round_end", "counters",
     "gauges", "histograms"}``."""
-    from scalecube_cluster_tpu_torch.models import swim
-    from scalecube_cluster_tpu_torch.ops import prng
+    from scalecube_cluster_tpu_torch.models import compose, swim
     from scalecube_cluster_tpu_torch.telemetry import sink as tsink
 
     if alarm_specs:
@@ -517,8 +517,8 @@ def stream_metered_run(seed: int, params, world, n_rounds: int, *,
         follower = tsink.follow_records(sink.path)
         follower.poll()
         covered = follower.covered_upto(kind="metrics_window")
-    if draws is None:
-        draws = prng.TorchDraws(seed, device, params, world)
+    draws = compose._draws_for(seed, params, world, draws, shift_key,
+                               device)
     ms = MetricsState.init(spec, device)
     rows: List[dict] = []
     r = 0

@@ -632,9 +632,10 @@ def stream_traced_run(seed: int, params, world, n_rounds: int, *,
                       trace_capacity: Optional[int] = None,
                       decode: bool = True,
                       draws: Optional[Callable[[int], object]] = None,
-                      device="cuda"):
+                      shift_key: Optional[int] = None, device="cuda"):
     """Drive ``models/swim.run_traced`` in segments with the trace
-    offload overlapped against the next segment's rounds.
+    offload overlapped against the next segment's rounds (``shift_key``
+    as ``swim.run``'s).
 
     Segment k's lanes, count, dropped and metric rows are copied to
     pinned host memory without blocking as soon as its rounds are issued;
@@ -652,8 +653,7 @@ def stream_traced_run(seed: int, params, world, n_rounds: int, *,
     Returns ``(final_state, TracedRunResult)``.  ``decode=False`` skips
     building the event objects (the offload still happens), for timing.
     """
-    from scalecube_cluster_tpu_torch.models import swim
-    from scalecube_cluster_tpu_torch.ops import prng
+    from scalecube_cluster_tpu_torch.models import compose, swim
     from scalecube_cluster_tpu_torch.telemetry import trace as ttrace
 
     device = swim.resolve_device(device)
@@ -665,8 +665,8 @@ def stream_traced_run(seed: int, params, world, n_rounds: int, *,
 
     if state is None:
         state = swim.initial_state(params, world, device=device)
-    if draws is None:
-        draws = prng.TorchDraws(seed, device, params, world)
+    draws = compose._draws_for(seed, params, world, draws, shift_key,
+                               device)
     tel0 = ttrace.TelemetryState.init(params.n_members, params.n_subjects,
                                       capacity=1, device=device)
     fs, fr = tel0.first_suspect, tel0.first_removed

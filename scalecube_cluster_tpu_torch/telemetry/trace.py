@@ -268,10 +268,11 @@ def observe_round(tel: TelemetryState, round_idx: int, prev_status,
 class TracePlane:
     """The membership event trace as a plane of ``models/compose``: its
     slice is a :class:`TelemetryState`, its round hook
-    :func:`observe_round` on the shared round context.  ``telemetry``
-    resumes an earlier state (cloned once, then updated in place).  The
-    reference's batched fold (``on_round_batch``) waits for the batch
-    runner."""
+    :func:`observe_round` on the shared round context, and in the batched
+    runner (``compose.composed_batch_scan``) :meth:`on_round_batch` over a
+    batch-leading state, one ``kernels/trace.trace_observe_batch`` launch
+    a round.  ``telemetry`` resumes an earlier state (batch-leading in the
+    batched runner; cloned once, then updated in place)."""
 
     name = "trace"
 
@@ -303,6 +304,27 @@ class TracePlane:
                              f"the world on {world.device}")
         return tel.clone()
 
+    def init_batch(self, params, worlds):
+        """The batched runner's slice: one fresh state a world, stacked
+        batch-leading, or the batch-leading ``telemetry`` cloned."""
+        from scalecube_cluster_tpu_torch.models import compose
+
+        n, k, b = params.n_members, params.n_subjects, len(worlds)
+        device = worlds[0].device
+        if self.telemetry is None:
+            return compose.stack_rows([
+                TelemetryState.init(n, k, self.capacity, device)
+                for _ in worlds])
+        tel = self.telemetry
+        if tuple(tel.first_suspect.shape) != (b, n, k) \
+                or tuple(tel.trace.count.shape) != (b,):
+            raise ValueError(
+                f"batched telemetry first-round matrices are "
+                f"{tuple(tel.first_suspect.shape)} with counts "
+                f"{tuple(tel.trace.count.shape)}, the batch needs "
+                f"{(b, n, k)} and {(b,)}")
+        return tel.clone()
+
     def _prev_epoch(self, rc):
         return rc.prev.epoch if rc.params.epoch_bits else None
 
@@ -311,6 +333,26 @@ class TracePlane:
             tel, rc.round_idx, rc.prev.status, rc.prev.inc, rc.new,
             rc.world, observer_offset=self.observer_offset,
             prev_epoch=self._prev_epoch(rc), is_self=self._is_self)
+
+    def on_round_batch(self, rc, tel):
+        """The batched fold (``compose.BatchRoundCtx``): every row's round
+        observed into its own buffer and matrices, one
+        ``trace_observe_batch`` launch under ``trace.record``.  A row
+        with no event records nothing (the identity), so each row equals
+        its serial run."""
+        n = rc.params.n_members
+        off = self.observer_offset
+        prev_epoch = self._prev_epoch(rc)
+        with record_function("trace.record"):
+            trace_kernel.trace_observe_batch(
+                tel.trace.lanes, tel.trace.count, tel.trace.dropped,
+                tel.first_suspect, tel.first_removed, rc.prev.status,
+                rc.new.status, rc.new.inc, rc.new.self_inc,
+                rc.world.leave_at[:, off:off + n].contiguous(),
+                rc.world.subject_ids, rc.round_idx, off,
+                prev_epoch=prev_epoch,
+                new_epoch=None if prev_epoch is None else rc.new.epoch)
+        return tel
 
     def finalize(self, fc, tel):
         return tel

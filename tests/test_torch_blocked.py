@@ -20,11 +20,14 @@ world carries a two-phase partition schedule, and the blocked link is
 its own program since a rule changes the draws), each sent to a compile
 thread as soon as it is lowered, with most XLA optimizations off (no
 delay sums here, so no FMA to keep).
+
+The whole runs are held in ``tests/test_torch_blocked_runs_wide.py``
+and ``tests/test_torch_blocked_runs_narrow.py``, on the cases and
+programs defined here.
 """
 
 import dataclasses
 import functools
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -96,23 +99,21 @@ def _program_key(case):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_programs():
-    """JAX's blocked ``run`` over ROUNDS rounds, one program per params
-    and rule count, lowered one after another and compiled in the
-    background three at a time."""
-    compiling = {}
-    with ThreadPoolExecutor(3) as pool:
-        for case, (overrides, scenario) in CASES.items():
-            key = _program_key(case)
-            if key in compiling:
-                continue
-            params = _jparams(**overrides)
-            world = _jworld(params, scenario)
-            compiling[key] = pool.submit(jswim.run.lower(
-                jax.random.key(0), params, world, ROUNDS,
-                state=jswim.initial_state(params, world),
-                start_round=0).compile)
-        return {key: job.result() for key, job in compiling.items()}
+def _reference_program(case):
+    """JAX's blocked ``run`` over ROUNDS rounds for ``case`` (one program
+    per params and rule count: cases sharing them share it)."""
+    return _compile(_program_key(case))
+
+
+@functools.lru_cache(maxsize=None)
+def _compile(key):
+    case = next(c for c in CASES if _program_key(c) == key)
+    overrides, scenario = CASES[case]
+    params = _jparams(**overrides)
+    world = _jworld(params, scenario)
+    return jswim.run.lower(jax.random.key(0), params, world, ROUNDS,
+                           state=jswim.initial_state(params, world),
+                           start_round=0).compile()
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,10 +133,18 @@ def _case(case):
     return jparams, jworld, _draws(scenario == "link_block")
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_blocked_run_matches_reference(case):
+# Whole runs, in two files: the wide layout's cases
+# (tests/test_torch_blocked_runs_wide.py), the others
+# (test_torch_blocked_runs_narrow.py).
+RUN_FILES = (tuple(c for c in sorted(CASES) if c.endswith("-wide")),
+             tuple(c for c in sorted(CASES) if not c.endswith("-wide")))
+
+
+def check_run(case):
+    """One case's blocked run on both sides, and the port's unblocked run
+    equal to it, bit for bit."""
     jparams, jworld, draws = _case(case)
-    jstate, jmetrics = _reference_programs()[_program_key(case)](
+    jstate, jmetrics = _reference_program(case)(
         jax.random.key(0), jworld, state=jswim.initial_state(jparams, jworld),
         start_round=0)
     params, world = port_params(jparams), port_world(jworld)
@@ -156,24 +165,6 @@ def test_blocked_run_matches_reference(case):
     assert int(dead.max()) > 0
     if case.startswith("gossip"):
         assert int(metrics["user_gossip_infected"][-1].min()) > N // 2
-
-
-def test_blocked_checkpoint_resume_matches_reference():
-    """A compact blocked run stopped at round 17 and resumed from its
-    state (the carry never leaves its stored layout) ends where the
-    reference's unbroken run does."""
-    jparams, jworld, draws = _case("crash_revive-compact")
-    jstate, jmetrics = _reference_programs()[_program_key(
-        "crash_revive-compact")](jax.random.key(0), jworld,
-                                 state=jswim.initial_state(jparams, jworld),
-                                 start_round=0)
-    params, world = port_params(jparams), port_world(jworld)
-    half, m_a = swim.run(0, params, world, 17, draws=draws, device="cpu")
-    state, m_b = swim.run(0, params, world, ROUNDS - 17, state=half,
-                          start_round=17, draws=draws, device="cpu")
-    assert_state_equal(jstate, state)
-    assert_metrics_equal(jmetrics, {name: torch.cat([m_a[name], m_b[name]])
-                                    for name in m_a})
 
 
 def test_swim_tick_leaves_its_input_untouched():
@@ -223,26 +214,6 @@ def test_blocked_refuses_seed_gated_contacts():
     with pytest.raises(NotImplementedError, match="seed-gated"):
         swim.swim_tick(state, 0, params, world,
                        swim.prng.TorchDraws(0, "cpu", params, world)(0))
-
-
-@pytest.mark.parametrize("layout", ["wide", "compact"])
-def test_node_snapshot_matches_reference(layout):
-    """``node_snapshot`` of the blocked run's final state equals the
-    reference's digest of its own final state, key for key, for the
-    revived node, a node that watched it and the blocked sender."""
-    case = f"crash_revive-{layout}"
-    jparams, jworld, draws = _case(case)
-    jstate, _ = _reference_programs()[_program_key(case)](
-        jax.random.key(0), jworld, state=jswim.initial_state(jparams, jworld),
-        start_round=0)
-    params, world = port_params(jparams), port_world(jworld)
-    state, _ = swim.run(0, params, world, ROUNDS, draws=draws, device="cpu")
-    for node in (0, 3, 47):
-        want = jswim.node_snapshot(jstate, jparams, jworld, node,
-                                   round_idx=ROUNDS)
-        got = swim.node_snapshot(state, params, world, node,
-                                 round_idx=ROUNDS)
-        assert got == want, node
 
 
 def test_node_snapshot_of_compact_state_needs_round_idx():

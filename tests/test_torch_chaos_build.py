@@ -295,11 +295,7 @@ def test_verdict_repro_json_and_summary_equal_the_reference():
 
 def test_unported_entry_points_raise_naming_their_roadmap_item():
     scen = scenarios.generate_scenario(100, 16, "mild")
-    for fn, item in ((campaign.build_buckets, "A10"),
-                     (campaign.run_bucket, "A10"),
-                     (campaign.run_campaign_vmapped, "A10"),
-                     (campaign.run_weakened_slice, "A10"),
-                     (campaign.cross_validate, "A12"),
+    for fn, item in ((campaign.cross_validate, "A12"),
                      (campaign.cross_validate_churn, "A12"),
                      (campaign.cross_validate_partition, "A12"),
                      (campaign.cross_validate_metadata, "A12")):

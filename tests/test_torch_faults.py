@@ -34,6 +34,13 @@ cheapest first, and compiled in a background thread from the moment it
 is lowered; the brownout runs one proxy and two gossip channels, which
 shrinks its three programs by 40 % (the other two configurations keep
 three of each); its three layouts share one set of draws.
+
+The whole runs and the delayed checkpoint are held in
+``tests/test_torch_faults_runs.py``, on the configurations and programs
+defined here.
+
+``LinkFaults.add``'s validation is held in
+``tests/test_torch_faults_rules.py``.
 """
 
 import dataclasses
@@ -51,15 +58,12 @@ import jax.numpy as jnp  # noqa: E402
 from scalecube_cluster_tpu.chaos.scenarios import Brownout  # noqa: E402
 from scalecube_cluster_tpu.models import swim as jswim  # noqa: E402
 from scalecube_cluster_tpu.ops import ring as jring  # noqa: E402
-from scalecube_cluster_tpu.utils import checkpoint  # noqa: E402
-from scalecube_cluster_tpu_torch import interop  # noqa: E402
 from scalecube_cluster_tpu_torch.models import swim  # noqa: E402
 from scalecube_cluster_tpu_torch.ops import prng  # noqa: E402
 from scalecube_cluster_tpu_torch.ops import ring  # noqa: E402
 from tests.test_swim_model import fast_config  # noqa: E402
 from tests.torch_port_helpers import (  # noqa: E402
-    STATE_FIELDS, assert_metrics_equal, assert_state_equal, jax_draws,
-    one_torch_thread, port_params, port_world)
+    jax_draws, one_torch_thread, port_params, port_world)
 
 pytestmark = pytest.mark.torchport
 
@@ -162,30 +166,6 @@ def _port_run(name, state=None, start_round=0):
     return swim.run(0, pparams, pworld, ROUNDS, state=state,
                     start_round=start_round, draws=_draws(DRAW_GROUP[name]),
                     device="cpu")
-
-
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_network_run_matches_reference(name):
-    jparams, jworld, warm = CONFIGS[name]()
-    assert_state_equal(
-        jswim.initial_state(jparams, jworld, warm=warm),
-        swim.initial_state(port_params(jparams), port_world(jworld),
-                           warm=warm, device="cpu"))
-    jstate, jmetrics = _jax_run(name)
-    state, metrics = _port_run(name)
-    assert_state_equal(jstate, state)
-    assert_metrics_equal(jmetrics, metrics)
-    # The window holds what the configuration was built for.
-    if name.startswith("brownout"):
-        assert int((state.inbox_ring >= 0).sum()) > 0
-        assert int(metrics["suspect"][:, 3].max()) > 0
-        assert int(metrics["user_gossip_infected"][-1].min()) > 8
-    if name == "loss_only_rules_no_ring":
-        assert state.inbox_ring.shape[0] == 0
-        assert int(metrics["suspect"][:, 3].max()) > 0
-    if name == "seeded_cold_start":
-        assert int(metrics["absent"][0].sum()) > 100
-        assert int(metrics["absent"][-1].sum()) == 0
 
 
 def test_torch_draws_take_the_network_fields():
@@ -368,50 +348,6 @@ def test_fma32_matches_xla_near_midpoints():
     got = swim._fma32(torch.from_numpy(e), torch.from_numpy(mean),
                       torch.from_numpy(total))
     np.testing.assert_array_equal(got.numpy(), want)
-
-
-@pytest.mark.parametrize("args,match", [
-    (((0, 4), 5, 1.5), "loss must be a probability"),
-    (((0, 4), 5, -0.1), "loss must be a probability"),
-    (((0, 4), 5, 0.5, -1.0), "delay_ms must be non-negative"),
-    (((4, 4), 5, 0.5), "empty id range"),
-    ((0, (9, 3), 0.5), "empty id range"),
-    ((0, 5, 0.5, 0.0, 10, 10), "inverted round window"),
-])
-def test_link_faults_add_validation(args, match):
-    """The reference's errors, message for message; a valid rule
-    appends."""
-    with pytest.raises(ValueError, match=match) as got:
-        swim.LinkFaults.none().add(*args)
-    with pytest.raises(ValueError) as want:
-        jswim.LinkFaults.none().add(*args)
-    assert str(got.value) == str(want.value)
-    faults = swim.LinkFaults.none().add((0, 4), 5, 0.5, 20.0, 3, 9)
-    assert faults.n_rules == 1 and faults.loss.dtype == torch.float32
-    assert [int(faults.dst_lo[0]), int(faults.dst_hi[0])] == [5, 6]
-
-
-def test_port_resumes_a_delayed_seeded_checkpoint(tmp_path):
-    """A JAX seeded cold start with a delay ring and a block,
-    checkpointed at round ROUNDS with messages in flight, resumes in the
-    port (its ring lanes from the checkpoint, its world carried over)
-    and matches JAX's own continuation."""
-    name = "seeded_cold_start"
-    half, _ = _jax_run(name)
-    path = str(tmp_path / "delayed.npz")
-    checkpoint.save(path, half, ROUNDS, key=jax.random.key(0),
-                    meta={"run": name})
-    jparams, _, _ = CONFIGS[name]()
-    state, next_round, _, meta = interop.load_jax_checkpoint(
-        path, device="cpu", params=port_params(jparams))
-    assert (next_round, meta) == (ROUNDS, {"run": name})
-    assert state.inbox_ring.shape == (3, 16, 16)
-    assert int((state.inbox_ring >= 0).sum()) > 0
-    want, want_metrics = _jax_run(name, state=half, start_round=ROUNDS)
-    got, metrics = _port_run(name, state=state, start_round=ROUNDS)
-    assert_state_equal(want, got)
-    assert_metrics_equal(want_metrics, metrics)
-    assert set(STATE_FIELDS) == {f.name for f in dataclasses.fields(got)}
 
 
 def test_run_and_swim_tick_leave_their_input_state_alone():

@@ -141,14 +141,18 @@ def test_port_runs_with_jax_blocked():
 
 
 def test_entry_points_default_to_cuda():
-    from scalecube_cluster_tpu_torch.chaos import campaign, scenarios
-    from scalecube_cluster_tpu_torch.models import gossip
+    from scalecube_cluster_tpu_torch import sweep
+    from scalecube_cluster_tpu_torch.chaos import campaign, monitor, scenarios
+    from scalecube_cluster_tpu_torch.models import compose, gossip
 
     for fn in (swim.initial_state, swim.run, swim.SwimWorld.healthy,
                interop.world_from_arrays, interop.state_from_arrays,
                interop.load_jax_checkpoint, gossip.initial_state, gossip.run,
                interop.gossip_state_from_arrays, scenarios.Scenario.build,
-               campaign.run_scenario, campaign.run_campaign):
+               campaign.run_scenario, campaign.run_campaign,
+               compose.composed_batch_scan, monitor.run_monitored_batch,
+               campaign.build_buckets, campaign.run_campaign_vmapped,
+               sweep.sweep_run, sweep.run_crash_sweep):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     params = swim.SwimParams.from_config(fast_config(), n_members=32,
                                          n_subjects=4, delivery="shift")

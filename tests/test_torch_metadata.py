@@ -26,6 +26,11 @@ Cost: thirteen reference programs, lowered one after another and
 compiled in the background four at a time, at XLA's backend
 optimizations off except the two delayed ones (whose delay sums need
 XLA's default FMA fusion).
+
+The pushes and the rollout smoke are held in
+``tests/test_torch_metadata_runs.py``, the heals, suppression and join
+in ``tests/test_torch_metadata_heals.py``, on the runs and programs
+defined here.
 """
 
 import dataclasses
@@ -159,13 +164,20 @@ NAMES = ([f"push:{run}" for run in PUSH_RUNS]
             "suppress:", "join:", "smoke:gated", "smoke:control"])
 
 
+# The whole runs of each file that compiles them
+# (tests/test_torch_metadata_runs.py, test_torch_metadata_heals.py).
+PUSH_FILE = tuple(n for n in NAMES if n.startswith(("push:", "smoke:")))
+HEAL_FILE = tuple(n for n in NAMES if n not in PUSH_FILE)
+
+
 @functools.lru_cache(maxsize=None)
-def _reference_programs():
-    """The reference's ``run`` of every whole run, lowered one after
-    another (tracing holds the GIL) and compiled in the background."""
+def _reference_programs(names):
+    """The reference's ``run`` of the whole runs ``names``, lowered one
+    after another (tracing holds the GIL) and compiled in the
+    background."""
     compiling = {}
     with ThreadPoolExecutor(4) as pool:
-        for name in NAMES:
+        for name in names:
             params, world, rounds = _setup(name)
             lowered = jswim.run.lower(
                 jax.random.key(0), params, world, rounds,
@@ -176,13 +188,18 @@ def _reference_programs():
         return {name: job.result() for name, job in compiling.items()}
 
 
+def _file_of(name):
+    return PUSH_FILE if name in PUSH_FILE else HEAL_FILE
+
+
 @functools.lru_cache(maxsize=None)
 def _run_both(name):
-    """One whole run on both sides, compared; returns the reference's
-    ``(params, world, state)``, the port's, and the round count."""
+    """One whole run on both sides, compared (the reference's programs
+    compiled for its file's runs); returns the reference's ``(params,
+    world, state)``, the port's, and the round count."""
     jparams, jworld, rounds = _setup(name)
     params, world = port_params(jparams), port_world(jworld)
-    jstate, jmetrics = _reference_programs()[name](
+    jstate, jmetrics = _reference_programs(_file_of(name))[name](
         jax.random.key(0), jworld, state=jswim.initial_state(jparams, jworld),
         start_round=0)
     state, metrics = swim.run(0, params, world, rounds,
@@ -417,130 +434,6 @@ def test_quiet_world_equals_plane_off(delivery, layout):
 # --------------------------------------------------------------------------
 # Whole runs
 # --------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("run", list(PUSH_RUNS))
-def test_pushes_match_reference(run):
-    """The push world on both sides, every lane and metric exact: node 3's
-    word and node 5's second one (version 2) reach every live observer,
-    node 6 (crashed) and node 9 (a key past the plane) write nothing, and
-    the crashed row holds nothing; the
-    tables agree at the end (delayed runs: 40 rounds, the words still
-    spreading)."""
-    ref, port, metrics, rounds = _run_both(f"push:{run}")
-    state = port[2]
-    div = _probes_match(ref, port, rounds)
-    assert not bool(state.md[:, 6].any()) and not bool(state.md[:, 9].any())
-    assert int(metrics["metadata_divergent"].max()) > 0
-    if "delay" in run:
-        return
-    live = [i for i in range(16) if i != 6]           # node 6 is frozen
-    assert [_cells(state, 3)[j][i] for j in (0, 1) for i in live] == \
-        [641] * 15 + [1] * 15
-    assert [_cells(state, 5, key=1)[j][i] for j in (0, 1) for i in live] \
-        == [17] * 15 + [2] * 15
-    assert not bool(state.md[6].any())
-    assert div == 0 and int(metrics["metadata_divergent"][-1]) == 0
-
-
-@pytest.mark.parametrize("delivery", ["shift", "scatter"])
-def test_quiesced_heal_converges_only_with_exchange(delivery):
-    """A push inside the split, cold long before the heal: with the
-    exchange every table holds it at the end; without it (the control,
-    run in shift) the far half never does; each run exact against the
-    reference."""
-    on_ref, on_port, _, rounds = _run_both(f"heal:{delivery}-on")
-    assert _probes_match(on_ref, on_port, rounds) == 0
-    assert _cells(on_port[2], 0)[0] == [321] * HEAL_N
-    if delivery == "shift":
-        off_ref, off_port, _, _ = _run_both("heal:shift-control")
-        assert _probes_match(off_ref, off_port, rounds) > 0
-
-
-def test_suppression_keeps_words_and_versions_resume():
-    """A dead owner's word stays with every observer through its
-    suppression window (read mid-run, between the port's two segments),
-    and its push after the revival lands at version 2 everywhere; the
-    run exact against the reference's whole run."""
-    jparams, jworld, rounds = _setup("suppress:")
-    params, world = port_params(jparams), port_world(jworld)
-    draws = jax_draws(jax.random.key(0), jparams, jworld)
-    mid = 8 + _bound(jparams) + 12
-    mid_state, m_a = swim.run(0, params, world, mid, draws=draws,
-                              device="cpu")
-    values, versions = _cells(mid_state, 2)
-    assert all(v == 555 for i, v in enumerate(values) if i != 2)
-    assert all(v == 1 for i, v in enumerate(versions) if i != 2)
-    state, m_b = swim.run(0, params, world, rounds - mid, state=mid_state,
-                          start_round=mid, draws=draws, device="cpu")
-    jstate, jmetrics = _reference_programs()["suppress:"](
-        jax.random.key(0), jworld, state=jswim.initial_state(jparams, jworld),
-        start_round=0)
-    assert_state_equal(jstate, state)
-    assert_metrics_equal(jmetrics, {name: torch.cat([m_a[name], m_b[name]])
-                                    for name in m_a})
-    assert _cells(state, 2) == ([777] * 16, [2] * 16)
-    assert _probes_match((jparams, jworld, jstate), (params, world, state),
-                         rounds) == 0
-
-
-def test_join_resets_the_row_and_stamps_the_new_epoch():
-    """The compact open world: the joiner's row starts empty at its join
-    (its other owners' words come back), the first identity's word is
-    gone everywhere, and the new identity's push carries epoch 1 at
-    version 1; exact against the reference."""
-    ref, port, _, rounds = _run_both("join:")
-    state = port[2]
-    words = state.md[:, JOIN_SLOT, 0]
-    assert metadata.word_value(words).tolist() == [6] * 16
-    assert metadata.word_epoch(words).tolist() == [1] * 16
-    assert metadata.word_version(words).tolist() == [1] * 16
-    assert _cells(state, 7)[0] == [8] * 16
-    assert _probes_match(ref, port, rounds) == 0
-
-
-@pytest.mark.parametrize("arm", ["gated", "control"])
-def test_bench_smoke_rollout_matches_reference(arm):
-    """``bench.py --rollout --smoke``'s scenario (N = 24) on the
-    reference's world and draws, run through ``chip_smoke.rollout_gated``
-    (the gated arm, polled every 2 rounds) or whole (the control): every
-    lane and per-round metric equal to the reference's whole run; the
-    gated arm converges every push inside its deadline with no divergent
-    cell at the horizon, the control stays divergent.  The world is the
-    reference scenario's as ``Scenario.build`` pads it (the per-hop FD
-    chains run), and the port's DSL (``chip_smoke.rollout_world``) builds
-    the same world and geometry."""
-    import chip_smoke
-
-    jparams, jworld, horizon = _setup(f"smoke:{arm}")
-    params, world = port_params(jparams), port_world(jworld)
-    dsl_world, geo = chip_smoke.rollout_world(SMOKE_N, "cpu", n_stages=2,
-                                              stage_size=2)
-    assert geo["horizon"] == horizon
-    assert jworld.faults.n_rules == dsl_world.faults.n_rules == 8
-    for name in swim.LinkFaults.ARRAYS:
-        np.testing.assert_array_equal(getattr(dsl_world.faults, name).numpy(),
-                                      getattr(world.faults, name).numpy())
-    jstate, jmetrics = _reference_programs()[f"smoke:{arm}"](
-        jax.random.key(0), jworld, state=jswim.initial_state(jparams, jworld),
-        start_round=0)
-    draws = jax_draws(jax.random.key(0), jparams, jworld)
-    if arm == "gated":
-        state, summary = chip_smoke.rollout_gated(params, world, geo, "cpu",
-                                                  draws=draws,
-                                                  keep_metrics=True)
-        metrics = summary["metrics"]
-        assert summary["final_div"] == 0
-        assert all(at <= p["deadline"] for at, p in
-                   zip(summary["converged_at"], geo["pushes"]))
-    else:
-        state, metrics = swim.run(0, params, world, horizon, draws=draws,
-                                  device="cpu")
-    assert_state_equal(jstate, state)
-    assert_metrics_equal(jmetrics, metrics)
-    div = _probes_match((jparams, jworld, jstate), (params, world, state),
-                        horizon)
-    assert (div == 0) == (arm == "gated")
 
 
 @pytest.mark.parametrize("n", [48, 16_384])

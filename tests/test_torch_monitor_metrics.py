@@ -31,11 +31,17 @@ journals (``telemetry/sink.py``) against the JAX package.
 Cost: four reference programs at N = 16, lowered one after another and
 compiled in the background at XLA's backend optimizations off (no delay
 sums, so no FMA to keep).
+
+``run_metered`` and ``check_round`` are held in
+``tests/test_torch_monitor_metrics_runs.py``, on the settings and
+programs defined here.
+
+The registry ops, ``build_stack`` and the journals are held in
+``tests/test_torch_monitor_metrics_journals.py``.
 """
 
 import dataclasses
 import functools
-import json
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -50,13 +56,11 @@ from scalecube_cluster_tpu.chaos import monitor as jmonitor  # noqa: E402
 from scalecube_cluster_tpu.models import compose as jcompose  # noqa: E402
 from scalecube_cluster_tpu.models import swim as jswim  # noqa: E402
 from scalecube_cluster_tpu.telemetry import metrics as jmetrics  # noqa: E402
-from scalecube_cluster_tpu.telemetry import query as jquery  # noqa: E402
-from scalecube_cluster_tpu.telemetry import sink as jsink  # noqa: E402
 from scalecube_cluster_tpu.telemetry import trace as jtrace  # noqa: E402
 from scalecube_cluster_tpu_torch import interop  # noqa: E402
 from scalecube_cluster_tpu_torch.chaos import monitor  # noqa: E402
 from scalecube_cluster_tpu_torch.models import compose, swim  # noqa: E402
-from scalecube_cluster_tpu_torch.telemetry import metrics, sink  # noqa: E402
+from scalecube_cluster_tpu_torch.telemetry import metrics  # noqa: E402
 from tests.test_swim_model import fast_config  # noqa: E402
 from tests.torch_port_helpers import (  # noqa: E402,F401
     assert_metrics_equal, assert_monitor_equal, assert_registry_equal,
@@ -145,7 +149,7 @@ def _reference_stack(jworld, jspec, kn, jstate):
     and slices: ``[(state, results, metrics) after each chunk]``."""
     slices, out = _stack_slices(), []
     for start in (0, CHUNK):
-        jstate, res, jm = _programs()["stack"](
+        jstate, res, jm = _program("stack")(
             jax.random.key(0), jworld, monitor_spec=jspec,
             state=_copy(jstate), start_round=start, knobs=kn, **slices)
         out.append((jstate, res, jm))
@@ -161,91 +165,41 @@ def _draws(name):
 
 
 @functools.lru_cache(maxsize=None)
-def _programs():
-    """Every reference program, lowered one after another (tracing holds
-    the GIL) and compiled in the background; states, worlds, knobs,
-    specs and resume slices are their data."""
+def _program(name):
+    """One reference program (a metered setting's ``run_metered``, the
+    full ``stack`` or ``check_round``), compiled with its draws' program
+    beside it; states, worlds, knobs, specs and resume slices are its
+    data."""
     key = jax.random.key(0)
-    jobs = {}
-    with ThreadPoolExecutor(4) as pool:
-        def submit(name, lowered):
-            jobs[name] = pool.submit(lowered.compile, compiler_options=QUICK)
-
-        for name, overrides in METERED.items():
-            params = _params(**overrides)
-            world = _world(params)
-            submit(name, jswim.run_metered.lower(
-                key, params, world, CHUNK, spec=SPEC,
-                state=jswim.initial_state(params, world), start_round=0,
-                knobs=jswim.Knobs.from_params(params),
-                metrics_state=jmetrics.MetricsState.init(SPEC)))
-        params, world = MONITORED, _world(MONITORED)
-        state, kn = jswim.initial_state(params, world), _knobs(params)
-        submit("stack", jcompose.run_composed.lower(
+    params, world = MONITORED, _world(MONITORED)
+    state, kn = jswim.initial_state(params, world), _knobs(params)
+    if name in METERED:
+        params = _params(**METERED[name])
+        world = _world(params)
+        lowered = jswim.run_metered.lower(
+            key, params, world, CHUNK, spec=SPEC,
+            state=jswim.initial_state(params, world), start_round=0,
+            knobs=jswim.Knobs.from_params(params),
+            metrics_state=jmetrics.MetricsState.init(SPEC))
+    elif name == "stack":
+        lowered = jcompose.run_composed.lower(
             key, params, world, CHUNK, monitor_spec=_monitor_spec(params),
-            state=state, start_round=0, knobs=kn, **_stack_slices()))
-        submit("check_round", jax.jit(
-            jmonitor.check_round, static_argnums=(2,)).lower(
-                jmonitor.MonitorState.init(CAPACITY),
-                _monitor_spec(params), params, kn, jnp.int32(0), state,
-                state, world))
-        warm = [pool.submit(lambda n=n: _draws(n)(0))
-                for n in list(METERED) + ["monitored"]]
-        for job in warm:
-            job.result()
-        return {name: job.result() for name, job in jobs.items()}
+            state=state, start_round=0, knobs=kn, **_stack_slices())
+    else:
+        lowered = jax.jit(jmonitor.check_round, static_argnums=(2,)).lower(
+            jmonitor.MonitorState.init(CAPACITY), _monitor_spec(params),
+            params, kn, jnp.int32(0), state, state, world)
+    with ThreadPoolExecutor(1) as pool:
+        warm = pool.submit(lambda: _draws(
+            name if name in METERED else "monitored")(0))
+        program = lowered.compile(compiler_options=QUICK)
+        warm.result()
+    return program
 
 
 # --------------------------------------------------------------------------
 # The registry ops
 # --------------------------------------------------------------------------
-
-
-def test_registry_ops_match_reference():
-    """``inc``, ``inc_many``, ``set_gauge``, ``observe`` (seeded values,
-    a broadcast mask, values below the first edge and past the last, an
-    empty mask) and ``reset_window`` give the reference's registry."""
-    rng = np.random.default_rng(7)
-    values = rng.integers(-5, 300, (6, 5)).astype(np.int32)
-    mask = rng.random((6, 5)) < 0.5
-    jms = jmetrics.MetricsState.init(SPEC)
-    ms = metrics.MetricsState.init(metrics.MetricsSpec.default(), "cpu")
-    steps = [
-        ("inc", "refutations", 7), ("inc", "gossip_messages", 2**31 - 3),
-        ("inc", "gossip_messages", 9),
-        ("inc_many", {"fd_probes_sent": 3, "suspicions_fired": 11}),
-        ("gauge", "lhm", 1.2345678), ("gauge", "live_members", 15),
-        ("observe", values, mask), ("observe", values[:, :1], mask[0]),
-        ("observe", values, np.zeros_like(mask)),
-    ]
-    for step in steps:
-        if step[0] == "inc":
-            jms = jmetrics.inc(jms, SPEC, step[1], step[2])
-            ms = metrics.inc(ms, ms_spec(), step[1],
-                             torch.tensor(step[2], dtype=torch.int64))
-        elif step[0] == "inc_many":
-            jms = jmetrics.inc_many(jms, SPEC, step[1])
-            ms = metrics.inc_many(ms, ms_spec(), step[1])
-        elif step[0] == "gauge":
-            jms = jmetrics.set_gauge(jms, SPEC, step[1], step[2])
-            ms = metrics.set_gauge(ms, ms_spec(), step[1], step[2])
-        else:
-            jms = jmetrics.observe(jms, SPEC, "suspicion_lifetime_rounds",
-                                   step[1], step[2])
-            ms = metrics.observe(ms, ms_spec(), "suspicion_lifetime_rounds",
-                                 torch.from_numpy(step[1]),
-                                 torch.from_numpy(step[2]))
-        assert_registry_equal(jms, ms)
-    assert int(ms.counters[SPEC.counter_index("gossip_messages")]) < 0
-    with pytest.warns(UserWarning, match="wrapped int32"):
-        got = metrics.to_json(ms, ms_spec())
-    with pytest.warns(UserWarning, match="wrapped int32"):
-        assert got == jmetrics.to_json(jms, SPEC)
-    assert_registry_equal(jmetrics.reset_window(jms),
-                          metrics.reset_window(ms))
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        metrics.aggregate_across_devices(ms, "rows")
-    assert metrics.aggregate_across_devices(ms, None) is ms
 
 
 def ms_spec():
@@ -271,7 +225,7 @@ def _metered_both(name):
     jms = jmetrics.MetricsState.init(SPEC)
     state, ms, rows = None, None, []
     for start in (0, CHUNK):
-        jstate, jms, jm = _programs()[name](
+        jstate, jms, jm = _program(name)(
             jax.random.key(0), jworld, state=_copy(jstate),
             start_round=start, knobs=jswim.Knobs.from_params(jparams),
             metrics_state=_copy(jms))
@@ -285,26 +239,6 @@ def _metered_both(name):
                      **jmetrics.to_json(jms, SPEC)})
         jms, ms = jmetrics.reset_window(jms), metrics.reset_window(ms)
     return rows, state
-
-
-@pytest.mark.parametrize("name", sorted(METERED))
-def test_run_metered_matches_reference(name):
-    """State, metrics, counters, gauges and histograms equal the
-    reference's after each chunk (the second resumes the registry); the
-    registry saw what its scenario was built for."""
-    rows, _ = _metered_both(name)
-    total = {k: rows[0]["counters"][k] + rows[1]["counters"][k]
-             for k in SPEC.counters}
-    assert total["suspicions_started"] > 0
-    assert total["live_observer_rounds"] > 0
-    hist = rows[0]["histograms"]["suspicion_lifetime_rounds"]["counts"]
-    assert sum(hist) + sum(rows[1]["histograms"][
-        "suspicion_lifetime_rounds"]["counts"]) > 0
-    if "lifeguard" in name:
-        assert rows[1]["gauges"]["lhm"] >= 1.0
-        assert total["joins_admitted"] == 1
-    else:
-        assert rows[1]["gauges"]["lhm"] == 0.0
 
 
 # --------------------------------------------------------------------------
@@ -458,43 +392,6 @@ CHECK_CASES = ["regression", "dead_winner", "not_fresh", "saturated",
                "overflow:-1", "overflow:0", "overflow:5"]
 
 
-@pytest.mark.parametrize("case", CHECK_CASES)
-def test_check_round_matches_reference(case):
-    """``check_round`` on synthetic rounds: a direct regression (and its
-    legal DEAD twin), a code no longer fresh (counted, not recorded),
-    saturated and negative cells with both self lanes, and a record one
-    row below, at and past the capacity."""
-    prev, new, jmon0 = _check_inputs(case)
-    jworld, kn = _world(MONITORED), _knobs(MONITORED)
-    jspec = _monitor_spec(MONITORED)
-    jmon = _programs()["check_round"](_copy(jmon0), jspec, kn, jnp.int32(7),
-                                      prev, new, jworld)
-    mon = monitor.check_round(
-        monitor.MonitorState.from_arrays(jmon0.to_arrays(), device="cpu"),
-        port_monitor_spec(jspec), port_params(MONITORED),
-        swim.Knobs.from_params(port_params(MONITORED)), 7,
-        _port_state(prev), _port_state(new), port_world(jworld))
-    assert_monitor_equal(jmon, mon)
-    reg = int(mon.code_counts[monitor.InvariantCode.INC_REGRESSION])
-    if case == "regression":
-        assert [(e.round, e.observer, e.subject, e.detail)
-                for e in monitor.decode_violations(mon)] == [(7, 2, 5, 1)]
-    elif case == "dead_winner":
-        assert int(mon.code_counts.sum()) == 0
-    elif case == "not_fresh":
-        assert reg == 4 and int(mon.count) == 0
-    elif case == "saturated":
-        codes = {(e.code.name, e.observer, e.subject)
-                 for e in monitor.decode_violations(mon)}
-        assert {("WIRE_SATURATION", 1, 6), ("WIRE_SATURATION", 9, 2),
-                ("INC_REGRESSION", 5, 5), ("WIRE_SATURATION", 11, 11)} \
-            <= codes
-    else:
-        extra = int(case.split(":")[1])
-        assert int(mon.count) == min(CAPACITY, CAPACITY + extra)
-        assert int(mon.dropped) == max(0, extra)
-
-
 # --------------------------------------------------------------------------
 # The full stack
 # --------------------------------------------------------------------------
@@ -557,33 +454,6 @@ def test_run_monitored_metered_matches_reference_stack():
     assert_registry_equal(jres["metrics"], ms)
 
 
-def test_build_stack_raises_only_for_provenance():
-    """Every plane builds, provenance too (the last to be ported), in the
-    reference's order: trace, provenance, monitor, metrics; the monitor
-    without a spec is the reference's ``ValueError``."""
-    params = port_params(MONITORED)
-    spec = monitor.MonitorSpec.passive(params, device="cpu")
-    stack = compose.build_stack(True, True, True, monitor_spec=spec)
-    assert [p.name for p in stack] == ["trace", "monitor", "metrics"]
-    assert stack[2].chaos_from == "monitor"
-    assert compose.build_stack(False, True, False)[0].chaos_from is None
-    with pytest.raises(ValueError, match="monitor_spec"):
-        compose.build_stack(False, False, True)
-    (plane,) = compose.build_stack(False, False, False, with_provenance=True,
-                                   provenance_capacity=64)
-    assert (plane.name, plane.capacity) == ("provenance", 64)
-    full = compose.build_stack(True, True, True, monitor_spec=spec,
-                               with_provenance=True)
-    jfull = jcompose.build_stack(
-        True, True, True, monitor_spec=jmonitor.MonitorSpec.passive(MONITORED),
-        with_provenance=True)
-    assert [p.name for p in full] == [p.name for p in jfull] == [
-        "trace", "provenance", "monitor", "metrics"]
-    jstack = jcompose.build_stack(
-        True, True, True, monitor_spec=jmonitor.MonitorSpec.passive(MONITORED))
-    assert [p.name for p in jstack] == [p.name for p in stack]
-
-
 # --------------------------------------------------------------------------
 # Journals
 # --------------------------------------------------------------------------
@@ -593,106 +463,7 @@ def _strip(rec):
     return {k: v for k, v in rec.items() if k not in ("run_id",)}
 
 
-def test_port_journal_reads_in_the_reference(tmp_path):
-    """A journal the port writes (manifest, metrics windows, counters,
-    histogram, curve, events, a record, summary) reads back through the
-    reference's ``read_records`` and ``query.load_report`` as it reads
-    through the port's, its window totals the registry's."""
-    rows, state = _metered_both("shift-wide-sync")
-    (_, jres, jm), (params, _, _, _, res, m) = _composed_both()
-    path = tmp_path / "port.jsonl"
-    with sink.TelemetrySink(path=str(path)) as s:
-        s.write_manifest(params, label="port")
-        for row in rows:
-            s.write_metrics_window(row)
-        s.write_counters(m, label="composed")
-        s.write_histogram("lifetime", metrics.DEFAULT_SUSPICION_EDGES,
-                          res["metrics"].hists["suspicion_lifetime_rounds"])
-        s.write_curve("dead", m["dead"][:, CRASH])
-        from scalecube_cluster_tpu_torch.telemetry import trace
-
-        s.write_events(trace.decode_events(res["trace"]))
-        s.write_record("chaos_scenario",
-                       monitor.verdict(res["monitor"]))
-        s.write_summary(rounds=ROUNDS)
-    theirs = jsink.read_records(str(path))
-    ours = sink.read_records(str(path))
-    assert theirs == ours
-    assert [r["kind"] for r in ours][:3] == ["manifest", "metrics_window",
-                                            "metrics_window"]
-    assert ours[1] == {"kind": "metrics_window", "run_id": "port", **rows[0]}
-    assert sink.covered_upto(str(path), "metrics_window") == ROUNDS
-    report = jquery.load_report(str(path))
-    for name in SPEC.counters:
-        assert report.counters[name] == sum(r["counters"][name]
-                                            for r in rows)
-    assert jsink.read_events(str(path)) == [
-        jtrace_event(e) for e in sink.read_events(str(path))]
-    jcounters = jsink.counters_row(jax.tree.map(np.asarray, jm),
-                                   label="composed")
-    assert ours[3] == {"kind": "counters", "run_id": "port", **jcounters}
-
-
 def jtrace_event(e):
     from scalecube_cluster_tpu.telemetry.events import MembershipTraceEvent
 
     return MembershipTraceEvent.from_json(e.to_json())
-
-
-def test_reference_journal_reads_in_the_port(tmp_path):
-    """A journal the reference writes reads back through the port's
-    readers record for record, a torn tail skipped by both, and the
-    port's append-mode sink heals the tail as the reference's does."""
-    rows, _ = _metered_both("shift-wide-sync")
-    path = tmp_path / "ref.jsonl"
-    with jsink.TelemetrySink(path=str(path)) as s:
-        s.write_manifest(MONITORED)
-        for row in rows:
-            s.write_metrics_window(row)
-        s.write_provenance({"rows": [{"a": 1}], "recorded": 1,
-                            "dropped": 0, "capacity": 4})
-    want = jsink.read_records(str(path))
-    assert sink.read_records(str(path)) == want
-    assert sink.read_provenance(str(path)) == jsink.read_provenance(
-        str(path))
-    with open(path, "a") as f:
-        f.write('{"kind": "metrics_window", "round_')
-    with pytest.warns(UserWarning, match="torn"):
-        assert sink.read_records(str(path)) == want
-    follower = sink.follow_records(str(path))
-    assert follower.poll() == want
-    assert follower.covered_upto("metrics_window") == ROUNDS
-    with pytest.warns(UserWarning, match="torn"):
-        sink.TelemetrySink(path=str(path), append=True).close()
-    assert open(path).read().endswith("\n")
-    assert sink.read_records(str(path)) == want
-
-
-def test_stream_metered_run_dedups_a_resumed_journal(tmp_path):
-    """``stream_metered_run``'s window rows are the reference's (two
-    20-round windows, the registry reset between them); a longer
-    relaunch into the same append-mode journal writes no covered window
-    again and appends only the new one."""
-    rows, state = _metered_both("shift-wide-sync")
-    jparams = _params(**METERED["shift-wide-sync"])
-    params, world = port_params(jparams), port_world(_world(jparams))
-    path = str(tmp_path / "metered.jsonl")
-    draws = _draws("shift-wide-sync")
-
-    def stream(n_rounds):
-        with sink.TelemetrySink(path=path, append=True) as s:
-            return metrics.stream_metered_run(
-                0, params, world, n_rounds, sink=s, window_rounds=CHUNK,
-                draws=draws, device="cpu")
-
-    final, got = stream(ROUNDS)
-    assert got == rows
-    assert json.loads(json.dumps(got)) == got
-    assert torch.equal(final.status, state.status)
-    _, longer = stream(ROUNDS + 4)
-    assert longer[:2] == rows
-    written = [_strip(r) for r in sink.read_records(path, "metrics_window")]
-    assert written == [{"kind": "metrics_window", **r} for r in longer]
-    with pytest.raises(NotImplementedError, match="alarm"):
-        metrics.stream_metered_run(0, params, world, 1, alarm_specs=[1],
-                                   device="cpu")

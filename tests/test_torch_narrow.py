@@ -20,11 +20,14 @@ lowered (which holds it); and the module compiles them with most XLA
 optimizations off, about twice as fast at these sizes and changing no
 result (integer arithmetic, float32 compares without fast math).  Each
 shape's draws are built once.
+
+The whole runs are held in ``tests/test_torch_narrow_runs_int16.py``,
+``..._compact.py`` and ``..._wire24.py``, one file a layout, on the
+worlds and programs defined here.
 """
 
 import dataclasses
 import functools
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -35,8 +38,6 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from scalecube_cluster_tpu.models import swim as jswim  # noqa: E402
-from scalecube_cluster_tpu.utils import checkpoint  # noqa: E402
-from scalecube_cluster_tpu_torch import interop  # noqa: E402
 from scalecube_cluster_tpu_torch.kernels import LAUNCHES  # noqa: E402
 from scalecube_cluster_tpu_torch.kernels import carry, merge  # noqa: E402
 from scalecube_cluster_tpu_torch.models import swim  # noqa: E402
@@ -108,29 +109,20 @@ def _draws(shape):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_programs():
-    """JAX's ``run`` over ROUNDS rounds for every (layout, shape), keyed
-    by the reference params: lowered one after another (tracing holds
-    the GIL), each compiled in the background from the moment it is
-    lowered, three at a time (each compile holds a few hundred MB)."""
-    compiling = {}
-    with ThreadPoolExecutor(3) as pool:
-        for layout in LAYOUTS:
-            for shape in SHAPES:
-                params = _jparams(layout, shape)
-                world = _jworld(params, "healthy")
-                compiling[params] = pool.submit(jswim.run.lower(
-                    jax.random.key(0), params, world, ROUNDS,
-                    state=jswim.initial_state(params, world),
-                    start_round=0).compile)
-        return {params: job.result() for params, job in compiling.items()}
+def _reference_program(params):
+    """JAX's ``run`` over ROUNDS rounds for one (layout, shape)'s
+    params."""
+    world = _jworld(params, "healthy")
+    return jswim.run.lower(jax.random.key(0), params, world, ROUNDS,
+                           state=jswim.initial_state(params, world),
+                           start_round=0).compile()
 
 
 def _jax_run(params, world, state=None, start_round=0):
     if state is None:
         state = jswim.initial_state(params, world)
-    return _reference_programs()[params](jax.random.key(0), world,
-                                         state=state, start_round=start_round)
+    return _reference_program(params)(jax.random.key(0), world, state=state,
+                                      start_round=start_round)
 
 
 def _port_run(jparams, jworld, shape, rounds=ROUNDS, state=None,
@@ -145,11 +137,14 @@ def _carry_dtypes(state):
             state.suspect_deadline.dtype)
 
 
-@pytest.mark.parametrize("shape,world", [(shape, world)
-                                         for shape in sorted(SHAPES)
-                                         for world in WORLDS[shape]])
-@pytest.mark.parametrize("layout", sorted(LAYOUTS))
-def test_narrow_run_matches_reference(layout, shape, world):
+# Whole runs, one file a layout (tests/test_torch_narrow_runs_*.py).
+RUN_CASES = [(shape, world) for shape in sorted(SHAPES)
+             for world in WORLDS[shape]]
+
+
+def check_run(layout, shape, world):
+    """One layout's whole run of ``world`` at ``shape`` on both sides:
+    every lane, the carry dtypes, the metrics and the decoded timers."""
     jparams = _jparams(layout, shape)
     jworld = _jworld(jparams, world)
     jstate, jmetrics = _jax_run(jparams, jworld)
@@ -219,56 +214,6 @@ def test_wire_buffers_and_inbox_carry_the_wire_dtype(layout, monkeypatch):
     swim.run(1, params, world, 6, device="cpu")
     assert seen == {"payload": {WIRE[layout]}, "fd_inbox": {WIRE[layout]},
                     "inbox": {WIRE[layout]}, "carry": {CARRY[layout]}}
-
-
-@pytest.mark.parametrize("layout,cap", [("int16_wire", 8191),
-                                        ("compact_wire24", 32767)])
-def test_refutation_at_the_incarnation_cap(layout, cap):
-    """Every incarnation seeded AT the layout's cap (8191 on the int16
-    wire; 32767, the int16 carry's, under wire24): the revived node's
-    refutation bump saturates there, exactly as in the reference."""
-    shape = "full_view_48"
-    jparams = _jparams(layout, shape)
-    jworld = _jworld(jparams, "crash")
-    init = jswim.initial_state(jparams, jworld)
-    jinit = dataclasses.replace(
-        init, inc=jnp.full_like(init.inc, cap),
-        self_inc=jnp.full_like(init.self_inc, cap))
-    pinit = interop.state_from_arrays(
-        checkpoint.state_to_arrays(jinit), device="cpu",
-        params=port_params(jparams))
-    jstate, jmetrics = _jax_run(jparams, jworld, state=jinit)
-    state, metrics = _port_run(jparams, jworld, shape, state=pinit)
-    assert_state_equal(jstate, state)
-    assert_metrics_equal(jmetrics, metrics)
-    assert int(metrics["refutations"].sum()) > 0
-    assert int(state.self_inc.max()) == cap
-    assert int(state.inc.max()) == cap
-
-
-def test_port_resumes_a_jax_compact_checkpoint(tmp_path):
-    """A JAX compact-carry run checkpointed at round 24 (int16/int8
-    lanes) resumes in the port and matches JAX's own continuation."""
-    shape = "focal_256x16"
-    jparams = _jparams("compact", shape)
-    jworld = _jworld(jparams, "crash")
-    half, _ = _jax_run(jparams, jworld)
-    path = str(tmp_path / "compact.npz")
-    checkpoint.save(path, half, ROUNDS, key=jax.random.key(0),
-                    meta={"run": "compact"})
-    want, want_metrics = _jax_run(jparams, jworld, state=half,
-                                  start_round=ROUNDS)
-
-    state, next_round, _, meta = interop.load_jax_checkpoint(
-        path, device="cpu", params=port_params(jparams))
-    assert (next_round, meta) == (ROUNDS, {"run": "compact"})
-    assert _carry_dtypes(state) == CARRY["compact"]
-    final, metrics = _port_run(jparams, jworld, shape, state=state,
-                               start_round=next_round)
-    assert_state_equal(want, final)
-    assert_metrics_equal(want_metrics, metrics)
-    with pytest.raises(ValueError, match="compact_carry"):
-        interop.load_jax_checkpoint(path, device="cpu")
 
 
 # ---- the codec and the merge instances ------------------------------------

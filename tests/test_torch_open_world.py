@@ -24,6 +24,11 @@ Cost: eleven reference programs, lowered one after another and
 compiled in the background four at a time, at XLA's backend
 optimizations off except the delayed one (whose delay sums need XLA's
 default FMA fusion).
+
+The whole runs are held in ``tests/test_torch_open_world_runs.py``, the
+storm, its join codes and ``node_snapshot`` in
+``tests/test_torch_open_world_storm.py``, on the worlds and programs
+defined here.
 """
 
 import dataclasses
@@ -52,9 +57,8 @@ from scalecube_cluster_tpu_torch.models import swim  # noqa: E402
 from scalecube_cluster_tpu_torch.ops import delivery  # noqa: E402
 from tests.test_swim_model import fast_config  # noqa: E402
 from tests.torch_port_helpers import (  # noqa: E402,F401
-    STATE_FIELDS, assert_metrics_equal, assert_monitor_equal,
-    assert_state_equal, jax_draws, one_torch_thread, port_monitor_spec,
-    port_params, port_world)
+    STATE_FIELDS, assert_metrics_equal, assert_state_equal, jax_draws,
+    one_torch_thread, port_monitor_spec, port_params, port_world)
 
 pytestmark = pytest.mark.torchport
 
@@ -110,14 +114,17 @@ def _storm(guard):
     return scen, params, world, spec
 
 
+STORMS = (("storm", True), ("storm", False))
+
+
 @functools.lru_cache(maxsize=None)
-def _reference_programs():
-    """The reference's ``run`` of every whole run and its monitored run
-    of both storm arms, lowered one after another (tracing holds the
-    GIL) and compiled in the background."""
+def _reference_programs(keys):
+    """The reference's ``run`` of the whole runs named in ``keys`` and its
+    monitored run of the storm arms there, lowered one after another
+    (tracing holds the GIL) and compiled in the background."""
     compiling = {}
     with ThreadPoolExecutor(4) as pool:
-        for name in RUNS:
+        for name in (k for k in keys if k in RUNS):
             params, world = _jrun_setup(name)
             lowered = jswim.run.lower(
                 jax.random.key(0), params, world, ROUNDS,
@@ -125,7 +132,7 @@ def _reference_programs():
             delayed = params.mean_delay_ms != 0
             compiling[name] = pool.submit(
                 lowered.compile, compiler_options=None if delayed else QUICK)
-        for guard in (True, False):
+        for _, guard in (k for k in keys if k in STORMS):
             scen, params, world, spec = _storm(guard)
             lowered = jmonitor.run_monitored.lower(
                 jax.random.key(0), params, world, spec,
@@ -136,12 +143,13 @@ def _reference_programs():
 
 
 @functools.lru_cache(maxsize=None)
-def _run_both(name):
-    """One whole run on both sides, compared; returns the reference's
+def _run_both(name, names):
+    """One whole run on both sides, compared, the reference's programs
+    compiled for ``names`` (its test's runs); returns the reference's
     params, world and final state and the port's."""
     jparams, jworld = _jrun_setup(name)
     params, world = port_params(jparams), port_world(jworld)
-    jstate, jmetrics = _reference_programs()[name](
+    jstate, jmetrics = _reference_programs(names)[name](
         jax.random.key(0), jworld, state=jswim.initial_state(jparams, jworld),
         start_round=0)
     state, metrics = swim.run(0, params, world, ROUNDS,
@@ -441,95 +449,7 @@ def test_plane_on_without_joins_equals_plane_off(name):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", list(RUNS))
-def test_crash_join_run_matches_reference(name):
-    """Slot 3 crashed at round 5 and joined by a new identity at round
-    26: both sides on the reference's draws, every state lane and metric
-    exact after 60 rounds.  Guarded, every live observer has admitted the
-    new identity (epoch 1) by then; the naive arm runs without a lane."""
-    (jparams, jworld, jstate), (params, world, state) = _run_both(name)
-    if name == "naive":
-        assert state.epoch.shape[1] == 0
-        return
-    col = SLOT if params.full_view else int(
-        world.slot_of_node[SLOT])
-    assert bool((state.epoch[:, col] == 1).all())
-    if name == "scatter-seeds":
-        assert int((state.status[SLOT] == records.ALIVE).sum()) >= 14
-
-
-@pytest.mark.parametrize("name", ["shift", "compact", "naive"])
-def test_node_snapshot_record_epochs(name):
-    """``node_snapshot`` of the joiner's and another row equals the
-    reference's: ``record_epochs`` with the guard on, none without."""
-    (jparams, jworld, jstate), (params, world, state) = _run_both(name)
-    for node in (0, SLOT):
-        want = jswim.node_snapshot(jstate, jparams, jworld, node,
-                                   round_idx=ROUNDS)
-        got = swim.node_snapshot(state, params, world, node,
-                                 round_idx=ROUNDS)
-        assert got == want
-        assert ("record_epochs" in got) == (name != "naive")
-
-
-@pytest.mark.parametrize("guard", [True, False])
-def test_join_codes_match_reference_monitor(guard):
-    """The churn storm at n = 24 (scares, three crash waves, nine joins
-    mid-suspicion) in both arms: the port's ``run_monitored`` equals the
-    reference's (state, metrics, every monitor lane, count, dropped, code
-    counts and first rounds, the verdict), and the join deadlines follow
-    the reference's rule.  The guard holds both join codes at zero; the
-    naive arm resurrects."""
-    scen, jparams, jworld, spec = _storm(guard)
-    jstate, mon, jmetrics = _reference_programs()[("storm", guard)](
-        jax.random.key(0), jworld, spec)
-    params, world = port_params(jparams), port_world(jworld)
-    disruptions = [d for d in (op.disruption(scen.n_members, scen.horizon)
-                               for op in scen.ops) if d is not None]
-    known_by, check = monitor.join_deadlines(
-        params, world, disruption_end=max(d[1] for d in disruptions))
-    np.testing.assert_array_equal(known_by.numpy(),
-                                  np.asarray(spec.join_known_by))
-    assert check == spec.check_joins
-    draws = jax_draws(jax.random.key(0), jparams, jworld)
-    state, port_mon, metrics = monitor.run_monitored(
-        0, params, world, port_monitor_spec(spec), scen.horizon,
-        draws=draws, device="cpu")
-    assert_state_equal(jstate, state)
-    assert_metrics_equal(jmetrics, metrics)
-    assert_monitor_equal(mon, port_mon)
-    codes = monitor.verdict(port_mon)["codes"]
-    totals = {name: codes[name]["violations"]
-              for name in ("NO_RESURRECTION", "JOIN_COMPLETENESS")}
-    if guard:
-        assert set(totals.values()) == {0}
-    else:
-        assert totals["NO_RESURRECTION"] > 0
-
-
-def test_join_completeness_trips_before_a_join_is_known():
-    """The guard arm's storm under a spec whose join deadlines fall one
-    round after each join: eligible observers cannot know a joiner yet,
-    so JOIN_COMPLETENESS trips, and the port's ``run_monitored`` (the
-    same reference program, the spec being data) equals the reference's
-    monitor field for field."""
-    scen, jparams, jworld, spec = _storm(True)
-    join_at = np.asarray(jworld.join_at)[np.asarray(jworld.subject_ids)]
-    early = np.where(join_at < INT32_MAX, join_at + 1, INT32_MAX)
-    spec = dataclasses.replace(spec,
-                               join_known_by=jnp.asarray(early, jnp.int32))
-    jstate, mon, jmetrics = _reference_programs()[("storm", True)](
-        jax.random.key(0), jworld, spec)
-    params, world = port_params(jparams), port_world(jworld)
-    state, port_mon, metrics = monitor.run_monitored(
-        0, params, world, port_monitor_spec(spec), scen.horizon,
-        draws=jax_draws(jax.random.key(0), jparams, jworld), device="cpu")
-    assert_state_equal(jstate, state)
-    assert_metrics_equal(jmetrics, metrics)
-    assert_monitor_equal(mon, port_mon)
-    code = monitor.InvariantCode.JOIN_COMPLETENESS
-    assert int(port_mon.code_counts[code]) > 0
-    assert {v.code for v in monitor.decode_violations(port_mon)} >= {code}
+SNAPSHOT_RUNS = ("shift", "compact", "naive")
 
 
 def test_storm_world_is_the_reference_churn_storm():

@@ -37,6 +37,10 @@ which the port reproduces).  Cost: the twelve reference programs are
 most of it; each is lowered in turn and compiled in a background thread
 from the moment it is lowered, and configurations of one shape share
 one set of draws.
+
+The whole runs are held in ``tests/test_torch_scatter_runs.py`` and
+``tests/test_torch_scatter_runs_mixed.py``, six configurations each, on
+the configurations and programs defined here.
 """
 
 import functools
@@ -151,16 +155,17 @@ QUICK = {"xla_backend_optimization_level": 0,
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_programs():
-    """JAX's ``run`` over ROUNDS rounds for every configuration, keyed by
-    name: lowered one after another (tracing holds the GIL), each
-    compiled in the background from the moment it is lowered, four at a
-    time; the configurations with delays at XLA's default optimizations
-    (which fuse the delay sum into an FMA), the others at ``QUICK``."""
+def _reference_programs(names):
+    """JAX's ``run`` over ROUNDS rounds for the configurations ``names``,
+    keyed by name: lowered one after another (tracing holds the GIL),
+    each compiled in the background from the moment it is lowered, four
+    at a time; the configurations with delays at XLA's default
+    optimizations (which fuse the delay sum into an FMA), the others at
+    ``QUICK``."""
     compiling = {}
     with ThreadPoolExecutor(4) as pool:
-        for name, make in CONFIGS.items():
-            params, world, warm = make()
+        for name in names:
+            params, world, warm = CONFIGS[name]()
             lowered = jswim.run.lower(
                 jax.random.key(0), params, world, ROUNDS,
                 state=jswim.initial_state(params, world, warm=warm),
@@ -180,14 +185,24 @@ def _draws(group):
         jax_draws(jax.random.key(0), params, world))
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_scatter_run_matches_reference(name):
+# Whole runs, in two files of six configurations
+# (tests/test_torch_scatter_runs.py, test_torch_scatter_runs_mixed.py).
+RUN_FILES = (tuple(f"focal_{layout}" for layout in LAYOUTS)
+             + ("full_view_wide", "full_view_compact"),
+             ("focal_known_only", "full_view_uniform", "network_wide",
+              "network_int16_wire", "network_two_buffer",
+              "seeded_cold_start"))
+
+
+def check_run(name, names):
+    """One configuration's whole run on both sides, the reference's
+    programs compiled for ``names`` (its file's configurations)."""
     jparams, jworld, warm = CONFIGS[name]()
     params, world = port_params(jparams), port_world(jworld)
     jstate0 = jswim.initial_state(jparams, jworld, warm=warm)
     state0 = swim.initial_state(params, world, warm=warm, device="cpu")
     assert_state_equal(jstate0, state0)
-    jstate, jmetrics = _reference_programs()[name](
+    jstate, jmetrics = _reference_programs(names)[name](
         jax.random.key(0), jworld, state=jstate0, start_round=0)
     LAUNCHES.clear()
     state, metrics = swim.run(0, params, world, ROUNDS, state=state0,

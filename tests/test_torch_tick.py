@@ -7,6 +7,9 @@ tolerance: state and metrics are integers, and the only float
 operations (``u < p_chain``, ``drop_u >= loss``) compare identical
 float32 draws with float32 probabilities built in the reference's order
 (models/swim.py:1684-1687).
+
+The whole runs are held in ``tests/test_torch_tick_runs.py``, on the
+cases defined here.
 """
 
 import dataclasses
@@ -24,8 +27,7 @@ from scalecube_cluster_tpu_torch.models import swim  # noqa: E402
 from scalecube_cluster_tpu_torch.ops import prng  # noqa: E402
 from tests.test_swim_model import fast_config  # noqa: E402
 from tests.torch_port_helpers import (  # noqa: E402
-    assert_metrics_equal, assert_state_equal, jax_draws, one_torch_thread,
-    port_params, port_world)
+    assert_state_equal, one_torch_thread, port_params, port_world)
 
 pytestmark = pytest.mark.torchport
 
@@ -65,24 +67,6 @@ CASES = {
     "full_view_leave_partition": _full_view_leave_partition,
     "bench_shape": _bench_shape,
 }
-
-
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_run_matches_reference(case):
-    jparams, jworld, rounds = CASES[case]()
-    key = jax.random.key(0)
-    jstate, jmetrics = jswim.run(key, jparams, jworld, rounds)
-    state, metrics = swim.run(0, port_params(jparams), port_world(jworld),
-                              rounds, draws=jax_draws(key, jparams),
-                              device="cpu")
-    assert_state_equal(jstate, state)
-    assert_metrics_equal(jmetrics, metrics)
-    if case == "focal_crash_revive":
-        # The window really holds both transitions it was built for.
-        assert int(metrics["dead"][:, 3].max()) > 0
-        assert int(metrics["refutations"].sum()) > 0
-    if case == "full_view_leave_partition":
-        assert int(metrics["dead"][:, 5].max()) > 0
 
 
 def _small():

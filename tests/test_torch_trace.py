@@ -34,6 +34,11 @@ Cost: five reference programs, lowered one after another and compiled
 in the background with the draw programs, at XLA's backend optimizations
 off except the delayed one (its delay sums need XLA's default FMA
 fusion).
+
+The traced runs are held in ``tests/test_torch_trace_runs.py`` and the
+knob, ``run_composed`` and ``fd.run`` runs in
+``tests/test_torch_trace_knobs.py``, on the runs and programs defined
+here.
 """
 
 import dataclasses
@@ -161,31 +166,25 @@ def _draws(name):
 
 
 @functools.lru_cache(maxsize=None)
-def _programs():
-    """Every reference program, lowered one after another (tracing holds
-    the GIL) and compiled in the background.  Each takes ``knobs`` as
-    data, so one program serves every knob setting of its params."""
-    compiling = {}
-    with ThreadPoolExecutor(4) as pool:
-        for name in NAMES:
-            kind, params, world, rounds, cap, state, knobs = _args(name)
-            if kind == "traced":
-                lowered = jswim.run_traced.lower(
-                    jax.random.key(0), params, world, rounds,
-                    trace_capacity=cap, state=state, start_round=0,
-                    knobs=knobs)
-            else:
-                lowered = jswim.run.lower(jax.random.key(0), params, world,
-                                          rounds, state=state, start_round=0,
-                                          knobs=knobs)
-            delayed = params.mean_delay_ms != 0
-            compiling[name] = pool.submit(
-                lowered.compile, compiler_options=None if delayed else QUICK)
-        # The draw programs compile beside them (a first call compiles).
-        warm = [pool.submit(lambda n=name: _draws(n)(0)) for name in NAMES]
-        for job in warm:
-            job.result()
-        return {name: job.result() for name, job in compiling.items()}
+def _program(name):
+    """``name``'s reference program, compiled with its draw program
+    beside it (a first call compiles).  It takes ``knobs`` as data, so
+    one program serves every knob setting of its params."""
+    kind, params, world, rounds, cap, state, knobs = _args(name)
+    if kind == "traced":
+        lowered = jswim.run_traced.lower(
+            jax.random.key(0), params, world, rounds, trace_capacity=cap,
+            state=state, start_round=0, knobs=knobs)
+    else:
+        lowered = jswim.run.lower(jax.random.key(0), params, world, rounds,
+                                  state=state, start_round=0, knobs=knobs)
+    delayed = params.mean_delay_ms != 0
+    with ThreadPoolExecutor(1) as pool:
+        warm = pool.submit(lambda: _draws(name)(0))
+        program = lowered.compile(compiler_options=None if delayed
+                                  else QUICK)
+        warm.result()
+    return program
 
 
 def _reference(name, knobs=None, world=None, state=None):
@@ -193,12 +192,10 @@ def _reference(name, knobs=None, world=None, state=None):
     ``Knobs.from_params``; ``world`` and ``state`` default to its
     own)."""
     kind, params, own_world, rounds, cap, own_state, default = _args(name)
-    return _programs()[name](
+    return _program(name)(
         jax.random.key(0), own_world if world is None else world,
         state=own_state if state is None else state, start_round=0,
         knobs=default if knobs is None else knobs)
-
-
 
 
 def _tel_arrays(jtel):
@@ -241,105 +238,6 @@ def _types(tel):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", sorted(TRACED))
-def test_run_traced_matches_reference(name):
-    """Every lane of the trace, count, dropped, both first-round
-    matrices, the state and the metrics equal the reference's; the run
-    reaches the events its scenario was built for."""
-    _, (params, _, _, tel) = _traced_both(f"traced:{name}")
-    types = _types(tel)
-    E = events.TraceEventType
-    assert E.SUSPECTED in types
-    if "overflow" in name:
-        assert int(tel.trace.count) == SMALL_CAPACITY
-        assert int(tel.trace.dropped) > 0
-        return
-    assert int(tel.trace.dropped) == 0
-    assert {E.REMOVED, E.ALIVE_REFUTED, E.LEAVING} <= types
-    leaving = [e for e in trace.decode_events(tel)
-               if e.event_type == E.LEAVING]
-    assert [(e.observer, e.subject, e.incarnation) for e in leaving] == [
-        (LEAVER, LEAVER, 1)]
-    if params.open_world:
-        joined = {(e.observer, e.subject) for e in trace.decode_events(tel)
-                  if e.event_type == E.JOINED}
-        assert joined and all(s == CRASH for _, s in joined)
-        assert any(e.event_type == E.ADDED and e.observer == CRASH
-                   for e in trace.decode_events(tel))
-
-
-def test_resume_across_chunks_and_from_a_reference_trace():
-    """Two chunks through ``telemetry=`` equal the whole run; a fresh
-    buffer through ``TelemetryState.resume`` holds exactly the second
-    chunk's events; a reference trace carried in through
-    ``interop.telemetry_from_arrays`` resumes like the port's own, and
-    the caller's telemetry is not modified."""
-    name = "traced:shift-wide"
-    (jparams, jworld, jstate, jtel), (params, world, state, tel) = \
-        _traced_both(name)
-    draws = _draws(name)
-    st1, tel1, _ = swim.run_traced(0, params, world, SPLIT, draws=draws,
-                                   device="cpu")
-    before = interop.telemetry_to_arrays(tel1)
-    st2, tel2, _ = swim.run_traced(0, params, world, ROUNDS - SPLIT,
-                                   state=st1, start_round=SPLIT, draws=draws,
-                                   telemetry=tel1, device="cpu")
-    assert_state_equal(jstate, st2)
-    assert_telemetry_equal(jtel, tel2)
-    for key, value in interop.telemetry_to_arrays(tel1).items():
-        np.testing.assert_array_equal(value, before[key], err_msg=key)
-    fresh = trace.TelemetryState.resume(tel1.first_suspect,
-                                        tel1.first_removed)
-    _, tel3, _ = swim.run_traced(0, params, world, ROUNDS - SPLIT,
-                                 state=st1, start_round=SPLIT, draws=draws,
-                                 telemetry=fresh, device="cpu")
-    want = [e for e in trace.decode_events(tel) if e.round >= SPLIT]
-    assert want and trace.decode_events(tel3) == want
-    assert torch.equal(tel3.first_suspect, tel.first_suspect)
-    # A reference trace and state resumed by the port equal the port's
-    # own resume from its (equal) run.
-    ref_tel = interop.telemetry_from_arrays(_tel_arrays(jtel), device="cpu")
-    ref_state = interop.state_from_arrays(
-        {f.name: np.asarray(getattr(jstate, f.name))
-         for f in dataclasses.fields(jstate)}, device="cpu", params=params)
-    more = 8
-    a = swim.run_traced(0, params, world, more, state=ref_state,
-                        start_round=ROUNDS, draws=draws, telemetry=ref_tel,
-                        device="cpu")
-    b = swim.run_traced(0, params, world, more, state=state,
-                        start_round=ROUNDS, draws=draws, telemetry=tel,
-                        device="cpu")
-    for f in dataclasses.fields(swim.SwimState):
-        assert torch.equal(getattr(a[0], f.name), getattr(b[0], f.name))
-    for key, value in interop.telemetry_to_arrays(a[1]).items():
-        np.testing.assert_array_equal(
-            value, interop.telemetry_to_arrays(b[1])[key], err_msg=key)
-    assert int(a[1].trace.count) >= int(tel.trace.count)
-
-
-def test_histograms_and_decoded_events_match_reference():
-    """``latency_histograms`` (per subject, both kinds, undetected) and
-    ``decode_events`` equal the reference's on the traced runs, and
-    ``histograms_to_json`` gives its plain lists."""
-    for name in ("traced:shift-wide", "traced:shift-compact-join"):
-        (_, jworld, _, jtel), (_, world, _, tel) = _traced_both(name)
-        want = jtrace.latency_histograms(jtel, jworld)
-        got = trace.latency_histograms(tel, world)
-        assert set(got) == set(want)
-        for key, value in want.items():
-            assert got[key].dtype == torch.int32, key
-            np.testing.assert_array_equal(got[key].numpy(),
-                                          np.asarray(value), err_msg=key)
-        assert trace.histograms_to_json(got) == \
-            jtrace.histograms_to_json(want)
-        assert trace.decode_events(tel) == [
-            events.MembershipTraceEvent(
-                e.round, e.observer, e.subject,
-                events.TraceEventType(int(e.event_type)), e.incarnation)
-            for e in jtrace.decode_events(jtel)]
-        assert int(got["detection"][CRASH].sum()) > 0
-
-
 def test_histograms_empty_window_and_open_last_bucket():
     """The reference's edge cases (tests/test_telemetry_trace.py:369-410):
     a state that observed nothing counts every live observer undetected;
@@ -372,75 +270,6 @@ def test_histograms_empty_window_and_open_last_bucket():
 # --------------------------------------------------------------------------
 # The segmented runner and the composed runner
 # --------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("capacity", [jtrace.DEFAULT_CAPACITY, 6])
-def test_stream_traced_run_matches_monolithic(capacity):
-    """Segments of 10 rounds give the monolithic run's final state,
-    metrics and first-round matrices; with room, its exact event stream;
-    with 6 rows a segment, each segment's recorded + dropped equals its
-    events in the whole run."""
-    _, (params, world, state, tel) = _traced_both("traced:shift-wide")
-    draws = _draws("traced:shift-wide")
-    final, res = sink.stream_traced_run(
-        0, params, world, ROUNDS, segment_rounds=10, trace_capacity=capacity,
-        draws=draws, device="cpu")
-    for f in dataclasses.fields(swim.SwimState):
-        assert torch.equal(getattr(final, f.name), getattr(state, f.name))
-    _, _, metrics = swim.run_traced(0, params, world, ROUNDS, draws=draws,
-                                    device="cpu")
-    assert set(res.metrics) == set(metrics)
-    for key, value in metrics.items():
-        np.testing.assert_array_equal(res.metrics[key], value.numpy())
-    assert torch.equal(res.telemetry.first_suspect, tel.first_suspect)
-    assert torch.equal(res.telemetry.first_removed, tel.first_removed)
-    assert (res.n_segments, res.segment_rounds, res.capacity) == (
-        4, 10, capacity)
-    whole = trace.decode_events(tel)
-    if capacity == jtrace.DEFAULT_CAPACITY:
-        assert res.events == whole
-        assert (res.recorded, res.dropped) == (len(whole), 0)
-    else:
-        assert res.dropped > 0 and res.recorded + res.dropped == len(whole)
-        per_segment = [sum(1 for e in whole if s <= e.round < s + 10)
-                       for s in range(0, ROUNDS, 10)]
-        assert res.recorded == sum(min(c, 6) for c in per_segment)
-    _, quiet = sink.stream_traced_run(
-        0, params, world, 4, segment_rounds=4, draws=draws, decode=False,
-        device="cpu")
-    assert quiet.events == [] and quiet.n_segments == 1
-
-
-def test_run_composed_trace_only_equals_run_traced():
-    """``run_composed`` with the trace alone is ``run_traced``; the
-    reference's default stack without a monitor spec raises its
-    ``ValueError``, and so does the provenance plane without its knob;
-    with the knob on it runs beside the trace, which stays
-    ``run_traced``'s."""
-    _, (params, world, state, tel) = _traced_both("traced:shift-wide")
-    draws = _draws("traced:shift-wide")
-    final, results, _ = compose.run_composed(
-        0, params, world, ROUNDS, with_metrics=False, with_monitor=False,
-        draws=draws, device="cpu")
-    assert set(results) == {"trace"}
-    assert torch.equal(final.status, state.status)
-    assert trace.decode_events(results["trace"]) == trace.decode_events(tel)
-    with pytest.raises(ValueError, match="monitor_spec"):
-        compose.run_composed(0, params, world, 2, device="cpu")
-    with pytest.raises(ValueError, match="provenance=True"):
-        compose.run_composed(0, params, world, 2, with_metrics=False,
-                             with_monitor=False, with_provenance=True,
-                             device="cpu")
-    armed, results, _ = compose.run_composed(
-        0, dataclasses.replace(params, provenance=True), world, ROUNDS,
-        with_metrics=False, with_monitor=False, with_provenance=True,
-        draws=draws, device="cpu")
-    assert list(results) == ["trace", "provenance"]
-    assert torch.equal(armed.status, state.status)
-    assert trace.decode_events(results["trace"]) == trace.decode_events(tel)
-    assert int(results["provenance"].count) > 0
-    none = compose.build_stack(False, False, False)
-    assert none == ()
 
 
 def test_round_ctx_memoises_shared_derivations():
@@ -540,63 +369,6 @@ def test_knobs_for_params_raises_and_coerces_as_reference():
     assert swim.knob_lhm_cap(five, params) == 4
     assert swim.knob_dead_suppress(five, params) == 8
     assert swim.knob_probe_budgets(five, params) == (100.0, 100.0)
-
-
-def test_knob_runs_match_reference():
-    """``run(knobs=...)`` equals the reference's with the same knobs:
-    float32-inexact ``loss_probability`` and ``ping_timeout_ms`` through
-    a delayed run with Lifeguard on (the chain budgets compare summed
-    delays), and a ``suspicion_rounds`` past 32,765 under the compact
-    carry (stored as no timer, so nothing turns DEAD)."""
-    cases = (("traced:scatter-int16_wire-delayed",
-              dict(loss_probability=0.1, ping_timeout_ms=133.3)),
-             ("traced:shift-compact-join", dict(suspicion_rounds=40_000)))
-    for name, over in cases:
-        _, jparams, jworld, rounds, _, _, _ = _args(name)
-        jstate, _, jmetrics = _reference(
-            name, jswim.Knobs.for_params(jparams, **over))
-        params = port_params(jparams)
-        state, metrics = swim.run(
-            0, params, port_world(jworld), rounds, draws=_draws(name),
-            knobs=swim.Knobs.for_params(params, **over), device="cpu")
-        assert_state_equal(jstate, state)
-        assert_metrics_equal(jmetrics, metrics)
-        if "suspicion_rounds" in over:
-            assert int(metrics["suspect"].sum()) > 0
-            assert int(metrics["dead"][:, CRASH].sum()) == 0
-
-
-def test_fd_run_matches_reference():
-    """``fd.run`` (gossip and SYNC silenced) equals the reference's on
-    tests/test_fd_model.py's crash scenario (scatter, shortened) and its
-    planted suspicion (no leak to another observer)."""
-    jparams, jworld = _fd_crash()
-    jstate, jmetrics = _reference("fd:", jfd.fd_only_knobs(jparams))
-    state, metrics = fd.run(0, port_params(jparams), port_world(jworld),
-                            FD_ROUNDS, draws=_draws("fd:"), device="cpu")
-    assert_state_equal(jstate, state)
-    assert_metrics_equal(jmetrics, metrics)
-    assert int(metrics["suspect"][:, 0].max()) > 0
-    assert int(metrics["messages_gossip"].sum()) == 0
-    assert fd.fd_only_knobs(port_params(jparams)) == dataclasses.replace(
-        swim.Knobs.from_params(port_params(jparams)), sync_every=0,
-        fanout=0)
-
-    jparams, jworld, jplanted, jknobs = _fd_planted()
-    planted = interop.state_from_arrays(
-        {f.name: np.asarray(getattr(jplanted, f.name))
-         for f in dataclasses.fields(jplanted)}, device="cpu")
-    jstate, jmetrics = _reference("fd:", jknobs, world=jworld,
-                                  state=jplanted)
-    params = port_params(jparams)
-    knobs = dataclasses.replace(fd.fd_only_knobs(params), ping_every=0,
-                                suspicion_rounds=2**30)
-    state, metrics = swim.run(0, params, port_world(jworld), FD_ROUNDS,
-                              state=planted, draws=_draws("fd:"),
-                              knobs=knobs, device="cpu")
-    assert_state_equal(jstate, state)
-    assert_metrics_equal(jmetrics, metrics)
-    assert int(metrics["suspect"][:, 0].max()) == 1
 
 
 # --------------------------------------------------------------------------

@@ -39,7 +39,7 @@ def one_torch_thread():
     torch.set_num_threads(previous)
 
 
-def jax_draws(key, params, world=None):
+def jax_draws(key, params, world=None, shift_key=None):
     """``round_idx -> RoundDraws`` (or ``ScatterDraws`` under scatter
     delivery) holding exactly the draws the reference tick consumes
     under ``key`` for ``params`` and ``world`` (the JAX objects; which
@@ -51,16 +51,22 @@ def jax_draws(key, params, world=None):
     :3845, fold_in(keys[7], 13) :3901, fold_in(keys[7], 11) :3968; seed
     anti-entropy fold_in(keys[7], 29) split in three :2583-2620; the
     planes' draws as :func:`_plane_draws` says).  Unit exponentials are
-    ``-jnp.log1p(-u)``, as the reference computes them."""
+    ``-jnp.log1p(-u)``, as the reference computes them.  ``shift_key``
+    (default ``key``) is the reference's: the round's channel key, which
+    draws the shifts and the anti-entropy offset, comes from it
+    (models/swim.py:1911-1925)."""
     facts = DrawFacts.of(params, world)
+    if shift_key is None:
+        shift_key = key
     if facts.delivery == "scatter":
-        return _jax_scatter_draws(key, params, facts)
+        return _jax_scatter_draws(key, params, facts, shift_key)
     one = _shift_draw_program(params.n_members, params.ping_req_members,
                               params.fanout, facts)
 
     def draws(round_idx):
         out = {name: np.array(value)
-               for name, value in one(key, jnp.int32(round_idx)).items()}
+               for name, value in one(key, shift_key,
+                                      jnp.int32(round_idx)).items()}
         shifts = tuple(int(s) for s in out.pop("shifts"))
         fields = dict(u_direct=None, u_proxy=None)
         if "ae_offset" in out:
@@ -79,10 +85,11 @@ def _shift_draw_program(n, r, f, facts):
     layout or key share it)."""
 
     @jax.jit
-    def one(key, round_idx):
+    def one(key, shift_key, round_idx):
         rk = jprng.round_key(key, round_idx)
         keys = jax.random.split(jprng.round_key(rk, 0), 8)
-        k_shifts = jax.random.fold_in(rk, 0x5317)
+        k_shifts = jax.random.fold_in(jprng.round_key(shift_key, round_idx),
+                                      0x5317)
         out = dict(
             shifts=jax.random.randint(k_shifts, (1 + r + f + 1,), 1, n,
                                       dtype=jnp.int32))
@@ -165,7 +172,7 @@ def _plane_draws(k_shifts, keys, n, facts):
     return out
 
 
-def _jax_scatter_draws(key, params, facts):
+def _jax_scatter_draws(key, params, facts, shift_key):
     """The scatter round's draws (models/swim.py:2684-2871, the dispatch
     passing keys[0] as the probe key, :2117-2125): keys[0] the probe
     target (``gumbel`` [N, K] known-only, else ``randint`` [N, 1]),
@@ -182,7 +189,8 @@ def _jax_scatter_draws(key, params, facts):
 
     def draws(round_idx):
         out = {name: np.array(value)
-               for name, value in one(key, jnp.int32(round_idx)).items()}
+               for name, value in one(key, shift_key,
+                                      jnp.int32(round_idx)).items()}
         if "ae_offset" in out:
             out["ae_offset"] = int(out["ae_offset"])
         return ScatterDraws(**{
@@ -201,7 +209,7 @@ def _scatter_draw_program(n, k, r, f, facts):
         return jax.random.randint(kk, (n, width), 0, n - 1)
 
     @jax.jit
-    def one(key, round_idx):
+    def one(key, shift_key, round_idx):
         rk = jprng.round_key(key, round_idx)
         keys = jax.random.split(jprng.round_key(rk, 0), 8)
         out = dict(proxies=targets(keys[2], r), gossip_t=targets(keys[4], f),
@@ -230,8 +238,8 @@ def _scatter_draw_program(n, k, r, f, facts):
                     jax.random.fold_in(keys[7], 7), (n,))))
         if facts.n_seeds:
             out.update(_seed_draws(keys, n, facts.n_seeds))
-        out.update(_plane_draws(jax.random.fold_in(rk, 0x5317), keys, n,
-                                facts))
+        out.update(_plane_draws(jax.random.fold_in(
+            jprng.round_key(shift_key, round_idx), 0x5317), keys, n, facts))
         return out
 
     return one
