@@ -112,7 +112,8 @@ and prints no result):
 5. parity canaries, card against CPU with the same CPU-made draws, 80
    rounds, state (every lane) and metrics bit-identical, and the card's
    kernel launches one a round for each kernel of the layout.  The CPU
-   half of every canary (5, 5b, 5c) and of the blame drill (5d) runs in
+   half of every canary (5, 5b, 5c), of the blame drill (5d) and of the
+   alarm drill (8j) runs in
    ``CPU_WORKERS`` worker processes started first (``start_cpu_halves``),
    while the card builds, checks its kernels and runs the probes.  Shift:
    full view 512 x 512 wide and under the compact carry (wide, compact,
@@ -238,6 +239,19 @@ and prints no result):
     in turns (``provenance_overhead_ratio``, reported only) and profiled
     10-round windows of both over the SUSPECTED wave (from round 10) and a
     quiet stretch (from round 200), with the ``provenance.observe`` phase;
+6f. (right after phase 6) checkpoint resume at full width
+    (``checkpoint_resume_path``): phase 6's workload (wide, shift, the
+    port's own draws) through ``utils/checkpoint.run_checkpointed`` in
+    two invocations into a temporary directory, the first stopping at
+    round 300, the second resuming from the file to round 600: the final
+    state equal to an unbroken 600-round run on every lane, the metric
+    chunks (the first reloaded from its file) equal to its metrics, the
+    merge kernel once a round; then a ``resilience.CheckpointStore`` with
+    the round-300 and round-600 states as generations, the newest
+    corrupted on purpose: ``load_latest`` falls back to round 300, equal
+    to the saved state, and names the corrupt file.  Prints the
+    checkpoint's bytes and the save and load seconds; the directory is
+    deleted afterwards;
 6c. the churn storm at full width, the open-world plane's path: the
     reference's ``chaos.churn_growth_scenario`` geometry (``bench.py
     --churn``'s workload) at N = 1,000,000 x K = 16 focal subjects at
@@ -324,6 +338,34 @@ and prints no result):
     green; the gated arm; the control), on the card and on the CPU with
     the same CPU-made draws (card == CPU), its p99 and control count
     beside the reference's committed ones;
+8k. (inside ``bench_rollout_path``, after its three arms) the rollout's
+    rollback arm: the gated arm at N = 48 under the breach geometry
+    (``rollout_world(..., breach=True)``: stage 0's pushes, inside the
+    split, get a deadline at their clock start, the heal), which takes
+    the bench's breach branch (``bench.py:1921-1939``): the world gains
+    ``rollback_ops(failed_stage, r + 1)`` and the run goes on to the
+    horizon.  On the card and on the CPU with the same CPU-made draws:
+    card == CPU on every state lane, per-round metric and rollback field;
+    ``rolled_back`` true, ``failed_stage`` 0, not converged (p99 None),
+    every live table holding the rollback value 7 for stage 0's owners
+    at the horizon.  Its launches are the ``rollback`` path;
+8j. (after 8c) ``bench.py --alarms``' drill at the bench's defaults
+    (``alarm_drill_path``): ``alarm_drill_scenario(seed=7, n=48,
+    pulse_loss=0.6, onset_round=128, pulse_rounds=128, cool_rounds=128)``
+    built by the port's ``Scenario.build``, the campaign config under
+    scatter with ``ping_known_only=False``, ``default_specs(threshold=
+    1.5)`` and 32-round windows; the healthy ``Knobs`` and
+    ``alarm_breach_knobs`` each through ``stream_metered_run(...,
+    alarm_specs=...)`` into a ``TelemetrySink`` journal in a temporary
+    directory, on CPU-made draws.  Gates: the healthy arm journals no
+    ``alarm_transition``; the breach arm fires within one window of the
+    onset and resolves at or after the heal (round 256); every
+    ``metrics_window`` and ``alarm_transition`` row equal to the CPU's
+    (its half runs in the worker pool); the port's CLI in-process on the
+    breach journal, ``report --json`` and ``watch --json --max-seconds
+    0``, the watcher's transitions equal to the journaled ones.  Prints
+    the lag, the peak rates, both margins beside the reference's and
+    each arm's seconds;
 8d. (run last, after phase 13, when its CPU halves are done) the
     gossip-only simulator (``gossip_path``, ``models/gossip.py``) at
     N = 1,000,000 x G = 16 gossips, LAN defaults, 122 rounds
@@ -414,12 +456,14 @@ plane-off merge timed in turns against an earlier ``merge_timers.cu``.
 import argparse
 import collections
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
 import functools
 import io
 import json
 import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -444,9 +488,12 @@ from scalecube_cluster_tpu_torch.models import metadata
 from scalecube_cluster_tpu_torch.models import provenance, swim
 from scalecube_cluster_tpu_torch.models import sync as sync_plane
 from scalecube_cluster_tpu_torch.ops import delivery, prng
-from scalecube_cluster_tpu_torch.telemetry import metrics, query, sink
+from scalecube_cluster_tpu_torch.resilience import store as ckpt_store
+from scalecube_cluster_tpu_torch.telemetry import alarms, metrics, query, sink
+from scalecube_cluster_tpu_torch.telemetry import __main__ as telemetry_cli
 from scalecube_cluster_tpu_torch.telemetry import trace as ttrace
 from scalecube_cluster_tpu_torch.telemetry.events import TraceEventType
+from scalecube_cluster_tpu_torch.utils import checkpoint
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the float32
 # non-tensor rate, an upper limit on 32-bit integer issue (so the
@@ -567,6 +614,12 @@ MD_JOIN_AT, MD_JOIN_PUSH = 40, (3, 1, 1023, 50)
 ROLLOUT_N, ROLLOUT_BENCH_N, ROLLOUT_SEED = 8_192, 48, 11
 ROLLOUT_SYNC_INTERVAL, ROLLOUT_STAGES, ROLLOUT_STAGE_SIZE = 8, 3, 4
 ROLLOUT_VALUE, ROLLOUT_PROBE_STEP = 641, 2
+# The breach geometry (``rollout_world(..., breach=True)``): stage 0's
+# pushes must converge within this many rounds of their clock start.  At
+# the bench's N = 48 they fall inside the split, so their clock starts at
+# the heal, and they converge 2 rounds later; a deadline at the clock
+# start is one no draws can meet (the far half has not heard them).
+ROLLOUT_BREACH_ROUNDS = 0
 ROLLOUT_STORM, ROLLOUT_WAVE, ROLLOUT_STORM_START, ROLLOUT_WAVE_EVERY = (
     4, 2, 8, 24)
 # The reference's committed rollout at N = 48 (README, "Metadata KV &
@@ -712,6 +765,15 @@ LIFEGUARD_REFERENCE = (0.324763, -0.17)
 DSL_SEED, DSL_N = 100, 4_096
 # The CPU halves of the card-vs-CPU runs run in this many worker
 # processes while the card works.
+# Phase 8j: ``bench.py --alarms``' drill at the bench's defaults
+# (``bench.py:2297-2313``) and the reference's committed margins
+# (``artifacts/alarm_drill.json``: healthy, breach).
+ALARM_N, ALARM_SEED, ALARM_WINDOW = 48, 7, 32
+ALARM_ONSET, ALARM_PULSE, ALARM_COOL, ALARM_LOSS = 128, 128, 128, 0.6
+ALARM_ARMS = ("healthy", "breach")
+ALARM_REFERENCE_MARGINS = (0.1152, 0.3234)
+# Phase 6f: the main path's workload checkpointed at this round.
+RESUME_SPLIT = 300
 CPU_WORKERS = 6
 
 
@@ -2727,11 +2789,15 @@ def rollout_scenario(n, seed=ROLLOUT_SEED, n_stages=ROLLOUT_STAGES,
 
 
 def rollout_world(n, device, seed=ROLLOUT_SEED, n_stages=ROLLOUT_STAGES,
-                  stage_size=ROLLOUT_STAGE_SIZE):
+                  stage_size=ROLLOUT_STAGE_SIZE, breach=False):
     """The staged rollout's world (:func:`rollout_scenario`) and its
     geometry: the horizon, the split, the convergence bound, the storm
-    nodes and the pushes (owner, key, value, round, clock start, deadline;
-    a push inside the split starts its clock at the heal)."""
+    nodes, the ``StagedRollout`` and the pushes (owner, key, value,
+    round, clock start, deadline; a push inside the split starts its
+    clock at the heal).  ``breach``: each push of stage 0 gets the
+    deadline ``clock_from + ROLLOUT_BREACH_ROUNDS`` instead of the bound,
+    which stage 0 cannot meet at the bench's size, so the gated arm takes
+    its rollback branch (the geometry the tests share)."""
     scen, params, world, _, rollout = rollout_scenario(
         n, seed, n_stages, stage_size, device=device)
     split = scen.ops[1]
@@ -2740,11 +2806,30 @@ def rollout_world(n, device, seed=ROLLOUT_SEED, n_stages=ROLLOUT_STAGES,
     pushes = []
     for owner, key, value, at in rollout.push_schedule():
         clock = heal_at if split_at <= at < heal_at else at
+        stage0 = at == rollout.stage_round(0)
         pushes.append(dict(owner=owner, key=key, value=value, push_round=at,
-                           clock_from=clock, deadline=clock + bound))
+                           clock_from=clock,
+                           deadline=clock + (ROLLOUT_BREACH_ROUNDS
+                                             if breach and stage0
+                                             else bound)))
     return world, dict(horizon=scen.horizon, split_at=split_at,
                        heal_at=heal_at, bound=bound,
-                       storm=list(scen.ops[0].nodes), pushes=pushes)
+                       storm=list(scen.ops[0].nodes), pushes=pushes,
+                       rollout=rollout)
+
+
+def rollback_held(state, world, rollout, failed_stage, horizon):
+    """Whether every table live at the horizon's last round holds
+    ``rollout.rollback_value`` for each owner of stages
+    0..``failed_stage`` (the flipped set)."""
+    owners = [m for s in range(failed_stage + 1)
+              for m in rollout.stage_members(s)]
+    alive = world.alive_at(horizon - 1)
+    held = metadata.word_value(
+        state.md[:, torch.tensor(owners, device=state.md.device),
+                 rollout.key])
+    return bool(((held == rollout.rollback_value)
+                 | ~alive[:, None]).all())
 
 
 def rollout_gated(params, world, geo, device, draws=None, aside=None,
@@ -2753,14 +2838,22 @@ def rollout_gated(params, world, geo, device, draws=None, aside=None,
     the run in segments of ``ROLLOUT_PROBE_STEP`` rounds; after each, the
     open pushes' owner columns ``md[:, owner, key]`` are read on the
     device, and a push has converged when every observer alive at the
-    segment's last round holds its value.  A push past its deadline
-    unconverged raises (the rollback is not ported).  Once all have
-    converged the rest runs in one call.  ``aside``: ``(round, fn)``, with
-    ``fn(state, round)`` called at that round off the arm's clock, launch
-    counts and peak memory (the profiled windows).  Returns ``(state,
-    summary)``: converged rounds, p99 from the clock starts, the final
-    divergence probe, host seconds, launches, peak bytes, what ``fn``
-    returned and (``keep_metrics``) the per-round metrics."""
+    segment's last round holds its value.  Once all have converged the
+    rest runs in one call.  The first segment that ends with a push past
+    its deadline unconverged takes the bench's rollback branch
+    (``bench.py:1921-1939``): ``failed_stage`` is the last stage whose
+    round is at or before that push's round, the world gains
+    ``geo["rollout"].rollback_ops(failed_stage, r + 1)`` (``r`` the
+    segment's end) and the run goes on to the horizon in one call on it.
+    Without a rollback a push unconverged at the horizon raises.
+    ``aside``: ``(round, fn)``, with ``fn(state, round)`` called at that
+    round off the arm's clock, launch counts and peak memory (the
+    profiled windows).  Returns ``(state, summary)``: converged rounds,
+    ``converged`` (false after a rollback), p99 from the clock starts
+    (None unless converged), ``rolled_back``, ``failed_stage``,
+    ``rollback_held`` (:func:`rollback_held`, None without a rollback),
+    the final divergence probe, host seconds, launches, peak bytes, what
+    ``fn`` returned and (``keep_metrics``) the per-round metrics."""
     horizon = geo["horizon"]
     pushes = [dict(p, converged_at=None) for p in geo["pushes"]]
     on_card = torch.device(device).type == "cuda"
@@ -2769,6 +2862,7 @@ def rollout_gated(params, world, geo, device, draws=None, aside=None,
         torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
     state, r, rows, window, peak, seconds = None, 0, [], None, 0, 0.0
+    rolled_back, failed_stage = False, None
     t0 = time.perf_counter()
     while r < horizon:
         if aside is not None and r == aside[0]:
@@ -2807,22 +2901,43 @@ def rollout_gated(params, world, geo, device, draws=None, aside=None,
                     p["converged_at"] = r
         late = [p for p in pushes
                 if p["converged_at"] is None and r >= p["deadline"]]
-        if late:
-            raise AssertionError(f"rollout {params.n_members}: push(es) "
-                                 f"{late} past their deadline unconverged")
-    if any(p["converged_at"] is None for p in pushes):
+        if late and not rolled_back:
+            rollout = geo["rollout"]
+            rolled_back = True
+            failed_stage = max(
+                s for s in range(rollout.n_stages)
+                if rollout.stage_round(s) <= late[0]["push_round"])
+            rb_world = world
+            for op in rollout.rollback_ops(failed_stage, r + 1):
+                rb_world = op.apply(rb_world, params.n_members, horizon)
+            state, metrics = swim.run(ROLLOUT_SEED, params, rb_world,
+                                      horizon - r, state=state,
+                                      start_round=r, draws=draws,
+                                      device=device)
+            if keep_metrics:
+                rows.append(metrics)
+            r = horizon
+    if not rolled_back and any(p["converged_at"] is None for p in pushes):
         raise AssertionError(f"rollout {params.n_members}: push(es) "
                              f"unconverged at the horizon")
     final_div = int(metadata.divergence_probe(state, params, world,
                                               horizon))
+    held = (rollback_held(state, world, geo["rollout"], failed_stage,
+                          horizon) if rolled_back else None)
     if on_card:
         torch.cuda.synchronize()
         peak = max(peak, torch.cuda.max_memory_allocated())
     seconds += time.perf_counter() - t0
-    lats = [p["converged_at"] - p["clock_from"] for p in pushes]
+    lats = [p["converged_at"] - p["clock_from"] for p in pushes
+            if p["converged_at"] is not None]
+    converged = not rolled_back and all(
+        p["converged_at"] <= p["deadline"] for p in pushes)
     summary = dict(
         converged_at=[p["converged_at"] for p in pushes],
-        p99=float(np.percentile(lats, 99)), final_div=final_div,
+        converged=converged,
+        p99=float(np.percentile(lats, 99)) if lats and converged else None,
+        rolled_back=rolled_back, failed_stage=failed_stage,
+        rollback_held=held, final_div=final_div,
         seconds=seconds, launches=dict(LAUNCHES), peak=peak, window=window)
     if keep_metrics:
         summary["metrics"] = {name: torch.cat([m[name] for m in rows])
@@ -2865,9 +2980,11 @@ def rollout_path(device):
     del state
     check_launches("rollout gated", params, gated["launches"], horizon,
                    "wide")
-    if gated["final_div"]:
-        raise AssertionError(f"rollout: {gated['final_div']} divergent "
-                             f"cells at the horizon")
+    if not gated["converged"] or gated["final_div"]:
+        raise AssertionError(f"rollout: converged {gated['converged']} "
+                             f"(rolled back {gated['rolled_back']}), "
+                             f"{gated['final_div']} divergent cells at the "
+                             f"horizon")
     control = rollout_params(n, sync_interval=0)
     c_state, _, c_seconds, c_launches, c_peak = timed_run(
         control, world, horizon, device, seed=ROLLOUT_SEED)
@@ -2930,15 +3047,20 @@ def bench_rollout_path(device):
     scenario built by the DSL, padded) on the card and on the CPU with the
     same CPU-made draws, its three arms: the monitored composite (bench
     Arm 1, ``run_monitored`` with the scenario's ``MonitorSpec``), the
-    gated rollout and the gossip-only control.  Gates: card == CPU (every
+    gated rollout and the gossip-only control; then the rollback arm
+    (phase 8k): the gated rollout under the breach geometry
+    (``rollout_world(..., breach=True)``).  Gates: card == CPU (every
     state lane, every per-round metric, the whole monitor, the converged
-    rounds, the probes), the monitored arm green (as the reference's
-    committed run), every push inside its deadline, the gated arm's
-    probe 0 and the control's above 0.  Prints the p99 and the control's
-    count beside the reference's committed ones (its own draws differ, so
-    they are compared, not gated)."""
+    rounds, the probes, the rollback fields), the monitored arm green (as
+    the reference's committed run), every push of the gated arm inside
+    its deadline, the gated arm's probe 0 and the control's above 0; the
+    rollback arm rolled back at stage 0, not converged (p99 None), every
+    live table holding the rollback value for stage 0's owners.  Prints
+    the p99 and the control's count beside the reference's committed ones
+    (its own draws differ, so they are compared, not gated).  Returns the
+    launches of the three arms and of the rollback arm."""
     n = ROLLOUT_BENCH_N
-    launches, results = {}, {}
+    launches, rollback_launches, results = {}, {}, {}
     scen, params, world_cpu, _, _ = rollout_scenario(n)
     draws = prng.TorchDraws(ROLLOUT_SEED, "cpu", params, world_cpu)
     runs = []
@@ -2969,19 +3091,23 @@ def bench_rollout_path(device):
         f"monitor; the reference's committed run: monitored_green true); "
         f"launches {m_launches}")
     for arm, sync_interval in (("gated", ROLLOUT_SYNC_INTERVAL),
+                               ("rollback", ROLLOUT_SYNC_INTERVAL),
                                ("control", 0)):
+        breach = arm == "rollback"
         params = rollout_params(n, sync_interval)
-        world_cpu, geo = rollout_world(n, "cpu")
+        world_cpu, geo = rollout_world(n, "cpu", breach=breach)
         draws = prng.TorchDraws(ROLLOUT_SEED, "cpu", params, world_cpu)
         runs = []
         for dev in ("cpu", device):
-            world = rollout_world(n, dev)[0]
+            world = rollout_world(n, dev, breach=breach)[0]
             dev_draws = (draws if dev == "cpu"
                          else lambda q: draws(q).to(device))
-            if arm == "gated":
+            if arm != "control":
+                t0 = time.perf_counter()
                 state, summary = rollout_gated(params, world, geo, dev,
                                                draws=dev_draws,
                                                keep_metrics=True)
+                summary["wall"] = time.perf_counter() - t0
             else:
                 LAUNCHES.clear()
                 state, metrics = swim.run(ROLLOUT_SEED, params, world,
@@ -3002,16 +3128,38 @@ def bench_rollout_path(device):
             if not torch.equal(value, g_sum["metrics"][name].cpu()):
                 raise AssertionError(f"{label}: metric {name} differs "
                                      f"between card and CPU")
-        for key in ("converged_at", "final_div"):
+        for key in ("converged_at", "final_div", "rolled_back",
+                    "failed_stage", "rollback_held"):
             if c_sum.get(key) != g_sum.get(key):
                 raise AssertionError(f"{label}: {key} {g_sum.get(key)} on "
                                      f"the card, {c_sum.get(key)} on the CPU")
         check_launches(label, params, g_sum["launches"], geo["horizon"],
                        "wide")
+        counts = rollback_launches if breach else launches
         for name, count in g_sum["launches"].items():
-            launches[name] = launches.get(name, 0) + count
+            counts[name] = counts.get(name, 0) + count
         results[arm] = g_sum
-    if results["gated"]["final_div"] or results["control"]["final_div"] == 0:
+    rb = results["rollback"]
+    if (not rb["rolled_back"] or rb["failed_stage"] != 0
+            or not rb["rollback_held"] or rb["converged"]
+            or rb["p99"] is not None):
+        raise AssertionError(
+            f"bench rollout rollback: rolled_back {rb['rolled_back']}, "
+            f"failed_stage {rb['failed_stage']}, rollback value held "
+            f"{rb['rollback_held']}, converged {rb['converged']}, p99 "
+            f"{rb['p99']}")
+    log(f"[bench rollout] rollback arm {n}x{n} (stage 0's deadlines "
+        f"clock + {ROLLOUT_BREACH_ROUNDS}), card == CPU (every state lane, "
+        f"per-round metric, converged round, the rollback fields): "
+        f"rolled_back {rb['rolled_back']}, failed_stage "
+        f"{rb['failed_stage']}, every live table holds rollback value "
+        f"{geo['rollout'].rollback_value} for stage 0's owners "
+        f"{list(geo['rollout'].stage_members(0))}: {rb['rollback_held']}, "
+        f"converged {rb['converged']}, p99 {rb['p99']}, converged rounds "
+        f"{rb['converged_at']}, final divergent cells {rb['final_div']}, "
+        f"{rb['wall']:.3f} s on the card")
+    if (not results["gated"]["converged"] or results["gated"]["final_div"]
+            or results["control"]["final_div"] == 0):
         raise AssertionError(
             f"bench rollout: final divergent cells "
             f"{results['gated']['final_div']} gated, "
@@ -3024,7 +3172,7 @@ def bench_rollout_path(device):
         f"divergent cells 0; gossip-only control "
         f"{results['control']['final_div']} divergent cells (reference "
         f"{ROLLOUT_REFERENCE_CONTROL})")
-    return launches
+    return launches, rollback_launches
 
 
 def storm_state(state, params, cursor):
@@ -5188,6 +5336,263 @@ def dsl_scale_path(device):
 
 
 # --------------------------------------------------------------------------
+# The live alarms (phase 8j) and checkpoint resume (phase 6f)
+# --------------------------------------------------------------------------
+
+
+def alarm_drill_setup(device):
+    """``bench.py --alarms``' world (``bench.py:2318-2324``): the square
+    loss pulse of ``alarm_drill_scenario`` at the bench's defaults, the
+    campaign config under scatter with ``ping_known_only=False``.
+    Returns ``(scenario, params, world)``."""
+    scen = scenarios.alarm_drill_scenario(
+        ALARM_SEED, n=ALARM_N, pulse_loss=ALARM_LOSS,
+        onset_round=ALARM_ONSET, pulse_rounds=ALARM_PULSE,
+        cool_rounds=ALARM_COOL)
+    params = swim.SwimParams.from_config(
+        campaign.campaign_config(), n_members=ALARM_N, delivery="scatter",
+        ping_known_only=False)
+    world, _ = scen.build(params, device=device)
+    return scen, params, world
+
+
+def journal_rows(path):
+    """A journal's ``metrics_window`` and ``alarm_transition`` records,
+    without the run id."""
+    return [{k: v for k, v in rec.items() if k != "run_id"}
+            for rec in sink.read_records(path)
+            if rec["kind"] in ("metrics_window", alarms.TRANSITION_KIND)]
+
+
+def alarm_drill_arm(arm, dev, journal_dir, draws=None):
+    """One arm of the drill (``bench.py:2329-2362``): the healthy
+    ``Knobs`` or ``campaign.alarm_breach_knobs`` through
+    ``stream_metered_run`` with ``default_specs(threshold=1.5)`` into a
+    ``TelemetrySink`` journal in ``journal_dir``, then the summary
+    record.  Returns the journal's path, its rows (:func:`journal_rows`),
+    the window rates and the arm's seconds."""
+    scen, params, world = alarm_drill_setup(dev)
+    knobs = (swim.Knobs.from_params(params) if arm == "healthy"
+             else campaign.alarm_breach_knobs(scen, params))
+    path = os.path.join(journal_dir, f"alarm_drill_{arm}.jsonl")
+    snk = sink.TelemetrySink(path=path)
+    t0 = time.perf_counter()
+    _, rows = metrics.stream_metered_run(
+        ALARM_SEED, params, world, scen.horizon, sink=snk,
+        window_rounds=ALARM_WINDOW,
+        alarm_specs=alarms.default_specs(
+            threshold=alarms.DEFAULT_FP_THRESHOLD),
+        knobs=knobs, draws=draws, device=dev)
+    seconds = time.perf_counter() - t0
+    snk.write_summary(metric="alarm_drill", arm=arm, windows=len(rows))
+    snk.close()
+    rates = [r["counters"].get("false_suspicion_onsets", 0)
+             / max(r["counters"].get("live_observer_rounds", 0), 1)
+             for r in rows]
+    return dict(path=path, rows=journal_rows(path), rates=rates,
+                seconds=seconds)
+
+
+def alarm_drill_cpu(arm, dev):
+    """The CPU half of one drill arm: its journal rows."""
+    with tempfile.TemporaryDirectory() as d:
+        return alarm_drill_arm(arm, dev, d)["rows"]
+
+
+def telemetry_cli_lines(argv):
+    """``python -m scalecube_cluster_tpu_torch.telemetry`` run in-process:
+    its exit code and its standard output's JSON lines."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = telemetry_cli.main(argv)
+    return rc, [json.loads(line) for line in out.getvalue().splitlines()]
+
+
+def alarm_drill_path(device):
+    """Phase 8j: ``bench.py --alarms``' drill at its defaults
+    (``bench.py:2239-2420``, :func:`alarm_drill_setup`; horizon 384,
+    32-round windows) on the card, on CPU-made draws, each arm's journal
+    in a temporary directory.  Gates: the healthy arm journals no
+    ``alarm_transition``; the breach arm fires within one window of the
+    onset (``alarm_detection_lag_windows`` <= 1) and resolves at or after
+    the heal; every ``metrics_window`` and ``alarm_transition`` row of
+    both arms equal to the CPU's (a worker); then the port's CLI on the
+    breach journal, in-process: ``report --json`` (exit 0, every window
+    and the false-positive SLO) and ``watch --json --max-seconds 0``,
+    whose engine's transitions equal the journaled ones.  Prints the lag,
+    the peak rates, both margins beside the reference's committed ones
+    and each arm's seconds."""
+    heal = ALARM_ONSET + ALARM_PULSE
+    launches, arms = {}, {}
+    with tempfile.TemporaryDirectory() as journal_dir:
+        for arm in ALARM_ARMS:
+            _, params, world_cpu = alarm_drill_setup("cpu")
+            draws = prng.TorchDraws(ALARM_SEED, "cpu", params, world_cpu)
+            LAUNCHES.clear()
+            got = alarm_drill_arm(arm, device, journal_dir,
+                                  draws=lambda q: draws(q).to(device))
+            for name, count in LAUNCHES.items():
+                launches[name] = launches.get(name, 0) + count
+            want = cpu_half("alarm", arm)
+            if got["rows"] != want:
+                raise AssertionError(f"alarm drill {arm}: the journal's "
+                                     f"rows differ between card and CPU")
+            got["transitions"] = [r for r in got["rows"]
+                                  if r["kind"] == alarms.TRANSITION_KIND]
+            arms[arm] = got
+        healthy, breach = arms["healthy"], arms["breach"]
+        firing = [t for t in breach["transitions"] if t["to"] == "firing"]
+        resolved = [t for t in breach["transitions"]
+                    if t["to"] == "resolved"]
+        lag = ((firing[0]["round_end"] - ALARM_ONSET) / ALARM_WINDOW
+               if firing else None)
+        if healthy["transitions"] or lag is None or lag > 1 or not any(
+                t["round_end"] >= heal for t in resolved):
+            raise AssertionError(
+                f"alarm drill: healthy transitions "
+                f"{healthy['transitions']}, breach transitions "
+                f"{breach['transitions']} (lag {lag} windows, heal at "
+                f"round {heal})")
+        rc, report = telemetry_cli_lines(["report", "--json",
+                                          breach["path"]])
+        slos = report[0]["slos"] if report else {}
+        if rc != 0 or report[0]["windows"] != len(breach["rates"]) or \
+                slos.get("false_positive_observer_rate") is None:
+            raise AssertionError(f"alarm drill: telemetry report exit "
+                                 f"{rc}, output {report}")
+        rc, watch = telemetry_cli_lines(["watch", "--json", "--max-seconds",
+                                         "0", breach["path"]])
+        engine = [t for line in watch if line["kind"] == "window"
+                  for t in line["transitions"]]
+        journaled = [{k: v for k, v in t.items() if k != "kind"}
+                     for t in breach["transitions"]]
+        if rc != 0 or engine != journaled or not watch[-1]["run_ended"]:
+            raise AssertionError(f"alarm drill: watch exit {rc}, its "
+                                 f"transitions {engine}, the journal's "
+                                 f"{journaled}")
+    peak_healthy = max(healthy["rates"])
+    threshold = alarms.DEFAULT_FP_THRESHOLD
+    margins = (threshold / peak_healthy - 1 if peak_healthy else None,
+               firing[0]["value"] / threshold - 1)
+    log(f"[alarms] bench.py --alarms drill {ALARM_N} members, scatter, "
+        f"pulse loss {ALARM_LOSS} over rounds [{ALARM_ONSET}, {heal}), "
+        f"{ALARM_WINDOW}-round windows, threshold {threshold}, card == CPU "
+        f"(every metrics_window and alarm_transition row): healthy 0 "
+        f"transitions, peak rate {peak_healthy:.6f}; breach fired at round "
+        f"{firing[0]['round_end']} (alarm_detection_lag_windows {lag}), "
+        f"first fire rate {firing[0]['value']}, peak rate "
+        f"{max(breach['rates']):.6f}, resolved at rounds "
+        f"{[t['round_end'] for t in resolved]}; margins healthy "
+        f"{margins[0]:+.4f}, breach {margins[1]:+.4f} (the reference's "
+        f"committed run {ALARM_REFERENCE_MARGINS[0]:+.4f}, "
+        f"{ALARM_REFERENCE_MARGINS[1]:+.4f}); seconds healthy "
+        f"{healthy['seconds']:.3f}, breach {breach['seconds']:.3f}; "
+        f"telemetry report and watch on the breach journal: "
+        f"{len(engine)} transitions, equal to the journal's")
+    return launches
+
+
+def checkpoint_resume_path(device):
+    """Phase 6f: the main path's workload (1M x 16, shift, wide, node 3
+    crashed at round 10, the port's own draws) for ``MAIN_ROUNDS`` rounds
+    through ``utils/checkpoint.run_checkpointed`` in two invocations into
+    a temporary directory: the first stops at ``RESUME_SPLIT``, the
+    second resumes from the file.  Gates: the final state equal to an
+    unbroken run's on every lane, and the metric chunks (the first
+    reloaded from its file) to its metrics; then a ``CheckpointStore``
+    with both states as generations, the newest corrupted on purpose
+    (bytes flipped inside its state payload): ``load_latest`` falls back
+    to the older one, which loads equal to the round-300 state, naming
+    the corrupt one.  Prints the checkpoint's bytes and the save and
+    load seconds."""
+    params = profile_round.bench_params("wide", MAIN_N, MAIN_K)
+    world = crash_world(params, device)
+    whole, whole_metrics = swim.run(0, params, world, MAIN_ROUNDS,
+                                    device=device)
+    whole = {f.name: getattr(whole, f.name).cpu()
+             for f in dataclasses.fields(whole)}
+    whole_metrics = {k: v.cpu() for k, v in whole_metrics.items()}
+
+    def run_fn(seed, params, world, n, state=None, start_round=0):
+        return swim.run(seed, params, world, n, state=state,
+                        start_round=start_round, device=device)
+
+    meta = {"workload": "main", "n": MAIN_N, "k": MAIN_K}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "main.npz")
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        half, _ = checkpoint.run_checkpointed(
+            run_fn, 0, params, world, RESUME_SPLIT, path,
+            chunk=RESUME_SPLIT, meta=meta, device=device)
+        first_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        final, chunks = checkpoint.run_checkpointed(
+            run_fn, 0, params, world, MAIN_ROUNDS, path,
+            chunk=RESUME_SPLIT, meta=meta, device=device)
+        second_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        for name, value in whole.items():
+            if not torch.equal(getattr(final, name).cpu(), value):
+                raise AssertionError(f"checkpoint resume: state.{name} "
+                                     f"differs from the unbroken run")
+        for name, value in whole_metrics.items():
+            got = torch.cat([c[name].cpu() for c in chunks])
+            if not torch.equal(got, value):
+                raise AssertionError(f"checkpoint resume: metric {name} "
+                                     f"differs from the unbroken run")
+        t0 = time.perf_counter()
+        _, r_load, seed, m_load = checkpoint.load(path, params=params,
+                                                  device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if (r_load, seed, m_load) != (MAIN_ROUNDS, 0, meta):
+            raise AssertionError(f"checkpoint load: cursor {r_load}, seed "
+                                 f"{seed}, meta {m_load}")
+
+        store = ckpt_store.CheckpointStore(os.path.join(d, "store"), keep=3)
+        half_arrays = checkpoint.state_to_arrays(half)
+        del half
+        t0 = time.perf_counter()
+        store.save(half_arrays, RESUME_SPLIT, key=0, meta=meta)
+        newest = store.save(checkpoint.state_to_arrays(final), MAIN_ROUNDS,
+                            key=0, meta=meta)
+        store_save_s = (time.perf_counter() - t0) / 2
+        del final
+        with open(newest, "r+b") as f:
+            f.seek(os.path.getsize(newest) // 2)
+            chunk = f.read(64)
+            f.seek(os.path.getsize(newest) // 2)
+            f.write(bytes(b ^ 0xFF for b in chunk))
+        t0 = time.perf_counter()
+        arrays, r_store, s_store, _, info = store.load_latest()
+        store_load_s = time.perf_counter() - t0
+        if (r_store, s_store, info["generation"]) != (
+                RESUME_SPLIT, 0, RESUME_SPLIT) or [
+                p for p, _ in info["fallbacks"]] != [newest]:
+            raise AssertionError(f"checkpoint store: loaded generation "
+                                 f"{info['generation']} (cursor {r_store}), "
+                                 f"fallbacks {info['fallbacks']}")
+        for name, value in half_arrays.items():
+            if not np.array_equal(arrays[name], value):
+                raise AssertionError(f"checkpoint store: {name} differs "
+                                     f"from the saved round-{RESUME_SPLIT} "
+                                     f"state")
+    check_launches("checkpoint resume", params, launches, MAIN_ROUNDS,
+                   "wide")
+    log(f"[checkpoint] {MAIN_N}x{MAIN_K} shift wide, run_checkpointed to "
+        f"round {RESUME_SPLIT} ({first_s:.3f} s), resumed from the file to "
+        f"{MAIN_ROUNDS} ({second_s:.3f} s): every state lane and metric "
+        f"equal to the unbroken run; checkpoint {ckpt_bytes} B, load "
+        f"{load_s:.3f} s; CheckpointStore: save {store_save_s:.3f} s a "
+        f"generation, newest corrupted, load_latest fell back to "
+        f"generation {info['generation']} in {store_load_s:.3f} s "
+        f"({info['fallbacks'][0][1]})")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # The CPU halves of the card-vs-CPU runs, in worker processes
 # --------------------------------------------------------------------------
 
@@ -5205,7 +5610,7 @@ def cpu_work(kind, *args):
            "drill": drill_run, "gossip": gossip_cpu_run,
            "chaos": chaos_campaign_cpu, "fuzz": fuzz_cpu,
            "fuzz_batch": fuzz_batch_cpu, "fuzz_stack": fuzz_stack_run,
-           "lifeguard": lifeguard_run}[kind]
+           "lifeguard": lifeguard_run, "alarm": alarm_drill_cpu}[kind]
     buf = io.BytesIO()
     torch.save(run(*args), buf)
     return buf.getvalue()
@@ -5227,6 +5632,8 @@ def start_cpu_halves(pool):
             cpu_work, "monitor", layout, delivery, "cpu")
     _CPU_JOBS["drill", "drill"] = pool.submit(cpu_work, "drill",
                                               drill_params(), "cpu")
+    for arm in ALARM_ARMS:
+        _CPU_JOBS["alarm", arm] = pool.submit(cpu_work, "alarm", arm, "cpu")
     # The gossip simulator's CPU halves at 1M x 16 are the longest (several
     # hundred seconds of index_reduce_ on one thread): queued early, read
     # last.
@@ -5754,6 +6161,8 @@ def run_phases(args, t_start):
     stage("canaries and the blame drill", t_start)
     paths["main"], shift_summary = main_path(device)
     stage("main path", t_start)
+    paths["checkpoint_resume"] = checkpoint_resume_path(device)
+    stage("checkpoint resume", t_start)
     paths["traced_window"], paths["record_api"] = traced_window_path(device)
     paths["telemetry"] = telemetry_path(device)
     stage("traced window and telemetry", t_start)
@@ -5771,8 +6180,10 @@ def run_phases(args, t_start):
                                                         network_summary)
     stage("planes at full width", t_start)
     paths["rollout"] = rollout_path(device)
-    paths["bench_rollout"] = bench_rollout_path(device)
+    paths["bench_rollout"], paths["rollback"] = bench_rollout_path(device)
     stage("metadata rollout", t_start)
+    paths["alarm_drill"] = alarm_drill_path(device)
+    stage("alarm drill", t_start)
     paths["chaos"], chaos_rows, chaos_seconds = chaos_campaign_path(device)
     paths["fuzz"] = fuzz_path(device)
     paths["fuzz_batch"] = fuzz_batch_path(device, chaos_rows, chaos_seconds)

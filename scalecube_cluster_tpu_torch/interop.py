@@ -29,14 +29,13 @@ params name.
 
 from __future__ import annotations
 
-import dataclasses
-import json
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from scalecube_cluster_tpu_torch.models import swim
+from scalecube_cluster_tpu_torch.utils import checkpoint
 
 _STATE_FIELDS = ("status", "inc", "spread_until", "suspect_deadline",
                  "self_inc")
@@ -91,12 +90,6 @@ def world_from_arrays(arrays: Mapping, device="cuda") -> swim.SwimWorld:
     return world
 
 
-def _carry_dtypes(compact: bool) -> dict:
-    narrow = (np.int16, np.int8, np.int16) if compact else (np.int32,) * 3
-    return dict(status=np.int8, inc=narrow[0], spread_until=narrow[1],
-                suspect_deadline=narrow[2], self_inc=np.int32)
-
-
 def state_from_arrays(arrays: Mapping, device="cuda",
                       params: Optional[swim.SwimParams] = None
                       ) -> swim.SwimState:
@@ -117,7 +110,7 @@ def state_from_arrays(arrays: Mapping, device="cuda",
         raise KeyError(f"state arrays lack {missing}")
     compact = params is not None and params.compact_carry
     layout = "compact_carry" if compact else "wide"
-    for name, dtype in _carry_dtypes(compact).items():
+    for name, dtype in checkpoint.carry_dtypes(compact).items():
         if fields[name].dtype != dtype:
             raise ValueError(
                 f"state field {name} is {fields[name].dtype}, the {layout} "
@@ -132,30 +125,23 @@ def state_from_arrays(arrays: Mapping, device="cuda",
         for name in _STATE_FIELDS}, **lanes)
 
 
-def state_to_arrays(state: swim.SwimState) -> dict:
-    """A port state as ``{"state/<field>": numpy array}``, every lane in
-    its own dtype (the reference's ``checkpoint.state_to_arrays`` naming;
-    its ``state_from_arrays`` reads them after the prefix is taken off)."""
-    return {f"state/{f.name}": getattr(state, f.name).cpu().numpy()
-            for f in dataclasses.fields(state)}
+# A port state as ``{"state/<field>": numpy array}`` (the reference's
+# ``checkpoint.state_to_arrays`` naming).
+state_to_arrays = checkpoint.state_to_arrays
 
 
 def load_jax_checkpoint(path: str, device="cuda",
                         params: Optional[swim.SwimParams] = None) -> Tuple[
         swim.SwimState, int, Optional[np.ndarray], dict]:
     """Read a checkpoint written by the reference's
-    ``utils.checkpoint.save``: returns ``(state, next_round, key_data or
-    None, meta)``.  ``params`` names the carry layout, as for
-    :func:`state_from_arrays` (a compact run resumes with its compact
-    params).  ``key_data`` is the raw key array; the port's own draws do
-    not use it."""
-    with np.load(path) as z:
-        state = state_from_arrays(
-            {name: z[name] for name in z.files if name.startswith("state/")},
-            device=device, params=params)
-        next_round = int(z["next_round"])
-        key_data = np.array(z["key_data"]) if "key_data" in z.files else None
-        meta = json.loads(bytes(z["meta_json"].tobytes()).decode() or "{}")
+    ``utils.checkpoint.save`` through the port's ``utils.checkpoint.load``:
+    returns ``(state, next_round, key_data or None, meta)``, ``key_data``
+    the raw two-word key (``jax.random.wrap_key_data`` rebuilds it).
+    ``params`` names the carry layout (a compact run resumes with its
+    compact params)."""
+    state, next_round, seed, meta = checkpoint.load(path, params=params,
+                                                    device=device)
+    key_data = None if seed is None else checkpoint.seed_key_data(seed)
     return state, next_round, key_data, meta
 
 

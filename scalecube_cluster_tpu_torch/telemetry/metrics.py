@@ -496,8 +496,16 @@ def stream_metered_run(seed: int, params, world, n_rounds: int, *,
     ``round_end`` the journal already covers are run (the carry must
     advance) but not written again (``skip_covered``), so a resumed run
     leaves no duplicate rows.  ``shift_key`` seeds the port's own draws'
-    channel shifts (``swim.run``).  ``alarm_specs`` (the reference's
-    alarm engine) is not ported and raises ``NotImplementedError``.
+    channel shifts (``swim.run``).
+
+    ``alarm_specs`` (a sequence of ``telemetry.alarms.AlarmSpec``; needs
+    ``sink``) evaluates each flush window through a live
+    ``alarms.AlarmEngine`` and journals every state change as an
+    ``alarm_transition`` record.  The one startup scan that finds the
+    metrics cursor also replays the journal's rows through the engine
+    and skips the transitions already journaled, so a resumed run writes
+    each transition once; windows the cursor skips were replayed and are
+    not observed again.
 
     Returns ``(final_state, window_rows)``: every window's payload
     (written or not), each ``{"round_start", "round_end", "counters",
@@ -505,18 +513,30 @@ def stream_metered_run(seed: int, params, world, n_rounds: int, *,
     from scalecube_cluster_tpu_torch.models import compose, swim
     from scalecube_cluster_tpu_torch.telemetry import sink as tsink
 
-    if alarm_specs:
-        raise NotImplementedError(
-            "alarm_specs: the alarm engine (telemetry/alarms.py) is not "
-            "ported (ROADMAP A10)")
     device = swim.resolve_device(device)
     spec = spec or MetricsSpec.default()
     window_rounds = max(1, int(window_rounds))
+    engine = existing = None
+    if alarm_specs:
+        from scalecube_cluster_tpu_torch.telemetry import alarms as talarms
+
+        if sink is None:
+            raise ValueError(
+                "alarm_specs needs a sink: transitions are journal "
+                "records (telemetry/alarms.py)")
+        engine = talarms.AlarmEngine(alarm_specs,
+                                     kinds=("metrics_window",))
     covered = 0
-    if sink is not None and skip_covered:
+    if sink is not None and (skip_covered or engine is not None):
+        # One scan serves both cursors: the metrics-window dedup and the
+        # alarm replay.
         follower = tsink.follow_records(sink.path)
-        follower.poll()
-        covered = follower.covered_upto(kind="metrics_window")
+        records = follower.poll()
+        if skip_covered:
+            covered = follower.covered_upto(kind="metrics_window")
+        if engine is not None:
+            replayed, existing = talarms.replay_journal(engine, records)
+            talarms.write_transitions(sink, replayed, existing)
     draws = compose._draws_for(seed, params, world, draws, shift_key,
                                device)
     ms = MetricsState.init(spec, device)
@@ -534,6 +554,10 @@ def stream_metered_run(seed: int, params, world, n_rounds: int, *,
         rows.append(row)
         if sink is not None and w_end > covered:
             sink.write_metrics_window(row)
+            if engine is not None:
+                talarms.write_transitions(
+                    sink, engine.observe({"kind": "metrics_window", **row}),
+                    existing)
         ms = reset_window(ms)
         r += step
     return state, rows

@@ -82,10 +82,12 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
 
 
 def test_port_runs_with_jax_blocked():
-    """Every module and ``chip_smoke.py`` import, and short CPU runs (the
+    """Every module (the telemetry CLI, ``utils/`` and ``resilience/``
+    among them) and ``chip_smoke.py`` import, and short CPU runs (the
     plain round, one with a block, delays and a user gossip, and one
-    with a config push) complete, in a process where importing jax or
-    the JAX package fails."""
+    with a config push), an alarm replay and a health report of a
+    committed journal, and checkpoint and store round trips complete, in
+    a process where importing jax or the JAX package fails."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(
             ".__init__", "")
@@ -129,6 +131,25 @@ def test_port_runs_with_jax_blocked():
         " chaos.ConfigPush(5, 0, 9, 1)))",
         "v = chaos.run_scenario(sc, seed=1, device='cpu')",
         "assert v.verdict['codes']['COMPLETENESS']['violations'] == 0",
+        "from scalecube_cluster_tpu_torch.telemetry import alarms, query",
+        "from scalecube_cluster_tpu_torch.telemetry import sink as tsink",
+        "recs = tsink.read_records('artifacts/alarm_drill_breach.jsonl')",
+        "tr, _ = alarms.replay_journal(alarms.AlarmEngine("
+        "alarms.default_specs()), recs)",
+        "assert [t['to'] for t in tr] == ['firing', 'resolved']",
+        "rep = query.load_report('artifacts/alarm_drill_breach.jsonl')",
+        "assert query.compute_slos(rep)['false_positive_observer_rate'] > 0",
+        "import tempfile, os",
+        "from scalecube_cluster_tpu_torch.utils import checkpoint",
+        "from scalecube_cluster_tpu_torch.resilience import CheckpointStore",
+        "d = tempfile.mkdtemp()",
+        "checkpoint.save(os.path.join(d, 'c.npz'), s, 12, key=3)",
+        "t, r12, k, _ = checkpoint.load(os.path.join(d, 'c.npz'), params=r,"
+        " device='cpu')",
+        "assert (r12, k) == (12, 3) and bool((t.md == s.md).all())",
+        "st = CheckpointStore(os.path.join(d, 'store'))",
+        "st.save(checkpoint.state_to_arrays(s), 12, key=3)",
+        "assert st.load_latest()[1:3] == (12, 3)",
         "importlib.import_module('chip_smoke')",
         "assert not any(k.startswith(('jax', 'scalecube_cluster_tpu.'))"
         " for k in sys.modules if sys.modules[k] is not None)",
@@ -144,6 +165,8 @@ def test_entry_points_default_to_cuda():
     from scalecube_cluster_tpu_torch import sweep
     from scalecube_cluster_tpu_torch.chaos import campaign, monitor, scenarios
     from scalecube_cluster_tpu_torch.models import compose, gossip
+    from scalecube_cluster_tpu_torch.telemetry import metrics
+    from scalecube_cluster_tpu_torch.utils import checkpoint as pcheckpoint
 
     for fn in (swim.initial_state, swim.run, swim.SwimWorld.healthy,
                interop.world_from_arrays, interop.state_from_arrays,
@@ -152,7 +175,9 @@ def test_entry_points_default_to_cuda():
                campaign.run_scenario, campaign.run_campaign,
                compose.composed_batch_scan, monitor.run_monitored_batch,
                campaign.build_buckets, campaign.run_campaign_vmapped,
-               sweep.sweep_run, sweep.run_crash_sweep):
+               sweep.sweep_run, sweep.run_crash_sweep,
+               metrics.stream_metered_run, pcheckpoint.state_from_arrays,
+               pcheckpoint.load, pcheckpoint.run_checkpointed):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     params = swim.SwimParams.from_config(fast_config(), n_members=32,
                                          n_subjects=4, delivery="shift")

@@ -18,11 +18,13 @@ import jax  # noqa: E402
 
 from scalecube_cluster_tpu.chaos import monitor as jmonitor  # noqa: E402
 from scalecube_cluster_tpu.models import compose as jcompose  # noqa: E402
+from scalecube_cluster_tpu.telemetry import alarms as jalarms  # noqa: E402
 from scalecube_cluster_tpu.telemetry import metrics as jmetrics  # noqa: E402
 from scalecube_cluster_tpu.telemetry import query as jquery  # noqa: E402
 from scalecube_cluster_tpu.telemetry import sink as jsink  # noqa: E402
 from scalecube_cluster_tpu_torch.chaos import monitor  # noqa: E402
 from scalecube_cluster_tpu_torch.models import compose  # noqa: E402
+from scalecube_cluster_tpu_torch.telemetry import alarms  # noqa: E402
 from scalecube_cluster_tpu_torch.telemetry import metrics, sink  # noqa: E402
 from tests.torch_port_helpers import (  # noqa: E402,F401
     assert_registry_equal, one_torch_thread, port_params, port_world)
@@ -180,7 +182,9 @@ def test_stream_metered_run_dedups_a_resumed_journal(tmp_path):
     """``stream_metered_run``'s window rows are the reference's (two
     20-round windows, the registry reset between them); a longer
     relaunch into the same append-mode journal writes no covered window
-    again and appends only the new one."""
+    again and appends only the new one.  ``alarm_specs`` without a sink
+    raises as in the reference; with one, the journaled transitions are
+    the reference engine's over the reference's rows."""
     rows, state = _metered_both("shift-wide-sync")
     jparams = _params(**METERED["shift-wide-sync"])
     params, world = port_params(jparams), port_world(_world(jparams))
@@ -201,6 +205,26 @@ def test_stream_metered_run_dedups_a_resumed_journal(tmp_path):
     assert longer[:2] == rows
     written = [_strip(r) for r in sink.read_records(path, "metrics_window")]
     assert written == [{"kind": "metrics_window", **r} for r in longer]
-    with pytest.raises(NotImplementedError, match="alarm"):
+    with pytest.raises(ValueError, match="alarm_specs needs a sink"):
+        jmetrics.stream_metered_run(jax.random.key(0), _params(
+            **METERED["shift-wide-sync"]), None, 1, alarm_specs=[1])
+    with pytest.raises(ValueError, match="alarm_specs needs a sink"):
         metrics.stream_metered_run(0, params, world, 1, alarm_specs=[1],
                                    device="cpu")
+    # With a sink, the live alarms journal what the reference's engine
+    # makes of the reference's window rows (a threshold every window with
+    # a false onset crosses, cleared by the next quiet one).
+    specs = [jalarms.AlarmSpec(name="onsets", numerator="suspicions_started",
+                               comparator=">", threshold=0.0)]
+    want, _ = jalarms.replay_journal(
+        jalarms.AlarmEngine(specs, kinds=("metrics_window",)),
+        [{"kind": "metrics_window", **r} for r in rows])
+    apath = str(tmp_path / "alarms.jsonl")
+    with sink.TelemetrySink(path=apath) as s:
+        metrics.stream_metered_run(
+            0, params, world, ROUNDS, sink=s, window_rounds=CHUNK,
+            draws=draws, alarm_specs=[alarms.AlarmSpec(**vars(specs[0]))],
+            device="cpu")
+    assert [{k: v for k, v in r.items() if k not in ("kind", "run_id")}
+            for r in sink.read_records(apath, "alarm_transition")] == want
+    assert want

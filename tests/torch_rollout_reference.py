@@ -1,18 +1,24 @@
 """The staged config rollout of ``chip_smoke.py`` (``rollout_world``:
 ``bench.py --rollout``'s scenario) built and run by the JAX reference on
 the CPU: :func:`reference_rollout` is the reference's own ``Scenario``
-(``bench.py:1834-1870``), which the tests hold ``rollout_world`` against,
-and run as a script it gives the reference's verdict at a size the CPU
-affords, beside which the port's run on the card is read.
+(``bench.py:1834-1870``), which the tests hold ``rollout_world`` against;
+:func:`reference_gated` replays the bench's gated arm
+(``bench.py:1888-1950``), its rollback branch included, which the tests
+hold ``chip_smoke.rollout_gated`` against; and run as a script it gives
+the reference's verdict at a size the CPU affords, beside which the
+port's run on the card is read.
 
-Run: ``JAX_PLATFORMS=cpu python -m tests.torch_rollout_reference --n 48``.
-Prints, for the gated arm, each push's converged round (polled every 2
-rounds, as the bench does), ``metadata_convergence_p99`` and the
-divergence probe at the horizon, and the gossip-only control's probe;
-then the same for the port (``chip_smoke.rollout_gated`` and
+Run: ``JAX_PLATFORMS=cpu python -m tests.torch_rollout_reference --n 48
+[--breach]``.  Prints, for the gated arm, each push's converged round
+(polled every 2 rounds, as the bench does), ``metadata_convergence_p99``
+and the divergence probe at the horizon, and the gossip-only control's
+probe; then the same for the port (``chip_smoke.rollout_gated`` and
 ``models.swim.run``) on the reference's world (its match-nothing link
 rules included) and the reference's draws (``jax_draws``), with whether
-its final states equal the reference's.
+its final states equal the reference's.  ``--breach`` runs both gated
+arms under the breach geometry instead (``chip_smoke.rollout_world(...,
+breach=True)``: stage 0's deadlines at their clock start plus
+``chip_smoke.ROLLOUT_BREACH_ROUNDS``), so they take the rollback branch.
 """
 
 import argparse
@@ -63,57 +69,111 @@ def reference_rollout(n, n_stages=3, stage_size=4, seed=SEED,
     return scen, params, world, rollout, 2 * phase, bound
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=48)
-    args = ap.parse_args(argv)
-    scen, params, world, rollout, heal_at, bound = reference_rollout(args.n)
-    key = jax.random.key(SEED)
+def reference_gated(n, breach_rounds=None, probe_step=2):
+    """The bench's gated arm (``bench.py:1888-1950``) on the reference's
+    rollout at ``n`` members, polled every ``probe_step`` rounds: a push's
+    deadline clock starts at ``max(push, heal)`` and runs ``bound``
+    rounds (``breach_rounds`` for stage 0's pushes when given, the breach
+    geometry); the first push past its deadline unconverged rolls the
+    flipped stages back (``rollback_ops(failed_stage, r + 1)`` applied to
+    the world) and runs to the horizon on that world.  Returns ``(state,
+    summary, (scenario, params, world, rollout))``: the summary holds the
+    converged rounds, ``converged``, ``p99``, ``rolled_back``,
+    ``failed_stage`` and the divergence probe at the horizon."""
+    scen, params, world, rollout, heal_at, bound = reference_rollout(n)
+    key, horizon = jax.random.key(SEED), scen.horizon
     split_at = heal_at // 2
     pushes = []
     for owner, _, value, at in rollout.push_schedule():
         clock = heal_at if split_at <= at < heal_at else at
-        pushes.append([owner, value, at, clock, None])
-    alive_rows = ~((np.asarray(world.down_from)[None, :]
-                    <= np.arange(scen.horizon)[:, None])
-                   & (np.arange(scen.horizon)[:, None]
-                      < np.asarray(world.down_until)[None, :]))
+        limit = (breach_rounds if breach_rounds is not None
+                 and at == rollout.stage_round(0) else bound)
+        pushes.append(dict(owner=owner, value=value, push_round=at,
+                           clock_from=clock, deadline=clock + limit,
+                           converged_at=None))
+    df, du = np.asarray(world.down_from), np.asarray(world.down_until)
     state, r = jswim.initial_state(params, world), 0
-    while r < scen.horizon:
-        state, _ = jswim.run(key, params, world, 2, state=state,
+    rolled_back, failed_stage, breaches = False, None, []
+    while r < horizon:
+        step = min(probe_step, horizon - r)
+        state, _ = jswim.run(key, params, world, step, state=state,
                              start_round=r)
-        r += 2
-        md = np.asarray(state.md)
-        for p in pushes:
-            if p[4] is None and p[2] < r:
-                obs = np.flatnonzero(alive_rows[r - 1])
-                if ((md[obs, p[0], 0] & jmetadata.MD_VALUE_MAX)
-                        == p[1]).all():
-                    p[4] = r
-    lats = [p[4] - p[3] for p in pushes if p[4] is not None]
-    final = int(jmetadata.divergence_probe(state, params, world,
-                                           scen.horizon))
+        r += step
+        open_pushes = [p for p in pushes
+                       if p["converged_at"] is None and p["push_round"] < r]
+        if open_pushes:
+            md = np.asarray(state.md)
+            obs = np.flatnonzero(~((df <= r - 1) & (r - 1 < du)))
+            for p in open_pushes:
+                if ((md[obs, p["owner"], 0] & jmetadata.MD_VALUE_MAX)
+                        == p["value"]).all():
+                    p["converged_at"] = r
+        breaches += [p for p in pushes
+                     if p["converged_at"] is None and r >= p["deadline"]]
+        if breaches and not rolled_back:
+            rolled_back = True
+            failed_stage = max(
+                s for s in range(rollout.n_stages)
+                if rollout.stage_round(s) <= breaches[0]["push_round"])
+            rb_world = world
+            for op in rollout.rollback_ops(failed_stage, r + 1):
+                rb_world = op.apply(rb_world, n, horizon)
+            state, _ = jswim.run(key, params, rb_world, horizon - r,
+                                 state=state, start_round=r)
+            r = horizon
+        if all(p["converged_at"] is not None for p in pushes):
+            break
+    lats = [p["converged_at"] - p["clock_from"] for p in pushes
+            if p["converged_at"] is not None]
+    converged = not rolled_back and all(
+        p["converged_at"] is not None and p["converged_at"] <= p["deadline"]
+        for p in pushes)
+    if r < horizon and not rolled_back:
+        state, _ = jswim.run(key, params, world, horizon - r, state=state,
+                             start_round=r)
+    summary = dict(
+        converged_at=[p["converged_at"] for p in pushes],
+        converged=converged,
+        p99=float(np.percentile(lats, 99)) if lats and converged else None,
+        rolled_back=rolled_back, failed_stage=failed_stage,
+        final_div=int(jmetadata.divergence_probe(state, params, world,
+                                                 horizon)))
+    return state, summary, (scen, params, world, rollout)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=48)
+    ap.add_argument("--breach", action="store_true")
+    args = ap.parse_args(argv)
+    breach_rounds = None
+    if args.breach:
+        import chip_smoke
+
+        breach_rounds = chip_smoke.ROLLOUT_BREACH_ROUNDS
+    state, summary, (scen, params, world, _) = reference_gated(
+        args.n, breach_rounds)
+    key = jax.random.key(SEED)
     control = jswim.SwimParams(**dict(vars(params), sync_interval=0))
     c_state, _ = jswim.run(key, control, world, scen.horizon)
     c_div = int(jmetadata.divergence_probe(c_state, control, world,
                                            scen.horizon))
-    print(f"{args.n}x{args.n} rollout, horizon {scen.horizon}, bound "
-          f"{bound}: converged at {[p[4] for p in pushes]}, p99 "
-          f"{float(np.percentile(lats, 99)) if lats else None}, final "
-          f"divergent cells {final}; control {c_div}", flush=True)
-    port_rollout(args.n, scen, params, world, state, c_state)
+    print(f"{args.n}x{args.n} rollout, horizon {scen.horizon}: "
+          f"{summary}; control {c_div}", flush=True)
+    port_rollout(args.n, scen, params, world, state, c_state, args.breach)
 
 
-def port_rollout(n, scen, params, world, state, c_state):
-    """The port's gated arm and control on the reference's world and
-    draws; prints its verdict beside the reference's."""
+def port_rollout(n, scen, params, world, state, c_state, breach=False):
+    """The port's gated arm (under the breach geometry with ``breach``)
+    and control on the reference's world and draws; prints its verdict
+    beside the reference's."""
     import chip_smoke
     from scalecube_cluster_tpu_torch.models import metadata, swim
     from tests.torch_port_helpers import (jax_draws, port_params,
                                           port_world)
 
     p_params, p_world = port_params(params), port_world(world)
-    _, geo = chip_smoke.rollout_world(n, "cpu")
+    _, geo = chip_smoke.rollout_world(n, "cpu", breach=breach)
     draws = jax_draws(jax.random.key(SEED), params, world)
     p_state, summary = chip_smoke.rollout_gated(p_params, p_world, geo, "cpu",
                                                 draws=draws)
@@ -128,10 +188,11 @@ def port_rollout(n, scen, params, world, state, c_state):
                                np.asarray(getattr(state, f)))
                 for f in ("status", "inc", "md", "md_spread"))
     c_equal = np.array_equal(pc_state.md.numpy(), np.asarray(c_state.md))
-    print(f"port on the reference's draws: converged at "
-          f"{summary['converged_at']}, p99 {summary['p99']}, final "
-          f"divergent cells {summary['final_div']}; control {c_div}; final "
-          f"states equal to the reference's: gated {equal}, control "
+    verdict = {k: summary[k] for k in (
+        "converged_at", "converged", "p99", "rolled_back", "failed_stage",
+        "rollback_held", "final_div")}
+    print(f"port on the reference's draws: {verdict}; control {c_div}; "
+          f"final states equal to the reference's: gated {equal}, control "
           f"{c_equal}", flush=True)
 
 
